@@ -1,0 +1,23 @@
+"""Train configuration of the port: defaults from cfg/default.yaml, overrides on top."""
+
+from __future__ import annotations
+
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Dict, Optional
+
+import yaml
+
+DEFAULT_CFG = Path(__file__).resolve().parent / "default.yaml"
+AUG_KEYS = ("mosaic", "scale", "translate", "fliplr", "hsv_h", "hsv_s", "hsv_v")  # the order of a batch's `aug`
+
+
+def get_cfg(overrides: Optional[Dict] = None) -> SimpleNamespace:
+    """The defaults with `overrides` on top. A key that the defaults do not
+    have raises KeyError."""
+    d = yaml.safe_load(DEFAULT_CFG.read_text())
+    unknown = sorted(k for k in (overrides or {}) if k not in d)
+    if unknown:
+        raise KeyError(f"not a train setting of the port: {unknown}")
+    d.update(overrides or {})
+    return SimpleNamespace(**d)

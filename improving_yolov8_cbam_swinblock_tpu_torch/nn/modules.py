@@ -5,6 +5,12 @@ follow the reference's torch state (`conv`/`bn`, `cv1`, `m.0`,
 `ca.shared_MLP.0`, `attn.in_proj_weight`, `mlp.0`, `cv2.0.2`), so weights
 carry across by name. Input channels are explicit constructor arguments
 (the JAX modules infer them at init); parse_model supplies them.
+
+Weights are cast to the activation's dtype where they are used, as flax
+casts its fp32 parameters to the module dtype: a model may hold fp32 master
+weights (training) and compute in bf16. In training mode Conv's BatchNorm
+keeps flax's semantics, SwinBlock runs the differentiable block and Detect
+returns its raw maps only.
 """
 
 from __future__ import annotations
@@ -17,11 +23,34 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
-from ..ops.swin import swin_block
+from ..ops.swin import swin_block, swin_block_train
 from ..utils.fuse import fold_bn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; the flax 0.97
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts its weight and bias to the input's dtype at use."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, y32: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in training with flax's semantics: normalise by the batch
+    mean and biased variance, then move the running statistics as
+    r = 0.97 r + 0.03 s with the BIASED batch variance. torch's batch_norm
+    moves running_var with the unbiased v * n / (n - 1); its surplus
+    0.03 v / (n - 1), which is (r_new - 0.97 r_old) / n, is taken back, so
+    the statistics cost no second pass over y."""
+    new_var = bn.running_var.clone()  # batch_norm moves it in place; autograd keeps it for the backward
+    out = F.batch_norm(y32, bn.running_mean, new_var, bn.weight, bn.bias, True, BN_MOMENTUM, bn.eps)
+    with torch.no_grad():
+        n = y32.numel() // y32.shape[1]
+        bn.running_var.mul_((1 - BN_MOMENTUM) / n).add_(new_var, alpha=1 - 1 / n)
+    return out
 
 
 class Conv(nn.Module):
@@ -31,13 +60,13 @@ class Conv(nn.Module):
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, k // 2, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
         y = self.conv(x)
         if self.bn is not None:
-            y = self.bn(y.float()).to(y.dtype)
+            y = (batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())).to(y.dtype)
         return F.silu(y)
 
     @torch.no_grad()
@@ -108,7 +137,7 @@ class ChannelAttention(nn.Module):
         super().__init__()
         reduced = max(1, c1 // ratio)
         self.shared_MLP = nn.Sequential(
-            nn.Conv2d(c1, reduced, 1, bias=False), nn.ReLU(), nn.Conv2d(reduced, c1, 1, bias=False)
+            Conv2d(c1, reduced, 1, bias=False), nn.ReLU(), Conv2d(reduced, c1, 1, bias=False)
         )
 
     def forward(self, x):
@@ -122,7 +151,7 @@ class SpatialAttention(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv = nn.Conv2d(2, 1, 7, padding=3, bias=False)
+        self.conv = Conv2d(2, 1, 7, padding=3, bias=False)
 
     def forward(self, x):
         y = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
@@ -152,10 +181,11 @@ class SwinBlock(nn.Module):
     The forward runs `ops.swin.swin_block` on the NHWC view of the
     channels_last input: the CUDA kernel on the card, the plain version on
     the CPU. Windows past the edge see zero tokens, as the reference pads
-    H and W to a multiple of 7 with zeros and crops the output.
-    Inference only: the backward kernel is not ported yet. `impl` is passed
-    to swin_block; it stays None (choose by device) except where a check
-    forces the plain version on the card to compare with the kernel."""
+    H and W to a multiple of 7 with zeros and crops the output. Inference
+    runs the kernel's `fast` mode; training runs `swin_block_train` (exact
+    forward, backward kernel), as the reference's custom_vjp does. `impl`
+    stays None (choose by device) except where a check forces the plain
+    versions on the card to compare with the kernels."""
 
     def __init__(self, c1: int, num_heads: int = 2, window_size: int = 7):
         super().__init__()
@@ -178,10 +208,11 @@ class SwinBlock(nn.Module):
         }
 
     def forward(self, x):
+        xh = x.permute(0, 2, 3, 1)
         if self.training:
-            raise NotImplementedError("SwinBlock runs inference only: its backward kernel is not ported yet")
-        y = swin_block(x.permute(0, 2, 3, 1), self.kernel_params(), self.num_heads, self.window_size, fast=True,
-                       impl=self.impl)
+            y = swin_block_train(xh, self.kernel_params(), self.num_heads, self.window_size, impl=self.impl)
+        else:
+            y = swin_block(xh, self.kernel_params(), self.num_heads, self.window_size, fast=True, impl=self.impl)
         return y.permute(0, 3, 1, 2)
 
 
@@ -205,8 +236,9 @@ class Detect(nn.Module):
     """Anchor-free YOLOv8 detect head (legacy cls branch).
 
     Returns ((B, 4 + nc, A) decoded xywh boxes in input pixels followed by
-    class sigmoids, the per-level raw maps (B, 4*reg_max + nc, H, W)). The
-    decode runs in fp32; the DFL is a function, not a module."""
+    class sigmoids, the per-level raw maps (B, 4*reg_max + nc, H, W)); in
+    training only the raw maps. The decode runs in fp32; the DFL is a
+    function, not a module."""
 
     reg_max = 16  # DFL bins per box side
 
@@ -218,10 +250,10 @@ class Detect(nn.Module):
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1)) for x in ch
         )
         self.cv3 = nn.ModuleList(
-            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, nc, 1)) for x in ch
         )
 
     def bias_init(self):
@@ -233,6 +265,8 @@ class Detect(nn.Module):
 
     def forward(self, xs: List[torch.Tensor]):
         feats = [torch.cat([a(x), b(x)], 1) for x, a, b in zip(xs, self.cv2, self.cv3)]
+        if self.training:
+            return feats
         bsz = feats[0].shape[0]
         no = 4 * self.reg_max + self.nc
         x_cat = torch.cat([f.reshape(bsz, no, -1) for f in feats], 2).float()  # (B, no, A)

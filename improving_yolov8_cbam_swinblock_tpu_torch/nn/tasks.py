@@ -13,7 +13,7 @@ import ast
 import math
 import re
 from pathlib import Path
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -176,16 +176,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class DetectionModel(nn.Module):
-    """A detect graph from its YAML, on `device` (None -> cuda), in `dtype`.
+    """A detect graph from its YAML, on `device` (None -> cuda), computing in `dtype`.
 
-    Conv and Swin weight matrices are held in `dtype`; BatchNorm, LayerNorm
-    and the Swin biases stay fp32, as the JAX package keeps its parameters
-    fp32 and casts at compute. Activations are NCHW in channels_last memory.
-    forward(x) takes (B, 3, H, W) in [0, 1] and returns the Detect head's
-    ((B, 4 + nc, A), raw maps). The model is built in eval mode."""
+    Conv and Swin weight matrices are held in `param_dtype` (default: `dtype`,
+    which is what inference wants); BatchNorm, LayerNorm and the Swin biases
+    stay fp32. Training holds fp32 masters (param_dtype=torch.float32) and
+    computes in `dtype`, every weight cast where it is used, as the JAX
+    package does. Activations are NCHW in channels_last memory. forward(x)
+    takes (B, 3, H, W) in [0, 1] and returns the Detect head's ((B, 4 + nc,
+    A), raw maps), or in training mode the raw maps. The model is built in
+    eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = select_device(device)
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
@@ -196,7 +199,7 @@ class DetectionModel(nn.Module):
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
         init_weights(self, torch.Generator().manual_seed(seed))
-        self._cast(dtype)
+        self._cast(param_dtype or dtype)
         self.to(dev).to(memory_format=torch.channels_last)
         self.eval()
 

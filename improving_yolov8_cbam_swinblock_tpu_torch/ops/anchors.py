@@ -33,6 +33,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tens
     return torch.cat(((x1y1 + x2y2) / 2, x2y2 - x1y1), 1)
 
 
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """(..., 4) xyxy boxes around (..., 2) anchor points -> ltrb distances
+    clamped to [0, reg_max - 0.01], coordinates on the last dim."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)
+
+
 def dfl_decode(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """(B, 4*reg_max, A) logits laid out (4, reg_max) -> (B, 4, A) expected
     distances: softmax over the bins dotted with arange(reg_max)."""

@@ -1,10 +1,44 @@
-"""Box geometry for the predict path (counterparts of the JAX package's ops/boxes.py)."""
+"""Box geometry for the predict and train paths (counterparts of the JAX package's ops/boxes.py)."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+CIOU_EPS = 1e-7
+CIOU_V = 4.0 / math.pi**2
+
+
+def ciou_xyxy(b1: torch.Tensor, b2: torch.Tensor, atan1: torch.Tensor = None, atan2: torch.Tensor = None,
+              eps: float = CIOU_EPS) -> torch.Tensor:
+    """Complete IoU of xyxy boxes on the last dim, broadcasting, without the
+    last axis. h gets +eps before the ratio, w does not, as in the JAX
+    package's bbox_iou(xywh=False, CIoU=True). The aspect term's alpha is
+    detached. atan1/atan2 may hand in atan(w/h) of each box, computed once
+    per box; otherwise they are computed here."""
+    b1x1, b1y1, b1x2, b1y2 = b1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = b2.unbind(-1)
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
+    inter = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0) * \
+        (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c2 = cw * cw + ch * ch + eps
+    dx = b2x1 + b2x2 - b1x1 - b1x2
+    dy = b2y1 + b2y2 - b1y1 - b1y2
+    rho2 = (dx * dx + dy * dy) / 4
+    a1 = torch.atan(w1 / h1) if atan1 is None else atan1
+    a2 = torch.atan(w2 / h2) if atan2 is None else atan2
+    da = a2 - a1
+    v = CIOU_V * (da * da)
+    with torch.no_grad():
+        alpha = v / (v - iou + (1.0 + eps))
+    return iou - (rho2 / c2 + v * alpha)
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:

@@ -33,23 +33,24 @@ def find_nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, sources: Sequence[str], extra_flags: Sequence[str] = ()) -> Path:
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     for src in sources:
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile `sources` (file names under csrc/) into a shared library;
-    returns its path. Reuses an existing build of the same sources."""
-    out = library_path(name, sources)
+def build(name: str, sources: Sequence[str], extra_flags: Sequence[str] = ()) -> Path:
+    """Compile `sources` (file names under csrc/) into a shared library, with
+    `extra_flags` after the common ones; returns its path. Reuses an existing
+    build of the same sources and flags."""
+    out = library_path(name, sources, extra_flags)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in sources)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, *(str(CSRC_DIR / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:

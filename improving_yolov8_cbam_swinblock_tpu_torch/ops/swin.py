@@ -1,4 +1,4 @@
-"""The SwinBlock forward: a hand-written CUDA kernel and its plain version.
+"""The SwinBlock forward and backward: hand-written CUDA kernels and their plain versions.
 
 `swin_block(x, p, num_heads, window_size, fast)` applies the whole block to
 x (B, H, W, C), H and W of any size: windows that run past the edge see zero
@@ -15,12 +15,21 @@ PyTorch. `impl="plain"` forces the plain version on the card, for comparison.
   w1 (4C, C),   b1 (4C,)                MLP fc1
   w2 (C, 4C),   b2 (C,)                 MLP fc2
 The four matrices are used in x's dtype, the vectors in fp32.
+
+Training goes through `swin_block_train`, an autograd Function: its forward
+runs the block in exact mode (fast=False) and keeps only x and the
+parameters; its backward, `swin_block_bwd`, recomputes the forward and
+returns dx and fp32 parameter grads. On a CUDA tensor that is the kernel
+csrc/swin_block_bwd.cu, which replaces the TPU kernel
+`_swin_flat_bwd_kernel` of `fused_swin_block_ad`; on a CPU tensor it is
+`swin_block_bwd_plain`, which repeats the kernel's roundings.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional
 
 import torch
@@ -29,9 +38,32 @@ import torch.nn.functional as F
 Params = Dict[str, torch.Tensor]
 VECTORS = ("ln1_w", "ln1_b", "bqkv", "bout", "ln2_w", "ln2_b", "b1", "b2")
 MATRICES = ("wqkv", "wout", "w1", "w2")
+PKEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "wout", "bout", "ln2_w", "ln2_b", "w1", "b1", "w2", "b2")
 LN_EPS = 1e-5
 MAX_SMEM = 232448  # bytes of shared memory one block may use on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _to_windows(t: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> zero-padded windows (B * nH * nW, ws * ws, C)."""
+    b, h, w, c = t.shape
+    t = F.pad(t, (0, 0, 0, (ws - w % ws) % ws, 0, (ws - h % ws) % ws))
+    hp, wp = t.shape[1], t.shape[2]
+    return t.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
+
+
+def _from_windows(t: torch.Tensor, b: int, h: int, w: int, ws: int) -> torch.Tensor:
+    """Inverse of _to_windows, cropped to (B, H, W, C)."""
+    nh, nw, c = -(-h // ws), -(-w // ws), t.shape[-1]
+    t = t.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, nh * ws, nw * ws, c)
+    return t[:, :h, :w, :]
+
+
+def _ln_stats(x32: torch.Tensor):
+    """LayerNorm over the last dim without its affine: (normalised x, 1 / std)."""
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x32 - mean) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    return (x32 - mean) * rstd, rstd
 
 
 def swin_block_plain(x: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7,
@@ -48,19 +80,12 @@ def swin_block_plain(x: torch.Tensor, p: Params, num_heads: int = 2, window_size
         return t.to(dt).float()
 
     b, h, w, c = x.shape
-    ws = window_size
     hd = c // num_heads
-    ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
-    xp = F.pad(x, (0, 0, 0, pw, 0, ph))
-    hp, wp = h + ph, w + pw
-    xw = xp.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
-    x32 = xw.float()
-    mean = x32.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((x32 - mean) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    yhat, _ = _ln_stats(_to_windows(x, window_size).float())
     if bf16_fast:
-        xn32 = (((x32 - mean) * rstd).to(dt) * p["ln1_w"].to(dt) + p["ln1_b"].to(dt)).float()
+        xn32 = (yhat.to(dt) * p["ln1_w"].to(dt) + p["ln1_b"].to(dt)).float()
     else:
-        xn32 = (x32 - mean) * rstd * p["ln1_w"].float() + p["ln1_b"].float()
+        xn32 = yhat * p["ln1_w"].float() + p["ln1_b"].float()
 
     def linear(a, wname, bname):
         return r(a) @ r(p[wname]).t() + p[bname].float()
@@ -79,8 +104,7 @@ def swin_block_plain(x: torch.Tensor, p: Params, num_heads: int = 2, window_size
     else:
         hid = F.gelu(pre)
     y = y1 + linear(hid, "w2", "b2")
-    y = y.to(dt).reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
-    return y[:, :h, :w, :]
+    return _from_windows(y.to(dt), b, h, w, window_size)
 
 
 @functools.cache
@@ -122,28 +146,25 @@ def swin_block_cuda(x: torch.Tensor, p: Params, num_heads: int = 2, window_size:
     b, h, w, c = x.shape
     check_supported(c, num_heads, window_size, x.dtype)
     x = x.contiguous()
-    args = {k: p[k].to(device=x.device, dtype=torch.float32).contiguous() for k in VECTORS}
-    args.update({k: p[k].to(device=x.device, dtype=x.dtype).contiguous() for k in MATRICES})
-    for k, shape in (("wqkv", (3 * c, c)), ("wout", (c, c)), ("w1", (4 * c, c)), ("w2", (c, 4 * c))):
-        if tuple(args[k].shape) != shape:
-            raise ValueError(f"swin_block {k} has shape {tuple(args[k].shape)}, expected {shape}")
+    args = _cast_params(p, c, x.device, x.dtype)
     y = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.swin_block_fwd(
             _DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), b, h, w, c, num_heads, int(fast),
-            *(args[k].data_ptr() for k in ("ln1_w", "ln1_b", "wqkv", "bqkv", "wout", "bout",
-                                           "ln2_w", "ln2_b", "w1", "b1", "w2", "b2")),
+            *(args[k].data_ptr() for k in PKEYS),
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"swin_block_fwd launch failed with CUDA error {rc}")
     swin_block_cuda.launches += 1
+    swin_block_cuda.exact_launches += not fast
     return y
 
 
 swin_block_cuda.launches = 0  # kernel launches since the last reset
+swin_block_cuda.exact_launches = 0  # of those, launches in exact mode (fast=False: the train path)
 
 
 def swin_block(x: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7, fast: bool = True,
@@ -156,3 +177,214 @@ def swin_block(x: torch.Tensor, p: Params, num_heads: int = 2, window_size: int 
     if impl == "plain" or x.device.type == "cpu":
         return swin_block_plain(x, p, num_heads, window_size, fast)
     return swin_block_cuda(x, p, num_heads, window_size, fast)
+
+
+# ---------------------------------------------------------------------------
+# Backward (train path)
+# ---------------------------------------------------------------------------
+
+
+def _ln_bwd(dz, yhat, rstd, scale):
+    """Grad of z = yhat * scale + bias w.r.t. the LN input, and the scale and
+    bias grads summed over all tokens."""
+    dyhat = dz * scale
+    dx = rstd * (dyhat - dyhat.mean(-1, keepdim=True) - yhat * (dyhat * yhat).mean(-1, keepdim=True))
+    return dx, (dz * yhat).sum((0, 1)), dz.sum((0, 1))
+
+
+def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx [x * Phi(x)] = Phi(x) + x * phi(x), the exact GELU."""
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + x * (torch.exp(-0.5 * x * x) * 0.3989422804014327)
+
+
+def swin_block_bwd_plain(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads: int = 2,
+                         window_size: int = 7):
+    """The backward kernel's arithmetic in PyTorch: recompute the exact
+    forward, then dx (x's dtype) and the 12 parameter grads (fp32, PyTorch
+    layout), with xn, qkv, the probabilities, head outputs, y1n, h, gh, dpre,
+    dout, do, ds and dqkv rounded to x's dtype and every sum in fp32. Windows
+    past the edge hold zero tokens with a zero grad, as the reference pads."""
+    dt = x.dtype
+
+    def r(t):  # round to the I/O dtype, continue in fp32
+        return t.to(dt).float()
+
+    b, h, w, c = x.shape
+    ws, hd = window_size, c // num_heads
+    scale = 1.0 / hd**0.5
+    xw = _to_windows(x, ws).float()
+    gw = r(_to_windows(g.to(dt), ws).float())
+    n, l, _ = xw.shape
+    wm = {k: r(p[k].float()) for k in MATRICES}
+    vec = {k: p[k].float() for k in VECTORS}
+
+    def heads(t):
+        return t.reshape(n, l, num_heads, hd).transpose(1, 2)
+
+    def merge(t):
+        return t.transpose(1, 2).reshape(n, l, c)
+
+    # forward recompute, exact mode
+    yhat1, rstd1 = _ln_stats(xw)
+    xn32 = yhat1 * vec["ln1_w"] + vec["ln1_b"]
+    xn = r(xn32)
+    qkv = r(xn @ wm["wqkv"].t() + vec["bqkv"])
+    q, k, v = (heads(t) for t in qkv.split(c, -1))
+    a32 = torch.softmax((q @ k.transpose(-1, -2)) * scale, -1)
+    a = r(a32)
+    o = r(merge(a @ v))
+    y1 = xn32 + (o @ wm["wout"].t() + vec["bout"])
+    yhat2, rstd2 = _ln_stats(y1)
+    y1n = r(yhat2 * vec["ln2_w"] + vec["ln2_b"])
+    pre = y1n @ wm["w1"].t() + vec["b1"]
+    hid = r(F.gelu(pre))
+
+    # grads
+    dpre = (gw @ wm["w2"]) * _gelu_grad(pre)
+    dpre_b = r(dpre)
+    dy1_ln, dln2_w, dln2_b = _ln_bwd(dpre_b @ wm["w1"], yhat2, rstd2, vec["ln2_w"])
+    dy1 = gw + dy1_ln
+    dout = r(dy1)
+    do = heads(r(dout @ wm["wout"]))
+    dv = a.transpose(-1, -2) @ do
+    da = do @ v.transpose(-1, -2)
+    ds = r(a32 * (da - (da * a32).sum(-1, keepdim=True)))
+    dqkv = torch.cat([merge((ds @ k) * scale), merge((ds.transpose(-1, -2) @ q) * scale), merge(dv)], -1)
+    dqkv_b = r(dqkv)
+    dxw, dln1_w, dln1_b = _ln_bwd(dy1 + dqkv_b @ wm["wqkv"], yhat1, rstd1, vec["ln1_w"])
+
+    def tok(t):
+        return t.reshape(-1, t.shape[-1])
+
+    grads = {
+        "ln1_w": dln1_w, "ln1_b": dln1_b,
+        "wqkv": tok(dqkv_b).t() @ tok(xn), "bqkv": tok(dqkv).sum(0),
+        "wout": tok(dout).t() @ tok(o), "bout": tok(dy1).sum(0),
+        "ln2_w": dln2_w, "ln2_b": dln2_b,
+        "w1": tok(dpre_b).t() @ tok(y1n), "b1": tok(dpre).sum(0),
+        "w2": tok(gw).t() @ tok(hid), "b2": tok(gw).sum(0),
+    }
+    return _from_windows(dxw.to(dt), b, h, w, ws).contiguous(), grads
+
+
+def check_bwd_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype) -> None:
+    """Raise ValueError for a shape or dtype the backward kernel does not take."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"swin_block_bwd kernel takes float32 or bfloat16, not {dtype}")
+    if window_size != 7:
+        raise ValueError(f"swin_block_bwd kernel is built for 7x7 windows, not {window_size}")
+    if c % 32 or c % num_heads:
+        raise ValueError(f"swin_block_bwd kernel needs C % 32 == 0 and C % heads == 0 (C={c}, heads={num_heads})")
+    hd = c // num_heads
+    # the kernel's shared-memory layout (smem_bytes in csrc/swin_block_bwd.cu)
+    smem = 4 * (2 * 49 + max(2 * 64 * 33, 4 * 49 * (hd + 1) + 2 * 49 * 49))
+    if smem > MAX_SMEM:
+        raise ValueError(f"swin_block_bwd kernel needs {smem} B of shared memory at C={c}, heads={num_heads}; "
+                         f"the limit is {MAX_SMEM}")
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """Build (at first use) and load the backward kernel's library, once per process."""
+    from .cuda_build import build
+
+    lib = ctypes.CDLL(str(build("swin_block_bwd", ("swin_block_bwd.cu",))))
+    ptr, i32, size_p = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)
+    lib.swin_block_bwd_workspace.argtypes = [i32] * 5 + [size_p, size_p]
+    lib.swin_block_bwd_workspace.restype = None
+    lib.swin_block_bwd.argtypes = [i32, ptr, ptr, ptr] + [i32] * 5 + [ptr] * 12 + [ptr] * 4
+    lib.swin_block_bwd.restype = i32
+    return lib
+
+
+def _cast_params(p: Params, c: int, device, dtype) -> Params:
+    """Vectors to fp32, matrices to the I/O dtype, all contiguous on `device`;
+    checks the matrix shapes."""
+    args = {k: p[k].to(device=device, dtype=torch.float32).contiguous() for k in VECTORS}
+    args.update({k: p[k].to(device=device, dtype=dtype).contiguous() for k in MATRICES})
+    for k, shape in (("wqkv", (3 * c, c)), ("wout", (c, c)), ("w1", (4 * c, c)), ("w2", (c, 4 * c))):
+        if tuple(args[k].shape) != shape:
+            raise ValueError(f"swin_block {k} has shape {tuple(args[k].shape)}, expected {shape}")
+    return args
+
+
+def swin_block_bwd_cuda(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7):
+    """Launch the backward kernel on x and the incoming grad g (B, H, W, C),
+    CUDA tensors -> (dx, {name: fp32 grad}). Raises on anything the kernel
+    does not take and on a failed launch."""
+    if not x.is_cuda:
+        raise ValueError("swin_block_bwd_cuda needs a CUDA tensor")
+    if x.dim() != 4 or g.shape != x.shape:
+        raise ValueError(f"swin_block_bwd takes x and g of one shape (B, H, W, C), got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    b, h, w, c = x.shape
+    check_bwd_supported(c, num_heads, window_size, x.dtype)
+    x = x.contiguous()
+    g = g.to(x.dtype).contiguous()
+    args = _cast_params(p, c, x.device, x.dtype)
+    lib = _bwd_lib()
+    t_el, f_el = ctypes.c_size_t(), ctypes.c_size_t()
+    lib.swin_block_bwd_workspace(b, h, w, c, num_heads, ctypes.byref(t_el), ctypes.byref(f_el))
+    tws = torch.empty(t_el.value, device=x.device, dtype=x.dtype)
+    fws = torch.empty(f_el.value, device=x.device, dtype=torch.float32)
+    gout = torch.empty(12 * c * c + 13 * c, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.swin_block_bwd(
+            _DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, h, w, c, num_heads,
+            *(args[k].data_ptr() for k in PKEYS), tws.data_ptr(), fws.data_ptr(), gout.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"swin_block_bwd launch failed with CUDA error {rc}")
+    swin_block_bwd_cuda.launches += 1
+    shapes = {"wqkv": (3 * c, c), "wout": (c, c), "w1": (4 * c, c), "w2": (c, 4 * c), "ln1_w": (c,),
+              "ln1_b": (c,), "bqkv": (3 * c,), "bout": (c,), "ln2_w": (c,), "ln2_b": (c,), "b1": (4 * c,),
+              "b2": (c,)}  # in the kernel's output order
+    grads, off = {}, 0
+    for k, shape in shapes.items():
+        n = math.prod(shape)
+        grads[k] = gout[off:off + n].view(shape)
+        off += n
+    return dx, grads
+
+
+swin_block_bwd_cuda.launches = 0  # kernel launches since the last reset
+
+
+def swin_block_bwd(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7,
+                   impl: Optional[str] = None):
+    """SwinBlock backward: the kernel for a CUDA tensor, the plain version for
+    a CPU tensor or with impl="plain"."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', not {impl!r}")
+    if impl == "plain" or x.device.type == "cpu":
+        return swin_block_bwd_plain(x, g, p, num_heads, window_size)
+    return swin_block_bwd_cuda(x, g, p, num_heads, window_size)
+
+
+class _SwinBlockFn(torch.autograd.Function):
+    """Forward in exact mode (fast=False); backward by swin_block_bwd. Saves
+    only x and the parameters: the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, window_size, impl, *params):
+        p = dict(zip(PKEYS, params))
+        ctx.save_for_backward(x, *params)
+        ctx.cfg = (num_heads, window_size, impl)
+        return swin_block(x, p, num_heads, window_size, fast=False, impl=impl)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, *params = ctx.saved_tensors
+        num_heads, window_size, impl = ctx.cfg
+        dx, grads = swin_block_bwd(x, gy, dict(zip(PKEYS, params)), num_heads, window_size, impl)
+        return (dx, None, None, None, *(grads[k].to(prm.dtype) for k, prm in zip(PKEYS, params)))
+
+
+def swin_block_train(x: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Differentiable SwinBlock on x (B, H, W, C). The parameters are taken
+    as given (fp32 masters in training): the matrices are cast to x's dtype
+    inside, and the grads come back in each parameter's dtype."""
+    return _SwinBlockFn.apply(x, num_heads, window_size, impl, *(p[k] for k in PKEYS))

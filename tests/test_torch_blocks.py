@@ -108,9 +108,17 @@ def test_swin_block(hw, c, heads):
 
 
 def test_swin_block_refuses_training():
+    """Training mode no longer refuses: it runs the differentiable block in
+    exact mode (fast=False), and its grads reach every parameter."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
+
     tm = TM.SwinBlock(64, 2).train()
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 64, 7, 7))
+    x = torch.randn(1, 64, 7, 7, generator=torch.Generator().manual_seed(0))
+    y = tm(x)
+    ref = swin_block(x.permute(0, 2, 3, 1), tm.kernel_params(), 2, fast=False).permute(0, 3, 1, 2)
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    y.square().sum().backward()
+    assert all(p.grad is not None for p in tm.parameters())
 
 
 def test_concat_and_upsample():

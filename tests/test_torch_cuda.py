@@ -1,4 +1,4 @@
-"""The port's CUDA kernel vs its plain version, on the card.
+"""The port's CUDA kernels vs their plain versions, on the card.
 
 Every test here needs an NVIDIA card and nvcc, carries the `cuda` marker
 and skips without them. The file imports no JAX, so it runs on a machine
@@ -39,7 +39,7 @@ def cuda():
 @pytest.mark.parametrize("shape,heads", [((8, 42, 42, 256), 2), ((8, 14, 14, 128), 2), ((1, 12, 17, 256), 2),
                                          ((2, 9, 9, 128), 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("fast", [True, False])  # False: the exact mode of the train path
 def test_kernel_matches_plain(cuda, shape, heads, dtype, fast):
     """fp32: max abs error <= 1e-3 (fp32 sums in another order). bf16: max
     error <= 3e-2 of the output's largest magnitude (a bf16 rounding that
@@ -78,3 +78,96 @@ def test_kernel_raises_on_unsupported_shape(cuda):
     x = torch.zeros(1, 7, 7, 96 + 4, device=cuda)
     with pytest.raises(ValueError):
         S.swin_block(x, swin_params(100, rng, cuda, torch.float32), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((2, 40, 40, 256), 2), ((2, 20, 20, 256), 2), ((1, 12, 17, 128), 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain(cuda, shape, heads, dtype):
+    """dx and the 12 grads of K3 vs swin_block_bwd_plain, each within
+    tol * its largest magnitude: fp32 1e-4 (fp32 sums in another order),
+    bf16 3e-2 (a bf16 rounding one ulp off grows through the next product).
+    40x40 and 20x20 pad to 42x42 and 21x21: pad tokens act as keys and values."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
+    g = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
+    p = swin_params(shape[-1], rng, cuda, torch.float32)
+    before = S.swin_block_bwd_cuda.launches
+    dx, grads = S.swin_block_bwd(x, g, p, heads)
+    torch.cuda.synchronize()
+    assert S.swin_block_bwd_cuda.launches == before + 1
+    rdx, rgrads = S.swin_block_bwd(x, g, p, heads, impl="plain")
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert dx.dtype == dtype and dx.shape == x.shape
+    pairs = [("dx", dx, rdx)] + [(k, grads[k], rgrads[k]) for k in S.PKEYS]
+    for name, got, ref in pairs:
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_train_function_runs_both_kernels(cuda):
+    """The autograd Function launches K1 (exact mode) forward and K3 backward."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(0, 1, (2, 14, 14, 128)).astype(np.float32), device=cuda).requires_grad_()
+    p = {k: v.requires_grad_() for k, v in swin_params(128, rng, cuda, torch.float32).items()}
+    f0, b0 = S.swin_block_cuda.launches, S.swin_block_bwd_cuda.launches
+    S.swin_block_train(x, p, 2).square().sum().backward()
+    assert (S.swin_block_cuda.launches, S.swin_block_bwd_cuda.launches) == (f0 + 1, b0 + 1)
+    assert all(v.grad is not None and v.grad.dtype == torch.float32 for v in p.values())
+
+
+def tal_inputs(b, g, nc, imgsz, device, seed):
+    """Predictions and GTs like tests/test_tal_kernel.py, plus an empty image
+    and a duplicated GT."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.anchors import make_anchors
+
+    shapes = [(imgsz // s, imgsz // s) for s in (8, 16, 32)]
+    anc, st = make_anchors(shapes, (8, 16, 32))
+    a = anc.shape[0]
+    rng = np.random.default_rng(seed)
+    scores = rng.random((b, a, nc)).astype(np.float32)
+    cxy, wh = rng.uniform(10, imgsz - 10, (b, a, 2)), rng.uniform(4, imgsz / 2, (b, a, 2))
+    pboxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    glab = rng.integers(0, nc, (b, g, 1)).astype(np.int32)
+    gcxy, gwh = rng.uniform(12, imgsz - 12, (b, g, 2)), rng.uniform(8, imgsz / 2, (b, g, 2))
+    gbox = np.concatenate([gcxy - gwh / 2, gcxy + gwh / 2], -1).astype(np.float32)
+    gmask = (rng.random((b, g, 1)) < 0.7).astype(np.float32)
+    gbox[0], gmask[0] = 0, 0
+    if b > 1 and g > 3:
+        gbox[1, 3], glab[1, 3] = gbox[1, 2], glab[1, 2]
+    gbox = gbox * gmask
+    t = lambda v: torch.tensor(v, device=device)  # noqa: E731
+    return t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,nc,imgsz", [(16, 128, 1, 640), (4, 32, 80, 640), (3, 12, 3, 128), (2, 1200, 1, 320)])
+def test_tal_kernel_matches_plain(cuda, b, g, nc, imgsz):
+    """K2 vs the plain assigner on the card: fg, gt index and labels exactly
+    equal; boxes within 1e-4 absolute; scores within 1e-4 relative. Any G,
+    1200 included (4 x max_gt 300 after mosaic)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    args = tal_inputs(b, g, nc, imgsz, cuda, seed=g)
+    before = tal_assign_cuda.launches
+    got = task_aligned_assign(*args, topk=10, num_classes=nc)
+    torch.cuda.synchronize()
+    assert tal_assign_cuda.launches == before + 1
+    ref = task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain")
+    assert torch.equal(got.fg_mask, ref.fg_mask)
+    assert torch.equal(got.target_gt_idx, ref.target_gt_idx)
+    assert torch.equal(got.target_labels, ref.target_labels)
+    assert (got.target_bboxes - ref.target_bboxes).abs().max().item() <= 1e-4
+    torch.testing.assert_close(got.target_scores, ref.target_scores, rtol=1e-4, atol=1e-6)
+    assert got.fg_mask.any()
+
+
+@pytest.mark.cuda
+def test_tal_kernel_rejects_other_alpha_beta(cuda):
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    with pytest.raises(ValueError, match="alpha"):
+        task_aligned_assign(*tal_inputs(2, 4, 1, 128, cuda, 0), beta=4.0)

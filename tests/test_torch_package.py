@@ -1,4 +1,4 @@
-"""The port package stands alone: no JAX, the device rule, the YAML compiler, anchors."""
+"""The port package and chip_smoke.py stand alone: no JAX, the device rule, the YAML compiler, anchors."""
 
 import re
 import subprocess
@@ -12,7 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from improving_yolov8_cbam_swinblock_tpu.ops import anchors as JA
-from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel
+from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, DetectionTrainer
 from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import CFG_DIR, make_divisible, parse_model, yaml_model_load
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import anchors as TA
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.device import select_device
@@ -24,8 +24,10 @@ JAX_IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|jaxlib|improving_yol
 
 
 def test_no_module_of_the_port_imports_jax_source_scan():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 15
+    """Every module of the package, and chip_smoke.py, which runs on a
+    machine that has no JAX."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
     offenders = [str(f.relative_to(ROOT)) for f in files if JAX_IMPORT.search(f.read_text())]
     assert offenders == []
 
@@ -53,6 +55,8 @@ def test_entry_points_raise_without_cuda():
         YOLO("yolov8n-cbam-swin.yaml")
     with pytest.raises(RuntimeError, match="CUDA"):
         DetectionModel("yolov8n-cbam-swin.yaml", device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DetectionTrainer(overrides={"model": "yolov8n-cbam-swin.yaml"})
     with pytest.raises(RuntimeError):
         select_device("cuda:0")
     assert select_device("cpu") == torch.device("cpu")
