@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; the script exits non-zero if any phase fails:
-  build   compile the three CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
+  build   compile the four CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
           each, all started together
   kernel  each kernel vs its plain PyTorch version, fp32 (TF32 off) and bf16,
           with times per launch: K1 swin_block_fwd in its fast (predict) and
           exact (train) modes at the flagship's Swin shapes; K3 swin_block_bwd,
           dx and the 12 parameter grads, at (16, 40, 40, 256) and at the
           padded (4, 20, 20, 256); K2 tal_assign at B=16, A=8400 with G=128,
-          nc=1 and with G=32, nc=80
+          nc=1 and with G=32, nc=80; K4 swin_block_int8 at (8, 40, 40, 256)
+          and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
+          I/O and with the bf16 softmax (sm16, K4v)
   slice   YOLO("yolov8s-cbam-swin.yaml").predict on 8 synthetic 480x640
           frames at 640 px, bf16, seeded random weights: the predict path,
           with its kernel launches counted; then the same model with the Swin
@@ -21,17 +23,27 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           the train path, with its kernel launches counted per step; then one
           more micro-step from one state and batch, with the kernels and with
           the plain versions of K1, K3 and K2, in bf16 and in fp32 (TF32 off)
+  int8    the int8 PTQ path: the same graph with fp32 weights, bf16
+          compute, BN-folded, quantize_model on two seeded uint8 batches of
+          8 frames at 640 px (the JAX package's bench.py bench_infer), then
+          YOLO.predict on the 8 frames of the slice phase, with the kernel
+          launches of calibration and of predict counted; the int8 model
+          with K4 vs with its plain version; each int8 SwinBlock vs the
+          float block on the same input (the JAX package's oracle bounds),
+          and the int8 vs the float model at each Swin layer; int8 forward
+          and predict img/s at batch 32
   speed   predict img/s at batch 32, 640 px, bf16, BN-folded (forward alone
           and end to end) and train img/s at batch 16, with and without the
           device augmentation
-  profile device time by kernel over batch-32 forwards and over one
-          accumulation cycle of the train step (torch.profiler)
+  profile device time by kernel over batch-32 forwards, bf16 and int8, and
+          over one accumulation cycle of the train step (torch.profiler)
 Then the card's name and power limit, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Without CUDA it prints no result and exits 2.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import subprocess
@@ -46,14 +58,17 @@ import torch
 PKG = "improving_yolov8_cbam_swinblock_tpu_torch"
 TPU = "improving_yolov8_cbam_swinblock_tpu"
 SOURCES = {"swin_block_fwd": f"{PKG}/csrc/swin_block_fwd.cu", "swin_block_bwd": f"{PKG}/csrc/swin_block_bwd.cu",
-           "tal_assign": f"{PKG}/csrc/tal_assign.cu"}
+           "tal_assign": f"{PKG}/csrc/tal_assign.cu", "swin_block_int8": f"{PKG}/csrc/swin_block_int8.cu",
+           "swin_block_int8_sm16": f"{PKG}/csrc/swin_block_int8.cu"}
 REPLACES = {"swin_block_fwd": f"{TPU}/ops/pallas/swin_kernel.py:52",
             "swin_block_bwd": f"{TPU}/ops/pallas/swin_kernel.py:210",
-            "tal_assign": f"{TPU}/ops/pallas/tal_kernel.py:51"}
+            "tal_assign": f"{TPU}/ops/pallas/tal_kernel.py:51",
+            "swin_block_int8": f"{TPU}/ops/pallas/swin_kernel.py:469",
+            "swin_block_int8_sm16": "tools/bench_swin_variants.py:53"}
 # the H100 SXM, NVIDIA's data sheet: dense peak FLOP/s by operand type (bf16 on
 # the tensor cores, fp32 with TF32 off on the CUDA cores) and HBM bytes/s
 CARD = "H100 80GB HBM3"
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 SEED = 0
 # the train path: bench.py's bench_train settings at batch 16 (SGD pinned), nbs 64
@@ -80,6 +95,23 @@ BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # enclosing box 6 + 4, centre distance 10, aspect term 3 + 3, CIoU 4, clip
 # and gate 2, overlap^6 3, sqrt(score) * 3; min, max, compare, div and sqrt count one each
 TAL_PAIR_FLOP = 67
+# K4 vs its plain version: with int8 output at most INT8_LEVELS levels of the
+# output scale and at most INT8_SHARE of the outputs off; with float output
+# within INT8_RTOL of the largest magnitude. The integer sums are exact, but
+# fp32 sums in another order (LN statistics, attention dots) may move a value
+# across a quantization boundary, and the block's later products carry it.
+INT8_LEVELS, INT8_SHARE, INT8_RTOL = 3, 1e-2, 3e-2
+# the int8 model with K4 vs with its plain version (layers 7 and 16, raw
+# Detect maps, decoded channels): such boundary moves also pass through the
+# int8 convs after each block: max |K4 - plain| <= INT8_MODEL_RTOL * max |plain|
+INT8_MODEL_RTOL = 5e-2
+# each SwinBlock of the int8 model, int8 vs float on the input it receives
+# there: the JAX package's oracle bounds for the int8 block
+# (tests/test_pallas_swin.py:130-131): mean |int8 - float| under 0.05 of mean
+# |float|, max under 0.25 of max |float|. The same measure between the whole
+# int8 and float models at each Swin layer adds the int8 convs upstream; it
+# is reported beside it
+ORACLE_MEAN, ORACLE_MAX = 0.05, 0.25
 
 
 def emit(obj) -> None:
@@ -146,6 +178,21 @@ def swin_bwd_bound(shape, dtype):
     return bound(flops, nbytes, dtype)
 
 
+def swin_int8_bound(shape, x_dtype, y_dtype):
+    """(ms, "operations" or "bytes") for the int8 SwinBlock on x of `shape`.
+    Operations: per real token 24*C*C int8 operations (qkv 6, out 2, fc1 8,
+    fc2 8) at the int8 peak plus 4*49*C bf16 FLOP of attention at the bf16
+    peak; a pad token's k, v (4*C*C int8) are one constant row, counted
+    once. Bytes: x read and y written once in their dtypes, the 12*C*C int8
+    weights, their 12*C fp32 scales and the 13*C fp32 vectors read once."""
+    b, h, w, c = shape
+    tokens = b * h * w
+    t_ops = ((tokens * 24 * c * c + (4 * c * c if h % 7 or w % 7 else 0)) / PEAK_FLOPS[torch.int8]
+             + tokens * 4 * 49 * c / PEAK_FLOPS[torch.bfloat16])
+    t_bytes = (tokens * c * (elt(x_dtype) + elt(y_dtype)) + 12 * c * c + 4 * 25 * c) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def tal_bound(b, a, g, nc, ncls):
     """(ms, "operations" or "bytes") for the assigner: TAL_PAIR_FLOP per
     (image, GT, anchor) on the fp32 CUDA cores; inputs (scores, predicted
@@ -200,11 +247,12 @@ def tal_inputs(b, g, nc, imgsz, device, seed):
 
 
 def phase_build():
-    """Build and load the three kernels' libraries, one nvcc each, in parallel."""
-    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin, tal
+    """Build and load the four kernels' libraries, one nvcc each, in parallel."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin, swin_int8, tal
 
     t0 = time.perf_counter()
-    loaders = {"swin_block_fwd": swin._lib, "swin_block_bwd": swin._bwd_lib, "tal_assign": tal._lib}
+    loaders = {"swin_block_fwd": swin._lib, "swin_block_bwd": swin._bwd_lib, "tal_assign": tal._lib,
+               "swin_block_int8": swin_int8._lib}
     with ThreadPoolExecutor(len(loaders)) as ex:
         libs = dict(zip(loaders, ex.map(lambda f: f(), loaders.values())))
     ptxas = {name: [ln.strip() for ln in (Path(lib._name).parent / "build.log").read_text().splitlines()
@@ -226,7 +274,9 @@ def phase_kernel(dev):
     fwd_ok, fwd = no_tf32(fwd_cases, dev)
     bwd_ok, bwd = no_tf32(bwd_cases, dev)
     tal_ok, tal = tal_cases(dev)
-    return fwd_ok and bwd_ok and tal_ok, {"swin_block_fwd": fwd, "swin_block_bwd": bwd, "tal_assign": tal}
+    int8_ok, int8 = int8_cases(dev)
+    return fwd_ok and bwd_ok and tal_ok and int8_ok, {"swin_block_fwd": fwd, "swin_block_bwd": bwd,
+                                                      "tal_assign": tal, "swin_block_int8": int8}
 
 
 def fwd_cases(dev):
@@ -328,6 +378,70 @@ def tal_cases(dev):
     return ok, rows
 
 
+def swin_quant(x, p, heads):
+    """A block's quant entries as quantize_model builds them: per-output-channel
+    int8 weights from the fp32 matrices, and activation scales from x's
+    calibration |max| (the four product inputs, x, the float block's output)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import QKEYS, QWEIGHTS, swin_gemm_absmax
+
+    q = {}
+    for k in QKEYS:
+        w = p[QWEIGHTS[k]].float()
+        ws = w.abs().amax(1).clamp(min=1e-12) / 127
+        q.update({f"{k}_w_int8": torch.clamp(torch.round(w / ws[:, None]), -127, 127).to(torch.int8),
+                  f"{k}_w_scale": ws})
+    am = swin_gemm_absmax(x, p, heads)
+    q.update({f"{k}_x_scale": am[k] / 127 for k in QKEYS})
+    q["x_in_scale"] = x.float().abs().amax() / 127
+    q["y_out_scale"] = swin_block(x, p, heads, impl="plain").float().abs().amax() / 127
+    return q
+
+
+def int8_compare(y, ref) -> dict:
+    """K4 vs its plain version: int8 output within INT8_LEVELS levels and at
+    most INT8_SHARE of the outputs off; float output within INT8_RTOL of the
+    largest magnitude."""
+    d = (y.float() - ref.float()).abs()
+    out = {"max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(), "share_off": (d > 0).float().mean().item()}
+    if y.dtype == torch.int8:
+        ok = out["max_abs_err"] <= INT8_LEVELS and out["share_off"] <= INT8_SHARE
+    else:
+        out["max_rel_err"] = rel_err(y, ref)
+        ok = out["max_rel_err"] <= INT8_RTOL
+    return {**out, "ok": bool(ok and torch.isfinite(y.float()).all())}
+
+
+def int8_cases(dev):
+    """K4 at the int8 path's Swin shapes, batch 8 (predict) and 32 (speed),
+    bf16 compute: int8 I/O as the int8 path runs it, bf16 I/O, and the bf16
+    softmax (sm16, K4v) with int8 I/O; fp32 weights quantized as
+    quantize_model does, activation scales from the input."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
+
+    rows, ok = [], True
+    for b in (8, 32):
+        shape = (b, 40, 40, 256)
+        rng = np.random.default_rng(SEED + 3)
+        x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(torch.bfloat16)
+        p = swin_params(256, rng, dev, torch.float32)
+        q = swin_quant(x, p, 2)
+        xq = q8(x.float(), q["x_in_scale"]).to(torch.int8)
+        for mode, xin, kw in (("int8_io", xq, dict(in8=True, out8=True)), ("bf16_io", x, {}),
+                              ("sm16_int8_io", xq, dict(in8=True, out8=True, sm16=True))):
+            y = swin_block_int8(xin, p, q, 2, **kw)
+            torch.cuda.synchronize()
+            row = int8_compare(y, swin_block_int8(xin, p, q, 2, impl="plain", **kw))
+            ok &= row["ok"]
+            rows.append({
+                "shape": list(shape), "mode": mode, "out_dtype": str(y.dtype).split(".")[-1], **row,
+                "kernel_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, 2, **kw)),
+                "plain_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, 2, impl="plain", **kw), iters=3),
+                "bound_us": 1e3 * swin_int8_bound(shape, xin.dtype, y.dtype)[0],
+            })
+    return ok, rows
+
+
 def swin_modules(model):
     from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import SwinBlock
 
@@ -370,28 +484,47 @@ def compare_forward(model, x, rtol):
 
 
 def counts() -> dict:
-    """The kernels' launch counts (K1 total and in exact mode, K3, K2)."""
+    """The kernels' launch counts (K1 total and in exact mode, K3, K2, K4 and of those with sm16)."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block_bwd_cuda, swin_block_cuda
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import swin_block_int8_cuda
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
 
     return {"swin_block_fwd": swin_block_cuda.launches, "swin_block_fwd_exact": swin_block_cuda.exact_launches,
-            "swin_block_bwd": swin_block_bwd_cuda.launches, "tal_assign": tal_assign_cuda.launches}
+            "swin_block_bwd": swin_block_bwd_cuda.launches, "tal_assign": tal_assign_cuda.launches,
+            "swin_block_int8": swin_block_int8_cuda.launches,
+            "swin_block_int8_sm16": swin_block_int8_cuda.sm16_launches}
 
 
 def reset_counts() -> None:
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block_bwd_cuda, swin_block_cuda
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import swin_block_int8_cuda
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
 
     swin_block_cuda.launches = swin_block_cuda.exact_launches = 0
     swin_block_bwd_cuda.launches = tal_assign_cuda.launches = 0
+    swin_block_int8_cuda.launches = swin_block_int8_cuda.sm16_launches = 0
+
+
+def slice_frames():
+    """The 8 synthetic 480x640 BGR frames that the predict paths serve."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(8)]
+
+
+def boxes_ok(results, h, w) -> bool:
+    return all(
+        np.isfinite(r.boxes.data).all() and (r.boxes.xyxy[:, [0, 2]] <= w).all()
+        and (r.boxes.xyxy[:, [1, 3]] <= h).all() and (r.boxes.xyxy >= 0).all()
+        and ((r.boxes.conf > 0.001) & (r.boxes.conf <= 1)).all() and len(r) <= 300
+        for r in results
+    )
 
 
 def phase_slice(dev):
     """The predict path: YOLO.predict, with the kernel's launches counted."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
 
-    rng = np.random.default_rng(SEED)
-    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(8)]
+    frames = slice_frames()
     yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, seed=SEED)
     reset_counts()
     t0 = time.perf_counter()
@@ -399,13 +532,8 @@ def phase_slice(dev):
     seconds = time.perf_counter() - t0
     launches = counts()
     dets = [len(r) for r in results]
-    boxes_ok = all(
-        np.isfinite(r.boxes.data).all() and (r.boxes.xyxy[:, [0, 2]] <= 640).all()
-        and (r.boxes.xyxy[:, [1, 3]] <= 480).all() and (r.boxes.xyxy >= 0).all()
-        and ((r.boxes.conf > 0.001) & (r.boxes.conf <= 1)).all() and len(r) <= 300
-        for r in results
-    )
-    ok = launches["swin_block_fwd"] > 0 and len(results) == 8 and boxes_ok
+    boxes_good = boxes_ok(results, 480, 640)
+    ok = launches["swin_block_fwd"] > 0 and len(results) == 8 and boxes_good
 
     x = letterboxed(frames, 640, dev, torch.bfloat16)
     bf16_ok, bf16_err, out_shape = compare_forward(yolo.model, x, 3e-2)
@@ -413,7 +541,7 @@ def phase_slice(dev):
     fp32_ok, fp32_err, _ = no_tf32(compare_forward, fp32.model, letterboxed(frames, 640, dev, torch.float32), 2e-3)
     ok = ok and bf16_ok and fp32_ok and out_shape == (8, 5, 8400)
     return ok, {
-        "launches": launches, "detections_per_frame": dets, "boxes_ok": bool(boxes_ok),
+        "launches": launches, "detections_per_frame": dets, "boxes_ok": bool(boxes_good),
         "predict_s_first_call": seconds, "speed_ms_per_img": results[0].speed,
         "decoded_shape": list(out_shape),
         "bf16_kernel_vs_plain_rel_err": bf16_err,
@@ -518,7 +646,8 @@ def phase_train(dev):
             fired.append(i + 1)
     seconds = time.perf_counter() - t0
     launches = counts()
-    want = {"swin_block_fwd": 2, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1}
+    want = {"swin_block_fwd": 2, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1,
+            "swin_block_int8": 0, "swin_block_int8_sm16": 0}
     ok = (acc == 4 and fired == [4, 8] and all(d == want for d in per_step)
           and bool(np.isfinite(losses).all()) and tr.optimizer_name == "SGD")
 
@@ -550,6 +679,95 @@ def phase_train(dev):
         "kernel_vs_plain": {**cmp, "ok": cmp_ok, "fp32_item_rtol": FP32_ITEM_RTOL, "fp32_grad_rtol": FP32_GRAD_RTOL,
                             "bf16_item_rtol": BF16_ITEM_RTOL, "bf16_grad_slack": BF16_GRAD_SLACK},
     }, (tr, step), launches
+
+
+def swin_outputs(model, x):
+    """{Swin layer: (its input, its output)} of one forward of model on x."""
+    outs = {}
+    hooks = [m.register_forward_hook(lambda m, i, o: outs.__setitem__(m.i, (i[0], o))) for m in swin_modules(model)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+def oracle_errs(got, ref) -> dict:
+    got, ref = got.float(), ref.float()
+    return {"mean_rel": ((got - ref).abs().mean() / ref.abs().mean()).item(), "max_rel": rel_err(got, ref)}
+
+
+def phase_int8(dev):
+    """The int8 PTQ path: quantize_model on two seeded uint8 batches of 8
+    frames at 640 px (bench.py bench_infer), then YOLO.predict on the slice
+    phase's frames, the launches of each counted; the int8 model with K4 vs
+    with the plain version; each int8 SwinBlock vs the float block on the
+    input it receives in the int8 model (the JAX oracle's bounds), and the
+    int8 vs the float model at each Swin layer; int8 forward and predict
+    img/s at batch 32."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
+
+    yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32,
+                seed=SEED).fuse()
+    float_model = copy.deepcopy(yolo.model)
+    rng = np.random.default_rng(SEED)
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    frames = slice_frames()
+    reset_counts()
+    t0 = time.perf_counter()
+    quantize_model(yolo.model, calib)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    calib_launches = counts()
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    t2 = time.perf_counter()
+    launches = counts()
+    predict_launches = {k: v - calib_launches[k] for k, v in launches.items()}
+    boxes_good = boxes_ok(results, 480, 640)
+    ok = (calib_launches["swin_block_fwd"] == 2 * len(calib) and calib_launches["swin_block_int8"] == 0
+          and predict_launches["swin_block_int8"] == 2 and predict_launches["swin_block_fwd"] == 0
+          and launches["swin_block_int8_sm16"] == 0 and len(results) == 8 and boxes_good)
+
+    x = letterboxed(frames, 640, dev, torch.bfloat16)
+    k_ok, k_err, out_shape = compare_forward(yolo.model, x, INT8_MODEL_RTOL)
+    o8, of = swin_outputs(yolo.model, x), swin_outputs(float_model, x)
+    oracle, model_level = {}, {}
+    with torch.inference_mode():
+        for m in swin_modules(yolo.model):
+            xin, y8 = o8[m.i]
+            yf = swin_block(xin.permute(0, 2, 3, 1), m.kernel_params(), m.num_heads, m.window_size)
+            oracle[m.i] = oracle_errs(y8, yf.permute(0, 3, 1, 2))
+            model_level[m.i] = oracle_errs(y8, of[m.i][1])
+    oracle_ok = len(oracle) == 2 and all(v["mean_rel"] < ORACLE_MEAN and v["max_rel"] < ORACLE_MAX
+                                         for v in oracle.values())
+
+    bs = 32
+    xb = torch.rand(bs, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        int8_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+        float_ms = cuda_ms(lambda: float_model(xb), iters=10)
+    frames32 = [np.random.default_rng(SEED + 1).integers(0, 256, (480, 640, 3), dtype=np.uint8)] * bs
+    yolo.predict(frames32, imgsz=640, batch=bs)  # warm-up
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for _ in range(2):
+        yolo.predict(frames32, imgsz=640, batch=bs)
+    predict_img_s = 2 * bs / (time.perf_counter() - t3)
+    return ok and k_ok and oracle_ok and out_shape == (8, 5, 8400), {
+        "calibration_launches": calib_launches, "predict_launches": predict_launches,
+        "calibrate_s": t1 - t0, "predict_s_first_call": t2 - t1,
+        "detections_per_frame": [len(r) for r in results], "boxes_ok": bool(boxes_good),
+        "kernel_vs_plain_rel_err": k_err, "kernel_vs_plain_ok": k_ok, "kernel_vs_plain_rtol": INT8_MODEL_RTOL,
+        "int8_vs_float_swin_block": oracle, "oracle_ok": oracle_ok,
+        "int8_vs_float_model_at_swin_layers": model_level,
+        "batch": bs, "int8_forward_ms": int8_ms, "int8_forward_img_per_s": bs * 1e3 / int8_ms,
+        "float_fp32_weights_forward_ms": float_ms, "float_fp32_weights_forward_img_per_s": bs * 1e3 / float_ms,
+        "int8_predict_img_per_s_conf0.25": predict_img_s,
+    }, yolo, launches, int8_ms
 
 
 def phase_speed(yolo, train, dev):
@@ -598,28 +816,38 @@ def kernel_times(prof, steps):
     return total, top, share
 
 
-def phase_profile(yolo, train, dev, forward_ms):
-    """Device time by kernel over 3 forwards at batch 32, and over 4 train
-    micro-steps (one accumulation cycle) with augmentation (torch.profiler);
-    the busy share is kernel time over the event-timed length."""
+def forward_profile(model, x, forward_ms, swin_kernel):
+    """Device time by kernel over 3 forwards of model on x (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.rand(32, 3, 640, 640, device=dev).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     with torch.inference_mode():
-        yolo.model(x)
+        model(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
-                yolo.model(x)
+                model(x)
             torch.cuda.synchronize()
     total, top, share = kernel_times(prof, 3)
     if total == 0:
+        return None
+    return {"kernel_us_per_forward": total, "device_busy_share": total / (1e3 * forward_ms),
+            "swin_share": share(swin_kernel),
+            "top": [{"name": e.key[:90], "us_per_forward": e.device_time_total / 3, "calls": e.count // 3}
+                    for e in top]}
+
+
+def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
+    """Device time by kernel over 3 forwards at batch 32 (bf16, and int8),
+    and over 4 train micro-steps (one accumulation cycle) with augmentation
+    (torch.profiler); the busy share is kernel time over the event-timed
+    length."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand(32, 3, 640, 640, device=dev).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    fwd = forward_profile(yolo.model, x, forward_ms, "swin_block_fwd")
+    if fwd is None:
         return True, {"note": "profiler recorded no device time: not measured"}
-    out = {"forward": {
-        "kernel_us_per_forward": total, "device_busy_share": total / (1e3 * forward_ms),
-        "swin_share": share("swin_block_fwd"),
-        "top": [{"name": e.key[:90], "us_per_forward": e.device_time_total / 3, "calls": e.count // 3} for e in top],
-    }}
+    out = {"forward": fwd, "int8_forward": forward_profile(int8_yolo.model, x, int8_ms, "swin_block_int8")}
 
     tr, step = train
     batches = train_batches(4, dev)
@@ -647,12 +875,13 @@ def phase_profile(yolo, train, dev, forward_ms):
     return True, out
 
 
-def kernels_line(yolo, tr, dev, launches):
+def kernels_line(yolo, tr, int8_yolo, dev, launches):
     """Each kernel at the shapes its path hands it, vs its plain version,
     timed, beside its bound. No single PyTorch call computes any of the
-    three functions (the whole SwinBlock, its backward, the task-aligned
-    assignment), so library_ms is null for each."""
+    functions (the whole SwinBlock, its backward, its int8 form, the
+    task-aligned assignment), so library_ms is null for each."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
 
     rng = np.random.default_rng(SEED)
@@ -661,8 +890,7 @@ def kernels_line(yolo, tr, dev, launches):
     p = swin.kernel_params()
     x = torch.tensor(rng.normal(0, 1, (8, 40, 40, 256)).astype(np.float32), device=dev).to(torch.bfloat16)
     bound_ms, bound_by = swin_bound(tuple(x.shape), x.dtype)
-    fwd = {"name": "swin_block_fwd", "launches": launches["predict"]["swin_block_fwd"]
-           + launches["train"]["swin_block_fwd"],
+    fwd = {"name": "swin_block_fwd", "launches": sum(v["swin_block_fwd"] for v in launches.values()),
            "launches_by_path": {k: v["swin_block_fwd"] for k, v in launches.items()},
            "max_abs_err": (swin_block(x, p, 2).float() - swin_block(x, p, 2, impl="plain").float()).abs().max().item(),
            "ms": cuda_ms(lambda: swin_block(x, p, 2)),
@@ -696,7 +924,25 @@ def kernels_line(yolo, tr, dev, launches):
            "ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1)),
            "plain_ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1, impl="plain"), iters=5),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    rows = [fwd, bwd, tal]
+    # K4: the int8 path at batch 8 hands it (8, 40, 40, 256) int8 in and out; K4v (sm16) runs on no path
+    swin8 = swin_modules(int8_yolo.model)[0]
+    p8, q = swin8.kernel_params(), {k: getattr(swin8, k) for k in swin8.QNAMES}
+    x8 = q8(torch.tensor(rng.normal(0, 1, (8, 40, 40, 256)).astype(np.float32), device=dev), q["x_in_scale"])
+    x8 = x8.to(torch.int8)
+    bound_ms, bound_by = swin_int8_bound(tuple(x8.shape), torch.int8, torch.int8)
+    int8_rows = []
+    for name, sm16 in (("swin_block_int8", False), ("swin_block_int8_sm16", True)):
+        cmp = int8_compare(swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16),
+                           swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16, impl="plain"))
+        int8_rows.append({
+            "name": name, "launches": launches["int8"][name],
+            "launches_by_path": {k: v[name] for k, v in launches.items()},
+            "max_abs_err": cmp["max_abs_err"], "share_off": cmp["share_off"],
+            "ms": cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16)),
+            "plain_ms": cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16, impl="plain"),
+                                iters=5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    rows = [fwd, bwd, tal, *int8_rows]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]], replaces=REPLACES[r["name"]])
     return rows
@@ -726,9 +972,11 @@ def main() -> int:
     run("kernel", phase_kernel, dev)
     yolo, predict_launches = run("slice", phase_slice, dev)
     train, train_launches = run("train", phase_train, dev)
+    int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
-    run("profile", phase_profile, yolo, train, dev, forward_ms)
-    kernels = kernels_line(yolo, train[0], dev, {"predict": predict_launches, "train": train_launches})
+    run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
+    kernels = kernels_line(yolo, train[0], int8_yolo, dev,
+                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches})
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

@@ -3,7 +3,9 @@
 `YOLO("yolov8s-cbam-swin.yaml")` builds the graph with a seeded random init
 on the card; `device="cpu"` is the only way to the CPU. Weights come from
 the JAX package's variables (`load_jax_variables`) or from a file that
-`save` wrote.
+`save` wrote. For int8 serving, build with fp32 weights
+(`param_dtype=torch.float32`), `fuse()`, then quantize the model in place
+with `ops.quant.quantize_model(yolo.model, batches)`; `predict` then runs it.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ from typing import Optional
 import torch
 
 from ..nn.tasks import DetectionModel
+from ..ops.quant import is_quantized
 from ..utils.jax_import import state_dict_from_jax
 from .predictor import DetectionPredictor
 
 
 class YOLO:
     def __init__(self, model: str = "yolov8s-cbam-swin.yaml", device=None, dtype: torch.dtype = torch.float32,
-                 seed: int = 0):
+                 seed: int = 0, param_dtype: Optional[torch.dtype] = None):
         self.task = "detect"
         if str(model).endswith(".pt"):
             payload = torch.load(model, map_location="cpu", weights_only=True)
@@ -31,7 +34,7 @@ class YOLO:
                 self.model.fuse()
             self.model.load_state_dict(payload["state_dict"], strict=True)
         else:
-            self.model = DetectionModel(model, dtype=dtype, device=device, seed=seed)
+            self.model = DetectionModel(model, dtype=dtype, device=device, seed=seed, param_dtype=param_dtype)
 
     @property
     def is_fused(self) -> bool:
@@ -51,14 +54,20 @@ class YOLO:
 
     def predict(self, source, imgsz: int = 640, conf: Optional[float] = None, iou: float = 0.7,
                 max_det: int = 300, batch: int = 1):
-        """Detections for in-memory BGR uint8 frames; BN-folds the model first."""
+        """Detections for in-memory BGR uint8 frames; BN-folds a float model
+        first (a quantized one keeps its BatchNorms after the int8 convs)."""
         stride = max(self.model.strides)
         imgsz = math.ceil(int(imgsz) / stride) * stride
-        if not self.is_fused:
+        if not self.is_fused and not is_quantized(self.model):
             self.fuse()
         predictor = DetectionPredictor(self.model, conf=conf, iou=iou, max_det=max_det, batch=batch)
         return predictor(source, imgsz)
 
     def save(self, path: str) -> None:
+        """Write the graph, dtype and state of a float model. A quantized model
+        is refused: save the float model and quantize after loading."""
+        if is_quantized(self.model):
+            raise ValueError("YOLO.save does not write a quantized model: save the float model, then run "
+                             "quantize_model after loading it")
         torch.save({"yaml": self.model.yaml, "fused": self.is_fused, "dtype": str(self.model.dtype).split(".")[-1],
                     "state_dict": self.model.state_dict()}, Path(path))

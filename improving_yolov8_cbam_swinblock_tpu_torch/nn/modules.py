@@ -11,19 +11,27 @@ casts its fp32 parameters to the module dtype: a model may hold fp32 master
 weights (training) and compute in bf16. In training mode Conv's BatchNorm
 keeps flax's semantics, SwinBlock runs the differentiable block and Detect
 returns its raw maps only.
+
+Conv and SwinBlock take part in int8 post-training quantization
+(ops/quant.py): while `calib` is a dict they record the |max| of what their
+int8 products would take, and once their quant buffers are set (None until
+then, so absent from the state) they run those products in int8 in eval mode.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
+from ..ops.quant import conv_int8
 from ..ops.swin import swin_block, swin_block_train
+from ..ops.swin_int8 import QNAMES as SWIN_QNAMES
+from ..ops.swin_int8 import q8, swin_block_int8, swin_gemm_absmax
 from ..utils.fuse import fold_bn
 
 BN_EPS = 1e-3
@@ -53,17 +61,40 @@ def batch_norm_train(bn: nn.BatchNorm2d, y32: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def record_amax(calib: Dict[str, torch.Tensor], key: str, t: torch.Tensor) -> None:
+    """calib[key] = max(calib[key], |t|.max()) in fp32: a calibration pass's running maximum."""
+    amax = t.float().abs().amax()
+    calib[key] = torch.maximum(calib[key], amax) if key in calib else amax
+
+
 class Conv(nn.Module):
     """Conv2d(bias=False) + BatchNorm(eps 1e-3) + SiLU. The BatchNorm runs in
     fp32 and its output is cast back to the compute dtype, as in the JAX
-    package. After `fuse()` the BN is folded into the conv's weight and bias."""
+    package. After `fuse()` the BN is folded into the conv's weight and bias.
+
+    Quantized (buffers w_int8 (O, I, kh, kw), w_scale (O,), x_scale ()), the
+    eval forward quantizes its input to x_scale, sums the int8 products
+    exactly (ops/quant.py conv_int8), dequantizes in fp32, adds the folded
+    bias in fp32 (or applies the BN), casts to the compute dtype and applies
+    SiLU, as the JAX package's int8 branch does."""
+
+    QNAMES = ("w_int8", "w_scale", "x_scale")
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
         super().__init__()
         self.conv = Conv2d(c1, c2, k, s, k // 2, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.calib: Optional[Dict[str, torch.Tensor]] = None  # running input |max| during calibration
+        for name in self.QNAMES:
+            self.register_buffer(name, None)
 
     def forward(self, x):
+        if self.calib is not None:
+            record_amax(self.calib, "x_amax", x)
+        if self.w_int8 is not None and not self.training:
+            y = conv_int8(x, self.w_int8, self.w_scale, self.x_scale, self.conv.stride[0], self.conv.padding[0])
+            y = self.bn(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
+            return F.silu(y.to(x.dtype))
         y = self.conv(x)
         if self.bn is not None:
             y = (batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())).to(y.dtype)
@@ -74,6 +105,9 @@ class Conv(nn.Module):
         """Fold the BatchNorm into the conv's weight and a new bias."""
         if self.bn is None:
             return
+        if self.w_int8 is not None:
+            raise ValueError("fuse() before quantize_model: folding the BatchNorm would change the weights "
+                             "that the int8 copy was made from")
         bn = self.bn
         w, b = fold_bn(self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
         self.conv.weight.copy_(w)
@@ -185,7 +219,16 @@ class SwinBlock(nn.Module):
     runs the kernel's `fast` mode; training runs `swin_block_train` (exact
     forward, backward kernel), as the reference's custom_vjp does. `impl`
     stays None (choose by device) except where a check forces the plain
-    versions on the card to compare with the kernels."""
+    versions on the card to compare with the kernels.
+
+    Quantized (the buffers of ops/swin_int8.QNAMES) and with a head dim that
+    is a multiple of 128, the eval forward quantizes its input to
+    x_in_scale, runs the int8 block (ops.swin_int8.swin_block_int8) with int8
+    input and output and dequantizes with y_out_scale in the compute dtype.
+    The head-dim gate is the JAX package's: its TPU runs the int8 kernel only
+    there, and a narrower head keeps the float block."""
+
+    QNAMES = SWIN_QNAMES
 
     def __init__(self, c1: int, num_heads: int = 2, window_size: int = 7):
         super().__init__()
@@ -196,6 +239,15 @@ class SwinBlock(nn.Module):
         self.attn = nn.MultiheadAttention(c1, num_heads)  # holds in_proj_weight, out_proj
         self.norm2 = nn.LayerNorm(c1)
         self.mlp = nn.Sequential(nn.Linear(c1, 4 * c1), nn.GELU(), nn.Linear(4 * c1, c1))
+        self.calib: Optional[Dict[str, torch.Tensor]] = None  # running |max| of the int8 inputs during calibration
+        for name in self.QNAMES:
+            self.register_buffer(name, None)
+
+    @property
+    def runs_int8(self) -> bool:
+        """Quantized, and the head dim a multiple of 128 (the JAX package's gate)."""
+        c = self.norm1.weight.numel()  # a multiple of the heads: MultiheadAttention checks it
+        return self.qkv_w_int8 is not None and (c // self.num_heads) % 128 == 0
 
     def kernel_params(self):
         return {
@@ -211,9 +263,32 @@ class SwinBlock(nn.Module):
         xh = x.permute(0, 2, 3, 1)
         if self.training:
             y = swin_block_train(xh, self.kernel_params(), self.num_heads, self.window_size, impl=self.impl)
+        elif self.calib is not None:
+            y = self._calibrate(xh)
+        elif self.runs_int8:
+            q = {k: getattr(self, k) for k in self.QNAMES}
+            xq = q8(xh.float(), self.x_in_scale).to(torch.int8)
+            y8 = swin_block_int8(xq, self.kernel_params(), q, self.num_heads, self.window_size, in8=True, out8=True,
+                                 impl=self.impl)
+            y = y8.to(x.dtype) * self.y_out_scale.to(x.dtype)
         else:
             y = swin_block(xh, self.kernel_params(), self.num_heads, self.window_size, fast=True, impl=self.impl)
         return y.permute(0, 3, 1, 2)
+
+    def _calibrate(self, xh):
+        """Record the four product inputs' |max| (swin_gemm_absmax), the
+        input's and the float block's output's, over the zero-padded windows
+        as the JAX package does, and return the float block's output."""
+        b, h, w, _ = xh.shape
+        ws = self.window_size
+        p = self.kernel_params()
+        for key, amax in swin_gemm_absmax(xh, p, self.num_heads, ws).items():
+            record_amax(self.calib, f"{key}_amax", amax)
+        record_amax(self.calib, "xin_amax", xh)
+        yp = swin_block(F.pad(xh, (0, 0, 0, (-w) % ws, 0, (-h) % ws)), p, self.num_heads, ws, fast=True,
+                        impl=self.impl)
+        record_amax(self.calib, "yout_amax", yp)
+        return yp[:, :h, :w].contiguous()
 
 
 class Concat(nn.Module):

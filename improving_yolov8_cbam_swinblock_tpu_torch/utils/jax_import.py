@@ -12,6 +12,9 @@ arrays and names each leaf the way the reference's torch state names it
 
 A tree that already holds a BN-folded `fused` collection is refused: load
 the unfused variables and call the port's `fuse()` instead.
+
+`quant_state_from_jax` carries the JAX package's int8 `quant` collection
+into the buffers that ops/quant.py's load_quant_state sets.
 """
 
 from __future__ import annotations
@@ -22,9 +25,8 @@ import numpy as np
 import torch
 
 
-def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
-    """(flax path) -> (torch name, transform tag)."""
-    *mods, leaf = path
+def _module_tokens(mods: Tuple[str, ...]) -> list:
+    """flax module scopes -> the port's module path tokens."""
     toks = []
     for m in mods:
         if m.startswith("model_"):
@@ -39,6 +41,13 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
             toks.append("shared_MLP.2")
         else:
             toks.append(m)
+    return toks
+
+
+def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
+    """(flax path) -> (torch name, transform tag)."""
+    *mods, leaf = path
+    toks = _module_tokens(mods)
     if collection == "batch_stats":
         return ".".join(toks) + "." + {"mean": "running_mean", "var": "running_var"}[leaf], "none"
     if toks[-1] == "in_proj":  # torch MultiheadAttention packs qkv at the attention level
@@ -86,4 +95,21 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             state[name] = torch.from_numpy(np.array(_transform(arr, tag), dtype=np.float32, order="C"))
             if name.endswith(".running_mean"):
                 state[name[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return state
+
+
+def quant_state_from_jax(quant: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's `quant` collection (numpy leaves) -> {"<module>.<buffer>":
+    tensor} for ops.quant.load_quant_state. A Conv's w_int8 goes HWIO ->
+    OIHW and a SwinBlock's <k>_w_int8 (in, out) -> (out, in); int8 stays int8,
+    scales are fp32."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(quant):
+        *mods, leaf = path
+        if leaf.endswith("w_int8"):
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            t = torch.from_numpy(np.array(arr, dtype=np.int8, order="C"))
+        else:
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        state[".".join(_module_tokens(tuple(mods)) + [leaf])] = t
     return state

@@ -171,3 +171,81 @@ def test_tal_kernel_rejects_other_alpha_beta(cuda):
 
     with pytest.raises(ValueError, match="alpha"):
         task_aligned_assign(*tal_inputs(2, 4, 1, 128, cuda, 0), beta=4.0)
+
+
+def int8_quant(x, p, heads):
+    """Per-channel int8 weights from the fp32 matrices and activation scales
+    from x, as ops/quant.py builds them."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    q = {}
+    for k in S8.QKEYS:
+        w = p[S8.QWEIGHTS[k]].float()
+        ws = w.abs().amax(1).clamp(min=1e-12) / 127
+        q.update({f"{k}_w_int8": torch.clamp(torch.round(w / ws[:, None]), -127, 127).to(torch.int8),
+                  f"{k}_w_scale": ws})
+    am = S8.swin_gemm_absmax(x, p, heads)
+    q.update({f"{k}_x_scale": am[k] / 127 for k in S8.QKEYS})
+    q["x_in_scale"] = x.float().abs().amax() / 127
+    q["y_out_scale"] = S.swin_block(x, p, heads, impl="plain").float().abs().amax() / 127
+    return q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 256), 2), ((2, 20, 17, 256), 2), ((1, 12, 9, 128), 1)])
+@pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "fp32_io", "sm16_int8_io", "sm16_bf16_io"])
+def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
+    """K4 (and K4v's bf16 softmax, sm16) vs swin_block_int8_plain. The
+    integer sums are exact; fp32 sums in another order may move a value
+    across a quantization boundary, which the later products carry: int8
+    output within 3 levels and at most 1 % of it off, float output within
+    3e-2 of its largest magnitude. 40x40, 20x17 and 12x9 pad to whole windows."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda)
+    p = swin_params(shape[-1], rng, cuda, torch.float32)
+    q = int8_quant(x, p, heads)
+    io8, sm16 = mode.endswith("int8_io"), mode.startswith("sm16")
+    if io8:
+        xin = S8.q8(x, q["x_in_scale"]).to(torch.int8)
+    else:
+        xin = x.to(torch.float32 if mode == "fp32_io" else torch.bfloat16)
+    before = S8.swin_block_int8_cuda.launches
+    y = S8.swin_block_int8(xin, p, q, heads, in8=io8, out8=io8, sm16=sm16)
+    torch.cuda.synchronize()
+    assert S8.swin_block_int8_cuda.launches == before + 1
+    ref = S8.swin_block_int8(xin, p, q, heads, in8=io8, out8=io8, sm16=sm16, impl="plain")
+    assert y.dtype == ref.dtype and y.shape == x.shape
+    d = (y.float() - ref.float()).abs()
+    if io8:
+        assert d.max().item() <= 3 and (d > 0).float().mean().item() <= 1e-2
+    else:
+        assert d.max().item() <= 3e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_int8_model_runs_the_int8_kernel_and_int_mm_is_exact(cuda):
+    """A quantized scale-n graph with one-head SwinBlocks launches K4 twice
+    per forward and K1 twice per calibration batch; the int8 product of the
+    convs is exact at the stem's K=27 and at fewer than 17 rows."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    for m, k, n in ((5, 27, 16), (4096, 288, 64)):
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda)
+        assert torch.equal(Q.int_mm(a, w), (a.double() @ w.double().t()).int())
+    d = yaml_model_load("yolov8n-cbam-swin.yaml")
+    for row in d["backbone"] + d["head"]:
+        if row[2] == "SwinBlock":
+            row[3] = [256, 1]
+    y = YOLO(d, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32).fuse()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 1, 128, 128, 3), dtype=np.uint8)
+    f0, k0 = S.swin_block_cuda.launches, S8.swin_block_int8_cuda.launches
+    quantize_model(y.model, list(frames))
+    assert (S.swin_block_cuda.launches - f0, S8.swin_block_int8_cuda.launches - k0) == (4, 0)
+    res = y.predict(frames[0, 0], imgsz=128, conf=0.001)
+    assert S8.swin_block_int8_cuda.launches - k0 == 2 and np.isfinite(res[0].boxes.data).all()

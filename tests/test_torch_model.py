@@ -1,8 +1,8 @@
 """The whole flagship graph of the port vs the JAX package's, on the same weights.
 
-yolov8n-cbam-swin (scale n) is initialised in JAX, its norms, biases and BN
-statistics randomised with numpy, carried into the port through the weight
-bridge (strict load), and both run the same numpy images in fp32: the
+yolov8n-cbam-swin (scale n) gets seeded numpy values for the JAX
+variables' shapes (kernels, norms, biases, BN statistics), carried into the
+port through the weight bridge (strict load), and both run the same numpy images in fp32: the
 decoded (B, 5, A) output and the three raw maps, unfused and BN-folded.
 Tolerance rtol/atol 2e-3 (atol scaled by the largest box coordinate): the
 same fp32 math, summed in another order through ~60 layers.
@@ -42,11 +42,23 @@ def randomize(tree, rng):
     return out
 
 
+def seeded_variables(jm, imgsz, rng):
+    """The JAX model's variables without running its init (which compiles the
+    whole graph): kernels uniform with the JAX package's conv init variance
+    1/(3 fan_in), then randomize()."""
+    def leaf(s):
+        if s.ndim < 2:
+            return np.zeros(s.shape, np.float32)
+        bound = np.sqrt(1.0 / np.prod(s.shape[:-1]))
+        return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+
+    return randomize(jax.tree.map(leaf, jm.shape_init(imgsz=imgsz)), rng)
+
+
 @pytest.fixture(scope="module")
 def flagship():
     jm = JaxDetectionModel(CFG)
-    v = jax.jit(lambda k: jm.net.init(k, jnp.zeros((1, 64, 64, 3)), train=False))(jax.random.PRNGKey(0))
-    v = randomize(v, np.random.default_rng(0))
+    v = seeded_variables(jm, 64, np.random.default_rng(0))
     pm = DetectionModel(CFG, device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     fwd = jax.jit(lambda vv, x: jm.apply(vv, x, train=False))

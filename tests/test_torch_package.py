@@ -62,6 +62,20 @@ def test_entry_points_raise_without_cuda():
     assert select_device("cpu") == torch.device("cpu")
 
 
+def test_int8_path_raises_without_cuda():
+    """The int8 path's entry point and its kernel wrapper: no device given
+    means the card, and without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the int8 path runs there")
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        YOLO("yolov8s-cbam-swin.yaml", dtype=torch.bfloat16, param_dtype=torch.float32)
+    x = torch.zeros(1, 7, 7, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        swin_int8.swin_block_int8_cuda(x, {}, {}, 1, in8=True, out8=True)
+
+
 def test_yaml_scale_resolution():
     d = yaml_model_load("yolov8s-cbam-swin.yaml")
     assert d["scale"] == "s" and Path(d["yaml_file"]).name == "yolov8-cbam-swin.yaml"

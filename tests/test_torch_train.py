@@ -1,9 +1,9 @@
 """The port's detect train step vs the JAX package's `_make_train_step`.
 
 yolov8n-cbam-swin (scale n) at 64 px, batch 2, fp32 (TF32 off), no `aug`
-(as bench.py drives the JAX step): the JAX variables, their norms, biases
-and BN statistics randomised with numpy, are carried into the port by the
-weight bridge, and both trainers take two steps on the same seeded batches.
+(as bench.py drives the JAX step): seeded numpy values for the JAX
+variables (kernels, norms, biases, BN statistics) are carried into the port
+by the weight bridge, and both trainers take two steps on the same seeded batches.
 After each step the loss items agree, and after both the parameters, the BN
 running statistics (biased variance, flax momentum 0.97) and the EMA of
 both agree: rtol 1e-3, atol 1e-5 (the same fp32 math through ~60 layers and
@@ -40,7 +40,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
 from improving_yolov8_cbam_swinblock_tpu_torch.engine.trainer import (
     OPTIMIZERS, DetectionTrainer, build_optimizer, set_schedule)
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import state_dict_from_jax
-from tests.test_torch_model import randomize
+from tests.test_torch_model import seeded_variables
 
 jax.config.update("jax_platforms", "cpu")
 CFG = "yolov8n-cbam-swin.yaml"
@@ -51,8 +51,7 @@ RTOL, ATOL = 1e-3, 1e-5
 @pytest.fixture(scope="module")
 def variables():
     jm = JaxDetectionModel(CFG)
-    v = jax.jit(lambda k: jm.net.init(k, jnp.zeros((1, IMGSZ, IMGSZ, 3)), train=False))(jax.random.PRNGKey(0))
-    return jm, randomize(v, np.random.default_rng(0))
+    return jm, seeded_variables(jm, IMGSZ, np.random.default_rng(0))
 
 
 def batches(n, g=6):
