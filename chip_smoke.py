@@ -9,10 +9,14 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           with times per launch: K1 swin_block_fwd in its fast (predict) and
           exact (train) modes at the flagship's Swin shapes; K3 swin_block_bwd,
           dx and the 12 parameter grads, at (16, 40, 40, 256) and at the
-          padded (4, 20, 20, 256); K2 tal_assign at B=16, A=8400 with G=128,
+          padded (4, 20, 20, 256); both also at (2, 21, 21, 64) with heads of
+          32 and (4, 20, 20, 128) with 4 heads, which exercise the padded
+          tensor-core tiles; K2 tal_assign at B=16, A=8400 with G=128,
           nc=1 and with G=32, nc=80; K4 swin_block_int8 at (8, 40, 40, 256)
           and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
-          I/O and with the bf16 softmax (sm16, K4v)
+          I/O and with the bf16 softmax (sm16, K4v); each K1 and K3 case
+          also holds the shared memory the built library asks for against
+          the wrappers' copy of it for the CPU
   slice   YOLO("yolov8s-cbam-swin.yaml").predict on 8 synthetic 480x640
           frames at 640 px, bf16, seeded random weights: the predict path,
           with its kernel launches counted; then the same model with the Swin
@@ -37,15 +41,19 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           device augmentation
   profile device time by kernel over batch-32 forwards, bf16 and int8, and
           over one accumulation cycle of the train step (torch.profiler)
-Then the card's name and power limit, the {"kernels": [...]} line, and last
-{"ok": true, "device": {...}}. Without CUDA it prints no result and exits 2.
+Then the card's name and power limit, the {"kernels": [...]} line (K1 and K3
+with their achieved TFLOP/s, time over bound, shared memory and registers,
+K3 with its workspace), and last {"ok": true, "device": {...}}. Without CUDA
+it prints no result and exits 2.
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,35 +155,88 @@ def bound(flops: float, nbytes: float, dtype):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def swin_bound(shape, dtype):
-    """(ms, "operations" or "bytes"): the least time the card could take for
-    the SwinBlock forward on x of `shape`. Operations: per real token
+def swin_flops(shape) -> int:
+    """Operations the SwinBlock forward on x of `shape` needs: per real token
     2*C*C (q) + 2*C*2C (k, v) + 4*49*C (its attention row over the 49 keys
     of its window) + 2*C*C (out) + 16*C*C (MLP); a pad token's output is
-    cropped and its k, v are one constant row, counted once. Bytes: x read
-    and y written once, weights read once."""
+    cropped and its k, v are one constant row, counted once."""
     b, h, w, c = shape
-    tokens = b * h * w
-    flops = tokens * (24 * c * c + 4 * 49 * c) + (4 * c * c if h % 7 or w % 7 else 0)
-    nbytes = 2 * tokens * c * elt(dtype) + 12 * c * c * elt(dtype) + 13 * c * 4
-    return bound(flops, nbytes, dtype)
+    return b * h * w * (24 * c * c + 4 * 49 * c) + (4 * c * c if h % 7 or w % 7 else 0)
+
+
+def swin_bound(shape, dtype):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    the SwinBlock forward on x of `shape`: swin_flops; bytes: x read and y
+    written once, weights read once."""
+    b, h, w, c = shape
+    nbytes = 2 * b * h * w * c * elt(dtype) + 12 * c * c * elt(dtype) + 13 * c * 4
+    return bound(swin_flops(shape), nbytes, dtype)
+
+
+def swin_bwd_flops(shape) -> int:
+    """Operations the SwinBlock backward on x and g of `shape` needs, per real
+    token: the forward recomputed as far as the grads need it, 16*C*C (qkv,
+    out, fc1; fc2's output is not needed) + 4*49*C (scores, a.v); the dX
+    products 24*C*C (dh = g W2, dy1n = dpre W1, do = dout Wout, dxn = dqkv
+    Wqkv) + 8*49*C (dv, da, dq, dk); the dW products 24*C*C (the same four,
+    over all tokens). Pad tokens are one constant row: their k, v (4*C*C),
+    and their k, v grads' share of dWqkv and dxn (8*C*C), count once."""
+    b, h, w, c = shape
+    return b * h * w * (64 * c * c + 12 * 49 * c) + (12 * c * c if h % 7 or w % 7 else 0)
 
 
 def swin_bwd_bound(shape, dtype):
     """(ms, "operations" or "bytes") for the SwinBlock backward on x and g of
-    `shape`. Operations, per real token: the forward recomputed as far as the
-    grads need it, 16*C*C (qkv, out, fc1; fc2's output is not needed) +
-    4*49*C (scores, a.v); the dX products 24*C*C (dh = g W2, dy1n = dpre W1,
-    do = dout Wout, dxn = dqkv Wqkv) + 8*49*C (dv, da, dq, dk); the dW
-    products 24*C*C (the same four, over all tokens). Pad tokens are one
-    constant row: their k, v (4*C*C), and their k, v grads' share of dWqkv
-    and dxn (8*C*C), count once. Bytes: x and g read, dx written, weights
-    read once in x's dtype; the 12*C*C + 13*C fp32 grads written once."""
+    `shape`: swin_bwd_flops; bytes: x and g read, dx written, weights read
+    once in x's dtype; the 12*C*C + 13*C fp32 grads written once."""
     b, h, w, c = shape
-    tokens = b * h * w
-    flops = tokens * (64 * c * c + 12 * 49 * c) + (12 * c * c if h % 7 or w % 7 else 0)
-    nbytes = (3 * tokens * c + 12 * c * c) * elt(dtype) + (12 * c * c + 13 * c) * 4
-    return bound(flops, nbytes, dtype)
+    nbytes = (3 * b * h * w * c + 12 * c * c) * elt(dtype) + (12 * c * c + 13 * c) * 4
+    return bound(swin_bwd_flops(shape), nbytes, dtype)
+
+
+def bwd_workspace_bytes(shape, heads, dtype) -> int:
+    """Bytes of the two workspaces K3 allocates for x of `shape`
+    (swin_block_bwd_workspace): the operands of the weight-grad products in
+    x's dtype and the fp32 activations, partials and probabilities."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import _bwd_lib
+
+    t_el, f_el = ctypes.c_size_t(), ctypes.c_size_t()
+    _bwd_lib().swin_block_bwd_workspace(*shape, heads, ctypes.byref(t_el), ctypes.byref(f_el))
+    return t_el.value * elt(dtype) + 4 * f_el.value
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one (the last component of its nested
+    name), with <bf16> or <f32> for a template kernel of that type."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    rest = mangled[i:]
+    return name + ("<bf16>" if rest.startswith("I13__nv_bfloat16") else "<f32>" if rest.startswith("If") else "")
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "smem_static"}}
+    from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem_static"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def swin_int8_bound(shape, x_dtype, y_dtype):
@@ -255,8 +316,7 @@ def phase_build():
                "swin_block_int8": swin_int8._lib}
     with ThreadPoolExecutor(len(loaders)) as ex:
         libs = dict(zip(loaders, ex.map(lambda f: f(), loaders.values())))
-    ptxas = {name: [ln.strip() for ln in (Path(lib._name).parent / "build.log").read_text().splitlines()
-                    if "registers" in ln] for name, lib in libs.items()}
+    ptxas = {name: ptxas_summary((Path(lib._name).parent / "build.log").read_text()) for name, lib in libs.items()}
     return {"seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas}
 
 
@@ -281,12 +341,17 @@ def phase_kernel(dev):
 
 def fwd_cases(dev):
     """K1 at the flagship's Swin shapes, scale s and scale n, fast (predict)
-    and exact (train): fp32 within 1e-3 absolute, bf16 within 3e-2 of the
-    output's largest magnitude."""
+    and exact (train), and at shapes whose rows (21 x 21 and 20 x 20 pad
+    their windows) and channels (C=64, heads of 32) exercise the padded
+    tensor-core tiles: fp32 within 1e-3 absolute, bf16 within 3e-2 of the
+    output's largest magnitude. Each case also holds the shared memory the
+    built library reports against fwd_smem_bytes, its copy for the CPU."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
 
     rows, ok = [], True
-    for shape, heads in (((8, 42, 42, 256), 2), ((8, 40, 40, 256), 2), ((8, 14, 14, 128), 2)):
+    for shape, heads in (((8, 42, 42, 256), 2), ((8, 40, 40, 256), 2), ((8, 14, 14, 128), 2), ((2, 21, 21, 64), 2),
+                         ((4, 20, 20, 128), 4)):
         for dtype in (torch.float32, torch.bfloat16):
             for fast in (True, False):
                 rng = np.random.default_rng(SEED)
@@ -297,12 +362,14 @@ def fwd_cases(dev):
                 ref = swin_block(x, p, heads, fast=fast, impl="plain")
                 abs_err = (y.float() - ref.float()).abs().max().item()
                 rerr = rel_err(y, ref)
+                smem = S._lib().swin_block_fwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
                 good = bool(torch.isfinite(y.float()).all()) and (
-                    abs_err <= 1e-3 if dtype == torch.float32 else rerr <= 3e-2)
+                    abs_err <= 1e-3 if dtype == torch.float32 else rerr <= 3e-2) and (
+                    smem == S.fwd_smem_bytes(shape[-1], heads, dtype))
                 ok &= good
                 rows.append({
                     "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "fast": fast,
-                    "max_abs_err": abs_err, "max_rel_err": rerr, "ok": good,
+                    "max_abs_err": abs_err, "max_rel_err": rerr, "smem_bytes": smem, "ok": good,
                     "kernel_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast)),
                     "plain_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast, impl="plain"), iters=5),
                     "bound_us": 1e3 * swin_bound(shape, dtype)[0],
@@ -319,11 +386,15 @@ def bwd_errors(got, ref):
 def bwd_cases(dev):
     """K3 vs swin_block_bwd_plain: dx and the 12 grads, each within
     BWD_RTOL of its largest magnitude. The parameters are fp32 masters, as
-    the train path hands them; (4, 20, 20, 256) pads to 21 x 21."""
+    the train path hands them; (4, 20, 20, 256) pads to 21 x 21; C=64 and
+    heads of 32 exercise the padded tensor-core tiles. Each case also holds
+    the shared memory the built library reports against bwd_smem_bytes, its
+    copy for the CPU."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block_bwd
 
     rows, ok = [], True
-    for shape, heads in (((16, 40, 40, 256), 2), ((4, 20, 20, 256), 2)):
+    for shape, heads in (((16, 40, 40, 256), 2), ((4, 20, 20, 256), 2), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)):
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.default_rng(SEED + 1)
             x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
@@ -333,11 +404,13 @@ def bwd_cases(dev):
             torch.cuda.synchronize()
             errs = bwd_errors(got, swin_block_bwd(x, g, p, heads, impl="plain"))
             finite = all(bool(torch.isfinite(t).all()) for t in (got[0].float(), *got[1].values()))
-            good = finite and max(errs.values()) <= BWD_RTOL[dtype]
+            smem = S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
+            good = finite and max(errs.values()) <= BWD_RTOL[dtype] and smem == S.bwd_smem_bytes(shape[-1], heads,
+                                                                                                  dtype)
             ok &= good
             rows.append({
                 "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "ok": good,
-                "max_rel_err": max(errs.values()), "rel_err": errs,
+                "max_rel_err": max(errs.values()), "rel_err": errs, "smem_bytes": smem,
                 "kernel_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads), iters=5),
                 "plain_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads, impl="plain"), iters=3),
                 "bound_us": 1e3 * swin_bwd_bound(shape, dtype)[0],
@@ -869,17 +942,23 @@ def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
         "kernel_us_per_step": total, "step_ms_under_profiler": step_ms,
         "device_busy_share": total / (1e3 * step_ms),
         "swin_fwd_share": share("swin_block_fwd"), "swin_bwd_share": share("swin_bwd_"),
+        "swin_bwd_parts_share": {part: share(f"swin_bwd_{part}") for part in ("window", "wgrad", "sum")},
         "tal_share": share("tal_prep", "tal_topk", "tal_resolve", "tal_final"),
         "top": [{"name": e.key[:90], "us_per_step": e.device_time_total / 4, "calls": e.count / 4} for e in top],
     }
     return True, out
 
 
-def kernels_line(yolo, tr, int8_yolo, dev, launches):
+def kernels_line(yolo, tr, int8_yolo, dev, launches, ptxas):
     """Each kernel at the shapes its path hands it, vs its plain version,
     timed, beside its bound. No single PyTorch call computes any of the
     functions (the whole SwinBlock, its backward, its int8 form, the
-    task-aligned assignment), so library_ms is null for each."""
+    task-aligned assignment), so library_ms is null for each. K1 and K3 add
+    their achieved TFLOP/s, time over bound, shared memory per block (as
+    the built library reports it) and the registers and spills of their
+    bf16 kernels (-Xptxas -v); K3 its workspace's bytes and their traffic's
+    time at the HBM peak."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
@@ -890,29 +969,40 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches):
     p = swin.kernel_params()
     x = torch.tensor(rng.normal(0, 1, (8, 40, 40, 256)).astype(np.float32), device=dev).to(torch.bfloat16)
     bound_ms, bound_by = swin_bound(tuple(x.shape), x.dtype)
+    ms = cuda_ms(lambda: swin_block(x, p, 2))
     fwd = {"name": "swin_block_fwd", "launches": sum(v["swin_block_fwd"] for v in launches.values()),
            "launches_by_path": {k: v["swin_block_fwd"] for k, v in launches.items()},
            "max_abs_err": (swin_block(x, p, 2).float() - swin_block(x, p, 2, impl="plain").float()).abs().max().item(),
-           "ms": cuda_ms(lambda: swin_block(x, p, 2)),
-           "plain_ms": cuda_ms(lambda: swin_block(x, p, 2, impl="plain"), iters=5),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "ms": ms, "plain_ms": cuda_ms(lambda: swin_block(x, p, 2, impl="plain"), iters=5),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "tflops": swin_flops(tuple(x.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms,
+           "smem_bytes": S._lib().swin_block_fwd_smem_bytes(S._DTYPES[x.dtype], 256, 2),
+           "ptxas": {k: v for k, v in ptxas["swin_block_fwd"].items() if "mma" in k}}
     # K1 exact and K3: train at 640 px with batch 16 hands them (16, 40, 40, 256) bf16, fp32 masters
     tswin = swin_modules(tr.model)[0]
     tp = {k: v.detach() for k, v in tswin.kernel_params().items()}
     xt = torch.tensor(rng.normal(0, 1, (16, 40, 40, 256)).astype(np.float32), device=dev).to(torch.bfloat16)
     gt = torch.tensor(rng.normal(0, 1, (16, 40, 40, 256)).astype(np.float32), device=dev).to(torch.bfloat16)
+    ms = cuda_ms(lambda: swin_block(xt, tp, 2, fast=False))
+    bound_ms = swin_bound(tuple(xt.shape), xt.dtype)[0]
     fwd["train_exact"] = {
-        "shape": list(xt.shape), "ms": cuda_ms(lambda: swin_block(xt, tp, 2, fast=False)),
+        "shape": list(xt.shape), "ms": ms,
         "plain_ms": cuda_ms(lambda: swin_block(xt, tp, 2, fast=False, impl="plain"), iters=5),
-        "bound_ms": swin_bound(tuple(xt.shape), xt.dtype)[0]}
+        "bound_ms": bound_ms, "tflops": swin_flops(tuple(xt.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms}
     got, ref = swin_block_bwd(xt, gt, tp, 2), swin_block_bwd(xt, gt, tp, 2, impl="plain")
     bound_ms, bound_by = swin_bwd_bound(tuple(xt.shape), xt.dtype)
+    ms = cuda_ms(lambda: swin_block_bwd(xt, gt, tp, 2), iters=10)
+    ws_bytes = bwd_workspace_bytes(tuple(xt.shape), 2, xt.dtype)
     bwd = {"name": "swin_block_bwd", "launches": launches["train"]["swin_block_bwd"],
            "max_abs_err": (got[0].float() - ref[0].float()).abs().max().item(),
            "max_rel_err": max(bwd_errors(got, ref).values()),
-           "ms": cuda_ms(lambda: swin_block_bwd(xt, gt, tp, 2), iters=10),
-           "plain_ms": cuda_ms(lambda: swin_block_bwd(xt, gt, tp, 2, impl="plain"), iters=3),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "ms": ms, "plain_ms": cuda_ms(lambda: swin_block_bwd(xt, gt, tp, 2, impl="plain"), iters=3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "tflops": swin_bwd_flops(tuple(xt.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms,
+           # the workspace is written once and read back: its traffic at the HBM peak
+           "workspace_bytes": ws_bytes, "workspace_ms_at_peak": 2e3 * ws_bytes / PEAK_BYTES,
+           "smem_bytes": S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[xt.dtype], 256, 2),
+           "ptxas": {k: v for k, v in ptxas["swin_block_bwd"].items() if "bf16" in k or "mma" in k}}
     # K2: the train path hands it B=16, A=8400, G=4*max_gt=128 after mosaic, nc=1
     args = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED)
     got, ref = task_aligned_assign(*args, num_classes=1), task_aligned_assign(*args, num_classes=1, impl="plain")
@@ -976,7 +1066,8 @@ def main() -> int:
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
-                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches})
+                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches},
+                           build["ptxas"])
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

@@ -24,27 +24,50 @@
 //      head's q, k, v, do and probabilities). It writes dx, each token's
 //      operands of the weight-grad products (in the I/O dtype, already
 //      rounded) and each window's partial sums of the 8 vector grads.
-//   2. swin_bwd_wgrad_kernel x4: dW = G^T X over all tokens of all windows for wqkv,
-//      wout, w1 and w2, split over chunks of 1024 tokens, each chunk's
-//      partial product written to its own slice (no atomics).
+//   2. the weight-grad kernel x4: dW = G^T X over all tokens of all windows
+//      for wqkv, wout, w1 and w2, split over chunks of 1024 tokens, each
+//      chunk's partial product written to its own slice (no atomics).
 //   3. swin_bwd_sum_kernel x2: the chunks' and the windows' partials summed in a
 //      fixed order. The result does not depend on the order in which blocks
 //      run; it differs from the JAX kernel's band-sequential sum only in fp32
 //      rounding.
 //
-// Bound. Per real token ~72 C^2 FLOP of products (forward recompute 24 C^2,
-// the dX products 24 C^2, the dW products 24 C^2) plus ~12*49*C of window
-// attention; pad tokens add their k, v work. At B=16 and 40x40x256 that is
-// ~125 GFLOP: bound by operations (0.13 ms at the bf16 dense peak). This
-// first version runs every product on the CUDA cores in fp32 (64x64 output
-// tiles, 4x4 per thread, operand tiles staged in shared memory) and moves
-// ~1.3 GB of workspace; tensor cores are later work.
+// Bound. Per real token 64*C^2 FLOP of products (the forward recomputed as
+// far as the grads need it, qkv, out and fc1: 16 C^2; the dX products
+// gh W2, dpre W1, dout Wout, dqkv Wqkv: 24 C^2; the dW products over all
+// tokens: 24 C^2) plus 12*49*C of window attention (scores, a.v, dv, da,
+// dq, dk); pad tokens add their k, v work once (chip_smoke.py
+// swin_bwd_bound). At B=16 and 40x40x256 that is 111 GFLOP: 0.11 ms at the
+// bf16 dense peak, bound by operations. The products are 96 % of it.
+//
+// bf16 (the train path): every product runs on the tensor cores
+// (swin_mma.cuh: mma.sync m16n8k16 bf16 -> fp32). The window kernel's seven
+// products (qkv, out, fc1; gh W2, dpre W1, dout Wout, dqkv Wqkv) take their
+// A operand from the window's bf16 workspace rows and their weights from L2,
+// both through a 4-stage cp.async ring (64-row A tiles, 128-column B tiles,
+// 32 deep; the TRANS products read the weights k-major through
+// ldmatrix.trans); 8 warps in a 4 x 2 grid of 16 x 64 warp tiles. The
+// epilogues' reads (biases, the fp32 pre-activation, the residual) are
+// loaded for a whole fragment before its epilogue runs, so that their
+// latencies overlap. The weight-grad products run as a GEMM of 128 x 128
+// block tiles over each 1024-token chunk, both token-major operands through
+// ldmatrix.trans. The attention's per-head products stay scalar fp32 loops
+// (3.5 % of the FLOPs). The workspace keeps its layout: 0.71 GB per launch
+// at (16, 40, 40, 256), written once and read back.
+//
+// fp32 (the correctness cases only): the products run on the CUDA cores
+// (64x64 output tiles, 4x4 per thread, operand tiles staged in shared
+// memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "swin_mma.cuh"
+
 namespace {
+
+using swin_mma::PAD;
 
 constexpr int WS = 7;
 constexpr int NTOK = WS * WS;
@@ -56,6 +79,16 @@ constexpr int LD = TILE_K + 1;
 constexpr int TG_T = 32;        // tokens per tgemm tile
 constexpr int TG_LD = 64 + 1;
 constexpr int TG_CHUNK = 1024;  // tokens per tgemm split
+constexpr int NT = 8;           // n8 tiles per warp in the window's tensor-core products
+constexpr int RSTD = 2 * NTOK + 2;  // floats before the product tiles: LN1 and LN2 1/std, 16-byte aligned after
+constexpr int WG_TILE = 128;    // bf16 weight-grad block tile: 128 x 128 of dW
+constexpr int WG_LD = WG_TILE + PAD;
+constexpr int WG_STAGE = 2 * swin_mma::KT * WG_LD;  // a G tile and an X tile, KT tokens each
+constexpr size_t WG_SMEM = sizeof(__nv_bfloat16) * swin_mma::STAGES * WG_STAGE;
+static_assert(NTOK == swin_mma::NTOK && NTHREADS == swin_mma::NTHREADS, "one window per block of 256 threads");
+static_assert(TG_CHUNK % swin_mma::KT == 0, "a token chunk is whole ring stages");
+static_assert(swin_mma::ring_bytes<NT, true, false>() >= swin_mma::ring_bytes<NT, true, true>(),
+              "the window's ring is sized for its n-major products");
 constexpr float LN_EPS = 1e-5f;
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.39894228040143268f;
@@ -94,12 +127,28 @@ __device__ __forceinline__ float gelu_grad(float x) {
   return 0.5f * (1.f + erff(x * INV_SQRT2)) + x * (expf(-0.5f * x * x) * INV_SQRT_2PI);
 }
 
+struct Identity {
+  __device__ __forceinline__ int operator()(int n) const { return n; }
+};
+
 // out[r, n] = sum_k A[r * lda + k] * Wel(n, k) for r < NTOK, n < N, handed to
-// epi(r, n, acc); Wel(n, k) = W[n * ldw + k], or W[k * ldw + n] with TRANS.
-// K is a multiple of TILE_K. Ends with a barrier.
-template <bool TRANS, typename TA, typename TW, typename Epi>
-__device__ void gemm49(const TA* __restrict__ A, int lda, int K, const TW* __restrict__ W, int ldw,
-                       int N, float* as, float* wt, Epi epi) {
+// epi(r, n, acc, side values...); Wel(n, k) = W[n * ldw + k], or
+// W[k * ldw + n] with TRANS. The epilogue takes NSIDE side inputs s1, s2
+// (swin_mma.cuh Side: a workspace row or a bias). A and W are in global
+// memory; K is a multiple of TILE_K. bf16 runs on the tensor cores, both
+// operands streamed through the cp.async ring at `tiles` (swin_mma.cuh),
+// the side inputs of a fragment loaded together; fp32 on the CUDA cores,
+// operand tiles converted in shared memory. Ends with a barrier.
+template <bool TRANS, int NSIDE = 0, typename T, typename Epi>
+__device__ void gemm49(const T* __restrict__ A, int lda, int K, const T* __restrict__ W, int ldw, int N,
+                       float* tiles, Epi epi, swin_mma::Side s1 = swin_mma::Side(),
+                       swin_mma::Side s2 = swin_mma::Side()) {
+  if constexpr (sizeof(T) == 2) {
+    swin_mma::product_stream<NT, true, TRANS, NSIDE>(
+        A, lda, K, W, ldw, 0, N, Identity(), reinterpret_cast<T*>(tiles), epi, s1, s2);
+  } else {
+  float* as = tiles;
+  float* wt = tiles + 64 * LD;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   for (int n0 = 0; n0 < N; n0 += TILE_N) {
@@ -146,11 +195,15 @@ __device__ void gemm49(const TA* __restrict__ A, int lda, int K, const TW* __res
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + tx + 16 * j;
-        if (r < NTOK && n < N) epi(r, n, acc[i][j]);
+        if (r >= NTOK || n >= N) continue;
+        if constexpr (NSIDE == 0) epi(r, n, acc[i][j]);
+        else if constexpr (NSIDE == 1) epi(r, n, acc[i][j], s1.p[(size_t)r * s1.ld + n]);
+        else epi(r, n, acc[i][j], s1.p[(size_t)r * s1.ld + n], s2.p[(size_t)r * s2.ld + n]);
       }
     }
   }
   __syncthreads();
+  }
 }
 
 // Workspace of one launch. Token-major buffers hold row w*49 + t for token t
@@ -180,14 +233,12 @@ __global__ void __launch_bounds__(NTHREADS)
                       const float* __restrict__ ln2b, const T* __restrict__ w1,
                       const float* __restrict__ b1, const T* __restrict__ w2,
                       const float* __restrict__ b2, Work<T> wk) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int hd = C / heads;
   const int hl = hd + 1;
   float* rstd1 = smem;
   float* rstd2 = smem + NTOK;
-  float* big = smem + 2 * NTOK;
-  float* as = big;             // product tiles
-  float* wt = big + 64 * LD;
+  float* big = smem + RSTD;
   float* q_s = big;            // attention: one head's q, k, v, do and two 49x49 planes
   float* k_s = q_s + NTOK * hl;
   float* v_s = k_s + NTOK * hl;
@@ -259,8 +310,9 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();
 
   // ---- qkv = xn Wqkv^T + b, rounded ----
-  gemm49<false>(xn, C, C, wqkv, C, C3, as, wt,
-                [&](int r, int n, float acc) { qkv[r * C3 + n] = from_f<T>(acc + bqkv[n]); });
+  gemm49<false, 1>(
+      xn, C, C, wqkv, C, C3, big, [&](int r, int n, float acc, float b) { qkv[r * C3 + n] = from_f<T>(acc + b); },
+      {bqkv, 0});
 
   // ---- attention, one head at a time ----
   for (int hh = 0; hh < heads; ++hh) {
@@ -308,8 +360,9 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 
   // ---- y1 = xn32 + (o Wout^T + b) ----
-  gemm49<false>(o, C, C, wout, C, C, as, wt,
-                [&](int r, int n, float acc) { y1[r * C + n] = y1[r * C + n] + (acc + bout[n]); });
+  gemm49<false, 2>(
+      o, C, C, wout, C, C, big, [&](int r, int n, float acc, float y, float b) { y1[r * C + n] = y + (acc + b); },
+      {y1, C}, {bout, 0});
 
   // ---- LN2 ----
   for (int t = warp; t < NTOK; t += NWARPS) {
@@ -333,27 +386,29 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();
 
   // ---- pre = y1n W1^T + b1; h = gelu(pre), rounded ----
-  gemm49<false>(y1n, C, C, w1, C, C4, as, wt, [&](int r, int n, float acc) {
-    const float p = acc + b1[n];
+  gemm49<false, 1>(y1n, C, C, w1, C, C4, big, [&](int r, int n, float acc, float b) {
+    const float p = acc + b;
     pre[r * C4 + n] = p;
     hb[r * C4 + n] = from_f<T>(gelu(p));
-  });
+  }, {b1, 0});
 
   // ---- incoming grad; zero on pad tokens ----
-  for (int e = threadIdx.x; e < NTOK * C; e += NTHREADS) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy (g 16-byte aligned, C % 8 == 0)
+  for (int e = threadIdx.x; e < NTOK * C / V; e += NTHREADS) {
     int h, w;
-    const int t = e / C;
-    const bool in = token_hw(t, h, w);
-    gh[e] = in ? g[(((size_t)b * H + h) * W + w) * C + (e % C)] : from_f<T>(0.f);
+    const int t = e / (C / V), c = (e % (C / V)) * V;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (token_hw(t, h, w)) v = *reinterpret_cast<const uint4*>(g + (((size_t)b * H + h) * W + w) * C + c);
+    *reinterpret_cast<uint4*>(gh + t * C + c) = v;
   }
   __syncthreads();
 
   // ---- dpre = (gh W2) * gelu'(pre) ----
-  gemm49<true>(gh, C, C, w2, C4, C4, as, wt, [&](int r, int n, float acc) {
-    const float dp = acc * gelu_grad(pre[r * C4 + n]);
+  gemm49<true, 1>(gh, C, C, w2, C4, C4, big, [&](int r, int n, float acc, float p) {
+    const float dp = acc * gelu_grad(p);
     pre[r * C4 + n] = dp;
     dpre[r * C4 + n] = from_f<T>(dp);
-  });
+  }, {pre, C4});
   for (int n = threadIdx.x; n < C4; n += NTHREADS) {
     float s = 0.f;
     for (int r = 0; r < NTOK; ++r) s += pre[r * C4 + n];
@@ -366,7 +421,7 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 
   // ---- dy1n = dpre_b W1 ----
-  gemm49<true>(dpre, C4, C4, w1, C, C, as, wt,
+  gemm49<true>(dpre, C4, C4, w1, C, C, big,
                [&](int r, int n, float acc) { dy1n[r * C + n] = acc; });
   for (int n = threadIdx.x; n < C; n += NTHREADS) {
     float s1 = 0.f, s2 = 0.f;
@@ -402,7 +457,7 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 
   // ---- do = dout Wout, rounded ----
-  gemm49<true>(dout, C, C, wout, C, C, as, wt,
+  gemm49<true>(dout, C, C, wout, C, C, big,
                [&](int r, int n, float acc) { dob[r * C + n] = from_f<T>(acc); });
 
   // ---- attention backward, one head at a time ----
@@ -469,8 +524,8 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 
   // ---- dxn = dy1 + dqkv_b Wqkv ----
-  gemm49<true>(dqkv, C3, C3, wqkv, C, C, as, wt,
-               [&](int r, int n, float acc) { y1[r * C + n] = y1[r * C + n] + acc; });
+  gemm49<true, 1>(
+      dqkv, C3, C3, wqkv, C, C, big, [&](int r, int n, float acc, float y) { y1[r * C + n] = y + acc; }, {y1, C});
   for (int n = threadIdx.x; n < C; n += NTHREADS) {
     float s1 = 0.f, s2 = 0.f;
     for (int r = 0; r < NTOK; ++r) {
@@ -556,6 +611,96 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// The same product for bf16 on the tensor cores: a 128 x 128 block tile of
+// dW, 8 warps in a 4 x 2 grid of 32 x 64 warp tiles; the G and X tiles of
+// KT tokens stream through a STAGES-deep cp.async ring and both enter the
+// mma through ldmatrix.trans (they are token-major). Tokens past the chunk
+// and rows past I or J are zero-filled.
+__global__ void __launch_bounds__(NTHREADS)
+    swin_bwd_wgrad_mma_kernel(const __nv_bfloat16* __restrict__ G, const __nv_bfloat16* __restrict__ X, int N,
+                              int I, int J, size_t E, float* __restrict__ part) {
+  using swin_mma::bf16;
+  using swin_mma::KT;
+  using swin_mma::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_wg);
+  const int j0 = blockIdx.x * WG_TILE;
+  const int i0 = blockIdx.y * WG_TILE;
+  const int s = blockIdx.z;
+  const int tbeg = s * TG_CHUNK;
+  const int tend = min(N, tbeg + TG_CHUNK);
+  const int nk = (tend - tbeg + KT - 1) / KT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+
+  auto load = [&](int it) {
+    bf16* gt = ring + (it % STAGES) * WG_STAGE;
+    bf16* xt = gt + KT * WG_LD;
+    const int t0 = tbeg + it * KT;
+    for (int e = threadIdx.x; e < KT * (WG_TILE / 8); e += NTHREADS) {
+      const int tr = e / (WG_TILE / 8), c = (e % (WG_TILE / 8)) * 8;
+      const size_t tok = (size_t)t0 + tr;
+      const bool tok_ok = t0 + tr < tend;
+      const bool gok = tok_ok && i0 + c < I, xok = tok_ok && j0 + c < J;
+      swin_mma::cp_async16(gt + tr * WG_LD + c, gok ? G + tok * I + i0 + c : G, gok);
+      swin_mma::cp_async16(xt + tr * WG_LD + c, xok ? X + tok * J + j0 + c : X, xok);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st);
+    swin_mma::cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    swin_mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (it + STAGES - 1 < nk) load(it + STAGES - 1);
+    swin_mma::cp_async_commit();
+    const bf16* gt = ring + (it % STAGES) * WG_STAGE;
+    const bf16* xt = gt + KT * WG_LD;
+#pragma unroll
+    for (int ks = 0; ks < KT; ks += 16) {
+      // A[i][t] = G[t][i]: a 16 x 16 fragment from the token-major tile, transposed;
+      // all fragments of the step are loaded before its products
+      uint32_t a[2][4], b[4][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        swin_mma::ldsm_x4_t(a[m], gt + (ks + (lane & 7) + ((lane >> 4) << 3)) * WG_LD + wm * 32 + m * 16 +
+                            (((lane >> 3) & 1) << 3));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) swin_mma::load_b<true>(b[jp], xt, WG_LD, ks, wn * 64 + jp * 16, lane);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          swin_mma::mma_bf16(acc[m][2 * jp], a[m], b[jp][0], b[jp][1]);
+          swin_mma::mma_bf16(acc[m][2 * jp + 1], a[m], b[jp][2], b[jp][3]);
+        }
+    }
+  }
+  swin_mma::cp_async_wait<0>();
+  float* out = part + (size_t)s * E;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + wm * 32 + m * 16 + (lane >> 2) + h * 8;
+        const int jj = j0 + wn * 64 + j * 8 + (lane & 3) * 2;
+        if (i < I && jj < J) {  // J is a multiple of 8: jj + 1 < J too
+          out[(size_t)i * J + jj] = acc[m][j][2 * h];
+          out[(size_t)i * J + jj + 1] = acc[m][j][2 * h + 1];
+        }
+      }
+}
+
 // out[e] = sum over r of in[r * cols + e], r ascending
 __global__ void swin_bwd_sum_kernel(const float* __restrict__ in, int rows, size_t cols, float* __restrict__ out) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -565,11 +710,12 @@ __global__ void swin_bwd_sum_kernel(const float* __restrict__ in, int rows, size
   out[e] = s;
 }
 
-size_t smem_bytes(int C, int heads) {
+// bytes of shared memory of the window kernel (exported as swin_block_bwd_smem_bytes)
+size_t smem_bytes(int dtype, int C, int heads) {
   const int hd = C / heads;
-  const size_t tiles = 2 * 64 * LD;
+  const size_t tiles = dtype == 1 ? swin_mma::ring_bytes<NT, true, false>() / sizeof(float) : 2 * 64 * LD;
   const size_t attn = 4 * (size_t)NTOK * (hd + 1) + 2 * NTOK * NTOK;
-  return sizeof(float) * (2 * NTOK + (tiles > attn ? tiles : attn));
+  return sizeof(float) * (RSTD + (tiles > attn ? tiles : attn));
 }
 
 struct Sizes {
@@ -616,7 +762,8 @@ int launch(const void* x, const void* g, void* dx, int B, int H, int W, int C, i
   wk.vpart = wk.a32 + z.windows * heads * NTOK * NTOK;
   float* wpart = wk.vpart + z.windows * 13 * Cs;
 
-  const size_t smem = smem_bytes(C, heads);
+  constexpr bool MMA = sizeof(T) == 2;
+  const size_t smem = smem_bytes(MMA ? 1 : 0, C, heads);
   cudaError_t err = cudaFuncSetAttribute(swin_bwd_window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -635,10 +782,19 @@ int launch(const void* x, const void* g, void* dx, int B, int H, int W, int C, i
     int i, j;
   } prods[4] = {{wk.dqkv, wk.xn, 3 * C, C}, {wk.dout, wk.o, C, C}, {wk.dpre, wk.y1n, 4 * C, C},
                 {wk.gh, wk.h, C, 4 * C}};
+  if constexpr (MMA) {
+    err = cudaFuncSetAttribute(swin_bwd_wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WG_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
   size_t off = 0;
   for (const Prod& p : prods) {
-    const dim3 grid((p.j + 63) / 64, (p.i + 63) / 64, (unsigned)z.chunks);
-    swin_bwd_wgrad_kernel<T><<<grid, NTHREADS, 0, stream>>>(p.g, p.x, (int)N, p.i, p.j, E, wpart + off);
+    if constexpr (MMA) {
+      const dim3 grid((p.j + WG_TILE - 1) / WG_TILE, (p.i + WG_TILE - 1) / WG_TILE, (unsigned)z.chunks);
+      swin_bwd_wgrad_mma_kernel<<<grid, NTHREADS, WG_SMEM, stream>>>(p.g, p.x, (int)N, p.i, p.j, E, wpart + off);
+    } else {
+      const dim3 grid((p.j + 63) / 64, (p.i + 63) / 64, (unsigned)z.chunks);
+      swin_bwd_wgrad_kernel<T><<<grid, NTHREADS, 0, stream>>>(p.g, p.x, (int)N, p.i, p.j, E, wpart + off);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     off += (size_t)p.i * p.j;
   }
@@ -653,6 +809,10 @@ int launch(const void* x, const void* g, void* dx, int B, int H, int W, int C, i
 }  // namespace
 
 extern "C" {
+
+// Bytes of shared memory one block of the window kernel for this dtype
+// (0 = float32, 1 = bfloat16) takes at this C and head count.
+size_t swin_block_bwd_smem_bytes(int dtype, int C, int heads) { return smem_bytes(dtype, C, heads); }
 
 // Elements of the two workspaces a launch at this shape needs: in the I/O
 // dtype (t_elems) and in fp32 (f_elems).
@@ -675,7 +835,7 @@ int swin_block_bwd(int dtype, const void* x, const void* g, void* dx, int B, int
   if (dtype == 0)
     return launch<float>(x, g, dx, B, H, W, C, heads, ln1w, ln1b, wqkv, bqkv, wout, bout, ln2w, ln2b, w1, b1,
                          w2, b2, tws, fws, gout, s);
-  if (dtype == 1)
+  if (dtype == 1 && C % 32 == 0)  // the tensor-core tiles
     return launch<__nv_bfloat16>(x, g, dx, B, H, W, C, heads, ln1w, ln1b, wqkv, bqkv, wout, bout, ln2w, ln2b,
                                  w1, b1, w2, b2, tws, fws, gout, s);
   return (int)cudaErrorInvalidValue;

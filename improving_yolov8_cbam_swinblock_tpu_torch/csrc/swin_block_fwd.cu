@@ -21,54 +21,77 @@
 // tanh GELU in bf16 (each operation rounded); otherwise the LN1 affine is fp32
 // and the GELU is the exact erf form.
 //
-// Bound. Per window at C=256: 2*49*C*3C + 4*49*49*C + 2*49*C*C + 16*49*C*C
-// ~ 79.6 MFLOP against 2*49*C*2 bytes of activations, far above the card's
-// ~295 FLOP/byte ridge: the kernel is bound by operations. This first version
-// runs its products on the CUDA cores in fp32 (64x64 output tiles, 4x4 per
-// thread, weight tiles staged through shared memory from L2, where the 1.5-3 MB
-// of weights stay resident); tensor-core products (mma/wgmma) are later work.
-// Shared memory per block: two 49xC fp32 buffers (normed tokens / residual
-// stream, attention output / LN2 output), one head's q|k|v (49 x 3*hd, reused
-// for a 49x128 chunk of the MLP hidden), the 49x49 probabilities and a 64x32
-// weight tile: 194 KB at C=256, 106 KB at C=128.
+// Bound. Per real token 24*C^2 FLOP of products (qkv 6, out 2, fc1 8, fc2 8)
+// and 4*49*C of attention (scores and a.v over the window's 49 keys), one
+// pad row's k, v once (chip_smoke.py swin_bound): 22.9 GFLOP at
+// (8, 40, 40, 256), 21 us at the bf16 dense peak, against 26 MB of
+// activations and weights: bound by operations. The products are 97 % of it.
+//
+// bf16 (every path on the card): all six products of a window run on the
+// tensor cores (swin_mma.cuh: mma.sync m16n8k16 bf16 -> fp32, the 49 tokens
+// padded to 64 rows, 16 warps in a 4 x 4 grid of 16 x 32 warp tiles). Each
+// product's A operand is staged in shared memory as bf16, already rounded
+// where the function rounds it: the LN1 output, q, the probabilities, a
+// head's output, the LN2 output and a 128-column chunk of the MLP hidden.
+// The weights stream from L2 (1.5 MB at C=256, resident there) through a
+// 4-stage cp.async ring of 128 x 32 tiles; k and v of a head are read where
+// they lie. Epilogues run on the fp32 accumulators in registers: bias (the
+// biases staged in shared memory), rounding, GELU, residual. The
+// out-projection is split over heads (each head's output is multiplied by
+// its hd columns of Wout and added to the fp32 residual stream), so that a
+// head's output needs no C-wide buffer. The window is read and written 16
+// bytes per thread. Shared memory per block: the fp32 residual stream
+// (49 x C), the biases (9C), the bf16 LN output (64 x C), one head's q, k,
+// v (3 x 64 x hd; the MLP hidden chunk later) and the ring, over which the
+// scores and probabilities lie during attention: 182 KB at C=256, 2 heads,
+// so one block per SM.
+//
+// fp32 (the correctness cases only): the products run on the CUDA cores in
+// fp32 (64x64 output tiles, 4x4 per thread, weight tiles staged through
+// shared memory) over fp32 copies of the same operands: 194 KB at C=256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "swin_mma.cuh"
+
 namespace {
+
+using swin_mma::bf16;
+using swin_mma::MROWS;
+using swin_mma::PAD;
 
 constexpr int WS = 7;
 constexpr int NTOK = WS * WS;
-constexpr int NTHREADS = 256;
+constexpr int NTHREADS = 256;  // the fp32 kernel's block
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int TILE_N = 64;
 constexpr int TILE_K = 32;
 constexpr int WT_LD = TILE_K + 1;
-constexpr int HC = 128;  // MLP hidden columns per chunk
+constexpr int HC = 128;           // MLP hidden columns per chunk
+constexpr int P_LD = MROWS + PAD;  // row stride of the bf16 probabilities
+constexpr int WN = 4;             // warp columns of the tensor-core products: 16 warps in a 4 x 4 grid
+constexpr int MMA_THREADS = 128 * WN;
+constexpr int NT = 4;             // n8 tiles per warp: 128-column blocks
+constexpr size_t RING_BYTES = swin_mma::ring_bytes<NT, false, false, WN>();
 constexpr float LN_EPS = 1e-5f;
+static_assert(NTOK == swin_mma::NTOK, "one window per block");
+static_assert(RING_BYTES >= sizeof(float) * NTOK * NTOK && RING_BYTES >= sizeof(bf16) * MROWS * P_LD,
+              "the scores and the probabilities lie over the ring");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// round to the I/O dtype and back to fp32
-template <typename T>
-__device__ __forceinline__ float rnd(float v);
-template <>
-__device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// round to bf16 and back to fp32
+__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -82,13 +105,272 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// out[r, n] = sum_k rnd(A[r, k]) * W[wrow(n) * ldw + koff + k] for r < NTOK,
-// n < N, handed to epi(r, n, acc). A is fp32 in shared memory (lda), W in
-// global memory. K is a multiple of TILE_K. Ends with a barrier, so the
+// MLP activation of the fc1 output: the tanh form at bf16 with every
+// operation rounded (fast mode, bf16), else the exact erf form
+__device__ __forceinline__ float gelu_fwd(float pre, bool bf16_fast) {
+  if (!bf16_fast) return 0.5f * pre * (1.f + erff(pre * 0.70710678118654752f));
+  const float pb = bf(pre);
+  float t = bf(0.044715f * pb);
+  t = bf(t * pb);
+  t = bf(t * pb);
+  t = bf(pb + t);
+  t = bf(0.7978845608f * t);
+  t = bf(tanhf(t));
+  t = bf(1.f + t);
+  return bf(0.5f * pb) * t;
+}
+
+// Gather the window's tokens into res (NTOK x C, fp32), zero past the edge;
+// bf16 x 8 channels per 16-byte load (x 16-byte aligned, C % 8 == 0)
+template <typename T>
+__device__ void gather_window(const T* __restrict__ x, int b, int wy, int wx, int H, int W, int C, float* res) {
+  constexpr int V = 16 / sizeof(T);
+  const int cv = C / V;
+  for (int e = threadIdx.x; e < NTOK * cv; e += blockDim.x) {
+    const int t = e / cv, c = (e % cv) * V;
+    const int h = wy * WS + t / WS;
+    const int w = wx * WS + t % WS;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (h < H && w < W) v = *reinterpret_cast<const uint4*>(x + (((size_t)b * H + h) * W + w) * C + c);
+    const T* vt = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) res[t * C + c + i] = to_f(vt[i]);
+  }
+  __syncthreads();
+}
+
+// LN1 of the gathered rows of res in place, one warp per token; if xn is
+// given, the output rounded to bf16 into xn too (row stride ldx). The
+// affine runs at bf16 with every operation rounded when bf16_fast, else in
+// fp32.
+__device__ void ln1_rows(float* res, int C, bool bf16_fast, const float* __restrict__ lw,
+                         const float* __restrict__ lb, bf16* xn, int ldx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inv_c = 1.f / (float)C;
+  for (int t = warp; t < NTOK; t += blockDim.x >> 5) {
+    float* row = res + t * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mean = warp_sum(s) * inv_c;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      ss += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(ss) * inv_c + LN_EPS);
+    for (int c = lane; c < C; c += 32) {
+      const float n = (row[c] - mean) * rstd;
+      const float v = bf16_fast ? bf(bf(bf(n) * bf(lw[c])) + bf(lb[c])) : n * lw[c] + lb[c];
+      row[c] = v;
+      if (xn) xn[t * ldx + c] = __float2bfloat16(v);
+    }
+  }
+  __syncthreads();
+}
+
+// LN2 (fp32 affine) of the residual stream res, rounded to O, into out
+// (row stride ldo), one warp per token
+template <typename O>
+__device__ void ln2_window(const float* res, int C, const float* __restrict__ lw, const float* __restrict__ lb,
+                           O* out, int ldo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inv_c = 1.f / (float)C;
+  for (int t = warp; t < NTOK; t += blockDim.x >> 5) {
+    const float* row = res + t * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mean = warp_sum(s) * inv_c;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      ss += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(ss) * inv_c + LN_EPS);
+    for (int c = lane; c < C; c += 32) out[t * ldo + c] = from_f<O>((row[c] - mean) * rstd * lw[c] + lb[c]);
+  }
+  __syncthreads();
+}
+
+// write the window's in-range tokens of the residual stream to y, 16 bytes
+// per store (y 16-byte aligned, C % 8 == 0)
+template <typename T>
+__device__ void store_window(const float* res, T* __restrict__ y, int b, int wy, int wx, int H, int W, int C) {
+  constexpr int V = 16 / sizeof(T);
+  const int cv = C / V;
+  for (int e = threadIdx.x; e < NTOK * cv; e += blockDim.x) {
+    const int t = e / cv, c = (e % cv) * V;
+    const int h = wy * WS + t / WS;
+    const int w = wx * WS + t % WS;
+    if (h >= H || w >= W) continue;
+    uint4 v;
+    T* vt = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) vt[i] = from_f<T>(res[t * C + c + i]);
+    *reinterpret_cast<uint4*>(y + (((size_t)b * H + h) * W + w) * C + c) = v;
+  }
+}
+
+struct Identity {
+  __device__ __forceinline__ int operator()(int n) const { return n; }
+};
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core products
+// ---------------------------------------------------------------------------
+
+// Byte offsets of the bf16 kernel's shared memory (smem_bytes repeats its total)
+struct MmaLayout {
+  size_t bias, xn, head, ring, total;
+  __host__ __device__ MmaLayout(int C, int heads) {
+    const int hd = C / heads;
+    const int head_elems = 3 * MROWS * (hd + PAD) > MROWS * (HC + PAD) ? 3 * MROWS * (hd + PAD) : MROWS * (HC + PAD);
+    bias = sizeof(float) * NTOK * C;               // after the fp32 residual stream
+    xn = bias + sizeof(float) * 9 * C;             // after bqkv, bout, b1, b2 (fp32)
+    head = xn + sizeof(bf16) * MROWS * (C + PAD);  // after the bf16 LN output
+    ring = head + sizeof(bf16) * head_elems;
+    total = ring + RING_BYTES;
+  }
+};
+
+// Softmax of each row of the scores sc (NTOK x NTOK fp32), one warp per row,
+// into the probabilities p (MROWS x P_LD bf16, rounded; zero past column and
+// row NTOK). p lies over sc: each warp holds its rows in registers across a
+// barrier. Ends with a barrier.
+__device__ void softmax_rows(const float* sc, bf16* p) {
+  constexpr int RPW = (NTOK + MMA_THREADS / 32 - 1) / (MMA_THREADS / 32);  // rows per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool two = lane + 32 < NTOK;
+  float p0[RPW], p1[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int t = warp + i * (MMA_THREADS / 32);
+    p0[i] = p1[i] = 0.f;
+    if (t < NTOK) {  // warp-uniform
+      const float v0 = sc[t * NTOK + lane];
+      const float v1 = two ? sc[t * NTOK + lane + 32] : v0;
+      const float m = warp_max(fmaxf(v0, v1));
+      const float e0 = expf(v0 - m);
+      const float e1 = two ? expf(v1 - m) : 0.f;
+      const float s = warp_sum(e0 + e1);
+      p0[i] = e0 / s;
+      p1[i] = two ? e1 / s : 0.f;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int t = warp + i * (MMA_THREADS / 32);
+    if (t < NTOK) {
+      p[t * P_LD + lane] = __float2bfloat16(p0[i]);
+      p[t * P_LD + lane + 32] = __float2bfloat16(p1[i]);
+    }
+  }
+  for (int e = threadIdx.x; e < (MROWS - NTOK) * P_LD; e += MMA_THREADS) p[NTOK * P_LD + e] = __float2bfloat16(0.f);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+    swin_block_fwd_mma_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int H, int W, int C, int heads,
+                              int fast, float scale, const float* __restrict__ ln1w,
+                              const float* __restrict__ ln1b, const bf16* __restrict__ wqkv,
+                              const float* __restrict__ bqkv, const bf16* __restrict__ wout,
+                              const float* __restrict__ bout, const float* __restrict__ ln2w,
+                              const float* __restrict__ ln2b, const bf16* __restrict__ w1,
+                              const float* __restrict__ b1, const bf16* __restrict__ w2,
+                              const float* __restrict__ b2) {
+  using swin_mma::product_smem;
+  using swin_mma::product_stream;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const MmaLayout L(C, heads);
+  const int hd = C / heads;
+  const int ldx = C + PAD;   // row stride of the bf16 LN output
+  const int ldh = hd + PAD;  // row stride of q, k, v and a head's output
+  const int ldm = HC + PAD;  // row stride of the MLP hidden chunk
+  float* res = reinterpret_cast<float*>(smem);         // LN1 output, then the residual stream (fp32)
+  float* bqkv_s = reinterpret_cast<float*>(smem + L.bias);  // the biases, read by the epilogues
+  float* bout_s = bqkv_s + 3 * C;
+  float* b1_s = bout_s + C;
+  float* b2_s = b1_s + 4 * C;
+  bf16* xn = reinterpret_cast<bf16*>(smem + L.xn);     // LN1 output, then LN2 output (bf16)
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L.head);  // q, then the head's output
+  bf16* k_s = q_s + MROWS * ldh;
+  bf16* v_s = k_s + MROWS * ldh;
+  bf16* hid = q_s;  // the MLP hidden chunk, after attention
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  float* sc = reinterpret_cast<float*>(ring);  // one head's scores, then its probabilities, between products
+  bf16* p_s = ring;
+
+  // zero everything once: pad rows are never stored, and v's must be zero
+  // (the pad columns of p multiply them)
+  for (size_t e = threadIdx.x; e < L.total / 16; e += MMA_THREADS) reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int nwh = (H + WS - 1) / WS;
+  const int nww = (W + WS - 1) / WS;
+  const int b = blockIdx.x / (nwh * nww);
+  const int wy = (blockIdx.x / nww) % nwh;
+  const int wx = blockIdx.x % nww;
+  const bool bf16_fast = fast != 0;
+
+  for (int e = threadIdx.x; e < 9 * C; e += MMA_THREADS)
+    bqkv_s[e] = e < 3 * C ? bqkv[e] : e < 4 * C ? bout[e - 3 * C] : e < 8 * C ? b1[e - 4 * C] : b2[e - 8 * C];
+  gather_window(x, b, wy, wx, H, W, C, res);
+  ln1_rows(res, C, bf16_fast, ln1w, ln1b, xn, ldx);
+
+  for (int hh = 0; hh < heads; ++hh) {
+    // columns [0, hd) q, [hd, 2hd) k, [2hd, 3hd) v of this head
+    auto qkv_row = [=](int n) {
+      const int seg = (n >= hd) + (n >= 2 * hd);
+      return seg * C + hh * hd + (n - seg * hd);
+    };
+    product_stream<NT, false, false, 0, WN>(xn, ldx, C, wqkv, C, 0, 3 * hd, qkv_row, ring,
+                                             [&](int r, int n, float acc) {
+                                               const int seg = (n >= hd) + (n >= 2 * hd);
+                                               q_s[seg * MROWS * ldh + r * ldh + (n - seg * hd)] =
+                                                   __float2bfloat16(acc + bqkv_s[qkv_row(n)]);
+                                             });
+    product_smem<NT, false, WN>(q_s, ldh, k_s, ldh, hd, NTOK,
+                            [&](int r, int n, float acc) { sc[r * NTOK + n] = acc * scale; });
+    softmax_rows(sc, p_s);
+    product_smem<NT, true, WN>(p_s, P_LD, v_s, ldh, MROWS, hd,
+                           [&](int r, int n, float acc) { q_s[r * ldh + n] = __float2bfloat16(acc); });
+    // out-projection of this head's columns; residual onto the normed tokens
+    product_stream<NT, false, false, 0, WN>(q_s, ldh, hd, wout, C, hh * hd, C, Identity(), ring,
+                                             [&](int r, int n, float acc) {
+                                               float& v = res[r * C + n];
+                                               v = hh == 0 ? v + (acc + bout_s[n]) : v + acc;
+                                             });
+  }
+
+  // the hidden chunk's pad rows lie where q, k, v were
+  for (int e = threadIdx.x; e < (MROWS - NTOK) * ldm; e += MMA_THREADS) hid[NTOK * ldm + e] = __float2bfloat16(0.f);
+  ln2_window(res, C, ln2w, ln2b, xn, ldx);
+
+  // ---- MLP in hidden chunks; fc2 accumulates onto the residual stream ----
+  for (int h0 = 0; h0 < 4 * C; h0 += HC) {
+    product_stream<NT, false, false, 0, WN>(
+        xn, ldx, C, w1, C, 0, HC, [=](int n) { return h0 + n; }, ring, [&](int r, int n, float acc) {
+          hid[r * ldm + n] = __float2bfloat16(gelu_fwd(acc + b1_s[h0 + n], bf16_fast));
+        });
+    product_stream<NT, false, false, 0, WN>(hid, ldm, HC, w2, 4 * C, h0, C, Identity(), ring,
+                                             [&](int r, int n, float acc) {
+                                               res[r * C + n] += h0 == 0 ? acc + b2_s[n] : acc;
+                                             });
+  }
+  store_window(res, y, b, wy, wx, H, W, C);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core products
+// ---------------------------------------------------------------------------
+
+// out[r, n] = sum_k A[r, k] * W[wrow(n) * ldw + koff + k] for r < NTOK,
+// n < N, handed to epi(r, n, acc). A is in shared memory (lda), W in global
+// memory. K is a multiple of TILE_K. Ends with a barrier, so the
 // epilogue's writes are visible to the next phase.
-template <typename T, typename RowMap, typename Epi>
-__device__ void block_gemm(const float* A, int lda, int K, const T* __restrict__ W, int ldw,
-                           int koff, int N, RowMap wrow, float* wt, Epi epi) {
+template <typename RowMap, typename Epi>
+__device__ void block_gemm(const float* A, int lda, int K, const float* __restrict__ W, int ldw, int koff, int N,
+                           RowMap wrow, float* wt, Epi epi) {
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   for (int n0 = 0; n0 < N; n0 += TILE_N) {
@@ -103,8 +385,7 @@ __device__ void block_gemm(const float* A, int lda, int K, const T* __restrict__
         const int c = e / TILE_K;
         const int kk = e % TILE_K;
         const int n = n0 + c;
-        wt[c * WT_LD + kk] =
-            n < N ? to_f(W[(size_t)wrow(n) * ldw + koff + k0 + kk]) : 0.f;
+        wt[c * WT_LD + kk] = n < N ? W[(size_t)wrow(n) * ldw + koff + k0 + kk] : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -113,7 +394,7 @@ __device__ void block_gemm(const float* A, int lda, int K, const T* __restrict__
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int r = ty + 16 * i;
-          a[i] = r < NTOK ? rnd<T>(A[r * lda + k0 + kk]) : 0.f;
+          a[i] = r < NTOK ? A[r * lda + k0 + kk] : 0.f;
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) b[j] = wt[(tx + 16 * j) * WT_LD + kk];
@@ -136,24 +417,18 @@ __device__ void block_gemm(const float* A, int lda, int K, const T* __restrict__
   __syncthreads();
 }
 
-struct Identity {
-  __device__ __forceinline__ int operator()(int n) const { return n; }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    swin_block_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int C,
-                          int heads, int fast, float scale, const float* __restrict__ ln1w,
-                          const float* __restrict__ ln1b, const T* __restrict__ wqkv,
-                          const float* __restrict__ bqkv, const T* __restrict__ wout,
-                          const float* __restrict__ bout, const float* __restrict__ ln2w,
-                          const float* __restrict__ ln2b, const T* __restrict__ w1,
-                          const float* __restrict__ b1, const T* __restrict__ w2,
-                          const float* __restrict__ b2) {
-  extern __shared__ float smem[];
+    swin_block_fwd_f32_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, int C, int heads,
+                              float scale, const float* __restrict__ ln1w, const float* __restrict__ ln1b,
+                              const float* __restrict__ wqkv, const float* __restrict__ bqkv,
+                              const float* __restrict__ wout, const float* __restrict__ bout,
+                              const float* __restrict__ ln2w, const float* __restrict__ ln2b,
+                              const float* __restrict__ w1, const float* __restrict__ b1,
+                              const float* __restrict__ w2, const float* __restrict__ b2) {
+  extern __shared__ float smem_f[];
   const int hd = C / heads;
   const int ldq = 3 * hd + 1;  // odd stride: rows of k and v fall in distinct banks
-  float* xn_s = smem;                  // normed tokens, then the fp32 residual stream
+  float* xn_s = smem_f;                // normed tokens, then the fp32 residual stream
   float* o_s = xn_s + NTOK * C;        // attention output, then the LN2 output
   float* p_s = o_s + NTOK * C;         // one head's probabilities
   float* wt_s = p_s + NTOK * NTOK;     // weight tile
@@ -166,36 +441,9 @@ __global__ void __launch_bounds__(NTHREADS)
   const int wx = blockIdx.x % nww;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bool bf16_fast = fast && sizeof(T) == 2;
-  const float inv_c = 1.f / (float)C;
 
-  // ---- gather the window and LN1 (one warp per token) ----
-  for (int t = warp; t < NTOK; t += NWARPS) {
-    const int h = wy * WS + t / WS;
-    const int w = wx * WS + t % WS;
-    const bool inside = h < H && w < W;
-    const T* src = x + (((size_t)b * H + h) * W + w) * C;
-    float* row = xn_s + t * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = inside ? to_f(src[c]) : 0.f;
-      row[c] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) * inv_c;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      ss += d * d;
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(ss) * inv_c + LN_EPS);
-    for (int c = lane; c < C; c += 32) {
-      const float n = (row[c] - mean) * rstd;
-      row[c] = bf16_fast ? rnd<T>(rnd<T>(rnd<T>(n) * rnd<T>(ln1w[c])) + rnd<T>(ln1b[c]))
-                         : n * ln1w[c] + ln1b[c];
-    }
-  }
-  __syncthreads();
+  gather_window(x, b, wy, wx, H, W, C, xn_s);
+  ln1_rows(xn_s, C, false, ln1w, ln1b, nullptr, 0);
 
   // ---- attention, one head at a time ----
   for (int hh = 0; hh < heads; ++hh) {
@@ -204,10 +452,8 @@ __global__ void __launch_bounds__(NTHREADS)
       const int seg = n / hd;
       return seg * C + hh * hd + (n - seg * hd);
     };
-    block_gemm<T>(xn_s, C, C, wqkv, C, 0, 3 * hd, qkv_row, wt_s,
-                  [&](int r, int n, float acc) {
-                    q_s[r * ldq + n] = rnd<T>(acc + bqkv[qkv_row(n)]);
-                  });
+    block_gemm(xn_s, C, C, wqkv, C, 0, 3 * hd, qkv_row, wt_s,
+               [&](int r, int n, float acc) { q_s[r * ldq + n] = acc + bqkv[qkv_row(n)]; });
     for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
       const float* qi = q_s + (e / NTOK) * ldq;
       const float* kj = q_s + (e % NTOK) * ldq + hd;
@@ -225,8 +471,8 @@ __global__ void __launch_bounds__(NTHREADS)
       const float e0 = expf(v0 - m);
       const float e1 = two ? expf(v1 - m) : 0.f;
       const float s = warp_sum(e0 + e1);
-      prow[lane] = rnd<T>(e0 / s);
-      if (two) prow[lane + 32] = rnd<T>(e1 / s);
+      prow[lane] = e0 / s;
+      if (two) prow[lane + 32] = e1 / s;
     }
     __syncthreads();
     for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
@@ -236,99 +482,54 @@ __global__ void __launch_bounds__(NTHREADS)
       const float* vcol = q_s + 2 * hd + d;
       float s = 0.f;
       for (int j = 0; j < NTOK; ++j) s = fmaf(prow[j], vcol[j * ldq], s);
-      o_s[i * C + hh * hd + d] = rnd<T>(s);
+      o_s[i * C + hh * hd + d] = s;
     }
     __syncthreads();
   }
 
   // ---- out-projection; residual onto the normed tokens ----
-  block_gemm<T>(o_s, C, C, wout, C, 0, C, Identity(), wt_s, [&](int r, int n, float acc) {
-    xn_s[r * C + n] = xn_s[r * C + n] + (acc + bout[n]);
-  });
+  block_gemm(o_s, C, C, wout, C, 0, C, Identity(), wt_s,
+             [&](int r, int n, float acc) { xn_s[r * C + n] = xn_s[r * C + n] + (acc + bout[n]); });
 
-  // ---- LN2 (fp32 affine), rounded to the I/O dtype ----
-  for (int t = warp; t < NTOK; t += NWARPS) {
-    const float* row = xn_s + t * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mean = warp_sum(s) * inv_c;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      ss += d * d;
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(ss) * inv_c + LN_EPS);
-    for (int c = lane; c < C; c += 32)
-      o_s[t * C + c] = rnd<T>((row[c] - mean) * rstd * ln2w[c] + ln2b[c]);
-  }
-  __syncthreads();
+  ln2_window(xn_s, C, ln2w, ln2b, o_s, C);
 
   // ---- MLP in hidden chunks; fc2 accumulates onto the residual stream ----
   float* hid_s = q_s;
   for (int h0 = 0; h0 < 4 * C; h0 += HC) {
-    block_gemm<T>(o_s, C, C, w1, C, 0, HC, [=](int n) { return h0 + n; }, wt_s,
-                  [&](int r, int n, float acc) {
-                    const float pre = acc + b1[h0 + n];
-                    float g;
-                    if (bf16_fast) {
-                      const float pb = rnd<T>(pre);
-                      float t = rnd<T>(0.044715f * pb);
-                      t = rnd<T>(t * pb);
-                      t = rnd<T>(t * pb);
-                      t = rnd<T>(pb + t);
-                      t = rnd<T>(0.7978845608f * t);
-                      t = rnd<T>(tanhf(t));
-                      t = rnd<T>(1.f + t);
-                      g = rnd<T>(0.5f * pb) * t;
-                    } else {
-                      g = 0.5f * pre * (1.f + erff(pre * 0.70710678118654752f));
-                    }
-                    hid_s[r * HC + n] = rnd<T>(g);
-                  });
-    block_gemm<T>(hid_s, HC, HC, w2, 4 * C, h0, C, Identity(), wt_s,
-                  [&](int r, int n, float acc) {
-                    xn_s[r * C + n] += h0 == 0 ? acc + b2[n] : acc;
-                  });
+    block_gemm(o_s, C, C, w1, C, 0, HC, [=](int n) { return h0 + n; }, wt_s,
+               [&](int r, int n, float acc) { hid_s[r * HC + n] = gelu_fwd(acc + b1[h0 + n], false); });
+    block_gemm(hid_s, HC, HC, w2, 4 * C, h0, C, Identity(), wt_s,
+               [&](int r, int n, float acc) { xn_s[r * C + n] += h0 == 0 ? acc + b2[n] : acc; });
   }
-
-  // ---- write the window's in-range tokens ----
-  for (int e = threadIdx.x; e < NTOK * C; e += NTHREADS) {
-    const int t = e / C;
-    const int h = wy * WS + t / WS;
-    const int w = wx * WS + t % WS;
-    if (h < H && w < W) y[(((size_t)b * H + h) * W + w) * C + (e % C)] = from_f<T>(xn_s[e]);
-  }
+  store_window(xn_s, y, b, wy, wx, H, W, C);
 }
 
-// bytes of shared memory per block (the wrapper's check_supported repeats this)
-size_t smem_bytes(int C, int heads) {
+// bytes of shared memory per block (exported as swin_block_fwd_smem_bytes)
+size_t smem_bytes(int dtype, int C, int heads) {
+  if (dtype == 1) return MmaLayout(C, heads).total;
   const int hd = C / heads;
   const int q = NTOK * (3 * hd + 1) > NTOK * HC ? NTOK * (3 * hd + 1) : NTOK * HC;
   return sizeof(float) * ((size_t)2 * NTOK * C + NTOK * NTOK + TILE_N * WT_LD + q);
 }
 
-template <typename T>
-int launch(const void* x, void* y, int B, int H, int W, int C, int heads, int fast,
-           const float* ln1w, const float* ln1b, const void* wqkv, const float* bqkv,
-           const void* wout, const float* bout, const float* ln2w, const float* ln2b,
-           const void* w1, const float* b1, const void* w2, const float* b2,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(C, heads);
-  cudaError_t err = cudaFuncSetAttribute(swin_block_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename K, typename T, typename... Args>
+int launch(K kernel, int threads, int dtype, const void* x, void* y, int B, int H, int W, int C, int heads,
+           cudaStream_t stream, Args... args) {
+  const size_t smem = smem_bytes(dtype, C, heads);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = B * ((H + WS - 1) / WS) * ((W + WS - 1) / WS);
-  const float scale = 1.f / sqrtf((float)(C / heads));
-  swin_block_fwd_kernel<T><<<blocks, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), H, W, C, heads, fast, scale, ln1w, ln1b,
-      static_cast<const T*>(wqkv), bqkv, static_cast<const T*>(wout), bout, ln2w, ln2b,
-      static_cast<const T*>(w1), b1, static_cast<const T*>(w2), b2);
+  kernel<<<blocks, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(y), H, W, C, heads, args...);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
+// Bytes of shared memory one block of the kernel for this dtype (0 = float32,
+// 1 = bfloat16) takes at this C and head count.
+size_t swin_block_fwd_smem_bytes(int dtype, int C, int heads) { return smem_bytes(dtype, C, heads); }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y and the four weight matrices).
 // Returns the CUDA error code of the launch (0 on success).
@@ -338,12 +539,19 @@ int swin_block_fwd(int dtype, const void* x, void* y, int B, int H, int W, int C
                    const float* ln2b, const void* w1, const float* b1, const void* w2,
                    const float* b2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = 1.f / sqrtf((float)(C / heads));
   if (dtype == 0)
-    return launch<float>(x, y, B, H, W, C, heads, fast, ln1w, ln1b, wqkv, bqkv, wout, bout,
-                         ln2w, ln2b, w1, b1, w2, b2, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, B, H, W, C, heads, fast, ln1w, ln1b, wqkv, bqkv, wout,
-                                 bout, ln2w, ln2b, w1, b1, w2, b2, s);
+    return launch<decltype(&swin_block_fwd_f32_kernel), float>(
+        swin_block_fwd_f32_kernel, NTHREADS, dtype, x, y, B, H, W, C, heads, s, scale, ln1w, ln1b,
+        static_cast<const float*>(wqkv), bqkv, static_cast<const float*>(wout), bout, ln2w, ln2b,
+        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2);
+  if (dtype == 1) {
+    if (C % 32 || (C / heads) % 16) return (int)cudaErrorInvalidValue;  // the tensor-core tiles
+    return launch<decltype(&swin_block_fwd_mma_kernel), bf16>(
+        swin_block_fwd_mma_kernel, MMA_THREADS, dtype, x, y, B, H, W, C, heads, s, fast, scale, ln1w, ln1b,
+        static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wout), bout, ln2w, ln2b,
+        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

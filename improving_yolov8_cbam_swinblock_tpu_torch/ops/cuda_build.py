@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them through ctypes.
 
 Each library is compiled at first use, for sm_90a, into
-`<package>/_build/<name>-<hash>/lib<name>.so`, keyed by a hash of its sources
-and flags, so a checkout builds what it runs and a changed source rebuilds.
+`<package>/_build/<name>-<hash>/lib<name>.so`, keyed by a hash of its sources,
+every header under csrc/ and the flags, so a checkout builds what it runs and
+a changed source or header rebuilds.
 The sources expose a plain C interface (no PyTorch headers), which keeps a
 build to seconds. A failed build raises with nvcc's output; nothing falls
 back to another implementation.
@@ -34,9 +35,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str, sources: Sequence[str], extra_flags: Sequence[str] = ()) -> Path:
+    """Where the build of `sources` with `extra_flags` lives: keyed by the
+    flags, the sources and every header under csrc/ (any source may include
+    any of them)."""
     digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
-    for src in sources:
-        digest.update((CSRC_DIR / src).read_bytes())
+    headers = sorted(p.name for p in CSRC_DIR.iterdir() if p.suffix in (".cuh", ".h"))
+    for src in (*sources, *headers):
+        digest.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 

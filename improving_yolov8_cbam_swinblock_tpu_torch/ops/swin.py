@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -116,20 +116,48 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.swin_block_fwd.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, i32] + [ptr] * 13
     lib.swin_block_fwd.restype = i32
+    lib.swin_block_fwd_smem_bytes.argtypes = [i32, i32, i32]
+    lib.swin_block_fwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def check_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype) -> None:
-    """Raise ValueError for a shape or dtype the kernel does not take."""
+def _ring_bytes(bn: int, a_streams: bool) -> int:
+    """Bytes of the cp.async ring of csrc/swin_mma.cuh (`ring_bytes`): 4
+    stages of 32-deep bf16 tiles, rows padded by 8 (a 64-row A tile when A
+    streams, a bn-row weight tile)."""
+    return 2 * 4 * ((64 if a_streams else 0) + bn) * 40
+
+
+def fwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the forward kernel, a copy of smem_bytes
+    in csrc/swin_block_fwd.cu for checks without the library (on the card
+    the library's own number is used). bf16: the fp32 residual stream
+    (49 x C), the 9C fp32 biases, the bf16 LN output (64 x C+8), one head's
+    q, k, v (3 x 64 x hd+8; the 64 x 136 MLP hidden chunk later) and the
+    ring (4 stages of 128 x 32 weight tiles). fp32: two 49 x C buffers, the 49x49
+    probabilities, a 64x33 weight tile and one head's q|k|v or hidden chunk."""
+    hd = c // num_heads
+    if dtype == torch.bfloat16:
+        return (4 * 49 * c + 4 * 9 * c + 2 * 64 * (c + 8) + 2 * max(3 * 64 * (hd + 8), 64 * 136)
+                + _ring_bytes(128, False))
+    return 4 * (2 * 49 * c + 49 * 49 + 64 * 33 + 49 * max(3 * hd + 1, 128))
+
+
+def check_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype,
+                    smem: Optional[Callable[[], int]] = None) -> None:
+    """Raise ValueError for a shape or dtype the kernel does not take. `smem`
+    returns the block's shared memory as the built library reports it, and
+    is called once the other checks pass; without it, fwd_smem_bytes's copy."""
     if dtype not in _DTYPES:
         raise ValueError(f"swin_block kernel takes float32 or bfloat16, not {dtype}")
     if window_size != 7:
         raise ValueError(f"swin_block kernel is built for 7x7 windows, not {window_size}")
     if c % 32 or c % num_heads:
         raise ValueError(f"swin_block kernel needs C % 32 == 0 and C % heads == 0 (C={c}, heads={num_heads})")
-    hd = c // num_heads
-    # the kernel's shared-memory layout (smem_bytes in csrc/swin_block_fwd.cu)
-    smem = 4 * (2 * 49 * c + 49 * 49 + 64 * 33 + 49 * max(3 * hd + 1, 128))
+    if dtype == torch.bfloat16 and (c // num_heads) % 16:
+        raise ValueError(f"swin_block kernel needs a head dim that is a multiple of 16 in bfloat16 (the tensor-core "
+                         f"tiles), not {c // num_heads}")
+    smem = fwd_smem_bytes(c, num_heads, dtype) if smem is None else smem()
     if smem > MAX_SMEM:
         raise ValueError(f"swin_block kernel needs {smem} B of shared memory at C={c}, heads={num_heads}; "
                          f"the limit is {MAX_SMEM}")
@@ -144,11 +172,12 @@ def swin_block_cuda(x: torch.Tensor, p: Params, num_heads: int = 2, window_size:
     if x.dim() != 4:
         raise ValueError(f"swin_block takes (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    check_supported(c, num_heads, window_size, x.dtype)
-    x = x.contiguous()
+    check_supported(c, num_heads, window_size, x.dtype,
+                    lambda: _lib().swin_block_fwd_smem_bytes(_DTYPES[x.dtype], c, num_heads))
+    lib = _lib()
+    x = _aligned(x.contiguous())
     args = _cast_params(p, c, x.device, x.dtype)
     y = torch.empty_like(x)
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.swin_block_fwd(
@@ -267,17 +296,31 @@ def swin_block_bwd_plain(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads:
     return _from_windows(dxw.to(dt), b, h, w, ws).contiguous(), grads
 
 
-def check_bwd_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype) -> None:
-    """Raise ValueError for a shape or dtype the backward kernel does not take."""
+def bwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the backward window kernel, a copy of
+    smem_bytes in csrc/swin_block_bwd.cu for checks without the library (on
+    the card the library's own number is used): LN1 and LN2 1/std (100
+    floats), then the larger of the product tiles (bf16: the ring, both
+    operands streaming; fp32: two 64x33 tiles) and one head's attention
+    scratch (q, k, v, do at 49 x hd+1 and two 49x49 planes, fp32)."""
+    hd = c // num_heads
+    tiles = _ring_bytes(128, True) // 4 if dtype == torch.bfloat16 else 2 * 64 * 33
+    return 4 * (100 + max(tiles, 4 * 49 * (hd + 1) + 2 * 49 * 49))
+
+
+def check_bwd_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype,
+                        smem: Optional[Callable[[], int]] = None) -> None:
+    """Raise ValueError for a shape or dtype the backward kernel does not
+    take. `smem` returns the window kernel's shared memory as the built
+    library reports it, and is called once the other checks pass; without
+    it, bwd_smem_bytes's copy."""
     if dtype not in _DTYPES:
         raise ValueError(f"swin_block_bwd kernel takes float32 or bfloat16, not {dtype}")
     if window_size != 7:
         raise ValueError(f"swin_block_bwd kernel is built for 7x7 windows, not {window_size}")
     if c % 32 or c % num_heads:
         raise ValueError(f"swin_block_bwd kernel needs C % 32 == 0 and C % heads == 0 (C={c}, heads={num_heads})")
-    hd = c // num_heads
-    # the kernel's shared-memory layout (smem_bytes in csrc/swin_block_bwd.cu)
-    smem = 4 * (2 * 49 + max(2 * 64 * 33, 4 * 49 * (hd + 1) + 2 * 49 * 49))
+    smem = bwd_smem_bytes(c, num_heads, dtype) if smem is None else smem()
     if smem > MAX_SMEM:
         raise ValueError(f"swin_block_bwd kernel needs {smem} B of shared memory at C={c}, heads={num_heads}; "
                          f"the limit is {MAX_SMEM}")
@@ -294,6 +337,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.swin_block_bwd_workspace.restype = None
     lib.swin_block_bwd.argtypes = [i32, ptr, ptr, ptr] + [i32] * 5 + [ptr] * 12 + [ptr] * 4
     lib.swin_block_bwd.restype = i32
+    lib.swin_block_bwd_smem_bytes.argtypes = [i32, i32, i32]
+    lib.swin_block_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -305,7 +350,14 @@ def _cast_params(p: Params, c: int, device, dtype) -> Params:
     for k, shape in (("wqkv", (3 * c, c)), ("wout", (c, c)), ("w1", (4 * c, c)), ("w2", (c, 4 * c))):
         if tuple(args[k].shape) != shape:
             raise ValueError(f"swin_block {k} has shape {tuple(args[k].shape)}, expected {shape}")
+        args[k] = _aligned(args[k])
     return args
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it in a fresh allocation if it does not start on 16
+    bytes: the kernels move activations and weights in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def swin_block_bwd_cuda(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7):
@@ -318,11 +370,12 @@ def swin_block_bwd_cuda(x: torch.Tensor, g: torch.Tensor, p: Params, num_heads: 
         raise ValueError(f"swin_block_bwd takes x and g of one shape (B, H, W, C), got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
     b, h, w, c = x.shape
-    check_bwd_supported(c, num_heads, window_size, x.dtype)
-    x = x.contiguous()
-    g = g.to(x.dtype).contiguous()
-    args = _cast_params(p, c, x.device, x.dtype)
+    check_bwd_supported(c, num_heads, window_size, x.dtype,
+                        lambda: _bwd_lib().swin_block_bwd_smem_bytes(_DTYPES[x.dtype], c, num_heads))
     lib = _bwd_lib()
+    x = x.contiguous()
+    g = _aligned(g.to(x.dtype).contiguous())
+    args = _cast_params(p, c, x.device, x.dtype)
     t_el, f_el = ctypes.c_size_t(), ctypes.c_size_t()
     lib.swin_block_bwd_workspace(b, h, w, c, num_heads, ctypes.byref(t_el), ctypes.byref(f_el))
     tws = torch.empty(t_el.value, device=x.device, dtype=x.dtype)

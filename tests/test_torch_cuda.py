@@ -37,13 +37,14 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,heads", [((8, 42, 42, 256), 2), ((8, 14, 14, 128), 2), ((1, 12, 17, 256), 2),
-                                         ((2, 9, 9, 128), 4)])
+                                         ((2, 9, 9, 128), 4), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])  # False: the exact mode of the train path
 def test_kernel_matches_plain(cuda, shape, heads, dtype, fast):
     """fp32: max abs error <= 1e-3 (fp32 sums in another order). bf16: max
     error <= 3e-2 of the output's largest magnitude (a bf16 rounding that
-    lands one ulp off grows through the next product)."""
+    lands one ulp off grows through the next product). Head dims 32 and 64
+    and C=64 exercise the padded tensor-core tiles of the bf16 kernel."""
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
     p = swin_params(shape[-1], rng, cuda, dtype)
@@ -73,6 +74,16 @@ def test_kernel_reads_a_channels_last_view(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(256, 2), (128, 2), (128, 4), (64, 2), (96, 2), (384, 4), (512, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smem_copies_match_library(cuda, c, heads, dtype):
+    """fwd_smem_bytes and bwd_smem_bytes, the checks' copies for the CPU,
+    give the bytes the built kernels ask for."""
+    assert S._lib().swin_block_fwd_smem_bytes(S._DTYPES[dtype], c, heads) == S.fwd_smem_bytes(c, heads, dtype)
+    assert S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[dtype], c, heads) == S.bwd_smem_bytes(c, heads, dtype)
+
+
+@pytest.mark.cuda
 def test_kernel_raises_on_unsupported_shape(cuda):
     rng = np.random.default_rng(2)
     x = torch.zeros(1, 7, 7, 96 + 4, device=cuda)
@@ -81,7 +92,8 @@ def test_kernel_raises_on_unsupported_shape(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,heads", [((2, 40, 40, 256), 2), ((2, 20, 20, 256), 2), ((1, 12, 17, 128), 4)])
+@pytest.mark.parametrize("shape,heads", [((2, 40, 40, 256), 2), ((2, 20, 20, 256), 2), ((1, 12, 17, 128), 4),
+                                         ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_matches_plain(cuda, shape, heads, dtype):
     """dx and the 12 grads of K3 vs swin_block_bwd_plain, each within

@@ -122,13 +122,15 @@ def test_dispatch_on_cpu_runs_plain_and_never_the_kernel():
     (256, 2, 8, torch.float32),  # window other than 7
     (128, 2, 7, torch.float16),  # dtype the kernel lacks
     (1024, 2, 7, torch.float32),  # shared memory beyond the block limit
+    (96, 4, 7, torch.bfloat16),  # head dim 24: the tensor-core tiles take multiples of 16
+    (512, 4, 7, torch.bfloat16),  # the bf16 layout needs more shared memory than a block may use
 ])
 def test_kernel_rejects_unsupported(c, heads, ws, dtype):
     with pytest.raises(ValueError):
         S.check_supported(c, heads, ws, dtype)
 
 
-@pytest.mark.parametrize("c,heads", [(256, 2), (128, 2), (128, 4), (64, 2)])
+@pytest.mark.parametrize("c,heads", [(256, 2), (128, 2), (128, 4), (64, 2), (96, 2), (384, 4)])
 def test_kernel_supports_flagship_widths(c, heads):
     S.check_supported(c, heads, 7, torch.float32)
     S.check_supported(c, heads, 7, torch.bfloat16)
