@@ -4,7 +4,8 @@
 
 Phases, one JSON line each; the script exits non-zero if any phase fails:
   build   compile the four CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
-          each, all started together
+          each, all started together; their ptxas summaries and SASS
+          tensor-core and dp4a instruction counts
   kernel  each kernel vs its plain PyTorch version, fp32 (TF32 off) and bf16,
           with times per launch: K1 swin_block_fwd in its fast (predict) and
           exact (train) modes at the flagship's Swin shapes; K3 swin_block_bwd,
@@ -14,7 +15,7 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           tensor-core tiles; K2 tal_assign at B=16, A=8400 with G=128,
           nc=1 and with G=32, nc=80; K4 swin_block_int8 at (8, 40, 40, 256)
           and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
-          I/O and with the bf16 softmax (sm16, K4v); each K1 and K3 case
+          I/O and with the bf16 softmax (sm16, K4v); each K1, K3 and K4 case
           also holds the shared memory the built library asks for against
           the wrappers' copy of it for the CPU
   slice   YOLO("yolov8s-cbam-swin.yaml").predict on 8 synthetic 480x640
@@ -41,9 +42,10 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           device augmentation
   profile device time by kernel over batch-32 forwards, bf16 and int8, and
           over one accumulation cycle of the train step (torch.profiler)
-Then the card's name and power limit, the {"kernels": [...]} line (K1 and K3
-with their achieved TFLOP/s, time over bound, shared memory and registers,
-K3 with its workspace), and last {"ok": true, "device": {...}}. Without CUDA
+Then the card's name and power limit, the {"kernels": [...]} line (K1, K3
+and K4 with their achieved TFLOP/s or TOP/s, time over bound, shared memory
+and registers, K3 with its workspace, K4 with its library's IMMA, HMMA and
+IDP4A counts), and last {"ok": true, "device": {...}}. Without CUDA
 it prints no result and exits 2.
 """
 
@@ -207,7 +209,9 @@ def bwd_workspace_bytes(shape, heads, dtype) -> int:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled one (the last component of its nested
-    name), with <bf16> or <f32> for a template kernel of that type."""
+    name), with <bf16> or <f32> for a template kernel of that type and
+    <true> or <false> for one templated on a bool (K4: the bf16 compute
+    dtype)."""
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while i < len(mangled) and mangled[i].isdigit():
@@ -217,7 +221,8 @@ def kernel_name(mangled: str) -> str:
         n = int(mangled[i:j])
         name, i = mangled[j:j + n], j + n
     rest = mangled[i:]
-    return name + ("<bf16>" if rest.startswith("I13__nv_bfloat16") else "<f32>" if rest.startswith("If") else "")
+    tags = {"I13__nv_bfloat16": "<bf16>", "If": "<f32>", "ILb1E": "<true>", "ILb0E": "<false>"}
+    return name + next((t for prefix, t in tags.items() if rest.startswith(prefix)), "")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -239,6 +244,22 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+def swin_int8_ops(shape):
+    """(int8 operations, bf16 FLOP) of the int8 SwinBlock on x of `shape`:
+    per real token 24*C*C int8 operations (qkv 6, out 2, fc1 8, fc2 8) and
+    4*49*C bf16 FLOP of attention; a pad token's k, v (4*C*C int8) are one
+    constant row, counted once."""
+    b, h, w, c = shape
+    tokens = b * h * w
+    return tokens * 24 * c * c + (4 * c * c if h % 7 or w % 7 else 0), tokens * 4 * 49 * c
+
+
+def swin_int8_tops(shape, ms: float) -> float:
+    """Achieved TOP/s of the int8 SwinBlock: its int8 operations and bf16
+    FLOP over the kernel time."""
+    return sum(swin_int8_ops(shape)) / ms / 1e9
+
+
 def swin_int8_bound(shape, x_dtype, y_dtype):
     """(ms, "operations" or "bytes") for the int8 SwinBlock on x of `shape`.
     Operations: per real token 24*C*C int8 operations (qkv 6, out 2, fc1 8,
@@ -248,8 +269,8 @@ def swin_int8_bound(shape, x_dtype, y_dtype):
     weights, their 12*C fp32 scales and the 13*C fp32 vectors read once."""
     b, h, w, c = shape
     tokens = b * h * w
-    t_ops = ((tokens * 24 * c * c + (4 * c * c if h % 7 or w % 7 else 0)) / PEAK_FLOPS[torch.int8]
-             + tokens * 4 * 49 * c / PEAK_FLOPS[torch.bfloat16])
+    i8_ops, bf16_flop = swin_int8_ops(shape)
+    t_ops = i8_ops / PEAK_FLOPS[torch.int8] + bf16_flop / PEAK_FLOPS[torch.bfloat16]
     t_bytes = (tokens * c * (elt(x_dtype) + elt(y_dtype)) + 12 * c * c + 4 * 25 * c) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -307,8 +328,23 @@ def tal_inputs(b, g, nc, imgsz, device, seed):
     return t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)
 
 
+def sass_counts(lib_path: str):
+    """{"IMMA", "HMMA", "IDP4A": instructions of each kind} in a built
+    library's SASS (cuobjdump -sass of the toolkit); None where the toolkit
+    has no cuobjdump."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    ops = {"IMMA": r"\bIMMA\b", "HMMA": r"\bHMMA\b", "IDP4A": r"\bIDP\.?4A\b"}  # dp4a is IDP.4A in SASS
+    return {op: len(re.findall(rx, sass)) for op, rx in ops.items()}
+
+
 def phase_build():
-    """Build and load the four kernels' libraries, one nvcc each, in parallel."""
+    """Build and load the four kernels' libraries, one nvcc each, in parallel;
+    each one's ptxas summary and its tensor-core and dp4a instruction counts."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin, swin_int8, tal
 
     t0 = time.perf_counter()
@@ -317,7 +353,8 @@ def phase_build():
     with ThreadPoolExecutor(len(loaders)) as ex:
         libs = dict(zip(loaders, ex.map(lambda f: f(), loaders.values())))
     ptxas = {name: ptxas_summary((Path(lib._name).parent / "build.log").read_text()) for name, lib in libs.items()}
-    return {"seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas}
+    sass = {name: sass_counts(lib._name) for name, lib in libs.items()}
+    return {"seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas, "sass": sass}
 
 
 def no_tf32(fn, *args):
@@ -489,10 +526,14 @@ def int8_cases(dev):
     """K4 at the int8 path's Swin shapes, batch 8 (predict) and 32 (speed),
     bf16 compute: int8 I/O as the int8 path runs it, bf16 I/O, and the bf16
     softmax (sm16, K4v) with int8 I/O; fp32 weights quantized as
-    quantize_model does, activation scales from the input."""
+    quantize_model does, activation scales from the input; and the shared
+    memory the built library asks for at C=256, 2 heads against smem_bytes,
+    the wrapper's copy of it for the CPU."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
 
-    rows, ok = [], True
+    smem = S8._lib().swin_block_int8_smem_bytes(256, 2, 1)
+    rows, ok = [], smem == S8.smem_bytes(256, 2, True)
     for b in (8, 32):
         shape = (b, 40, 40, 256)
         rng = np.random.default_rng(SEED + 3)
@@ -506,11 +547,12 @@ def int8_cases(dev):
             torch.cuda.synchronize()
             row = int8_compare(y, swin_block_int8(xin, p, q, 2, impl="plain", **kw))
             ok &= row["ok"]
+            ms = cuda_ms(lambda: swin_block_int8(xin, p, q, 2, **kw))
             rows.append({
                 "shape": list(shape), "mode": mode, "out_dtype": str(y.dtype).split(".")[-1], **row,
-                "kernel_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, 2, **kw)),
+                "kernel_us": 1e3 * ms, "tops": swin_int8_tops(shape, ms),
                 "plain_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, 2, impl="plain", **kw), iters=3),
-                "bound_us": 1e3 * swin_int8_bound(shape, xin.dtype, y.dtype)[0],
+                "bound_us": 1e3 * swin_int8_bound(shape, xin.dtype, y.dtype)[0], "smem_bytes": smem,
             })
     return ok, rows
 
@@ -949,16 +991,19 @@ def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
     return True, out
 
 
-def kernels_line(yolo, tr, int8_yolo, dev, launches, ptxas):
+def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
     """Each kernel at the shapes its path hands it, vs its plain version,
     timed, beside its bound. No single PyTorch call computes any of the
     functions (the whole SwinBlock, its backward, its int8 form, the
-    task-aligned assignment), so library_ms is null for each. K1 and K3 add
-    their achieved TFLOP/s, time over bound, shared memory per block (as
+    task-aligned assignment), so library_ms is null for each. K1, K3 and K4
+    add their achieved TFLOP/s (K4: TOP/s, int8 operations and the
+    attention's bf16 FLOP), time over bound, shared memory per block (as
     the built library reports it) and the registers and spills of their
-    bf16 kernels (-Xptxas -v); K3 its workspace's bytes and their traffic's
-    time at the HBM peak."""
+    tensor-core kernels (-Xptxas -v); K3 its workspace's bytes and their
+    traffic's time at the HBM peak; K4 its library's IMMA, HMMA and IDP4A
+    instruction counts."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
@@ -977,7 +1022,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, ptxas):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "tflops": swin_flops(tuple(x.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms,
            "smem_bytes": S._lib().swin_block_fwd_smem_bytes(S._DTYPES[x.dtype], 256, 2),
-           "ptxas": {k: v for k, v in ptxas["swin_block_fwd"].items() if "mma" in k}}
+           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_fwd"].items() if "mma" in k}}
     # K1 exact and K3: train at 640 px with batch 16 hands them (16, 40, 40, 256) bf16, fp32 masters
     tswin = swin_modules(tr.model)[0]
     tp = {k: v.detach() for k, v in tswin.kernel_params().items()}
@@ -1002,7 +1047,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, ptxas):
            # the workspace is written once and read back: its traffic at the HBM peak
            "workspace_bytes": ws_bytes, "workspace_ms_at_peak": 2e3 * ws_bytes / PEAK_BYTES,
            "smem_bytes": S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[xt.dtype], 256, 2),
-           "ptxas": {k: v for k, v in ptxas["swin_block_bwd"].items() if "bf16" in k or "mma" in k}}
+           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_bwd"].items() if "bf16" in k or "mma" in k}}
     # K2: the train path hands it B=16, A=8400, G=4*max_gt=128 after mosaic, nc=1
     args = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED)
     got, ref = task_aligned_assign(*args, num_classes=1), task_aligned_assign(*args, num_classes=1, impl="plain")
@@ -1024,14 +1069,18 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, ptxas):
     for name, sm16 in (("swin_block_int8", False), ("swin_block_int8_sm16", True)):
         cmp = int8_compare(swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16),
                            swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16, impl="plain"))
+        ms = cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16))
         int8_rows.append({
             "name": name, "launches": launches["int8"][name],
             "launches_by_path": {k: v[name] for k, v in launches.items()},
             "max_abs_err": cmp["max_abs_err"], "share_off": cmp["share_off"],
-            "ms": cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16)),
+            "ms": ms,
             "plain_ms": cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16, impl="plain"),
                                 iters=5),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tops": swin_int8_tops(tuple(x8.shape), ms), "ms_over_bound": ms / bound_ms,
+            "smem_bytes": S8._lib().swin_block_int8_smem_bytes(256, 2, 1),
+            "ptxas": build["ptxas"]["swin_block_int8"], "sass": build["sass"]["swin_block_int8"]})
     rows = [fwd, bwd, tal, *int8_rows]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]], replaces=REPLACES[r["name"]])
@@ -1066,8 +1115,7 @@ def main() -> int:
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
-                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches},
-                           build["ptxas"])
+                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches}, build)
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

@@ -8,7 +8,7 @@
 // (qkv, out-projection, MLP fc1, fc2) as int8 x int8 -> int32: each product's
 // input is quantized here to its calibrated per-tensor scale,
 // q8(t, s) = clamp(rint(t / s), -127, 127), the int8 products are summed
-// exactly in int32 (__dp4a), and the sum is dequantized in the epilogue as
+// exactly in int32, and the sum is dequantized in the epilogue as
 // acc * (s * w_scale[n]) + bias[n] with per-output-channel weight scales.
 //
 // Layout. x and y are (B, H, W, C) contiguous (the NHWC view of a
@@ -29,38 +29,84 @@
 // so the kernel differs from its plain version only by fp32 rounding order
 // before a quantization (LN statistics, attention dots). Built with
 // -fmad=false so that products and sums written apart round apart, as in the
-// TPU kernel; the attention dots call fmaf explicitly.
+// TPU kernel; the fp32 attention loops call fmaf explicitly.
 //
 // Bound. Per real token 24*C*C int8 operations (qkv 6C^2, out 2C^2, fc1 8C^2,
 // fc2 8C^2) at 1979 TOP/s and 196*C bf16 FLOP of attention at 989 TFLOP/s;
-// at (8, 40, 40, 256) 20.1 G int8 operations, 10.2 us, against 7.4 MB of
-// int8 I/O and weights (2.2 us): bound by operations. This first version runs
-// its products on the CUDA cores with __dp4a (4 int8 products per
-// instruction; 64x64 output tiles, 4x4 per thread, int8 weight tiles of 64
-// bytes of depth staged through shared memory from L2, where the 0.8 MB of
-// weights stay resident); mma.sync / wgmma int8 products are later work.
-// Shared memory per block: the fp32 residual stream (49 x C), two int8
-// product inputs (49 x C: the qkv / fc1 input and the heads' outputs), one
-// head's q|k|v in fp32 with its 49x49 probabilities, which the int8 MLP
-// hidden (49 x 4C) later reuses, and a weight tile: 165 KB at C=256.
+// at (8, 40, 40, 256) 20.1 G int8 operations, 10.8 us, against 7.4 MB of
+// int8 I/O and weights (2.2 us): bound by operations.
+//
+// Design, against the costs of the first version (a CUDA-core kernel):
+// - The four products ran on __dp4a, the loop bound by shared-memory reads
+//   (8 words per 16 dp4a). They now run on the tensor cores
+//   (swin_mma_s8.cuh: mma.sync m16n8k32 s8 -> s32, the 49 tokens padded to
+//   64 rows, 16 warps in a 4 x 4 grid of 16 x 32 warp tiles, fragments
+//   through ldmatrix). The int32 sums are exact, so each accumulator equals
+//   the first version's bit for bit.
+// - Weight tiles were loaded synchronously between two barriers. They now
+//   stream from L2 (0.8 MB of int8 weights at C=256, resident there) through
+//   a 3-stage cp.async ring of 128 x 128-byte tiles (four k-steps a barrier;
+//   64-byte tiles in fp32 compute), two in flight while one is multiplied.
+// - qkv ran per head over 3*hd columns in 64-column passes; a head's qkv is
+//   now one pipelined product of 128-column blocks (three whole blocks at
+//   hd = 128).
+// - The attention was scalar fp32 over an odd-strided fp32 q|k|v. In the bf16
+//   compute dtype (the int8 path: in8 gives it) a head's q, k and v are
+//   bf16 tiles (they were rounded to bf16 already), and the scores (q k^T)
+//   and P.v run on bf16 mma.sync m16n8k16 (swin_mma.cuh product_smem), fp32
+//   sums. P and v are padded to 64 keys with zeros. The softmax's arithmetic
+//   is unchanged, over the 49 real keys. The fp32 compute dtype (fp32 I/O
+//   without sm16; tests and the kernel phase only) keeps the CUDA-core fp32
+//   attention loops; its int8 products run on the tensor cores too.
+// - Epilogues read each scale and bias from global memory. The 9C
+//   dequantize factors x_scale * w_scale[n] (the same fp32 product as
+//   before) and the 9C biases are now staged in shared memory once.
+// - The window was read one element per lane inside LN1, each load's latency
+//   paid in turn. It is now gathered whole, 16 bytes per load, all in flight
+//   together; the output is written from the fp32 residual stream 16 bytes
+//   per store.
+// Shared memory per block at C=256, 2 heads (bf16 compute): the fp32
+// residual stream (49 x C), the staged factors and biases (18C fp32), the
+// int8 product inputs (LN1 / LN2 output and the heads' outputs, 64 x C+16
+// each), one head's bf16 q, k, v (3 x 64 x hd+8), over which (with the
+// heads' outputs) the int8 MLP hidden (64 x 4C+16) later lies, and the ring,
+// over which a head's scores and probabilities lie: 210,944 B, one block of
+// 512 threads per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "swin_mma_s8.cuh"
+
 namespace {
+
+using swin_mma::bf16;
+using swin_mma::MROWS;
+using swin_mma::PAD;
+using swin_mma::PAD8;
 
 constexpr int WS = 7;
 constexpr int NTOK = WS * WS;
-constexpr int NTHREADS = 256;
+constexpr int WN = 4;  // warp columns of the products: 16 warps in a 4 x 4 grid
+constexpr int NTHREADS = 128 * WN;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int TILE_N = 64;             // output columns per pass
-constexpr int TILE_KB = 64;            // int8 depth of a weight tile, bytes
-constexpr int TILE_KW = TILE_KB / 4;   // the same in 32-bit words
-constexpr int WT_LDW = TILE_KW + 1;    // odd word stride: tile rows in distinct banks
+constexpr int NT = 4;              // n8 tiles per warp: 128-column blocks
+constexpr int P_LD = MROWS + PAD;  // row stride of the bf16 probabilities
+constexpr int STG = 3;             // ring stages
 constexpr float LN_EPS = 1e-5f;
-static_assert(NTHREADS == TILE_N * (TILE_KB / 16), "one 16-byte weight load per thread per tile");
+static_assert(NTOK == swin_mma::NTOK, "one window per block");
+
+// k depth (bytes) of a ring stage: four m16n8k32 steps in the bf16 compute
+// dtype, two in fp32, whose larger q|k|v leaves less room
+template <bool CBF>
+constexpr int KT = CBF ? 128 : 64;
+template <bool CBF>
+constexpr size_t RING_BYTES = swin_mma::ring_bytes_s8<NT, WN, KT<CBF>, STG>();
+static_assert(RING_BYTES<false> >= sizeof(float) * NTOK * NTOK && RING_BYTES<true> >= sizeof(float) * NTOK * NTOK &&
+                  RING_BYTES<true> >= sizeof(bf16) * MROWS * P_LD,
+              "the scores and the probabilities lie over the ring");
 
 enum Kind { KIND_F32 = 0, KIND_BF16 = 1, KIND_I8 = 2 };
 
@@ -68,7 +114,7 @@ struct Args {
   const void* x;
   void* y;
   int x_kind, y_kind, H, W, C, heads;
-  bool cbf, sm16;  // compute dtype bf16; bf16 softmax
+  bool sm16;       // bf16 softmax
   float scale;     // 1 / sqrt(head dim)
   const float* xs; // activation scales: qkv, out, fc1, fc2, x_in, y_out
   const float *ln1w, *ln1b, *bqkv, *bout, *ln2w, *ln2b, *b1, *b2;
@@ -77,7 +123,9 @@ struct Args {
 };
 
 __device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16(v)); }
-__device__ __forceinline__ float rc(float v, bool cbf) { return cbf ? bf(v) : v; }
+
+template <bool CBF>
+__device__ __forceinline__ float rc(float v) { return CBF ? bf(v) : v; }
 
 // int8 level of t at scale s: clamp(round half to even(t / s), -127, 127)
 __device__ __forceinline__ int q8(float t, float s) {
@@ -96,66 +144,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float load_x(const void* x, size_t i, int kind) {
-  if (kind == KIND_I8) return (float)static_cast<const int8_t*>(x)[i];
-  if (kind == KIND_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-  return static_cast<const float*>(x)[i];
-}
-
-// out[r, n] = sum_k A[r, k] * W[wrow(n), k] for r < NTOK, n < N, exact in
-// int32, handed to epi(r, n, acc). A is int8 in shared memory, rows of lda
-// 32-bit words; W is int8 in global memory, rows of ldw bytes. K is a multiple
-// of TILE_KB. Ends with a barrier, so the epilogue's writes are visible to the
-// next phase.
-template <typename RowMap, typename Epi>
-__device__ void gemm_i8(const int* A, int lda, int K, const int8_t* __restrict__ W, int ldw, int N,
-                        RowMap wrow, int* wt, Epi epi) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int lc = threadIdx.x >> 2;  // weight tile row this thread loads
-  const int lp = threadIdx.x & 3;   // and its 16-byte part
-  for (int n0 = 0; n0 < N; n0 += TILE_N) {
-    int acc[4][4];
+// Gather the window's tokens into res (NTOK x C, fp32; int8 levels times
+// xs_in), zero past the edge, 16 bytes per load (x 16-byte aligned,
+// C % 64 == 0); all loads of the window are in flight together
+__device__ void gather_window(const void* x, int kind, float xs_in, int b, int wy, int wx, int H, int W, int C,
+                              float* res) {
+  const int V = kind == KIND_I8 ? 16 : kind == KIND_BF16 ? 8 : 4;
+  const int cv = C / V;
+  for (int e = threadIdx.x; e < NTOK * cv; e += NTHREADS) {
+    const int t = e / cv, c = (e % cv) * V;
+    const int h = wy * WS + t / WS;
+    const int w = wx * WS + t % WS;
+    const size_t i = (((size_t)b * H + h) * W + w) * C + c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    float* dst = res + t * C + c;
+    if (kind == KIND_I8) {
+      if (h < H && w < W) v = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(x) + i);
+      const int8_t* vt = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 16; ++j) dst[j] = (float)vt[j] * xs_in;
+    } else if (kind == KIND_BF16) {
+      if (h < H && w < W) v = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) + i);
+      const bf16* vt = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    for (int k0 = 0; k0 < K; k0 += TILE_KB) {
-      __syncthreads();  // the previous tile has been consumed
-      int4 v = make_int4(0, 0, 0, 0);
-      if (n0 + lc < N)
-        v = *reinterpret_cast<const int4*>(W + (size_t)wrow(n0 + lc) * ldw + k0 + 16 * lp);
-      int* dst = wt + lc * WT_LDW + 4 * lp;
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-      __syncthreads();
-      const int kw0 = k0 / 4;
-#pragma unroll 4
-      for (int kk = 0; kk < TILE_KW; ++kk) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty + 16 * i;
-          a[i] = r < NTOK ? A[r * lda + kw0 + kk] : 0;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = wt[(tx + 16 * j) * WT_LDW + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (r < NTOK && n < N) epi(r, n, acc[i][j]);
-      }
+      for (int j = 0; j < 8; ++j) dst[j] = __bfloat162float(vt[j]);
+    } else {
+      if (h < H && w < W) v = *reinterpret_cast<const uint4*>(static_cast<const float*>(x) + i);
+      *reinterpret_cast<uint4*>(dst) = v;
     }
   }
   __syncthreads();
@@ -165,53 +180,184 @@ struct Identity {
   __device__ __forceinline__ int operator()(int n) const { return n; }
 };
 
-// dequantized product: acc * (x_scale * w_scale) + bias, each operation rounded
-__device__ __forceinline__ float deq(int acc, float xs, float ws, float b) {
-  return __int2float_rn(acc) * (xs * ws) + b;
-}
+// dequantized product: acc * f + bias with f = x_scale * w_scale, each
+// operation rounded
+__device__ __forceinline__ float deq(int acc, float f, float b) { return __int2float_rn(acc) * f + b; }
 
 // 0.5 pb (1 + tanh(0.7978845608 (pb + 0.044715 pb^3))), each operation
 // rounded to the compute dtype, the constants taken in it
-__device__ __forceinline__ float gelu_tanh(float pb, bool cbf) {
-  const float c1 = rc(0.044715f, cbf), c2 = rc(0.7978845608f, cbf);
-  float t = rc(c1 * pb, cbf);
-  t = rc(t * pb, cbf);
-  t = rc(t * pb, cbf);
-  t = rc(pb + t, cbf);
-  t = rc(c2 * t, cbf);
-  t = rc(tanhf(t), cbf);
-  t = rc(1.f + t, cbf);
-  return rc(rc(0.5f * pb, cbf) * t, cbf);
+template <bool CBF>
+__device__ __forceinline__ float gelu_tanh(float pb) {
+  const float c1 = rc<CBF>(0.044715f), c2 = rc<CBF>(0.7978845608f);
+  float t = rc<CBF>(c1 * pb);
+  t = rc<CBF>(t * pb);
+  t = rc<CBF>(t * pb);
+  t = rc<CBF>(pb + t);
+  t = rc<CBF>(c2 * t);
+  t = rc<CBF>(tanhf(t));
+  t = rc<CBF>(1.f + t);
+  return rc<CBF>(rc<CBF>(0.5f * pb) * t);
 }
 
 __host__ __device__ inline size_t up16(size_t v) { return (v + 15) / 16 * 16; }
 
-// bytes of shared memory per block (the wrapper's smem_bytes repeats this)
-__host__ __device__ inline size_t smem_bytes(int C, int heads) {
-  const int hd = C / heads;
-  const size_t attn = sizeof(float) * ((size_t)NTOK * (3 * hd + 1) + NTOK * NTOK);
-  const size_t hid = (size_t)NTOK * (4 * C + 4);
-  return up16(sizeof(float) * NTOK * C) + 2 * up16((size_t)NTOK * (C + 4)) +
-         up16(attn > hid ? attn : hid) + sizeof(int) * TILE_N * WT_LDW;
+// Byte offsets of the kernel's shared memory; cbf: the bf16 compute dtype
+// (exported as swin_block_int8_smem_bytes, repeated by ops/swin_int8.py)
+struct Layout {
+  size_t scl, a8, o8, head, ring, total;
+  __host__ __device__ Layout(int C, int heads, bool cbf) {
+    const int hd = C / heads;
+    const size_t in8 = (size_t)MROWS * (C + PAD8);  // an int8 product input of C columns
+    const size_t head_bytes = cbf ? sizeof(bf16) * 3 * MROWS * (hd + PAD) : sizeof(float) * NTOK * (3 * hd + 1);
+    const size_t hid = (size_t)MROWS * (4 * C + PAD8);  // the int8 MLP hidden, over o8 and the head
+    scl = sizeof(float) * NTOK * C;     // after the fp32 residual stream
+    a8 = scl + sizeof(float) * 18 * C;  // after the 9C dequantize factors and the 9C biases
+    o8 = a8 + in8;
+    head = o8 + in8;
+    ring = o8 + up16(in8 + head_bytes > hid ? in8 + head_bytes : hid);
+    total = ring + (cbf ? RING_BYTES<true> : RING_BYTES<false>);
+  }
+};
+
+// Softmax of each row of the scores sc (NTOK x NTOK fp32), one warp per row,
+// into the bf16 probabilities p (MROWS x P_LD; zero past column and row
+// NTOK), with the first version's arithmetic (sm16: exp, sum and division
+// in bf16). p lies over sc: each warp holds its rows in registers across a
+// barrier. Ends with a barrier.
+__device__ void softmax_rows(const float* sc, bf16* p, bool sm16) {
+  constexpr int RPW = (NTOK + NWARPS - 1) / NWARPS;  // rows per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool two = lane + 32 < NTOK;
+  float p0[RPW], p1[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int t = warp + i * NWARPS;
+    p0[i] = p1[i] = 0.f;
+    if (t < NTOK) {  // warp-uniform
+      const float v0 = sc[t * NTOK + lane];
+      const float v1 = two ? sc[t * NTOK + lane + 32] : v0;
+      const float m = warp_max(fmaxf(v0, v1));
+      if (sm16) {
+        const float e0 = bf(expf(bf(v0 - m)));
+        const float e1 = two ? bf(expf(bf(v1 - m))) : 0.f;
+        const float s = bf(warp_sum(e0 + e1));
+        p0[i] = e0 / s;
+        p1[i] = two ? e1 / s : 0.f;
+      } else {
+        const float e0 = expf(v0 - m);
+        const float e1 = two ? expf(v1 - m) : 0.f;
+        const float s = warp_sum(e0 + e1);
+        p0[i] = e0 / s;
+        p1[i] = two ? e1 / s : 0.f;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int t = warp + i * NWARPS;
+    if (t < NTOK) {
+      p[t * P_LD + lane] = __float2bfloat16(p0[i]);
+      p[t * P_LD + lane + 32] = __float2bfloat16(p1[i]);
+    }
+  }
+  for (int e = threadIdx.x; e < (MROWS - NTOK) * P_LD; e += NTHREADS) p[NTOK * P_LD + e] = __float2bfloat16(0.f);
+  __syncthreads();
 }
 
+// One head's scores, softmax and a.v in fp32 on the CUDA cores (the fp32
+// compute dtype), q|k|v in q_s (rows of ldq floats), the probabilities in
+// p_s (NTOK x NTOK); each output quantized into o8 (row stride ld8) at
+// columns col0..
+__device__ void attention_f32(const float* q_s, int ldq, float* p_s, int hd, float scale, float xs_out, int8_t* o8,
+                              int ld8, int col0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
+    const float* qi = q_s + (e / NTOK) * ldq;
+    const float* kj = q_s + (e % NTOK) * ldq + hd;
+    float s = 0.f;
+    for (int d = 0; d < hd; ++d) s = fmaf(qi[d], kj[d], s);
+    p_s[e] = s * scale;
+  }
+  __syncthreads();
+  for (int i = warp; i < NTOK; i += NWARPS) {
+    float* prow = p_s + i * NTOK;
+    const bool two = lane + 32 < NTOK;
+    const float v0 = prow[lane];
+    const float v1 = two ? prow[lane + 32] : v0;
+    const float m = warp_max(fmaxf(v0, v1));
+    const float e0 = expf(v0 - m);
+    const float e1 = two ? expf(v1 - m) : 0.f;
+    const float s = warp_sum(e0 + e1);
+    prow[lane] = e0 / s;
+    if (two) prow[lane + 32] = e1 / s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
+    const int i = e / hd;
+    const int d = e % hd;
+    const float* prow = p_s + i * NTOK;
+    const float* vcol = q_s + 2 * hd + d;
+    float s = 0.f;
+    for (int j = 0; j < NTOK; ++j) s = fmaf(prow[j], vcol[j * ldq], s);
+    o8[i * ld8 + col0 + d] = (int8_t)q8(s, xs_out);
+  }
+  __syncthreads();
+}
+
+// Write the window's in-range tokens of the residual stream res to y in its
+// kind (int8 levels of ys, bf16 or fp32), 16 bytes per store (C % 64 == 0)
+__device__ void store_window(const float* res, void* y, int kind, float ys, int b, int wy, int wx, int H, int W,
+                             int C) {
+  const int V = kind == KIND_I8 ? 16 : kind == KIND_BF16 ? 8 : 4;
+  const int cv = C / V;
+  for (int e = threadIdx.x; e < NTOK * cv; e += NTHREADS) {
+    const int t = e / cv, c = (e % cv) * V;
+    const int h = wy * WS + t / WS;
+    const int w = wx * WS + t % WS;
+    if (h >= H || w >= W) continue;
+    const float* src = res + t * C + c;
+    const size_t i = (((size_t)b * H + h) * W + w) * C + c;
+    uint4 v;
+    if (kind == KIND_I8) {
+      int8_t* vt = reinterpret_cast<int8_t*>(&v);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) vt[j] = (int8_t)q8(src[j], ys);
+      *reinterpret_cast<uint4*>(static_cast<int8_t*>(y) + i) = v;
+    } else if (kind == KIND_BF16) {
+      bf16* vt = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt[j] = __float2bfloat16(src[j]);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(y) + i) = v;
+    } else {
+      *reinterpret_cast<uint4*>(static_cast<float*>(y) + i) = *reinterpret_cast<const uint4*>(src);
+    }
+  }
+}
+
+template <bool CBF>
 __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
+  using swin_mma::product_smem;
+  using swin_mma::product_stream_s8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = P.C;
   const int hd = C / P.heads;
-  const int ldq = 3 * hd + 1;  // odd stride: rows of k and v fall in distinct banks
-  const int lda = C / 4 + 1;   // words per int8 row of a product input (odd)
-  const int ldh = C + 1;       // words per int8 row of the MLP hidden (4C bytes, odd)
-  float* xn_s = reinterpret_cast<float*>(smem);  // normed tokens, then the fp32 residual stream
-  int8_t* a8_s = reinterpret_cast<int8_t*>(smem + up16(sizeof(float) * NTOK * C));  // qkv, then fc1 input
-  int8_t* o8_s = a8_s + up16((size_t)NTOK * (C + 4));                                // out-projection input
-  unsigned char* region = reinterpret_cast<unsigned char*>(o8_s + up16((size_t)NTOK * (C + 4)));
-  float* q_s = reinterpret_cast<float*>(region);  // one head's q|k|v
-  float* p_s = q_s + NTOK * ldq;                  // its probabilities
-  int8_t* h8_s = reinterpret_cast<int8_t*>(region);  // the MLP hidden, after attention
-  const size_t attn = sizeof(float) * ((size_t)NTOK * ldq + NTOK * NTOK);
-  const size_t hid = (size_t)NTOK * (4 * C + 4);
-  int* wt_s = reinterpret_cast<int*>(region + up16(attn > hid ? attn : hid));
+  const Layout L(C, P.heads, CBF);
+  const int ld8 = C + PAD8;       // bytes per row of a8 and o8
+  const int ldh8 = 4 * C + PAD8;  // bytes per row of the MLP hidden
+  float* res = reinterpret_cast<float*>(smem);          // normed tokens, then the fp32 residual stream
+  float* fac = reinterpret_cast<float*>(smem + L.scl);  // x_scale * w_scale: qkv (3C), out (C), fc1 (4C), fc2 (C)
+  float* bia = fac + 9 * C;                             // the biases in the same order
+  int8_t* a8 = reinterpret_cast<int8_t*>(smem + L.a8);  // the qkv input, then the fc1 input
+  int8_t* o8 = reinterpret_cast<int8_t*>(smem + L.o8);  // the heads' outputs: the out-projection input
+  int8_t* h8 = o8;                                      // the MLP hidden, after the out-projection
+  unsigned char* head = smem + L.head;                  // one head's q, k, v
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + L.ring);
+
+  // zero the head's tiles once: pad rows are never stored, and v's must be
+  // zero (the zero pad columns of P multiply them)
+  for (size_t e = threadIdx.x; e < (L.ring - L.head) / 16; e += NTHREADS)
+    reinterpret_cast<uint4*>(head)[e] = make_uint4(0, 0, 0, 0);
 
   const int H = P.H, W = P.W;
   const int nwh = (H + WS - 1) / WS;
@@ -221,25 +367,26 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
   const int wx = blockIdx.x % nww;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bool cbf = P.cbf;
   const float xs_qkv = P.xs[0], xs_out = P.xs[1], xs_fc1 = P.xs[2], xs_fc2 = P.xs[3];
   const float xs_in = P.xs[4], ys_out = P.xs[5];
   const float fc = (float)C;
 
+  for (int e = threadIdx.x; e < 9 * C; e += NTHREADS) {
+    float f, bv;
+    if (e < 3 * C) f = xs_qkv * P.sqkv[e], bv = P.bqkv[e];
+    else if (e < 4 * C) f = xs_out * P.sout[e - 3 * C], bv = P.bout[e - 3 * C];
+    else if (e < 8 * C) f = xs_fc1 * P.s1[e - 4 * C], bv = P.b1[e - 4 * C];
+    else f = xs_fc2 * P.s2[e - 8 * C], bv = P.b2[e - 8 * C];
+    fac[e] = f;
+    bia[e] = bv;
+  }
+
   // ---- gather the window, LN1 and its affine, quantize the qkv input (one warp per token) ----
+  gather_window(P.x, P.x_kind, xs_in, b, wy, wx, H, W, C, res);
   for (int t = warp; t < NTOK; t += NWARPS) {
-    const int h = wy * WS + t / WS;
-    const int w = wx * WS + t % WS;
-    const bool inside = h < H && w < W;
-    const size_t base = (((size_t)b * H + h) * W + w) * C;
-    float* row = xn_s + t * C;
+    float* row = res + t * C;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float v = inside ? load_x(P.x, base + c, P.x_kind) : 0.f;
-      if (P.x_kind == KIND_I8) v = v * xs_in;
-      row[c] = v;
-      s += v;
-    }
+    for (int c = lane; c < C; c += 32) s += row[c];
     const float mean = warp_sum(s) / fc;
     float ss = 0.f;
     for (int c = lane; c < C; c += 32) {
@@ -249,9 +396,9 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
     const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
     for (int c = lane; c < C; c += 32) {
       const float n = (row[c] - mean) * rstd;
-      const float xn = cbf ? bf(bf(bf(n) * bf(P.ln1w[c])) + bf(P.ln1b[c])) : n * P.ln1w[c] + P.ln1b[c];
+      const float xn = CBF ? bf(bf(bf(n) * bf(P.ln1w[c])) + bf(P.ln1b[c])) : n * P.ln1w[c] + P.ln1b[c];
       row[c] = xn;
-      a8_s[t * 4 * lda + c] = (int8_t)q8(xn, xs_qkv);
+      a8[t * ld8 + c] = (int8_t)q8(xn, xs_qkv);
     }
   }
   __syncthreads();
@@ -260,65 +407,46 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
   for (int hh = 0; hh < P.heads; ++hh) {
     // columns [0, hd) q, [hd, 2hd) k, [2hd, 3hd) v of this head
     auto qkv_row = [=](int n) {
-      const int seg = n / hd;
+      const int seg = (n >= hd) + (n >= 2 * hd);
       return seg * C + hh * hd + (n - seg * hd);
     };
-    gemm_i8(reinterpret_cast<const int*>(a8_s), lda, C, P.wqkv, C, 3 * hd, qkv_row, wt_s,
-            [&](int r, int n, int acc) {
-              const int m = qkv_row(n);
-              q_s[r * ldq + n] = rc(deq(acc, xs_qkv, P.sqkv[m], P.bqkv[m]), cbf);
-            });
-    for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
-      const float* qi = q_s + (e / NTOK) * ldq;
-      const float* kj = q_s + (e % NTOK) * ldq + hd;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qi[d], kj[d], s);
-      p_s[e] = s * P.scale;
+    if constexpr (CBF) {
+      const int ldq = hd + PAD;
+      bf16* q_s = reinterpret_cast<bf16*>(head);
+      bf16* k_s = q_s + MROWS * ldq;
+      bf16* v_s = k_s + MROWS * ldq;
+      product_stream_s8<NT, WN, KT<CBF>, STG>(a8, ld8, C, P.wqkv, C, 3 * hd, qkv_row, ring, [&](int r, int n, int acc) {
+        const int seg = (n >= hd) + (n >= 2 * hd);
+        const int m = qkv_row(n);
+        q_s[seg * MROWS * ldq + r * ldq + (n - seg * hd)] = __float2bfloat16(deq(acc, fac[m], bia[m]));
+      });
+      float* sc = reinterpret_cast<float*>(ring);  // the scores, then the probabilities, over the ring
+      bf16* p_s = reinterpret_cast<bf16*>(ring);
+      product_smem<NT, false, WN>(q_s, ldq, k_s, ldq, hd, NTOK,
+                                  [&](int r, int n, float acc) { sc[r * NTOK + n] = acc * P.scale; });
+      softmax_rows(sc, p_s, P.sm16);
+      product_smem<NT, true, WN>(p_s, P_LD, v_s, ldq, MROWS, hd, [&](int r, int n, float acc) {
+        o8[r * ld8 + hh * hd + n] = (int8_t)q8(acc, xs_out);
+      });
+    } else {
+      const int ldq = 3 * hd + 1;  // odd stride: rows of k and v fall in distinct banks
+      float* q_s = reinterpret_cast<float*>(head);
+      product_stream_s8<NT, WN, KT<CBF>, STG>(a8, ld8, C, P.wqkv, C, 3 * hd, qkv_row, ring, [&](int r, int n, int acc) {
+        const int m = qkv_row(n);
+        q_s[r * ldq + n] = deq(acc, fac[m], bia[m]);
+      });
+      attention_f32(q_s, ldq, reinterpret_cast<float*>(ring), hd, P.scale, xs_out, o8, ld8, hh * hd);
     }
-    __syncthreads();
-    for (int i = warp; i < NTOK; i += NWARPS) {
-      float* prow = p_s + i * NTOK;
-      const bool two = lane + 32 < NTOK;
-      const float v0 = prow[lane];
-      const float v1 = two ? prow[lane + 32] : v0;
-      const float m = warp_max(fmaxf(v0, v1));
-      float e0, e1;
-      if (P.sm16) {
-        e0 = bf(expf(bf(v0 - m)));
-        e1 = two ? bf(expf(bf(v1 - m))) : 0.f;
-        const float s = bf(warp_sum(e0 + e1));
-        prow[lane] = bf(e0 / s);
-        if (two) prow[lane + 32] = bf(e1 / s);
-      } else {
-        e0 = expf(v0 - m);
-        e1 = two ? expf(v1 - m) : 0.f;
-        const float s = warp_sum(e0 + e1);
-        prow[lane] = rc(e0 / s, cbf);
-        if (two) prow[lane + 32] = rc(e1 / s, cbf);
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int i = e / hd;
-      const int d = e % hd;
-      const float* prow = p_s + i * NTOK;
-      const float* vcol = q_s + 2 * hd + d;
-      float s = 0.f;
-      for (int j = 0; j < NTOK; ++j) s = fmaf(prow[j], vcol[j * ldq], s);
-      o8_s[i * 4 * lda + hh * hd + d] = (int8_t)q8(s, xs_out);
-    }
-    __syncthreads();
   }
 
   // ---- out-projection; residual onto the normed tokens ----
-  gemm_i8(reinterpret_cast<const int*>(o8_s), lda, C, P.wout, C, C, Identity(), wt_s,
-          [&](int r, int n, int acc) {
-            xn_s[r * C + n] = xn_s[r * C + n] + deq(acc, xs_out, P.sout[n], P.bout[n]);
-          });
+  product_stream_s8<NT, WN, KT<CBF>, STG>(o8, ld8, C, P.wout, C, C, Identity(), ring, [&](int r, int n, int acc) {
+    res[r * C + n] = res[r * C + n] + deq(acc, fac[3 * C + n], bia[3 * C + n]);
+  });
 
   // ---- LN2 (fp32 affine), quantized for fc1 ----
   for (int t = warp; t < NTOK; t += NWARPS) {
-    const float* row = xn_s + t * C;
+    const float* row = res + t * C;
     float s = 0.f;
     for (int c = lane; c < C; c += 32) s += row[c];
     const float mean = warp_sum(s) / fc;
@@ -329,60 +457,61 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
     }
     const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
     for (int c = lane; c < C; c += 32)
-      a8_s[t * 4 * lda + c] = (int8_t)q8((row[c] - mean) * rstd * P.ln2w[c] + P.ln2b[c], xs_fc1);
+      a8[t * ld8 + c] = (int8_t)q8((row[c] - mean) * rstd * P.ln2w[c] + P.ln2b[c], xs_fc1);
   }
   __syncthreads();
 
   // ---- fc1 and the tanh GELU into the int8 hidden ----
-  gemm_i8(reinterpret_cast<const int*>(a8_s), lda, C, P.w1, C, 4 * C, Identity(), wt_s,
-          [&](int r, int n, int acc) {
-            const float pb = rc(deq(acc, xs_fc1, P.s1[n], P.b1[n]), cbf);
-            h8_s[r * 4 * ldh + n] = (int8_t)q8(gelu_tanh(pb, cbf), xs_fc2);
-          });
+  product_stream_s8<NT, WN, KT<CBF>, STG>(a8, ld8, C, P.w1, C, 4 * C, Identity(), ring, [&](int r, int n, int acc) {
+    const float pb = rc<CBF>(deq(acc, fac[4 * C + n], bia[4 * C + n]));
+    h8[r * ldh8 + n] = (int8_t)q8(gelu_tanh<CBF>(pb), xs_fc2);
+  });
 
   // ---- fc2 onto the residual stream, written out for the window's in-range tokens ----
-  const int y_kind = P.y_kind;
-  gemm_i8(reinterpret_cast<const int*>(h8_s), ldh, 4 * C, P.w2, 4 * C, C, Identity(), wt_s,
-          [&](int r, int n, int acc) {
-            const int h = wy * WS + r / WS;
-            const int w = wx * WS + r % WS;
-            if (h >= H || w >= W) return;
-            const float y = xn_s[r * C + n] + deq(acc, xs_fc2, P.s2[n], P.b2[n]);
-            const size_t i = (((size_t)b * H + h) * W + w) * C + n;
-            if (y_kind == KIND_I8)
-              static_cast<int8_t*>(P.y)[i] = (int8_t)q8(y, ys_out);
-            else if (y_kind == KIND_BF16)
-              static_cast<__nv_bfloat16*>(P.y)[i] = __float2bfloat16(y);
-            else
-              static_cast<float*>(P.y)[i] = y;
-          });
+  product_stream_s8<NT, WN, KT<CBF>, STG>(h8, ldh8, 4 * C, P.w2, 4 * C, C, Identity(), ring, [&](int r, int n, int acc) {
+    res[r * C + n] = res[r * C + n] + deq(acc, fac[8 * C + n], bia[8 * C + n]);
+  });
+  store_window(res, P.y, P.y_kind, ys_out, b, wy, wx, H, W, C);
+}
+
+template <bool CBF>
+int launch(const Args& P, int B, cudaStream_t stream) {
+  const size_t smem = Layout(P.C, P.heads, CBF).total;
+  cudaError_t err = cudaFuncSetAttribute(swin_block_int8_kernel<CBF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = B * ((P.H + WS - 1) / WS) * ((P.W + WS - 1) / WS);
+  swin_block_int8_kernel<CBF><<<blocks, NTHREADS, smem, stream>>>(P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of shared memory one block takes at this C and head count, in the
+// bf16 (cbf = 1) or fp32 compute dtype.
+size_t swin_block_int8_smem_bytes(int C, int heads, int cbf) { return Layout(C, heads, cbf != 0).total; }
+
 // x_kind, y_kind: 0 = float32, 1 = bfloat16, 2 = int8. cdt_bf16: the compute
-// dtype is bf16. sm16: bf16 softmax. xs: the six activation scales on the
-// card. Weights int8 (out, in); their scales, LayerNorm parameters and biases
-// fp32. Returns the CUDA error code of the launch (0 on success).
+// dtype is bf16. sm16: bf16 softmax (needs cdt_bf16). xs: the six activation
+// scales on the card. Weights int8 (out, in); their scales, LayerNorm
+// parameters and biases fp32. C % 64 == 0 and a head dim that is a multiple
+// of 16 (the tensor-core tiles). Returns the CUDA error code of the launch
+// (0 on success).
 int swin_block_int8(int x_kind, int y_kind, int cdt_bf16, int sm16, const void* x, void* y, int B,
                     int H, int W, int C, int heads, float scale, const float* xs, const float* ln1w,
                     const float* ln1b, const float* bqkv, const float* bout, const float* ln2w,
                     const float* ln2b, const float* b1, const float* b2, const int8_t* wqkv,
                     const float* sqkv, const int8_t* wout, const float* sout, const int8_t* w1,
                     const float* s1, const int8_t* w2, const float* s2, void* stream) {
-  if (x_kind < 0 || x_kind > 2 || y_kind < 0 || y_kind > 2 || C % TILE_KB || C % heads)
+  if (x_kind < 0 || x_kind > 2 || y_kind < 0 || y_kind > 2 || C % 64 || C % heads || (C / heads) % 16 ||
+      (sm16 && !cdt_bf16))
     return (int)cudaErrorInvalidValue;
-  Args P{x, y, x_kind, y_kind, H, W, C, heads, cdt_bf16 != 0, sm16 != 0, scale, xs,
+  Args P{x, y, x_kind, y_kind, H, W, C, heads, sm16 != 0, scale, xs,
          ln1w, ln1b, bqkv, bout, ln2w, ln2b, b1, b2, wqkv, wout, w1, w2, sqkv, sout, s1, s2};
-  const size_t smem = smem_bytes(C, heads);
-  cudaError_t err = cudaFuncSetAttribute(swin_block_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = B * ((H + WS - 1) / WS) * ((W + WS - 1) / WS);
-  swin_block_int8_kernel<<<blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(P);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cdt_bf16 ? launch<true>(P, B, s) : launch<false>(P, B, s);
 }
 
 }  // extern "C"

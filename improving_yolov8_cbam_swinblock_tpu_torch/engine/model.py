@@ -29,7 +29,9 @@ class YOLO:
         if str(model).endswith(".pt"):
             payload = torch.load(model, map_location="cpu", weights_only=True)
             dtype = getattr(torch, payload["dtype"])
-            self.model = DetectionModel(payload["yaml"], dtype=dtype, device=device, seed=seed)
+            param_dtype = getattr(torch, payload["param_dtype"]) if "param_dtype" in payload else None
+            self.model = DetectionModel(payload["yaml"], dtype=dtype, device=device, seed=seed,
+                                        param_dtype=param_dtype)
             if payload["fused"]:
                 self.model.fuse()
             self.model.load_state_dict(payload["state_dict"], strict=True)
@@ -64,10 +66,14 @@ class YOLO:
         return predictor(source, imgsz)
 
     def save(self, path: str) -> None:
-        """Write the graph, dtype and state of a float model. A quantized model
-        is refused: save the float model and quantize after loading."""
+        """Write the graph, the compute dtype, the dtype of the Conv and Swin
+        weight matrices (param_dtype, so fp32 masters reload as fp32) and the
+        state of a float model. A quantized model is refused: save the float
+        model and quantize after loading."""
         if is_quantized(self.model):
             raise ValueError("YOLO.save does not write a quantized model: save the float model, then run "
                              "quantize_model after loading it")
-        torch.save({"yaml": self.model.yaml, "fused": self.is_fused, "dtype": str(self.model.dtype).split(".")[-1],
-                    "state_dict": self.model.state_dict()}, Path(path))
+        m = self.model
+        torch.save({"yaml": m.yaml, "fused": self.is_fused, "dtype": str(m.dtype).removeprefix("torch."),
+                    "param_dtype": str(m.param_dtype).removeprefix("torch."), "state_dict": m.state_dict()},
+                   Path(path))

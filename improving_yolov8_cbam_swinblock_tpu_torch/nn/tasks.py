@@ -198,8 +198,9 @@ class DetectionModel(nn.Module):
         self.strides = head.strides
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
+        self.param_dtype = param_dtype or dtype
         init_weights(self, torch.Generator().manual_seed(seed))
-        self._cast(param_dtype or dtype)
+        self._cast(self.param_dtype)
         self.to(dev).to(memory_format=torch.channels_last)
         self.eval()
 

@@ -29,12 +29,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .swin import MAX_SMEM, Params, _from_windows, _ln_stats, _to_windows
+from .swin import MAX_SMEM, Params, _aligned, _from_windows, _ln_stats, _to_windows
 
 QKEYS = ("qkv", "out", "fc1", "fc2")
 QWEIGHTS = {"qkv": "wqkv", "out": "wout", "fc1": "w1", "fc2": "w2"}  # the float matrix each product quantizes
@@ -147,18 +147,28 @@ def swin_block_int8_plain(x: torch.Tensor, p: Params, q: Params, num_heads: int 
     return _from_windows(out, b, h, w, window_size)
 
 
-def smem_bytes(c: int, num_heads: int) -> int:
-    """Shared memory of one block of the kernel (smem_bytes in csrc/swin_block_int8.cu)."""
-    def up(v):
-        return (v + 15) // 16 * 16
-
+def smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
+    """Shared memory of one block of the kernel in the bf16 (cbf) or fp32
+    compute dtype, a copy of Layout in csrc/swin_block_int8.cu for checks
+    without the library (on the card the library's own number is used): the
+    fp32 residual stream (49 x C), the 9C dequantize factors and 9C biases
+    (fp32), two int8 product inputs (64 x C+16), one head's q, k, v (bf16
+    3 x 64 x hd+8, or fp32 49 x 3hd+1), the int8 MLP hidden (64 x 4C+16)
+    over the second input and the head, and the ring (3 stages of 128 rows
+    of 128 + 16 bytes, or of 64 + 16 in fp32)."""
     hd = c // num_heads
-    attn = 4 * 49 * (3 * hd + 1) + 4 * 49 * 49
-    return up(4 * 49 * c) + 2 * up(49 * (c + 4)) + up(max(attn, 49 * (4 * c + 4))) + 4 * 64 * 17
+    in8 = 64 * (c + 16)
+    head = 2 * 3 * 64 * (hd + 8) if cbf else 4 * 49 * (3 * hd + 1)
+    region = -(-max(in8 + head, 64 * (4 * c + 16)) // 16) * 16
+    return 4 * 49 * c + 4 * 18 * c + in8 + region + 3 * 128 * ((128 if cbf else 64) + 16)
 
 
-def check_int8_supported(c: int, num_heads: int, window_size: int, x_dtype: torch.dtype, in8: bool) -> None:
-    """Raise ValueError for a shape or input dtype the kernel does not take."""
+def check_int8_supported(c: int, num_heads: int, window_size: int, x_dtype: torch.dtype, in8: bool,
+                         sm16: bool = False, smem: Optional[Callable[[bool], int]] = None) -> None:
+    """Raise ValueError for a shape or input dtype the kernel does not take.
+    `smem(cbf)` returns the block's shared memory as the built library
+    reports it, and is called once the other checks pass; without it,
+    smem_bytes's copy."""
     if x_dtype not in _KINDS or in8 != (x_dtype == torch.int8):
         raise ValueError(f"swin_block_int8 kernel takes int8 x with in8, float32 or bfloat16 without; "
                          f"got {x_dtype} with in8={in8}")
@@ -166,9 +176,13 @@ def check_int8_supported(c: int, num_heads: int, window_size: int, x_dtype: torc
         raise ValueError(f"swin_block_int8 kernel is built for 7x7 windows, not {window_size}")
     if c % 64 or c % num_heads:
         raise ValueError(f"swin_block_int8 kernel needs C % 64 == 0 and C % heads == 0 (C={c}, heads={num_heads})")
-    smem = smem_bytes(c, num_heads)
-    if smem > MAX_SMEM:
-        raise ValueError(f"swin_block_int8 kernel needs {smem} B of shared memory at C={c}, heads={num_heads}; "
+    if (c // num_heads) % 16:
+        raise ValueError(f"swin_block_int8 kernel needs a head dim that is a multiple of 16 (the tensor-core "
+                         f"tiles), not {c // num_heads}")
+    cbf = compute_dtype(x_dtype, in8, sm16) == torch.bfloat16
+    need = smem_bytes(c, num_heads, cbf) if smem is None else smem(cbf)
+    if need > MAX_SMEM:
+        raise ValueError(f"swin_block_int8 kernel needs {need} B of shared memory at C={c}, heads={num_heads}; "
                          f"the limit is {MAX_SMEM}")
 
 
@@ -181,18 +195,22 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.swin_block_int8.argtypes = [i32] * 4 + [ptr, ptr] + [i32] * 5 + [ctypes.c_float] + [ptr] * 18
     lib.swin_block_int8.restype = i32
+    lib.swin_block_int8_smem_bytes.argtypes = [i32, i32, i32]
+    lib.swin_block_int8_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 def _kernel_args(x: torch.Tensor, p: Params, q: Params, c: int):
     """Vectors and scales to fp32, weights to int8, all contiguous on x's
-    device; checks their shapes. The six activation scales go as one array
-    (qkv, out, fc1, fc2, x_in, y_out), read by the kernel on the card."""
+    device, the weights starting on 16 bytes (the kernel streams them in
+    16-byte pieces); checks their shapes. The six activation scales go as
+    one array (qkv, out, fc1, fc2, x_in, y_out), read by the kernel on the
+    card."""
     dev = x.device
     vec = {k: p[k].to(device=dev, dtype=torch.float32).contiguous() for k in _VECTORS}
     wts, wsc = {}, {}
     for k, shape in (("qkv", (3 * c, c)), ("out", (c, c)), ("fc1", (4 * c, c)), ("fc2", (c, 4 * c))):
-        wts[k] = q[f"{k}_w_int8"].to(dev).contiguous()
+        wts[k] = _aligned(q[f"{k}_w_int8"].to(dev).contiguous())
         wsc[k] = q[f"{k}_w_scale"].to(device=dev, dtype=torch.float32).contiguous()
         if wts[k].dtype != torch.int8 or tuple(wts[k].shape) != shape or tuple(wsc[k].shape) != shape[:1]:
             raise ValueError(f"swin_block_int8 {k}: int8 weights {shape} and scales {shape[:1]} expected, got "
@@ -212,12 +230,13 @@ def swin_block_int8_cuda(x: torch.Tensor, p: Params, q: Params, num_heads: int =
     if x.dim() != 4:
         raise ValueError(f"swin_block_int8 takes (B, H, W, C), got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    check_int8_supported(c, num_heads, window_size, x.dtype, in8)
+    check_int8_supported(c, num_heads, window_size, x.dtype, in8, sm16,
+                         lambda cbf: _lib().swin_block_int8_smem_bytes(c, num_heads, int(cbf)))
     missing = [k for k, need in (("x_in_scale", in8), ("y_out_scale", out8)) if need and k not in q]
     if missing:
         raise ValueError(f"swin_block_int8 with in8={in8}, out8={out8} needs q{missing}")
     cdt = compute_dtype(x.dtype, in8, sm16)
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     vec, wts, wsc, xs = _kernel_args(x, p, q, c)
     y = torch.empty(x.shape, device=x.device, dtype=torch.int8 if out8 else cdt)
     lib = _lib()

@@ -84,6 +84,17 @@ def test_smem_copies_match_library(cuda, c, heads, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(256, 2), (128, 1), (128, 2), (128, 4), (64, 2), (192, 2), (384, 4), (512, 4)])
+@pytest.mark.parametrize("cbf", [True, False])
+def test_int8_smem_copy_matches_library(cuda, c, heads, cbf):
+    """smem_bytes of ops/swin_int8.py, the check's copy for the CPU, gives
+    the bytes the built K4 asks for, in either compute dtype."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    assert S8._lib().swin_block_int8_smem_bytes(c, heads, int(cbf)) == S8.smem_bytes(c, heads, cbf)
+
+
+@pytest.mark.cuda
 def test_kernel_raises_on_unsupported_shape(cuda):
     rng = np.random.default_rng(2)
     x = torch.zeros(1, 7, 7, 96 + 4, device=cuda)
@@ -204,14 +215,17 @@ def int8_quant(x, p, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 256), 2), ((2, 20, 17, 256), 2), ((1, 12, 9, 128), 1)])
+@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 256), 2), ((2, 20, 17, 256), 2), ((1, 12, 9, 128), 1),
+                                         ((2, 14, 14, 128), 2), ((1, 9, 12, 192), 2)])
 @pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "fp32_io", "sm16_int8_io", "sm16_bf16_io"])
 def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
     """K4 (and K4v's bf16 softmax, sm16) vs swin_block_int8_plain. The
     integer sums are exact; fp32 sums in another order may move a value
     across a quantization boundary, which the later products carry: int8
     output within 3 levels and at most 1 % of it off, float output within
-    3e-2 of its largest magnitude. 40x40, 20x17 and 12x9 pad to whole windows."""
+    3e-2 of its largest magnitude. 40x40, 20x17, 12x9 and 9x12 pad to whole
+    windows. Head dim 64 runs the attention tiles below the flagship's 128;
+    C=192 (head dim 96) is not a multiple of the products' 128-column blocks."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 
     rng = np.random.default_rng(5)

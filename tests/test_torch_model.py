@@ -19,7 +19,8 @@ import jax.numpy as jnp
 
 from improving_yolov8_cbam_swinblock_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from improving_yolov8_cbam_swinblock_tpu.utils.fuse import fuse_variables
-from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel
+from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, quantize_model
+from improving_yolov8_cbam_swinblock_tpu_torch.ops.quant import is_quantized
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import state_dict_from_jax
 
@@ -135,6 +136,32 @@ def test_save_and_load_roundtrip(flagship, tmp_path):
         assert y2.is_fused == fused
         with torch.no_grad():
             assert torch.equal(y.model(x)[0], y2.model(x)[0])
+
+
+def test_save_keeps_fp32_masters_of_a_bf16_model(tmp_path):
+    """A bf16-compute model with fp32 master weights reloads with every
+    parameter and buffer in its dtype and bit for bit, unfused and fused, and
+    quantize_model takes the reloaded fused model. A file without the
+    param_dtype key loads its matrices in the compute dtype."""
+    y = YOLO(CFG, device="cpu", dtype=torch.bfloat16, param_dtype=torch.float32)
+    for fused in (False, True):
+        if fused:
+            y.fuse()
+        y.save(tmp_path / "m.pt")
+        y2 = YOLO(str(tmp_path / "m.pt"), device="cpu")
+        a, b = y.model.state_dict(), y2.model.state_dict()
+        assert y2.is_fused == fused and y2.model.dtype == torch.bfloat16 and a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    assert y2.model.model[7].attn.in_proj_weight.dtype == torch.float32
+    frame = np.random.default_rng(0).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    quantize_model(y2.model, [frame])
+    assert is_quantized(y2.model)
+    payload = torch.load(tmp_path / "m.pt", weights_only=True)
+    del payload["param_dtype"]
+    torch.save(payload, tmp_path / "old.pt")
+    old = YOLO(str(tmp_path / "old.pt"), device="cpu")
+    assert old.model.model[7].attn.in_proj_weight.dtype == torch.bfloat16
 
 
 def test_model_strides_scale_and_dtype():

@@ -227,6 +227,9 @@ def test_int8_block_dispatch_on_cpu_never_launches():
     (128, 1, 7, torch.float32, True),  # in8 without int8 input
     (128, 1, 7, torch.int8, False),  # int8 input without in8
     (512, 4, 7, torch.int8, True),  # shared memory beyond the block limit
+    (192, 8, 7, torch.int8, True),  # head dim 24, not a multiple of the tensor-core tiles' 16
+    (384, 4, 7, torch.int8, True),  # the int8 MLP hidden (64 x 4C) takes shared memory beyond the limit
+    (256, 1, 7, torch.float32, False),  # fp32 q|k|v of a 256-wide head beyond the limit
 ])
 def test_int8_kernel_rejects_unsupported(c, heads, ws, dtype, in8):
     with pytest.raises(ValueError):
