@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA card and check every kernel it runs.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2 PARENT_DIR   # K2 alone, against another checkout
 
 Phases, one JSON line each; the script exits non-zero if any phase fails:
   build   compile the four CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
@@ -13,7 +14,8 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           padded (4, 20, 20, 256); both also at (2, 21, 21, 64) with heads of
           32 and (4, 20, 20, 128) with 4 heads, which exercise the padded
           tensor-core tiles; K2 tal_assign at B=16, A=8400 with G=128,
-          nc=1 and with G=32, nc=80; K4 swin_block_int8 at (8, 40, 40, 256)
+          nc=1 and with G=32, nc=80, one launch a call, timed by events
+          (host work included) and on the device alone (a CUDA graph); K4 swin_block_int8 at (8, 40, 40, 256)
           and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
           I/O and with the bf16 softmax (sm16, K4v); each K1, K3 and K4 case
           also holds the shared memory the built library asks for against
@@ -45,8 +47,14 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
 Then the card's name and power limit, the {"kernels": [...]} line (K1, K3
 and K4 with their achieved TFLOP/s or TOP/s, time over bound, shared memory
 and registers, K3 with its workspace, K4 with its library's IMMA, HMMA and
-IDP4A counts), and last {"ok": true, "device": {...}}. Without CUDA
+IDP4A counts, K2 with its device time, its candidate pairs, the dense
+bound beside its bound, and its registers, stack frame and spills), and last {"ok": true, "device": {...}}. Without CUDA
 it prints no result and exits 2.
+
+--k2 PARENT_DIR times K2 alone at the train path's shape (B=16, A=8400,
+G=128, nc=1, chip_smoke's seeded inputs), with the port of PARENT_DIR (a
+checkout unpacked with git archive) and of this checkout in turns: parent,
+this, this, parent, each in its own process, one JSON line each (k2_run).
 """
 
 from __future__ import annotations
@@ -100,7 +108,7 @@ FP32_ITEM_RTOL, FP32_GRAD_RTOL = 1e-4, 5e-3
 BF16_ITEM_RTOL, BF16_GRAD_SLACK = 2e-2, 1.5
 # K3 vs its plain version, relative to the largest magnitude of what is compared
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# operations of one (GT, anchor) pair in the assigner (csrc/tal_assign.cu pair()):
+# operations of one candidate (GT, anchor) pair in the assigner (csrc/tal_assign.cu pair()):
 # candidate gate 8, widths and heights 6, intersection 9, union 5, IoU 1,
 # enclosing box 6 + 4, centre distance 10, aspect term 3 + 3, CIoU 4, clip
 # and gate 2, overlap^6 3, sqrt(score) * 3; min, max, compare, div and sqrt count one each
@@ -226,7 +234,7 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel: {"registers", "spill_stores", "spill_loads", "smem_static"}}
+    """{kernel: {"registers", "stack_frame", "spill_stores", "spill_loads", "smem_static"}}
     from nvcc's -Xptxas -v output."""
     out, name = {}, None
     for ln in log.splitlines():
@@ -236,7 +244,8 @@ def ptxas_summary(log: str) -> dict:
             out[name] = {}
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill", ln)
-            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+            frame = re.search(r"(\d+) bytes stack frame", ln)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld), stack_frame=int(frame.group(1)) if frame else 0)
         elif name and "registers" in ln:
             out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
@@ -275,13 +284,30 @@ def swin_int8_bound(shape, x_dtype, y_dtype):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def tal_bound(b, a, g, nc, ncls):
-    """(ms, "operations" or "bytes") for the assigner: TAL_PAIR_FLOP per
-    (image, GT, anchor) on the fp32 CUDA cores; inputs (scores, predicted
+def tal_candidate_pairs(args) -> int:
+    """(image, GT, anchor) pairs whose anchor centre lies strictly inside a
+    valid GT, counted on the card with the plain version's gate: the only
+    pairs whose align or overlap can be nonzero."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import select_candidates_in_gts
+
+    _, _, anc, _, gbox, gmask = args
+    return int((select_candidates_in_gts(anc, gbox) & (gmask.reshape(*gbox.shape[:2], 1) > 0)).sum())
+
+
+def tal_bound(args, ncls, dense=False):
+    """(ms, "operations" or "bytes") for the assigner on `args`: TAL_PAIR_FLOP
+    per candidate pair (tal_candidate_pairs) on the fp32 CUDA cores, since
+    the work depends on the data and the bound counts what these inputs
+    need (every other pair's align and overlap are 0 by
+    the gate); dense=True charges every (image, GT, anchor) pair instead, the
+    bound used before the one-launch kernel. Bytes: inputs (scores, predicted
     boxes, anchors, GT labels, boxes and mask) read and outputs (labels,
     boxes, scores, fg, GT index) written once."""
+    b, a, nc = args[0].shape
+    g = args[4].shape[1]
     nbytes = 4 * (b * a * nc + 4 * b * a + 2 * a + 6 * b * g) + b * a * (4 + 16 + 4 * ncls + 1 + 4)
-    return bound(TAL_PAIR_FLOP * b * g * a, nbytes, torch.float32)
+    pairs = b * g * a if dense else tal_candidate_pairs(args)
+    return bound(TAL_PAIR_FLOP * pairs, nbytes, torch.float32)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -306,10 +332,12 @@ def swin_params(c: int, rng, device, dtype):
 def tal_inputs(b, g, nc, imgsz, device, seed):
     """Assigner inputs at the shapes of the train path: sigmoid scores,
     predicted xyxy boxes and GTs in pixels over the anchors of an imgsz
-    image, 70 % of GT rows valid, plus a duplicated GT."""
+    image, 70 % of GT rows valid, plus a duplicated GT; and the anchor grid,
+    (h, w, stride) per level."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.anchors import make_anchors
 
-    anc, st = make_anchors([(imgsz // s, imgsz // s) for s in (8, 16, 32)], (8, 16, 32))
+    grid = [(imgsz // s, imgsz // s, s) for s in (8, 16, 32)]
+    anc, st = make_anchors([(h, w) for h, w, _ in grid], (8, 16, 32))
     a = anc.shape[0]
     rng = np.random.default_rng(seed)
     scores = rng.random((b, a, nc)).astype(np.float32)
@@ -325,7 +353,30 @@ def tal_inputs(b, g, nc, imgsz, device, seed):
     def t(v):
         return torch.tensor(v, device=device)
 
-    return t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)
+    return (t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)), grid
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Device time of fn() per call: iters calls captured in one CUDA graph,
+    replayed reps times between CUDA events, so no host work is timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def sass_counts(lib_path: str):
@@ -468,22 +519,33 @@ def tal_compare(got, ref) -> dict:
 
 
 def tal_cases(dev):
-    """K2 vs the plain assigner at the train path's shapes (640 px: A=8400)."""
+    """K2 vs the plain assigner at the train path's shapes (640 px: A=8400),
+    in one launch per call: its time per call by events over back-to-back
+    calls (host work included) and on the device alone (graph_ms), beside
+    the bound over the candidate pairs and the dense bound."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import launch_config, tal_assign_cuda
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
 
     rows, ok = [], True
     for b, g, nc in ((16, 4 * MAX_GT, 1), (16, MAX_GT, 80)):
-        args = tal_inputs(b, g, nc, 640, dev, SEED + g)
-        got = task_aligned_assign(*args, topk=10, num_classes=nc)
+        args, grid = tal_inputs(b, g, nc, 640, dev, SEED + g)
+        before = tal_assign_cuda.launches
+        got = task_aligned_assign(*args, topk=10, num_classes=nc, grid=grid)
         torch.cuda.synchronize()
+        one_launch = tal_assign_cuda.launches == before + 1
         row = tal_compare(got, task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain"))
-        ok &= row["ok"]
+        ok &= row["ok"] and one_launch
+        cs, smem, held = launch_config(b, args[0].shape[1], g)
         rows.append({
-            "b": b, "g": g, "a": args[0].shape[1], "nc": nc, **row, "fg_anchors": int(got.fg_mask.sum()),
-            "kernel_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc)),
+            "b": b, "g": g, "a": args[0].shape[1], "nc": nc, **row, "one_launch": one_launch,
+            "fg_anchors": int(got.fg_mask.sum()), "candidate_pairs": tal_candidate_pairs(args),
+            "blocks_per_image": cs, "smem_bytes": smem, "clusters_held_at_once": held,
+            "kernel_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc, grid=grid)),
+            "kernel_device_us": 1e3 * graph_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc,
+                                                                           grid=grid)),
             "plain_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain"),
                                       iters=5),
-            "bound_us": 1e3 * tal_bound(b, args[0].shape[1], g, nc, nc)[0],
+            "bound_us": 1e3 * tal_bound(args, nc)[0], "dense_bound_us": 1e3 * tal_bound(args, nc, dense=True)[0],
         })
     return ok, rows
 
@@ -985,7 +1047,7 @@ def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
         "device_busy_share": total / (1e3 * step_ms),
         "swin_fwd_share": share("swin_block_fwd"), "swin_bwd_share": share("swin_bwd_"),
         "swin_bwd_parts_share": {part: share(f"swin_bwd_{part}") for part in ("window", "wgrad", "sum")},
-        "tal_share": share("tal_prep", "tal_topk", "tal_resolve", "tal_final"),
+        "tal_share": share("tal_assign_kernel"),
         "top": [{"name": e.key[:90], "us_per_step": e.device_time_total / 4, "calls": e.count / 4} for e in top],
     }
     return True, out
@@ -1049,16 +1111,22 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
            "smem_bytes": S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[xt.dtype], 256, 2),
            "ptxas": {k: v for k, v in build["ptxas"]["swin_block_bwd"].items() if "bf16" in k or "mma" in k}}
     # K2: the train path hands it B=16, A=8400, G=4*max_gt=128 after mosaic, nc=1
-    args = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED)
-    got, ref = task_aligned_assign(*args, num_classes=1), task_aligned_assign(*args, num_classes=1, impl="plain")
-    bound_ms, bound_by = tal_bound(16, args[0].shape[1], 4 * MAX_GT, 1, 1)
+    # (ms: events over back-to-back calls, host work included; device_ms: CUDA-graph replay)
+    args, grid = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED)
+    got = task_aligned_assign(*args, num_classes=1, grid=grid)
+    ref = task_aligned_assign(*args, num_classes=1, impl="plain")
+    bound_ms, bound_by = tal_bound(args, 1)
+    device_ms = graph_ms(lambda: task_aligned_assign(*args, num_classes=1, grid=grid))
     tal = {"name": "tal_assign", "launches": launches["train"]["tal_assign"],
            "max_abs_err": max((got.target_scores - ref.target_scores).abs().max().item(),
                               (got.target_bboxes - ref.target_bboxes).abs().max().item()),
            "exact_fg_idx_labels": tal_compare(got, ref)["exact_fg_idx_labels"],
-           "ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1)),
+           "ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1, grid=grid)), "device_ms": device_ms,
            "plain_ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1, impl="plain"), iters=5),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "device_ms_over_bound": device_ms / bound_ms, "candidate_pairs": tal_candidate_pairs(args),
+           "dense_bound_ms": tal_bound(args, 1, dense=True)[0],
+           "ptxas": build["ptxas"]["tal_assign"]}
     # K4: the int8 path at batch 8 hands it (8, 40, 40, 256) int8 in and out; K4v (sm16) runs on no path
     swin8 = swin_modules(int8_yolo.model)[0]
     p8, q = swin8.kernel_params(), {k: getattr(swin8, k) for k in swin8.QNAMES}
@@ -1087,10 +1155,70 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
     return rows
 
 
+def k2_run(root: Path, ablate: bool) -> dict:
+    """K2 of the port under `root`, imported from there by this process:
+    its device time per call (graph_ms) and its time per call by events
+    over back-to-back calls (cuda_ms), the kernels one call launches (from
+    torch.profiler), and whether fg, GT index and labels equal the plain
+    version's. With `ablate`, also its device time on inputs that take one
+    cost away at a time from the same kernel, same launch: scores 0 (align 0
+    everywhere: no top-k insertions and no claims but the zero fill's, while
+    the scan of the candidate rectangles, its loads and its CIoU stay), and
+    every GT masked out (no slots: what is left is the GT table, the grid
+    check, the barriers and the stores)."""
+    import inspect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(root))
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    mod = sys.modules["improving_yolov8_cbam_swinblock_tpu_torch"].__file__
+    if not Path(mod).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {mod}, not the port under {root}")
+    args, grid = tal_inputs(16, 4 * MAX_GT, 1, 640, torch.device("cuda"), SEED)
+    kw = {"grid": grid} if "grid" in inspect.signature(task_aligned_assign).parameters else {}
+
+    def call(a=args):
+        return task_aligned_assign(*a, topk=10, num_classes=1, **kw)
+
+    got, ref = call(), task_aligned_assign(*args, topk=10, num_classes=1, impl="plain")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    row = {"root": str(root), "exact_fg_idx_labels": tal_compare(got, ref)["exact_fg_idx_labels"],
+           "kernels_of_one_call": {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA},
+           "device_us": 1e3 * graph_ms(call), "event_us": 1e3 * cuda_ms(call)}
+    if ablate:
+        for name, a in (("scores_0", (torch.zeros_like(args[0]), *args[1:])),
+                        ("no_gt", (*args[:5], torch.zeros_like(args[5])))):
+            row[f"device_us_{name}"] = 1e3 * graph_ms(lambda: call(a))
+            row[f"exact_{name}"] = tal_compare(call(a), task_aligned_assign(
+                *a, topk=10, num_classes=1, impl="plain"))["exact_fg_idx_labels"]
+    return row
+
+
+def k2_compare(parent: Path) -> int:
+    """k2_run for parent, this checkout, this checkout, parent, each in its
+    own process; the card's name and power limit first."""
+    here = Path(__file__).resolve().parent
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    rc = 0
+    for root, ablate in ((parent, False), (here, True), (here, True), (parent, False)):
+        code = (f"import sys, json; from pathlib import Path; sys.path.insert(0, {str(here)!r}); import chip_smoke; "
+                f"print(json.dumps(chip_smoke.k2_run(Path({str(root)!r}), {ablate})))")
+        rc |= subprocess.run([sys.executable, "-c", code], cwd=root, timeout=600).returncode
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--k2":
+        return k2_compare(Path(sys.argv[2]).resolve())
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

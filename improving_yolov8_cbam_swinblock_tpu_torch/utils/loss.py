@@ -75,6 +75,7 @@ def detection_loss(feats: Sequence[torch.Tensor], gt_cls: torch.Tensor, gt_xywhn
         assigned = task_aligned_assign(
             pred_scores.sigmoid(), pred_bboxes * stride_tensor, anchor_points * stride_tensor, gt_labels,
             gt_bboxes, mask_gt[..., None].float(), topk=tal_topk, num_classes=nc, impl=tal_impl,
+            grid=[(h, w, s) for (h, w), s in zip(shapes, strides)],
         )
     target_bboxes, target_scores, fg = assigned.target_bboxes, assigned.target_scores, assigned.fg_mask
     target_scores_sum = target_scores.sum().clamp(min=1.0)

@@ -11,7 +11,7 @@ and the same normalisation.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,11 +93,15 @@ def task_aligned_assign_plain(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bb
 
 def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk: int = 10,
                         num_classes: int = 80, alpha: float = ALPHA, beta: float = BETA, eps: float = 1e-9,
-                        impl: Optional[str] = None) -> TALResult:
+                        impl: Optional[str] = None, grid: Optional[Sequence[Tuple[int, int, float]]] = None
+                        ) -> TALResult:
     """The assigner: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. impl="plain" forces the plain version, to compare with the
     kernel on the card; the main path never passes it. The kernel has
-    alpha=0.5, beta=6 built in and raises for any other value."""
+    alpha=0.5, beta=6 built in and raises for any other value. `grid` is the
+    anchor grid, one (h, w, stride) per level, whose cell centres are
+    anc_points: the kernel needs it (and raises without it), the plain
+    version ignores it."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', not {impl!r}")
     if impl == "plain" or pd_scores.device.type == "cpu":
@@ -107,5 +111,5 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, 
         raise ValueError(f"the TAL kernel takes alpha={ALPHA}, beta={BETA} only, not ({alpha}, {beta})")
     from ..ops.tal import tal_assign_cuda
 
-    return TALResult(*tal_assign_cuda(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk,
-                                      num_classes, eps))
+    return TALResult(*tal_assign_cuda(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, grid,
+                                      topk, num_classes, eps))

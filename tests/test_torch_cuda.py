@@ -143,57 +143,221 @@ def test_train_function_runs_both_kernels(cuda):
 
 def tal_inputs(b, g, nc, imgsz, device, seed):
     """Predictions and GTs like tests/test_tal_kernel.py, plus an empty image
-    and a duplicated GT."""
+    and a duplicated GT; imgsz is one side or (h, w). Returns the six inputs
+    and the anchor grid."""
+    args, grid = tal_numpy(b, g, nc, imgsz, seed)
+    return to_device(args, device), grid
+
+
+def to_device(args, device):
+    return tuple(torch.tensor(v, device=device) for v in args)
+
+
+def tal_grid(imgsz):
+    """The anchor points (A, 2) in pixels and the grid (h, w, stride) per level."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.anchors import make_anchors
 
-    shapes = [(imgsz // s, imgsz // s) for s in (8, 16, 32)]
-    anc, st = make_anchors(shapes, (8, 16, 32))
+    h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+    grid = [(h // s, w // s, s) for s in (8, 16, 32)]
+    anc, st = make_anchors([(gh, gw) for gh, gw, _ in grid], (8, 16, 32))
+    return (anc * st).numpy(), grid
+
+
+def tal_numpy(b, g, nc, imgsz, seed):
+    anc, grid = tal_grid(imgsz)
+    h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+    size = np.array([w, h], np.float64)
     a = anc.shape[0]
     rng = np.random.default_rng(seed)
     scores = rng.random((b, a, nc)).astype(np.float32)
-    cxy, wh = rng.uniform(10, imgsz - 10, (b, a, 2)), rng.uniform(4, imgsz / 2, (b, a, 2))
+    cxy, wh = rng.uniform(10, size - 10, (b, a, 2)), rng.uniform(4, size / 2, (b, a, 2))
     pboxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
     glab = rng.integers(0, nc, (b, g, 1)).astype(np.int32)
-    gcxy, gwh = rng.uniform(12, imgsz - 12, (b, g, 2)), rng.uniform(8, imgsz / 2, (b, g, 2))
+    gcxy, gwh = rng.uniform(12, size - 12, (b, g, 2)), rng.uniform(8, size / 2, (b, g, 2))
     gbox = np.concatenate([gcxy - gwh / 2, gcxy + gwh / 2], -1).astype(np.float32)
     gmask = (rng.random((b, g, 1)) < 0.7).astype(np.float32)
     gbox[0], gmask[0] = 0, 0
     if b > 1 and g > 3:
         gbox[1, 3], glab[1, 3] = gbox[1, 2], glab[1, 2]
     gbox = gbox * gmask
-    t = lambda v: torch.tensor(v, device=device)  # noqa: E731
-    return t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)
+    return (scores, pboxes, anc, glab, gbox, gmask), grid
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,g,nc,imgsz", [(16, 128, 1, 640), (4, 32, 80, 640), (3, 12, 3, 128), (2, 1200, 1, 320)])
-def test_tal_kernel_matches_plain(cuda, b, g, nc, imgsz):
-    """K2 vs the plain assigner on the card: fg, gt index and labels exactly
-    equal; boxes within 1e-4 absolute; scores within 1e-4 relative. Any G,
-    1200 included (4 x max_gt 300 after mosaic)."""
-    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
-    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+def tal_edge_case(name):
+    """Inputs (numpy), grid and topk of one case that the kernel's candidate
+    rectangles, zero fill and claim resolution make delicate, at 128 px
+    (A = 336) with nc = 3:
+      edges      GT edges exactly on anchor centres of each level, and one
+                 ulp inside and outside them
+      image      a GT covering the whole image, one partly outside it
+      degenerate a zero-width and a zero-height GT
+      zero_fill  every prediction far from the top-left GTs, so that fewer
+                 than K anchors have align > 0 and the plain top-k's zero
+                 fill picks the lowest anchor indices, candidates of a GT
+                 over the top-left corner; a GT with 3 positive anchors
+      zero_multi two GTs over the top-left corner, every prediction far
+                 away: the zero-fill anchors are claimed twice with overlap
+                 0 and go to GT 0, which does not contain them (image 0)
+                 or is masked out (image 1)"""
+    anc, grid = tal_grid(128)
+    a, g, b, nc = anc.shape[0], 6, 2, 3
+    rng = np.random.default_rng(7)
+    scores = rng.random((b, a, nc)).astype(np.float32)
+    cxy, wh = rng.uniform(10, 118, (b, a, 2)), rng.uniform(4, 64, (b, a, 2))
+    pboxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    glab = rng.integers(0, nc, (b, g, 1)).astype(np.int32)
+    gmask = np.ones((b, g, 1), np.float32)
+    gbox = np.tile(np.array([[30, 34, 90, 100]], np.float32), (b, g, 1))
+    up = lambda v: np.nextafter(np.float32(v), np.float32(np.inf))  # noqa: E731
+    down = lambda v: np.nextafter(np.float32(v), np.float32(-np.inf))  # noqa: E731
+    far = np.array([104, 104, 124, 124], np.float32)  # predictions in the bottom-right corner
+    if name == "edges":  # centres: 4 + 8i (level 0), 8 + 16i (level 1), 16 + 32i (level 2)
+        for i, (x1, y1, x2, y2) in enumerate([(20, 28, 68, 92), (24, 40, 88, 104), (16, 48, 80, 112)]):
+            gbox[:, i] = (x1, y1, x2, y2)
+            gbox[0, i + 3] = (up(x1), down(y1), up(x2), down(y2))
+            gbox[1, i + 3] = (down(x1), up(y1), down(x2), up(y2))
+    elif name == "image":
+        gbox[:, 0] = (0, 0, 128, 128)
+        gbox[:, 1] = (-50, -30, 60, 200)
+        gbox[1, 2] = (100, -40, 300, 60)
+    elif name == "degenerate":
+        gbox[:, 0] = (36, 20, 36, 90)
+        gbox[:, 1] = (10, 44, 120, 44)
+        gbox[1, 2] = (0, 0, 0, 0)
+    elif name == "zero_fill":
+        pboxes[:] = far
+        gbox[:, 0] = (0, 0, 40, 40)
+        gbox[:, 1] = (44, 44, 96, 96)
+        for k in (5, 9, 12):  # three level-0 anchors inside GT 1 predict a box near it
+            row, col = (44 + 4 * k) // 8, (44 + 4 * k) // 8
+            pboxes[:, row * 16 + col] = (40 + k, 42, 94, 98 - k)
+        gbox[1, 2:] = (0, 0, 20, 64)
+    elif name == "zero_multi":
+        pboxes[:] = far
+        gbox[:, 0] = (60, 60, 100, 100)
+        gbox[:, 1] = (0, 0, 40, 40)
+        gbox[:, 2] = (0, 0, 48, 30)
+        gmask[1, 0] = 0
+        gbox[:, 3:] = (0, 0, 24, 24)
+    else:
+        raise ValueError(name)
+    return (scores, pboxes, anc, glab, gbox, gmask), grid, 10
 
-    args = tal_inputs(b, g, nc, imgsz, cuda, seed=g)
-    before = tal_assign_cuda.launches
-    got = task_aligned_assign(*args, topk=10, num_classes=nc)
-    torch.cuda.synchronize()
-    assert tal_assign_cuda.launches == before + 1
-    ref = task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain")
+
+TAL_CASES = [
+    # (b, g, nc, imgsz, topk): the train path, G = 4 * max_gt after mosaic
+    (16, 128, 1, 640, 10), (4, 32, 80, 640, 10), (3, 12, 3, 128, 10), (2, 1200, 1, 320, 10),
+    (2, 1, 1, 128, 10), (3, 12, 3, 128, 1), (3, 40, 80, 256, 16), (2, 16, 2, (480, 640), 10),
+    "edges", "image", "degenerate", "zero_fill", "zero_multi",
+]
+
+
+def tal_case(case):
+    """(numpy inputs, grid, nc, topk) of a TAL_CASES entry."""
+    if isinstance(case, str):
+        args, grid, topk = tal_edge_case(case)
+        return args, grid, args[0].shape[2], topk
+    b, g, nc, imgsz, topk = case
+    args, grid = tal_numpy(b, g, nc, imgsz, seed=g)
+    return args, grid, nc, topk
+
+
+def assert_tal_equal(got, ref):
     assert torch.equal(got.fg_mask, ref.fg_mask)
     assert torch.equal(got.target_gt_idx, ref.target_gt_idx)
     assert torch.equal(got.target_labels, ref.target_labels)
     assert (got.target_bboxes - ref.target_bboxes).abs().max().item() <= 1e-4
     torch.testing.assert_close(got.target_scores, ref.target_scores, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TAL_CASES, ids=str)
+def test_tal_kernel_matches_plain(cuda, case):
+    """K2 vs the plain assigner on the card, in one launch: fg, gt index and
+    labels exactly equal; boxes within 1e-4 absolute; scores within 1e-4
+    relative. Any G, 1200 included (4 x max_gt 300 after mosaic), G = 1,
+    topk 1 and 16, nc 80, a 640x480 rect batch, and the edge cases of
+    tal_edge_case."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    args, grid, nc, topk = tal_case(case)
+    args = to_device(args, cuda)
+    before = tal_assign_cuda.launches
+    got = task_aligned_assign(*args, topk=topk, num_classes=nc, grid=grid)
+    torch.cuda.synchronize()
+    assert tal_assign_cuda.launches == before + 1
+    assert_tal_equal(got, task_aligned_assign(*args, topk=topk, num_classes=nc, impl="plain"))
     assert got.fg_mask.any()
+
+
+@pytest.mark.cuda
+def test_tal_kernel_reads_labels_and_mask_as_given(cuda):
+    """int32 and float32 labels (out of range ones clamped), a float32 mask
+    as (B, G, 1) and (B, G), and scores in the layout the loss hands them (a
+    transposed view): the kernel reads each as given, with no copy before
+    the launch."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    (scores, pbox, anc, glab, gbox, gmask), grid = tal_inputs(3, 12, 3, 128, cuda, 5)
+    glab[1, :4] = torch.tensor([[-2], [7], [2], [1]], dtype=torch.int32)
+    ref = task_aligned_assign(scores, pbox, anc, glab, gbox, gmask, num_classes=4, impl="plain")
+    view = scores.transpose(1, 2).contiguous().transpose(1, 2)
+    for lab, mask in ((glab.float(), gmask), (glab, gmask[..., 0])):
+        assert_tal_equal(task_aligned_assign(view, pbox, anc, lab, gbox, mask, num_classes=4, grid=grid), ref)
 
 
 @pytest.mark.cuda
 def test_tal_kernel_rejects_other_alpha_beta(cuda):
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
 
+    args, grid = tal_inputs(2, 4, 1, 128, cuda, 0)
     with pytest.raises(ValueError, match="alpha"):
-        task_aligned_assign(*tal_inputs(2, 4, 1, 128, cuda, 0), beta=4.0)
+        task_aligned_assign(*args, beta=4.0, grid=grid)
+
+
+@pytest.mark.cuda
+def test_tal_kernel_raises_on_what_it_does_not_take(cuda):
+    """No grid, a grid that does not cover A, topk above 16, fp64 boxes,
+    int64 labels, a bool mask."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    args, grid = tal_inputs(2, 4, 1, 128, cuda, 0)
+    with pytest.raises(ValueError, match="grid"):
+        task_aligned_assign(*args)
+    with pytest.raises(ValueError, match="grid"):
+        task_aligned_assign(*args, grid=[(16, 16, 8), (8, 8, 16)])  # sum h * w = 320, A = 336
+    with pytest.raises(ValueError, match="topk"):
+        task_aligned_assign(*args, topk=17, grid=grid)
+    with pytest.raises(ValueError, match="pd_bboxes"):
+        task_aligned_assign(args[0], args[1].double(), *args[2:], grid=grid)
+    with pytest.raises(ValueError, match="gt_labels"):
+        task_aligned_assign(*args[:3], args[3].long(), *args[4:], grid=grid)
+    with pytest.raises(ValueError, match="mask_gt"):
+        task_aligned_assign(*args[:5], args[5] > 0, grid=grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["levels_swapped", "transposed", "anchors_shifted"])
+def test_tal_kernel_is_exact_when_the_grid_does_not_describe_the_anchors(cuda, how):
+    """A grid whose cells add up to A but whose centres are not the anchor
+    points (two levels swapped; h and w transposed on a 96x128 rect batch;
+    the right grid with every anchor moved by 3 px): the kernel finds the
+    anchors off the grid and scans every anchor, exact against the plain
+    version, which reads only the anchor points."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    args, grid = tal_numpy(2, 16, 2, 128 if how == "levels_swapped" else (96, 128), seed=3)
+    if how == "levels_swapped":
+        grid = [grid[1], grid[0], grid[2]]
+    elif how == "transposed":
+        grid = [(w, h, s) for h, w, s in grid]
+    else:
+        args = (*args[:2], args[2] + np.float32(3), *args[3:])
+    args = to_device(args, cuda)
+    got = task_aligned_assign(*args, num_classes=2, grid=grid)
+    assert_tal_equal(got, task_aligned_assign(*args, num_classes=2, impl="plain"))
+    assert got.fg_mask.any()
 
 
 def int8_quant(x, p, heads):
