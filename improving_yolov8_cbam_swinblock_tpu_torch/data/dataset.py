@@ -1,0 +1,180 @@
+"""YOLO-format detection dataset and its batch loader (counterpart of the
+JAX package's data/dataset.py: check_det_dataset, YOLODataset, DataLoader).
+
+  * labels are parsed and verified up front into memory, through the
+    hash-keyed `labels/<split>.cache` that the JAX package also reads;
+  * the loader decodes and letterboxes in a thread pool and yields
+    fixed-shape numpy batches: img (B, H, W, 3) uint8 RGB, cls (B, G),
+    bboxes (B, G, 4) normalised xywh, mask (B, G), plus `aug` (the 7
+    device-augmentation hyperparameters in AUG_KEYS order) on the train
+    path, ratio_pad and orig_shape on the val path;
+  * batch i of epoch e is a pure function of (seed, e, i): the epoch's
+    permutation is default_rng(seed + epoch), and a short last batch wraps
+    around to the first images (on the val path too, as in the JAX package,
+    whose metrics then count those images twice). The next batch is
+    submitted to the pool before the current one is yielded, so decoding
+    overlaps the step.
+
+In this slice: the device-augmented train path (device_augment=True, the
+default) and the val path. The host augmentation stack
+(device_augment=False), the image cache and packaged dataset descriptors
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import math
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import yaml
+
+from ..cfg import AUG_KEYS
+from ..utils.patches import image_size, imread
+from .augment import raw_train_transform, val_transform
+from .utils import load_or_build_cache
+
+IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
+AUG_DEFAULTS = {"mosaic": 1.0, "scale": 0.5, "translate": 0.1, "fliplr": 0.5, "hsv_h": 0.015, "hsv_s": 0.7,
+                "hsv_v": 0.4}
+
+
+def check_det_dataset(data) -> Dict:
+    """A data YAML (path) or dict with absolute split paths, names as a
+    dict and nc. A relative `path:` is anchored at the YAML's directory."""
+    if isinstance(data, (str, Path)):
+        p = Path(data)
+        if not p.exists() and p.suffix in (".yaml", ".yml") and len(p.parts) == 1:
+            raise NotImplementedError(f"packaged dataset descriptors such as {p.name!r} are not in the port; "
+                                      "pass the path of a data YAML")
+        data = yaml.safe_load(p.read_text()) | {"yaml_file": str(p)}
+    root = Path(data.get("path", "."))
+    if not root.is_absolute() and "yaml_file" in data:
+        root = Path(data["yaml_file"]).parent / root
+    out = dict(data)
+    for split in ("train", "val", "test"):
+        if data.get(split):
+            p = Path(data[split])
+            out[split] = str(p if p.is_absolute() else root / p)
+    names = data.get("names")
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    out["names"] = names or {i: str(i) for i in range(data.get("nc", 80))}
+    out["nc"] = data.get("nc", len(out["names"]))
+    return out
+
+
+class YOLODataset:
+    """Images and YOLO txt labels of one split."""
+
+    def __init__(self, img_dir: str, imgsz: int = 640, max_gt: int = 300, nc: int = 80, single_cls: bool = False,
+                 fraction: float = 1.0, cache=False):
+        if cache:
+            raise NotImplementedError(f"cache={cache!r}: the image cache is not in the port; use cache=False")
+        self.img_dir = Path(img_dir)
+        self.imgsz = imgsz
+        self.max_gt = max_gt
+        self.nc = nc
+        self.single_cls = single_cls
+        self.img_files = sorted(str(p) for p in self.img_dir.rglob("*") if p.suffix.lower() in IMG_EXTS)
+        if not self.img_files:
+            raise FileNotFoundError(f"no images found under {img_dir}")
+        if fraction < 1.0:
+            self.img_files = self.img_files[: max(1, round(len(self.img_files) * fraction))]
+        self.labels, self.stats = load_or_build_cache(self.img_files, nc, single_cls)
+        if self.stats.get("ncorrupt"):
+            bad = self.stats["msgs"][:3]
+            raise ValueError(f"{self.stats['ncorrupt']} corrupt images/labels under {img_dir}: {bad}")
+
+    def rect_shape(self, stride: int = 32):
+        """One stride-multiple (h, w) letterbox shape for the whole split, from
+        the median aspect ratio of its first 64 images, with the reference's
+        half-stride bump on both sides."""
+        ars = []
+        for f in self.img_files[:64]:
+            w, h, _ = image_size(f)
+            ars.append(h / w)
+        ar = float(np.median(ars))
+        h = math.ceil(min(ar, 1.0) * self.imgsz / stride + 0.5) * stride
+        w = math.ceil(min(1.0 / ar, 1.0) * self.imgsz / stride + 0.5) * stride
+        return (h, w)
+
+    def __len__(self):
+        return len(self.img_files)
+
+    def load_sample(self, idx: int) -> Dict:
+        """Raw sample: BGR image and pixel xyxy boxes."""
+        img = imread(self.img_files[idx])
+        if img is None:
+            raise IOError(f"failed to read {self.img_files[idx]}")
+        h, w = img.shape[:2]
+        lab = self.labels[idx]
+        xywhn = lab["xywhn"]
+        if len(xywhn):
+            cx, cy, bw, bh = xywhn[:, 0] * w, xywhn[:, 1] * h, xywhn[:, 2] * w, xywhn[:, 3] * h
+            bboxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], axis=1).astype(np.float32)
+        else:
+            bboxes = np.zeros((0, 4), np.float32)
+        return {"img": img, "bboxes": bboxes, "cls": lab["cls"].copy()}
+
+
+class DataLoader:
+    """Deterministic thread-prefetch loader of fixed-shape batches."""
+
+    def __init__(self, dataset: YOLODataset, batch_size: int, train: bool = True, hyp: Optional[Dict] = None,
+                 seed: int = 0, workers: int = 8, device_augment: bool = True,
+                 rect_shape=None):
+        if train and not device_augment:
+            raise NotImplementedError("device_augment=False needs the host augmentation stack (mosaic, "
+                                      "random_perspective, mixup, pixel_augment), which is not in the port")
+        self.ds = dataset
+        self.bs = batch_size
+        self.train = train
+        self.rect_shape = tuple(rect_shape) if rect_shape else None  # val only: (h, w)
+        self.hyp = dict(hyp or {})
+        self.seed = seed
+        self.epoch = 0
+        n = len(dataset)
+        self.batches_per_epoch = max(1, n // batch_size) if train else int(np.ceil(n / batch_size))
+        self.workers = max(1, workers)
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def close_mosaic(self):
+        """Mosaic off for the final epochs."""
+        self.hyp["mosaic"] = 0.0
+
+    def _indices(self):
+        n = len(self.ds)
+        return np.random.default_rng(self.seed + self.epoch).permutation(n) if self.train else np.arange(n)
+
+    def _make_sample(self, i: int) -> Dict[str, np.ndarray]:
+        sample = self.ds.load_sample(i)
+        if self.train:
+            return raw_train_transform(sample, self.ds.imgsz, self.ds.max_gt)
+        return val_transform(sample, self.ds.imgsz, self.ds.max_gt, shape=self.rect_shape)
+
+    def __len__(self):
+        return self.batches_per_epoch
+
+    def __iter__(self):
+        """One epoch; the worker threads live as long as the iteration."""
+        idx = self._indices()
+        n = len(idx)
+        with cf.ThreadPoolExecutor(max_workers=self.workers) as pool:
+            def submit(b):
+                return [pool.submit(self._make_sample, int(idx[(b * self.bs + j) % n])) for j in range(self.bs)]
+
+            nxt = submit(0)
+            for b in range(self.batches_per_epoch):
+                futs = nxt
+                if b + 1 < self.batches_per_epoch:
+                    nxt = submit(b + 1)
+                samples = [f.result() for f in futs]
+                batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+                if self.train:
+                    batch["aug"] = np.asarray([self.hyp.get(k, AUG_DEFAULTS[k]) for k in AUG_KEYS], np.float32)
+                yield batch

@@ -1,9 +1,11 @@
-"""Detect train step of the port: device augmentation, forward, TAL + loss,
-backward, gradient accumulation, clip, optimizer, warmup schedules and EMA.
+"""Detect trainer of the port: the train step (device augmentation, forward,
+TAL + loss, backward, gradient accumulation, clip, optimizer, warmup
+schedules and EMA) and the loop around it (datasets, epochs, validation,
+checkpoints, resume).
 
-Counterpart of the JAX package's engine/trainer.py `_make_train_step`, on
-one card. The JAX step is one jitted function over an explicit TrainState;
-here the trainer holds the state (the model with fp32 master weights, a
+Counterpart of the JAX package's engine/trainer.py, on one card. The JAX
+step is one jitted function over an explicit TrainState; here the trainer
+holds the state (the model with fp32 master weights, a
 torch.optim optimizer with three parameter groups, the EMA and the step
 counter) and the step updates it in place:
 
@@ -18,13 +20,30 @@ counter) and the step updates it in place:
     nbs), nodecay (norm scales), bias (warmup from warmup_bias_lr);
   * BN statistics move on every micro-step, with flax's biased variance.
 
-Not in this slice: the on-disk dataset and loader, YOLO.train, validation,
-checkpoints and resume, multi_scale, and the other tasks' losses.
+With `data` set, `setup()` also builds the datasets and loaders
+(data/build.py), overlays pretrained weights of the same shape
+(`_warm_start`) and builds the step, and `train()` runs the epochs as the JAX
+package does: mosaic closes at epoch >= epochs - close_mosaic, each epoch
+is validated on the EMA weights (one cached eval model of the same graph,
+into which the EMA is copied), `weights/last.pt` and `weights/best.pt`
+(and `epoch{n}.pt` every `save_period` epochs) are written to the run
+directory with `results.csv`, and `patience` and `time` stop the run.
+A checkpoint is a YOLO-loadable payload (graph, dtypes, names, the EMA as
+`state_dict`) that also carries the whole train state under `train`:
+parameters and BN statistics, the optimizer's state, the EMA and its
+update count, the step, the epoch, best_fitness, the scalar args and the
+device augmentation's generator state; `resume` restores it bit for bit.
+
+Not in this slice: callbacks, plots, multi-host sharding, autobatch,
+profile, multi_scale and the other tasks' losses.
 """
 
 from __future__ import annotations
 
+import csv
 import math
+import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,13 +51,38 @@ import torch
 import torch.nn as nn
 
 from ..cfg import AUG_KEYS, get_cfg
-from ..nn.tasks import DetectionModel
+from ..data.build import HYP_KEYS, build_dataloader, build_yolo_dataset
+from ..data.dataset import check_det_dataset
+from ..nn.tasks import DetectionModel, yaml_model_load
 from ..ops.augment_device import device_augment
 from ..utils.device import select_device
+from ..utils.files import get_save_dir
 from ..utils.loss import detection_loss
+from .validator import DetectionValidator
 
 OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
+FLAGSHIP = "yolov8s-cbam-swin.yaml"
+# hyperparameters of the host augmentation stack that the device augmentation
+# does not apply: a value other than 0 raises rather than being ignored
+HOST_ONLY_AUG = ("degrees", "shear", "perspective", "flipud", "mixup", "copy_paste", "mosaic9", "mosaic3")
+
+
+def check_supported(args) -> None:
+    """Raise NotImplementedError for a setting that the port does not honour."""
+    for k in ("plots", "save_json"):
+        if getattr(args, k):
+            raise NotImplementedError(f"{k}=True: not in the port; pass {k}=False")
+    bad = {k: getattr(args, k) for k in HOST_ONLY_AUG if float(getattr(args, k))}
+    if bad:
+        raise NotImplementedError(f"{bad}: the device augmentation applies mosaic, scale, translate, fliplr and "
+                                  "HSV only; the host augmentation stack is not in the port")
+
+
+def latest_run(search_dir) -> Optional[Path]:
+    """The most recent weights/last.pt under search_dir."""
+    ckpts = list(Path(search_dir).rglob("last.pt"))
+    return max(ckpts, key=lambda p: p.stat().st_mtime) if ckpts else None
 
 
 def param_group_of(name: str, owner: nn.Module) -> str:
@@ -102,37 +146,98 @@ class DetectionTrainer:
     def __init__(self, overrides: Optional[Dict] = None, model: Optional[DetectionModel] = None, device=None):
         self.args = get_cfg(overrides)
         self.device = select_device(device if device is not None else self.args.device)
+        check_supported(self.args)
         self.model = model
         self.step = 0
         self.ema: Dict[str, torch.Tensor] = {}
         self.ema_updates = 0
         self.optimizer = None
         self.tal_impl: Optional[str] = None  # "plain" forces the assigner's plain version, for a check on the card
+        self.pretrained_state: Optional[Dict[str, torch.Tensor]] = None  # weights handed over by YOLO.train
+        self.epoch = 0
+        self.best_fitness = -1.0
+        self.metrics_rows = []
+        self.epoch_stats = []  # per epoch: seconds of the train loop, of waiting for the loader, of val
+        self.data = None
+        self.validator: Optional[DetectionValidator] = None
+        self._eval_model: Optional[DetectionModel] = None
+        if self.args.data:
+            self.data = check_det_dataset(self.args.data)
+            self.save_dir = get_save_dir(self.args)
+            self.wdir = self.save_dir / "weights"
+            self.wdir.mkdir(parents=True, exist_ok=True)
 
     def setup(self) -> "DetectionTrainer":
         """Model (seeded random init unless one was given; fp32 master weights,
-        bf16 compute with amp), training mode, EMA. No datasets."""
+        bf16 compute with amp; nc and names from the data), training mode,
+        EMA. With data: the pretrained overlay (before the EMA is taken),
+        the datasets and loaders, and the train step."""
         a = self.args
         if self.model is None:
-            self.model = DetectionModel(a.model or "yolov8s-cbam-swin.yaml",
-                                        dtype=torch.bfloat16 if a.amp else torch.float32,
-                                        device=self.device, seed=a.seed,
-                                        param_dtype=torch.float32)
+            cfg = a.model or FLAGSHIP
+            if self.data is not None:
+                cfg = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
+                cfg["nc"] = 1 if a.single_cls else int(self.data["nc"])
+            self.model = DetectionModel(cfg, dtype=torch.bfloat16 if a.amp else torch.float32,
+                                        device=self.device, seed=a.seed, param_dtype=torch.float32)
+        if self.data is not None:
+            self.model.names = dict(self.data["names"])
         stride = max(self.model.strides)
         a.imgsz = math.ceil(int(a.imgsz) / stride) * stride
         self.model.train()
         self.step = 0
+        if self.data is not None:
+            self._warm_start()
         self.ema = {k: v.detach().float().clone() for k, v in self._ema_sources()}
         self.ema_updates = 0
         self.aug_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
+        if self.data is not None:
+            self._build_datasets()
+            self.train_step, self.accumulate = self._make_train_step(len(self.train_loader))
         return self
+
+    def _build_datasets(self) -> None:
+        a = self.args
+        hyp = {k: getattr(a, k) for k in HYP_KEYS}
+        train_ds = build_yolo_dataset(a, self.data["train"], self.data, mode="train")
+        self.train_loader = build_dataloader(train_ds, int(a.batch), workers=a.workers, train=True, hyp=hyp,
+                                             seed=a.seed, device_augment=bool(a.device_augment))
+        self.val_loader = None
+        if a.val and self.data.get("val"):
+            val_ds = build_yolo_dataset(a, self.data["val"], self.data, mode="val")
+            rect_shape = val_ds.rect_shape(stride=int(max(self.model.strides))) if a.rect else None
+            self.val_loader = build_dataloader(val_ds, int(a.batch), workers=a.workers, train=False, seed=a.seed,
+                                               rect_shape=rect_shape)
+
+    @torch.no_grad()
+    def _warm_start(self) -> None:
+        """Overlay pretrained weights onto the fresh init: each parameter and
+        BN statistic takes the source's tensor of the same name where its
+        shape matches (another nc keeps the fresh Detect class convs).
+        Sources, in order: `pretrained=<path of a .pt>`, then the weights
+        that YOLO.train handed over."""
+        pre = self.args.pretrained
+        src = None
+        if isinstance(pre, str) and pre not in ("true", "false", "True", "False"):
+            src = torch.load(pre, map_location="cpu", weights_only=True)["state_dict"]
+        elif self.pretrained_state is not None and pre not in (False, "false", "False"):
+            src = self.pretrained_state
+        if src is None:
+            return
+        matched = skipped = 0
+        for name, t in self._ema_sources():
+            s = src.get(name)
+            if s is not None and tuple(s.shape) == tuple(t.shape):
+                t.copy_(s)
+                matched += 1
+            else:
+                skipped += 1
+        self.transfer_stats = {"matched": matched, "skipped": skipped}
+        print(f"Transferred {matched}/{matched + skipped} weight leaves from pretrained checkpoint")
 
     def _ema_sources(self):
         """(name, tensor) of every parameter and every BN running statistic."""
-        yield from self.model.named_parameters()
-        for name, buf in self.model.named_buffers():
-            if name.endswith(("running_mean", "running_var")):
-                yield name, buf
+        return self._named_state(self.model)
 
     def _frozen(self, name: str) -> bool:
         fz = self.args.freeze
@@ -214,3 +319,155 @@ class DetectionTrainer:
         d = float(np.float32(0.9999) * (np.float32(1) - np.exp(np.float32(-self.ema_updates / 2000.0))))
         for name, src in self._ema_sources():
             self.ema[name].mul_(d).add_(src.detach().float(), alpha=1 - d)
+
+    # ------------------------------------------------------------------
+    def train(self) -> Dict[str, float]:
+        """Run the epochs from the data; returns the last validation's metrics."""
+        if self.data is None:
+            raise ValueError("train() needs data=<data YAML>; without it the trainer only builds the step")
+        if not hasattr(self, "train_loader"):
+            self.setup()
+        a = self.args
+        epochs = int(a.epochs)
+        start_epoch = 0
+        if a.resume:
+            path = Path(a.resume) if isinstance(a.resume, str) else self.wdir / "last.pt"
+            if not path.exists():
+                path = latest_run(a.project or "runs") or path
+            if path.exists():
+                self.load_checkpoint(path)
+                start_epoch = self.epoch + 1
+        nb = len(self.train_loader)
+        print(f"{self.model.yaml.get('yaml_file', 'model')}: {self.model.nc} classes, imgsz={a.imgsz}, "
+              f"optimizer={self.optimizer_name}, batch={a.batch} on {self.device}")
+        final: Dict[str, float] = {}
+        patience_left = a.patience
+        mosaic_closed = False
+        t_start = time.time()
+        budget_s = float(a.time) * 3600 if a.time else None
+        for epoch in range(start_epoch, epochs):
+            self.epoch = epoch
+            self.train_loader.set_epoch(epoch)
+            # >= so that a resume past the close point still closes mosaic
+            if a.close_mosaic and not mosaic_closed and epoch >= epochs - a.close_mosaic:
+                self.train_loader.close_mosaic()
+                print("Closing dataloader mosaic")
+                mosaic_closed = True
+            t0 = time.perf_counter()
+            losses, wait = [], 0.0
+            it = iter(self.train_loader)
+            while True:
+                tw = time.perf_counter()
+                batch = next(it, None)
+                wait += time.perf_counter() - tw
+                if batch is None:
+                    break
+                losses.append(self.train_step(batch))
+            mean_loss = torch.stack(losses).float().mean(0).cpu().numpy()  # waits for the epoch's last step
+            dt = time.perf_counter() - t0
+            print(("%11s" + "%11.4g" * 3 + "%11s   %.1f img/s") % (
+                f"{epoch + 1}/{epochs}", *mean_loss, a.imgsz, nb * int(a.batch) / max(dt, 1e-9)))
+            row = {"epoch": epoch, "train/box_loss": float(mean_loss[0]), "train/cls_loss": float(mean_loss[1]),
+                   "train/dfl_loss": float(mean_loss[2]), "time_s": round(dt, 2)}
+            stats = {"epoch": epoch, "batches": nb, "train_s": dt, "loader_wait_s": wait}
+            if self.val_loader is not None:
+                tv = time.perf_counter()
+                val_metrics = self.validate()
+                stats.update(val_s=time.perf_counter() - tv, val_seen=self.validator.seen,
+                             val_batches=len(self.val_loader), **{f"val_{k}_s": v for k, v in self.validator.times.items()})
+                row.update({f"metrics/{k}": v for k, v in val_metrics.items()})
+                fitness = val_metrics.get("fitness", 0.0)
+                print("  ".join(f"{k} {v:.4g}" for k, v in val_metrics.items()))
+                if fitness > self.best_fitness:
+                    self.best_fitness = fitness
+                    self.save_checkpoint(self.wdir / "best.pt")
+                    patience_left = a.patience
+                else:
+                    patience_left -= 1
+                final = val_metrics
+            self.save_checkpoint(self.wdir / "last.pt")
+            if a.save_period and a.save_period > 0 and (epoch + 1) % int(a.save_period) == 0:
+                self.save_checkpoint(self.wdir / f"epoch{epoch}.pt")
+            self.metrics_rows.append(row)
+            self.epoch_stats.append(stats)
+            self._write_csv()
+            stop = patience_left <= 0
+            if budget_s is not None:
+                # stop once the budget is spent, or when the mean epoch says the next would overshoot it
+                elapsed = time.time() - t_start
+                if elapsed + elapsed / (epoch - start_epoch + 1) > budget_s:
+                    print(f"Time budget {a.time}h: stopping after epoch {epoch + 1}")
+                    stop = True
+            if stop:
+                print(f"Stopping at epoch {epoch + 1}")
+                break
+        return final
+
+    def eval_model(self) -> DetectionModel:
+        """The cached eval model (same graph, dtypes and names) holding the EMA weights."""
+        if self._eval_model is None:
+            m = self.model
+            self._eval_model = DetectionModel(m.yaml, dtype=m.dtype, device=self.device, seed=int(self.args.seed),
+                                              param_dtype=m.param_dtype)
+        ev = self._eval_model
+        ev.names = dict(self.model.names)
+        with torch.no_grad():
+            for name, t in self._named_state(ev):
+                t.copy_(self.ema[name])
+        return ev.eval()
+
+    @staticmethod
+    def _named_state(model):
+        yield from model.named_parameters()
+        for name, buf in model.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                yield name, buf
+
+    def validate(self) -> Dict[str, float]:
+        """Metrics of the EMA weights on the val loader."""
+        ev = self.eval_model()
+        if self.validator is None:
+            self.validator = DetectionValidator(ev, self.val_loader, self.args)
+            self.validator.standalone = False
+        return self.validator()
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: Path) -> None:
+        """A YOLO-loadable payload (its state_dict is the EMA) carrying the
+        whole train state under `train`, for resume."""
+        m = self.model
+        ema_state = {k: (self.ema[k].to(v.dtype) if k in self.ema else v.detach()).cpu()
+                     for k, v in m.state_dict().items()}
+        torch.save({
+            "yaml": m.yaml, "fused": False, "dtype": str(m.dtype).removeprefix("torch."),
+            "param_dtype": str(m.param_dtype).removeprefix("torch."), "names": dict(m.names),
+            "state_dict": ema_state,
+            "train": {
+                "model": m.state_dict(), "optimizer": self.optimizer.state_dict(), "ema": self.ema,
+                "ema_updates": self.ema_updates, "step": self.step, "epoch": self.epoch,
+                "best_fitness": self.best_fitness, "nc": m.nc, "names": dict(m.names),
+                "args": {k: v for k, v in vars(self.args).items() if isinstance(v, (int, float, str, bool))},
+                "aug_gen": self.aug_gen.get_state(),
+            },
+        }, Path(path))
+
+    def load_checkpoint(self, path: Path) -> None:
+        """Restore the train state that save_checkpoint wrote."""
+        tr = torch.load(path, map_location="cpu", weights_only=True)["train"]
+        self.model.load_state_dict(tr["model"], strict=True)
+        self.optimizer.load_state_dict(tr["optimizer"])
+        with torch.no_grad():
+            for k, v in self.ema.items():
+                v.copy_(tr["ema"][k])
+        self.ema_updates = int(tr["ema_updates"])
+        self.step = int(tr["step"])
+        self.epoch = int(tr["epoch"])
+        self.best_fitness = float(tr["best_fitness"])
+        self.aug_gen.set_state(tr["aug_gen"])
+
+    def _write_csv(self) -> None:
+        keys = sorted({k for r in self.metrics_rows for k in r})
+        with open(self.save_dir / "results.csv", "w", newline="") as fh:
+            w = csv.DictWriter(fh, fieldnames=keys)
+            w.writeheader()
+            w.writerows(self.metrics_rows)

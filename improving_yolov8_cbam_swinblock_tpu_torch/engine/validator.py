@@ -1,0 +1,111 @@
+"""Detection validator: forward and NMS on the model's device, matching and AP on the host.
+
+Counterpart of the JAX package's engine/validator.py (_iter_val_batches and
+DetectionValidator, without sharding, callbacks, save_json or plots):
+letterboxed batches -> forward (eval mode) -> greedy NMS at conf 0.001,
+iou 0.7, `max_det`, multi-label when nc > 1 -> boxes clipped to each
+image's content region (ratio_pad) -> TP matching against the GT in
+letterboxed pixels over 10 IoU thresholds -> ap_per_class.
+
+`times` holds the seconds of the last call: waiting for the loader, the
+device part (forward, NMS and the copy of the detections to the host) and
+the host part (matching and AP).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..ops.boxes import xywh2xyxy
+from ..ops.nms import non_max_suppression
+from ..utils.metrics import DetMetrics, box_iou_np, match_predictions
+
+
+class DetectionValidator:
+    def __init__(self, model, loader, args):
+        self.model = model
+        self.loader = loader
+        self.args = args
+        self.conf = 0.001
+        self.iou = 0.7
+        self.metrics = DetMetrics(model.names)
+        self.seen = 0
+        self.standalone = True  # per-class rows in the table; the trainer prints the 'all' row only
+        self.times = {"loader": 0.0, "device": 0.0, "host": 0.0}
+
+    @torch.inference_mode()
+    def forward_nms(self, img: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 RGB -> (B, max_det, 6) detections in letterboxed pixels, on the host."""
+        m = self.model
+        x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
+        pred, _ = m(x)
+        dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=int(self.args.max_det),
+                                   nc=m.nc, multi_label=m.nc > 1)
+        return dets.cpu().numpy()
+
+    def update_metrics(self, dets: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
+        """Match one batch's detections to its GT and add them to the metrics."""
+        fh, fw = batch["img"].shape[1:3]
+        frame = np.array([fw, fh, fw, fh], np.float32)  # GT scale: the letterboxed (maybe rect) frame
+        for i in range(dets.shape[0]):
+            det = dets[i]
+            det = det[det[:, 4] > 0]
+            if "ratio_pad" in batch:  # clip to the content region [pad, pad + orig * r]
+                r, padw, padh = batch["ratio_pad"][i]
+                oh, ow = batch["orig_shape"][i]
+                det = det.copy()
+                det[:, [0, 2]] = det[:, [0, 2]].clip(padw, padw + ow * r)
+                det[:, [1, 3]] = det[:, [1, 3]].clip(padh, padh + oh * r)
+            gt_m = batch["mask"][i] > 0
+            gt_cls = batch["cls"][i][gt_m].astype(int)
+            gt_xyxy = xywh2xyxy(torch.from_numpy(batch["bboxes"][i][gt_m] * frame)).numpy()
+            if len(det) == 0:
+                if len(gt_cls):
+                    self.metrics.update(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
+                continue
+            tp = match_predictions(det[:, 5].astype(int), gt_cls, box_iou_np(gt_xyxy, det[:, :4]))
+            self.metrics.update(tp, det[:, 4], det[:, 5].astype(int), gt_cls)
+
+    def __call__(self) -> Dict[str, float]:
+        self.model.eval()
+        self.metrics = DetMetrics(self.model.names)
+        self.seen = 0
+        times = {"loader": 0.0, "device": 0.0, "host": 0.0}
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            t1 = time.perf_counter()
+            times["loader"] += t1 - t0
+            if batch is None:
+                break
+            self.seen += int(batch["img"].shape[0])
+            dets = self.forward_nms(batch["img"])
+            t2 = time.perf_counter()
+            self.update_metrics(dets, batch)
+            times["device"] += t2 - t1
+            times["host"] += time.perf_counter() - t2
+        t0 = time.perf_counter()
+        out = self.metrics.compute()
+        times["host"] += time.perf_counter() - t0
+        self.times = times
+        self.print_results(out)
+        return out
+
+    def print_results(self, out: Dict[str, float]) -> None:
+        """The reference's metrics table: the 'all' row, and a row per class
+        on a standalone val with more than one class."""
+        if not getattr(self.args, "verbose", True):
+            return
+        keys = ("precision", "recall", "mAP50", "mAP50-95")
+        pf = "%22s" + "%11i" * 2 + "%11.3g" * 4
+        print(("%22s" + "%11s" * 6) % ("Class", "Images", "Instances", "Box(P", "R", "mAP50", "mAP50-95)"))
+        nt = sum(len(s[3]) for s in self.metrics.stats)
+        print(pf % ("all", self.seen, nt, *(out[k] for k in keys)))
+        if self.standalone and len(self.metrics.per_class) > 1:
+            for name, v in self.metrics.per_class.items():
+                print(pf % (name, self.seen, v["n"], *(v[k] for k in keys)))

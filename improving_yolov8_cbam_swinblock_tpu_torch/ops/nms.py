@@ -1,10 +1,12 @@
-"""Batched greedy NMS, single label per anchor, axis-aligned boxes.
+"""Batched greedy NMS, axis-aligned boxes.
 
 Same contract as the JAX package's `non_max_suppression`: the top
 `MAX_NMS` anchors by confidence (stable order: the lower index first among
-equal scores), then exact greedy suppression truncated at `max_det` picks,
-one image per row of the batch, classes kept apart by a coordinate offset
-(class-aware only).
+equal scores) or, with `multi_label` and nc > 1, the top `MAX_NMS`
+(anchor, class) pairs by score (the lower flat index anchor * nc + class
+first among equal scores), then exact greedy suppression truncated at
+`max_det` picks, one image per row of the batch, classes kept apart by a
+coordinate offset (class-aware only).
 Output (B, max_det, 6) rows x1, y1, x2, y2, conf, cls; rows with conf 0
 are padding.
 """
@@ -20,17 +22,23 @@ MAX_NMS = 4096  # candidates per image that enter suppression
 
 
 def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
-                        max_det: int = 300, nc: int = 80) -> torch.Tensor:
+                        max_det: int = 300, nc: int = 80, multi_label: bool = False) -> torch.Tensor:
     """prediction (B, 4 + nc, A): xywh boxes then class scores."""
     pred = prediction.transpose(1, 2).float()  # (B, A, 4+nc)
     boxes = xywh2xyxy(pred[..., :4])
-    conf, cls = pred[..., 4:4 + nc].max(-1)  # max returns the first index among ties
-    b, a = conf.shape
-    k = min(MAX_NMS, a)
-    top, idx = torch.sort(conf, dim=1, descending=True, stable=True)
-    top, idx = top[:, :k], idx[:, :k]
+    b, a = pred.shape[:2]
+    if multi_label and nc > 1:  # every (anchor, class) pair is a candidate
+        k = min(MAX_NMS, a * nc)
+        top, flat = torch.sort(pred[..., 4:4 + nc].reshape(b, a * nc), dim=1, descending=True, stable=True)
+        top, flat = top[:, :k], flat[:, :k]
+        idx, cls_k = flat // nc, (flat % nc).float()
+    else:
+        conf, cls = pred[..., 4:4 + nc].max(-1)  # max returns the first index among ties
+        k = min(MAX_NMS, a)
+        top, idx = torch.sort(conf, dim=1, descending=True, stable=True)
+        top, idx = top[:, :k], idx[:, :k]
+        cls_k = cls.gather(1, idx).float()
     cand = boxes.gather(1, idx[..., None].expand(b, k, 4))
-    cls_k = cls.gather(1, idx).float()
     live = torch.where(top > conf_thres, top, torch.full_like(top, -1.0))
     ob = cand + (cls_k * MAX_WH)[..., None]
     x1, y1, x2, y2 = ob.unbind(-1)

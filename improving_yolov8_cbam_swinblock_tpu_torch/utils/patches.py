@@ -1,0 +1,218 @@
+"""Image decode for the data path (counterpart of the JAX package's utils/patches.py:imread).
+
+`imread` returns a BGR uint8 (H, W, 3) image, or None where the file is
+missing, empty or undecodable, as cv2.imread does. It decodes with cv2
+where cv2 imports, else with PIL where PIL imports, else with the port's own
+PNG decoder (numpy and the stdlib's zlib). A JPEG (or any other format that
+is not PNG) with neither cv2 nor PIL raises, naming the file.
+
+`image_size` reads (w, h) and the format from the PNG, JPEG and BMP headers
+without decoding the pixels; the dataset verifies images and computes its
+rect shape with it.
+"""
+
+from __future__ import annotations
+
+import functools
+import struct
+import zlib
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# JPEG start-of-frame markers (baseline, progressive, lossless, arithmetic):
+# C0-CF without DHT (C4), JPG (C8) and DAC (CC)
+_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+@functools.cache
+def _decoder() -> str:
+    """'cv2', 'pil' or 'png': the first decoder that imports, in that order,
+    worked out once per process."""
+    try:
+        import cv2  # noqa: F401
+
+        return "cv2"
+    except ImportError:
+        pass
+    try:
+        from PIL import Image  # noqa: F401
+
+        return "pil"
+    except ImportError:
+        return "png"
+
+
+def imread(filename, decoder: Optional[str] = None) -> Optional[np.ndarray]:
+    """BGR uint8 (H, W, 3), or None for a missing, empty or undecodable file.
+    `decoder` forces 'cv2', 'pil' or 'png' (default: the first that imports)."""
+    try:
+        buf = Path(filename).read_bytes()
+    except OSError:
+        return None
+    if not buf:
+        return None
+    decoder = decoder or _decoder()
+    if decoder == "cv2":
+        import cv2
+
+        return cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    if decoder == "pil":
+        import io
+
+        from PIL import Image
+
+        try:
+            with Image.open(io.BytesIO(buf)) as im:
+                rgb = np.asarray(im.convert("RGB"))
+        except (OSError, ValueError):
+            return None
+        return np.ascontiguousarray(rgb[..., ::-1])
+    if not buf.startswith(PNG_SIGNATURE):
+        raise RuntimeError(f"cannot decode {filename}: neither cv2 nor PIL imports, and the port's own "
+                           "decoder reads PNG only")
+    try:
+        return decode_png(buf)
+    except (ValueError, zlib.error, struct.error) as e:
+        raise RuntimeError(f"cannot decode {filename}: {e}") from e
+
+
+def _chunks(buf: bytes):
+    pos = len(PNG_SIGNATURE)
+    while pos + 8 <= len(buf):
+        n, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        yield kind, buf[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IEND":
+            return
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters: (h, stride) uint8. None, Sub and Up are
+    vectorised; Average and Paeth loop over the row's bytes."""
+    rows = np.frombuffer(raw, np.uint8)
+    if rows.size != h * (stride + 1):
+        raise ValueError(f"PNG data holds {rows.size} bytes, expected {h * (stride + 1)}")
+    rows = rows.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum mod 256 along each byte lane
+            pad = (-stride) % bpp
+            lanes = np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
+            cur = np.cumsum(lanes, axis=0, dtype=np.uint8).reshape(-1)[:stride]
+        elif ftype == 2:  # Up
+            cur = line + prev
+        elif ftype in (3, 4):
+            cur = bytearray(line.tobytes())
+            up = prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:  # Average
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 0xFF
+                else:  # Paeth
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                    cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row filter {ftype} is not one of the five")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(buf: bytes) -> np.ndarray:
+    """A non-interlaced PNG of gray, gray + alpha, RGB, RGBA or palette
+    pixels (8-bit; gray and palette also 1, 2 and 4 bits) as BGR uint8
+    (H, W, 3), as cv2.imdecode(IMREAD_COLOR) gives it: alpha dropped, gray
+    repeated, low gray depths scaled to 0..255."""
+    if not buf.startswith(PNG_SIGNATURE):
+        raise ValueError("not a PNG")
+    ihdr, palette, idat = None, None, []
+    for kind, data in _chunks(buf):
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(data)
+    if ihdr is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(ctype)
+    if channels is None:
+        raise ValueError(f"PNG color type {ctype} is not a PNG color type")
+    if interlace:
+        raise ValueError("interlaced PNG is not read by the port's decoder")
+    if depth != 8 and not (ctype in (0, 3) and depth in (1, 2, 4)):
+        raise ValueError(f"{depth}-bit PNG of color type {ctype} is not read by the port's decoder")
+    stride = (w * channels * depth + 7) // 8
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, channels * depth // 8))
+    if depth < 8:
+        vals = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]
+        px = (vals * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1).astype(np.uint8)
+        if ctype == 0:
+            px = (px.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+        px = px[..., None]
+    else:
+        px = rows.reshape(h, w, channels)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        rgb = palette[np.minimum(px[..., 0], len(palette) - 1)]
+    elif ctype in (0, 4):
+        rgb = np.repeat(px[..., :1], 3, axis=-1)
+    else:
+        rgb = px[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def image_size(path) -> Tuple[int, int, str]:
+    """(w, h, format) from the header of a PNG, JPEG or BMP file, without
+    decoding it; format is 'png', 'jpeg' or 'bmp'. Raises ValueError for
+    another format or a header that does not parse."""
+    with open(path, "rb") as fh:
+        head = fh.read(32)
+        if head.startswith(PNG_SIGNATURE):
+            if head[12:16] != b"IHDR":
+                raise ValueError(f"PNG without IHDR: {path}")
+            w, h = struct.unpack(">II", head[16:24])
+            return int(w), int(h), "png"
+        if head.startswith(b"BM") and len(head) >= 26:
+            w, h = struct.unpack("<ii", head[18:26])
+            return int(w), abs(int(h)), "bmp"
+        if head.startswith(b"\xff\xd8"):
+            fh.seek(2)
+            while True:
+                b = fh.read(1)
+                while b and b != b"\xff":  # skip to the next marker
+                    b = fh.read(1)
+                while b == b"\xff":
+                    b = fh.read(1)
+                if not b:
+                    break
+                marker = b[0]
+                if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:  # markers without a length
+                    continue
+                seg = fh.read(2)
+                if len(seg) < 2:
+                    break
+                n = struct.unpack(">H", seg)[0]
+                if marker in _SOF:
+                    body = fh.read(5)
+                    if len(body) < 5:
+                        break
+                    h, w = struct.unpack(">HH", body[1:5])
+                    return int(w), int(h), "jpeg"
+                fh.seek(n - 2, 1)
+            raise ValueError(f"JPEG without a frame header: {path}")
+    raise ValueError(f"not a PNG, JPEG or BMP file: {path}")

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from improving_yolov8_cbam_swinblock_tpu.nn import modules as JM
 from improving_yolov8_cbam_swinblock_tpu_torch.nn import modules as TM
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import state_dict_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 TOL = 2e-4

@@ -23,6 +23,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, quan
 from improving_yolov8_cbam_swinblock_tpu_torch.ops.quant import is_quantized
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import state_dict_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 CFG = "yolov8n-cbam-swin.yaml"

@@ -17,6 +17,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch.data.augment import letterbox
 from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import DetectionPredictor
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import boxes as TB
 from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import MAX_NMS, non_max_suppression
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 CFG = "yolov8n-cbam-swin.yaml"

@@ -50,6 +50,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import quant_state_from_jax, state_dict_from_jax
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_swin import jax_params, torch_params
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 EXACT = {"xla_allow_excess_precision": False}

@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from improving_yolov8_cbam_swinblock_tpu.ops.pallas.swin_kernel import fused_swin_block_ad
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
 from tests.test_torch_swin import jax_params, torch_params
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

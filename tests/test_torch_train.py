@@ -41,6 +41,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch.engine.trainer import (
     OPTIMIZERS, DetectionTrainer, build_optimizer, set_schedule)
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import state_dict_from_jax
 from tests.test_torch_model import seeded_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 CFG = "yolov8n-cbam-swin.yaml"
