@@ -19,7 +19,12 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
           I/O and with the bf16 softmax (sm16, K4v); each K1, K3 and K4 case
           also holds the shared memory the built library asks for against
-          the wrappers' copy of it for the CPU
+          the wrappers' copy of it for the CPU. Width cases: every Swin width
+          the two graphs build above the flagship's, K1 fast, exact and fp32
+          at (8, 40, 40, C) for C 384 to 768, K3 bf16 at (16, 40, 40, C) for
+          C 512 to 768 (fp32 at (4, 20, 20, C) for 640 and 768), K4 int8 I/O
+          at (8, 40, 40, 512); K1 from C=384 and K4 at C=512 take their wide
+          layouts
   slice   YOLO("yolov8s-cbam-swin.yaml").predict on 8 synthetic 480x640
           frames at 640 px, bf16, seeded random weights: the predict path,
           with its kernel launches counted; then the same model with the Swin
@@ -52,6 +57,20 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           with K1 against val with its plain version (the forward on the val
           batches in bf16 and fp32, the metrics in fp32); loader ms per batch,
           micro-step ms, epoch seconds, train img/s with the loader, val img/s
+  yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
+          seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
+          slice phase's frames in bf16 (K1 counted, 2 per batch) and its
+          forward against the plain Swin version in bf16 and in fp32; 4 train
+          micro-steps at batch 16 (K1, K3, K2 counted, 2, 2 and 1 each) and
+          one micro-step with the kernels against one with the plain
+          versions, as the train phase holds them; YOLO.train for one epoch
+          on the fit phase's dataset with validation (launches per micro-step
+          and per val batch) and YOLO(best.pt).val; forward img/s at batch 32
+          with its device time by kernel, and train img/s at batch 16
+  flagship_l  YOLO("yolov8l-cbam-swin.yaml"), the flagship at scale l (Swin
+          at C=512): one predict batch of the 8 frames and its forward
+          against the plain Swin version, and one train micro-step, each with
+          its launches counted
   speed   predict img/s at batch 32, 640 px, bf16, BN-folded (forward alone
           and end to end) and train img/s at batch 16, with and without the
           device augmentation
@@ -72,6 +91,7 @@ this, this, parent, each in its own process, one JSON line each (k2_run).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import itertools
@@ -170,6 +190,17 @@ FIT_FP32_METRIC_RTOL = 5e-2
 # int8 and float models at each Swin layer adds the int8 convs upstream; it
 # is reported beside it
 ORACLE_MEAN, ORACLE_MAX = 0.05, 0.25
+# the fork's second graph, and the flagship at the first scale whose Swin
+# blocks (C=512) need the kernels' wide layouts; the Swin widths the two
+# graphs build above the flagship's 256 (flagship m 384, l 512, x 640; YOLO11
+# m and l 512, x 768), all with 2 heads
+YOLO11, FLAGSHIP_L = "yolo11m-cbam-swin.yaml", "yolov8l-cbam-swin.yaml"
+WIDE_FWD, WIDE_BWD, WIDE_INT8 = (384, 512, 640, 768), (512, 640, 768), (512,)
+YOLO11_STEPS = 4
+# the launches of one predict batch, one train micro-step and one val batch
+PREDICT_LAUNCHES = {"swin_block_fwd": 2, "swin_block_fwd_exact": 0, "swin_block_bwd": 0, "tal_assign": 0,
+                    "swin_block_int8": 0, "swin_block_int8_sm16": 0}
+STEP_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1}
 
 
 def emit(obj) -> None:
@@ -458,50 +489,75 @@ def no_tf32(fn, *args):
 
 
 def phase_kernel(dev):
-    """Each kernel vs its plain version, TF32 off."""
+    """Each kernel vs its plain version, TF32 off; then the width cases
+    (wide_cases), whose rows also go to the kernels line."""
     fwd_ok, fwd = no_tf32(fwd_cases, dev)
     bwd_ok, bwd = no_tf32(bwd_cases, dev)
     tal_ok, tal = tal_cases(dev)
     int8_ok, int8 = int8_cases(dev)
-    return fwd_ok and bwd_ok and tal_ok and int8_ok, {"swin_block_fwd": fwd, "swin_block_bwd": bwd,
-                                                      "tal_assign": tal, "swin_block_int8": int8}
+    wide_ok, wide = no_tf32(wide_cases, dev)
+    return fwd_ok and bwd_ok and tal_ok and int8_ok and wide_ok, {
+        "swin_block_fwd": fwd, "swin_block_bwd": bwd, "tal_assign": tal, "swin_block_int8": int8, "widths": wide,
+    }, wide
 
 
-def fwd_cases(dev):
+def wide_cases(dev):
+    """The Swin widths of the two graphs above the flagship's 256, 2 heads:
+    K1 fast and exact in bf16 and fp32 at (8, 40, 40, C), C in WIDE_FWD; K3
+    in bf16 at (16, 40, 40, C), C in WIDE_BWD, and in fp32 at the padded
+    (4, 20, 20, C) for 640 and 768; K4 with int8 I/O at (8, 40, 40, C), C in
+    WIDE_INT8. The tolerances, times and shared-memory checks of fwd_cases,
+    bwd_cases and int8_cases."""
+    fwd_ok, fwd = fwd_cases(dev, [((8, 40, 40, c), 2, dt, fast) for c in WIDE_FWD
+                                  for dt, fast in ((torch.bfloat16, True), (torch.bfloat16, False),
+                                                   (torch.float32, False))])
+    bwd_ok, bwd = bwd_cases(dev, [((16, 40, 40, c), 2, torch.bfloat16) for c in WIDE_BWD]
+                            + [((4, 20, 20, c), 2, torch.float32) for c in (640, 768)])
+    int8_ok, int8 = int8_cases(dev, [((8, 40, 40, c), 2) for c in WIDE_INT8], modes=("int8_io",))
+    return fwd_ok and bwd_ok and int8_ok, {"swin_block_fwd": fwd, "swin_block_bwd": bwd, "swin_block_int8": int8}
+
+
+def fwd_cases(dev, cases=None):
     """K1 at the flagship's Swin shapes, scale s and scale n, fast (predict)
     and exact (train), and at shapes whose rows (21 x 21 and 20 x 20 pad
     their windows) and channels (C=64, heads of 32) exercise the padded
-    tensor-core tiles: fp32 within 1e-3 absolute, bf16 within 3e-2 of the
-    output's largest magnitude. Each case also holds the shared memory the
-    built library reports against fwd_smem_bytes, its copy for the CPU."""
+    tensor-core tiles, or at `cases` ((shape, heads, dtype, fast), ...):
+    fp32 within 1e-3 absolute, bf16 within 3e-2 of the output's largest
+    magnitude. Each case also holds the shared memory the built library
+    reports against fwd_smem_bytes, its copy for the CPU."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
 
+    if cases is None:
+        cases = [(shape, heads, dtype, fast)
+                 for shape, heads in (((8, 42, 42, 256), 2), ((8, 40, 40, 256), 2), ((8, 14, 14, 128), 2),
+                                      ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4))
+                 for dtype in (torch.float32, torch.bfloat16) for fast in (True, False)]
     rows, ok = [], True
-    for shape, heads in (((8, 42, 42, 256), 2), ((8, 40, 40, 256), 2), ((8, 14, 14, 128), 2), ((2, 21, 21, 64), 2),
-                         ((4, 20, 20, 128), 4)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for fast in (True, False):
-                rng = np.random.default_rng(SEED)
-                x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
-                p = swin_params(shape[-1], rng, dev, dtype)
-                y = swin_block(x, p, heads, fast=fast)
-                torch.cuda.synchronize()
-                ref = swin_block(x, p, heads, fast=fast, impl="plain")
-                abs_err = (y.float() - ref.float()).abs().max().item()
-                rerr = rel_err(y, ref)
-                smem = S._lib().swin_block_fwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
-                good = bool(torch.isfinite(y.float()).all()) and (
-                    abs_err <= 1e-3 if dtype == torch.float32 else rerr <= 3e-2) and (
-                    smem == S.fwd_smem_bytes(shape[-1], heads, dtype))
-                ok &= good
-                rows.append({
-                    "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "fast": fast,
-                    "max_abs_err": abs_err, "max_rel_err": rerr, "smem_bytes": smem, "ok": good,
-                    "kernel_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast)),
-                    "plain_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast, impl="plain"), iters=5),
-                    "bound_us": 1e3 * swin_bound(shape, dtype)[0],
-                })
+    for shape, heads, dtype, fast in cases:
+        rng = np.random.default_rng(SEED)
+        x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
+        p = swin_params(shape[-1], rng, dev, dtype)
+        y = swin_block(x, p, heads, fast=fast)
+        torch.cuda.synchronize()
+        ref = swin_block(x, p, heads, fast=fast, impl="plain")
+        abs_err = (y.float() - ref.float()).abs().max().item()
+        rerr = rel_err(y, ref)
+        smem = S._lib().swin_block_fwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
+        good = bool(torch.isfinite(y.float()).all()) and (
+            abs_err <= 1e-3 if dtype == torch.float32 else rerr <= 3e-2) and (
+            smem == S.fwd_smem_bytes(shape[-1], heads, dtype))
+        ok &= good
+        bound_ms, bound_by = swin_bound(shape, dtype)
+        rows.append({
+            "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "fast": fast,
+            "wide": S.fwd_is_wide(shape[-1], heads, dtype),
+            "max_abs_err": abs_err, "max_rel_err": rerr, "smem_bytes": smem, "ok": good,
+            "kernel_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast)),
+            "plain_us": 1e3 * cuda_ms(lambda: swin_block(x, p, heads, fast=fast, impl="plain"), iters=5),
+            "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+        })
+        del x, p
     return ok, rows
 
 
@@ -511,38 +567,46 @@ def bwd_errors(got, ref):
     return {"dx": rel_err(dx, rdx), **{k: rel_err(grads[k], rgrads[k]) for k in rgrads}}
 
 
-def bwd_cases(dev):
+def bwd_cases(dev, cases=None):
     """K3 vs swin_block_bwd_plain: dx and the 12 grads, each within
     BWD_RTOL of its largest magnitude. The parameters are fp32 masters, as
     the train path hands them; (4, 20, 20, 256) pads to 21 x 21; C=64 and
-    heads of 32 exercise the padded tensor-core tiles. Each case also holds
-    the shared memory the built library reports against bwd_smem_bytes, its
-    copy for the CPU."""
+    heads of 32 exercise the padded tensor-core tiles; or `cases` ((shape,
+    heads, dtype), ...). Each case also holds the shared memory the built
+    library reports against bwd_smem_bytes, its copy for the CPU."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block_bwd
 
+    if cases is None:
+        cases = [(shape, heads, dtype)
+                 for shape, heads in (((16, 40, 40, 256), 2), ((4, 20, 20, 256), 2), ((2, 21, 21, 64), 2),
+                                      ((4, 20, 20, 128), 4))
+                 for dtype in (torch.float32, torch.bfloat16)]
     rows, ok = [], True
-    for shape, heads in (((16, 40, 40, 256), 2), ((4, 20, 20, 256), 2), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)):
-        for dtype in (torch.float32, torch.bfloat16):
-            rng = np.random.default_rng(SEED + 1)
-            x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
-            g = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
-            p = swin_params(shape[-1], rng, dev, torch.float32)
-            got = swin_block_bwd(x, g, p, heads)
-            torch.cuda.synchronize()
-            errs = bwd_errors(got, swin_block_bwd(x, g, p, heads, impl="plain"))
-            finite = all(bool(torch.isfinite(t).all()) for t in (got[0].float(), *got[1].values()))
-            smem = S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
-            good = finite and max(errs.values()) <= BWD_RTOL[dtype] and smem == S.bwd_smem_bytes(shape[-1], heads,
-                                                                                                  dtype)
-            ok &= good
-            rows.append({
-                "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "ok": good,
-                "max_rel_err": max(errs.values()), "rel_err": errs, "smem_bytes": smem,
-                "kernel_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads), iters=5),
-                "plain_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads, impl="plain"), iters=3),
-                "bound_us": 1e3 * swin_bwd_bound(shape, dtype)[0],
-            })
+    for shape, heads, dtype in cases:
+        rng = np.random.default_rng(SEED + 1)
+        x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
+        g = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
+        p = swin_params(shape[-1], rng, dev, torch.float32)
+        got = swin_block_bwd(x, g, p, heads)
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, swin_block_bwd(x, g, p, heads, impl="plain"))
+        finite = all(bool(torch.isfinite(t).all()) for t in (got[0].float(), *got[1].values()))
+        smem = S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[dtype], shape[-1], heads)
+        good = finite and max(errs.values()) <= BWD_RTOL[dtype] and smem == S.bwd_smem_bytes(shape[-1], heads,
+                                                                                              dtype)
+        ok &= good
+        bound_ms, bound_by = swin_bwd_bound(shape, dtype)
+        rows.append({
+            "shape": list(shape), "heads": heads, "dtype": str(dtype).split(".")[-1], "ok": good,
+            "max_rel_err": max(errs.values()), "rel_err": errs, "smem_bytes": smem,
+            "max_abs_err_dx": (got[0].float() - swin_block_bwd(x, g, p, heads, impl="plain")[0].float()
+                               ).abs().max().item(),
+            "kernel_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads), iters=5),
+            "plain_us": 1e3 * cuda_ms(lambda: swin_block_bwd(x, g, p, heads, impl="plain"), iters=3),
+            "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+        })
+        del x, g, p, got
     return ok, rows
 
 
@@ -624,37 +688,44 @@ def int8_compare(y, ref) -> dict:
     return {**out, "ok": bool(ok and torch.isfinite(y.float()).all())}
 
 
-def int8_cases(dev):
+def int8_cases(dev, cases=(((8, 40, 40, 256), 2), ((32, 40, 40, 256), 2)),
+               modes=("int8_io", "bf16_io", "sm16_int8_io")):
     """K4 at the int8 path's Swin shapes, batch 8 (predict) and 32 (speed),
-    bf16 compute: int8 I/O as the int8 path runs it, bf16 I/O, and the bf16
-    softmax (sm16, K4v) with int8 I/O; fp32 weights quantized as
-    quantize_model does, activation scales from the input; and the shared
-    memory the built library asks for at C=256, 2 heads against smem_bytes,
-    the wrapper's copy of it for the CPU."""
+    bf16 compute (or at `cases`, (shape, heads), ...): int8 I/O as the int8
+    path runs it, bf16 I/O, and the bf16 softmax (sm16, K4v) with int8 I/O
+    (or `modes` of these); fp32 weights quantized as quantize_model does,
+    activation scales from the input; and the shared memory the built
+    library asks for at each C against smem_bytes, the wrapper's copy of it
+    for the CPU."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
 
-    smem = S8._lib().swin_block_int8_smem_bytes(256, 2, 1)
-    rows, ok = [], smem == S8.smem_bytes(256, 2, True)
-    for b in (8, 32):
-        shape = (b, 40, 40, 256)
+    rows, ok = [], True
+    for shape, heads in cases:
+        c = shape[-1]
+        smem = S8._lib().swin_block_int8_smem_bytes(c, heads, 1)
+        ok &= smem == S8.smem_bytes(c, heads, True)
         rng = np.random.default_rng(SEED + 3)
         x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(torch.bfloat16)
-        p = swin_params(256, rng, dev, torch.float32)
-        q = swin_quant(x, p, 2)
+        p = swin_params(c, rng, dev, torch.float32)
+        q = swin_quant(x, p, heads)
         xq = q8(x.float(), q["x_in_scale"]).to(torch.int8)
         for mode, xin, kw in (("int8_io", xq, dict(in8=True, out8=True)), ("bf16_io", x, {}),
                               ("sm16_int8_io", xq, dict(in8=True, out8=True, sm16=True))):
-            y = swin_block_int8(xin, p, q, 2, **kw)
+            if mode not in modes:
+                continue
+            y = swin_block_int8(xin, p, q, heads, **kw)
             torch.cuda.synchronize()
-            row = int8_compare(y, swin_block_int8(xin, p, q, 2, impl="plain", **kw))
+            row = int8_compare(y, swin_block_int8(xin, p, q, heads, impl="plain", **kw))
             ok &= row["ok"]
-            ms = cuda_ms(lambda: swin_block_int8(xin, p, q, 2, **kw))
+            ms = cuda_ms(lambda: swin_block_int8(xin, p, q, heads, **kw))
+            bound_ms, bound_by = swin_int8_bound(shape, xin.dtype, y.dtype)
             rows.append({
-                "shape": list(shape), "mode": mode, "out_dtype": str(y.dtype).split(".")[-1], **row,
+                "shape": list(shape), "heads": heads, "mode": mode, "out_dtype": str(y.dtype).split(".")[-1], **row,
+                "wide": S8.int8_is_wide(c, heads, True),
                 "kernel_us": 1e3 * ms, "tops": swin_int8_tops(shape, ms),
-                "plain_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, 2, impl="plain", **kw), iters=3),
-                "bound_us": 1e3 * swin_int8_bound(shape, xin.dtype, y.dtype)[0], "smem_bytes": smem,
+                "plain_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, heads, impl="plain", **kw), iters=3),
+                "bound_us": 1e3 * bound_ms, "bound_by": bound_by, "smem_bytes": smem,
             })
     return ok, rows
 
@@ -845,15 +916,25 @@ def phase_train(dev):
     """The train path: 8 micro-steps with the kernels' launches counted per
     step; then one micro-step with the kernels vs with the plain versions,
     in bf16 and in fp32, from one state and batch."""
+    return train_run(dev, {}, TRAIN_STEPS)
+
+
+def train_run(dev, overrides, steps):
+    """train_run's checks on the trainer with TRAIN and `overrides` (the
+    model; the flagship by default): `steps` micro-steps with the kernels'
+    launches counted per step (STEP_LAUNCHES each), the optimizer firing
+    every `accumulate` steps, finite losses; then one micro-step with the
+    kernels vs with the plain versions, in bf16 and in fp32, from one state
+    and batch."""
     from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
 
-    tr = DetectionTrainer(overrides=TRAIN).setup()
+    tr = DetectionTrainer(overrides={**TRAIN, **overrides}).setup()
     step, acc = tr._make_train_step(nb=TRAIN_NB)
-    batches = train_batches(TRAIN_STEPS + 1, dev)
+    batches = train_batches(steps + 1, dev)
     reset_counts()
     t0 = time.perf_counter()
     per_step, fired, losses = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before, updates = counts(), tr.ema_updates
         items = step(batches[i])
         torch.cuda.synchronize()
@@ -863,13 +944,11 @@ def phase_train(dev):
             fired.append(i + 1)
     seconds = time.perf_counter() - t0
     launches = counts()
-    want = {"swin_block_fwd": 2, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1,
-            "swin_block_int8": 0, "swin_block_int8_sm16": 0}
-    ok = (acc == 4 and fired == [4, 8] and all(d == want for d in per_step)
+    ok = (acc == 4 and fired == list(range(acc, steps + 1, acc)) and all(d == STEP_LAUNCHES for d in per_step)
           and bool(np.isfinite(losses).all()) and tr.optimizer_name == "SGD")
 
     # the comparison: the bf16 trainer, and an fp32 one (amp off) in its state
-    tr32 = DetectionTrainer(overrides={**TRAIN, "amp": False}).setup()
+    tr32 = DetectionTrainer(overrides={**TRAIN, **overrides, "amp": False}).setup()
     tr32.model.load_state_dict(tr.model.state_dict())
     step32, _ = tr32._make_train_step(nb=TRAIN_NB)
     tr32.step = tr.step
@@ -890,7 +969,8 @@ def phase_train(dev):
               and max(item_errs(i16k, i16p)) <= BF16_ITEM_RTOL
               and all(bf16_vs_fp32["kernel"][i] <= BF16_GRAD_SLACK * bf16_vs_fp32["plain"][i] for i in bf16_grad))
     return ok and cmp_ok, {
-        "steps": TRAIN_STEPS, "accumulate": acc, "optimizer_fired_at": fired, "ema_updates": tr.ema_updates,
+        "model": tr.args.model or "default", "steps": steps, "accumulate": acc, "optimizer_fired_at": fired,
+        "ema_updates": tr.ema_updates,
         "launches": launches, "launches_per_step": per_step, "loss_items": losses, "seconds": seconds,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "kernel_vs_plain": {**cmp, "ok": cmp_ok, "fp32_item_rtol": FP32_ITEM_RTOL, "fp32_grad_rtol": FP32_GRAD_RTOL,
@@ -1066,20 +1146,20 @@ def val_pair(model, validator, rtol) -> dict:
     return out
 
 
-def phase_fit(dev):
-    """The data path and the train loop on the card (the module docstring's fit phase)."""
-    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, DetectionTrainer
+@contextlib.contextmanager
+def counted_fit(steps, vals):
+    """While open, each train micro-step of a DetectionTrainer appends to
+    `steps` its epoch, the mosaic value it was handed and its kernel
+    launches, and each validation batch appends its launches to `vals`."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
     from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator
-    from improving_yolov8_cbam_swinblock_tpu_torch.utils.patches import _decoder
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
-    steps, vals, snaps = [], [], {}
-    mk, fwd, save = DetectionTrainer._make_train_step, DetectionValidator.forward_nms, DetectionTrainer.save_checkpoint
+    mk, fwd = DetectionTrainer._make_train_step, DetectionValidator.forward_nms
 
     def delta(before):
         return {k: v - before[k] for k, v in counts().items()}
 
-    def counted_step(self, nb):  # each micro-step's launches and the mosaic value it was handed
+    def counted_step(self, nb):
         step, acc = mk(self, nb)
 
         def run(batch):
@@ -1095,100 +1175,221 @@ def phase_fit(dev):
         vals.append(delta(before))
         return out
 
+    DetectionTrainer._make_train_step, DetectionValidator.forward_nms = counted_step, counted_val
+    try:
+        yield
+    finally:
+        DetectionTrainer._make_train_step, DetectionValidator.forward_nms = mk, fwd
+
+
+def phase_fit(dev):
+    """The data path and the train loop on the card (the module docstring's fit phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.patches import _decoder
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    steps, vals, snaps = [], [], {}
+    save = DetectionTrainer.save_checkpoint
+
     def snap_save(self, path):
         save(self, path)
         if Path(path).name == "epoch0.pt":
             snaps["epoch0"] = train_state(self)
 
-    DetectionTrainer._make_train_step, DetectionValidator.forward_nms = counted_step, counted_val
     DetectionTrainer.save_checkpoint = snap_save
     try:
-        t0 = time.perf_counter()
-        data = write_fit_dataset(tmp / "data")
-        write_s = time.perf_counter() - t0
-        yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", seed=SEED)
-        reset_counts()
-        t0 = time.perf_counter()
-        metrics = yolo.train(data=str(data), project=str(tmp / "runs"), **FIT)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = counts()
-        tr = yolo.trainer
-        rows = [dict(r) for r in tr.metrics_rows]
-        want_step = {"swin_block_fwd": 2, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1,
-                     "swin_block_int8": 0, "swin_block_int8_sm16": 0}
-        want_val = {**{k: 0 for k in want_step}, "swin_block_fwd": 2}
-        nb, nv = len(tr.train_loader), len(tr.val_loader)
-        files = {f: (tr.wdir / f).exists() for f in ("last.pt", "best.pt", "epoch0.pt")}
-        csv_rows = (tr.save_dir / "results.csv").read_text().strip().splitlines()
-        path_ok = (nb == 4 and nv == 2 and len(steps) == 8 and all(s["launches"] == want_step for s in steps)
-                   and [s["mosaic"] for s in steps] == [1.0] * 4 + [0.0] * 4
-                   and len(vals) == 4 and all(v == want_val for v in vals) and all(files.values())
-                   and len(csv_rows) == 3 and "metrics/mAP50-95" in csv_rows[0]
-                   and all(np.isfinite([r[k] for k in r if k.startswith("train/")]).all() for r in rows))
-
-        # a fresh trainer loads epoch 1's checkpoint bit for bit, then resumes epoch 2 only
-        tr2 = DetectionTrainer(overrides={**FIT, "data": str(data), "project": str(tmp / "runs"), "name": "resume",
-                                          "resume": str(tr.wdir / "epoch0.pt")}, device="cuda").setup()
-        tr2.load_checkpoint(tr.wdir / "epoch0.pt")
-        restored = {k: same_bits(v, snaps["epoch0"][k]) for k, v in train_state(tr2).items()}
-        n_steps = len(steps)
-        tr2.train()
-        resume_ok = (all(restored.values()) and len(steps) - n_steps == 4
-                     and [r["epoch"] for r in tr2.metrics_rows] == [1])
-        del tr2
-
-        # YOLO(best.pt).val against the trainer's record of that epoch; then with the plain block
-        best = YOLO(str(tr.wdir / "best.pt"), device="cuda")
-        rec = next(r for r in rows if r["metrics/fitness"] == tr.best_fitness)
-        keys = ("precision", "recall", "mAP50", "mAP50-95", "fitness")
-        t0 = time.perf_counter()
-        vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"], verbose=False)
-        val_s = time.perf_counter() - t0
-        record_err = max(abs(vm[k] - rec[f"metrics/{k}"]) for k in keys)
-        kvp = {"bf16": val_pair(best.model, best.validator, FIT_FORWARD_RTOL["bf16"]), "fp32": None}
-        f32 = DetectionModel(best.model.yaml, dtype=torch.float32, device=dev, param_dtype=torch.float32)
-        f32.load_state_dict(best.model.state_dict())
-        kvp["fp32"] = no_tf32(val_pair, f32, DetectionValidator(f32, best.validator.loader, best.validator.args),
-                              FIT_FORWARD_RTOL["fp32"])
-        rel = {dt: {k: abs(v[None][k] - v["plain"][k]) / max(abs(v[None][k]), abs(v["plain"][k]), 1e-12)
-                    for k in keys} for dt, v in kvp.items()}
-        val_ok = (record_err <= FIT_RECORD_ATOL and all(v["forward_ok"] for v in kvp.values())
-                  and max(rel["fp32"].values()) <= FIT_FP32_METRIC_RTOL)
-        del f32
-        loader_alone = {}  # each loader by itself for an epoch: decode, letterbox and stack, in its threads
-        for name, ld in (("train", tr.train_loader), ("val", tr.val_loader)):
+        with counted_fit(steps, vals):
             t0 = time.perf_counter()
-            n = sum(1 for _ in ld)
-            loader_alone[f"{name}_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / n
-        bs = FIT["batch"]
-        timing = [{"epoch": e["epoch"] + 1, "epoch_s": e["train_s"] + e["val_s"], "train_loop_s": e["train_s"],
-                   "train_img_per_s_with_loader": e["batches"] * bs / e["train_s"],
-                   "loader_wait_ms_per_train_batch": 1e3 * e["loader_wait_s"] / e["batches"],
-                   "micro_step_ms": 1e3 * (e["train_s"] - e["loader_wait_s"]) / e["batches"],
-                   "val_s": e["val_s"], "val_img_per_s": e["val_seen"] / e["val_s"],
-                   "loader_wait_ms_per_val_batch": 1e3 * e["val_loader_s"] / e["val_batches"],
-                   "val_device_ms_per_batch": 1e3 * e["val_device_s"] / e["val_batches"],
-                   "val_host_ms_per_batch": 1e3 * e["val_host_s"] / e["val_batches"]} for e in tr.epoch_stats]
-        return path_ok and resume_ok and val_ok, {
-            "dataset_write_s": write_s, "train_call_s": fit_s, "micro_steps": n_steps, "train_batches": nb,
-            "val_batches_per_epoch": nv, "launches": launches, "launches_per_step": steps[:8],
-            "launches_per_val_batch": vals[:4], "files": files, "csv_rows": len(csv_rows) - 1, "rows": rows,
-            "final_metrics": metrics, "path_ok": path_ok, "resume": {"restored_bit_for_bit": restored,
-                                                                       "ok": resume_ok},
-            "val_best_pt": dict(vm), "val_best_pt_s": val_s, "record_max_abs_err": record_err,
-            "record_atol": FIT_RECORD_ATOL,
-            "kernel_vs_plain": {dt: {"metrics_kernel": v[None], "metrics_plain": v["plain"], "metric_rel_err": rel[dt],
-                                     "metric_rtol": FIT_FP32_METRIC_RTOL if dt == "fp32" else "not held",
-                                     "forward_rel_err": v["forward_rel_err"], "forward_rtol": FIT_FORWARD_RTOL[dt]}
-                                for dt, v in kvp.items()},
-            "val_ok": val_ok,
-            "timing": timing, "loader_alone": loader_alone, "decoder": _decoder(),
-        }, launches
+            data = write_fit_dataset(tmp / "data")
+            write_s = time.perf_counter() - t0
+            yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", seed=SEED)
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = yolo.train(data=str(data), project=str(tmp / "runs"), **FIT)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = counts()
+            tr = yolo.trainer
+            rows = [dict(r) for r in tr.metrics_rows]
+            want_step, want_val = STEP_LAUNCHES, PREDICT_LAUNCHES
+            nb, nv = len(tr.train_loader), len(tr.val_loader)
+            files = {f: (tr.wdir / f).exists() for f in ("last.pt", "best.pt", "epoch0.pt")}
+            csv_rows = (tr.save_dir / "results.csv").read_text().strip().splitlines()
+            path_ok = (nb == 4 and nv == 2 and len(steps) == 8 and all(s["launches"] == want_step for s in steps)
+                       and [s["mosaic"] for s in steps] == [1.0] * 4 + [0.0] * 4
+                       and len(vals) == 4 and all(v == want_val for v in vals) and all(files.values())
+                       and len(csv_rows) == 3 and "metrics/mAP50-95" in csv_rows[0]
+                       and all(np.isfinite([r[k] for k in r if k.startswith("train/")]).all() for r in rows))
+
+            # a fresh trainer loads epoch 1's checkpoint bit for bit, then resumes epoch 2 only
+            tr2 = DetectionTrainer(overrides={**FIT, "data": str(data), "project": str(tmp / "runs"), "name": "resume",
+                                              "resume": str(tr.wdir / "epoch0.pt")}, device="cuda").setup()
+            tr2.load_checkpoint(tr.wdir / "epoch0.pt")
+            restored = {k: same_bits(v, snaps["epoch0"][k]) for k, v in train_state(tr2).items()}
+            n_steps = len(steps)
+            tr2.train()
+            resume_ok = (all(restored.values()) and len(steps) - n_steps == 4
+                         and [r["epoch"] for r in tr2.metrics_rows] == [1])
+            del tr2
+
+            # YOLO(best.pt).val against the trainer's record of that epoch; then with the plain block
+            best = YOLO(str(tr.wdir / "best.pt"), device="cuda")
+            rec = next(r for r in rows if r["metrics/fitness"] == tr.best_fitness)
+            keys = ("precision", "recall", "mAP50", "mAP50-95", "fitness")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"], verbose=False)
+            val_s = time.perf_counter() - t0
+            record_err = max(abs(vm[k] - rec[f"metrics/{k}"]) for k in keys)
+            kvp = {"bf16": val_pair(best.model, best.validator, FIT_FORWARD_RTOL["bf16"]), "fp32": None}
+            f32 = DetectionModel(best.model.yaml, dtype=torch.float32, device=dev, param_dtype=torch.float32)
+            f32.load_state_dict(best.model.state_dict())
+            kvp["fp32"] = no_tf32(val_pair, f32, DetectionValidator(f32, best.validator.loader, best.validator.args),
+                                  FIT_FORWARD_RTOL["fp32"])
+            rel = {dt: {k: abs(v[None][k] - v["plain"][k]) / max(abs(v[None][k]), abs(v["plain"][k]), 1e-12)
+                        for k in keys} for dt, v in kvp.items()}
+            val_ok = (record_err <= FIT_RECORD_ATOL and all(v["forward_ok"] for v in kvp.values())
+                      and max(rel["fp32"].values()) <= FIT_FP32_METRIC_RTOL)
+            del f32
+            loader_alone = {}  # each loader by itself for an epoch: decode, letterbox and stack, in its threads
+            for name, ld in (("train", tr.train_loader), ("val", tr.val_loader)):
+                t0 = time.perf_counter()
+                n = sum(1 for _ in ld)
+                loader_alone[f"{name}_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / n
+            bs = FIT["batch"]
+            timing = [{"epoch": e["epoch"] + 1, "epoch_s": e["train_s"] + e["val_s"], "train_loop_s": e["train_s"],
+                       "train_img_per_s_with_loader": e["batches"] * bs / e["train_s"],
+                       "loader_wait_ms_per_train_batch": 1e3 * e["loader_wait_s"] / e["batches"],
+                       "micro_step_ms": 1e3 * (e["train_s"] - e["loader_wait_s"]) / e["batches"],
+                       "val_s": e["val_s"], "val_img_per_s": e["val_seen"] / e["val_s"],
+                       "loader_wait_ms_per_val_batch": 1e3 * e["val_loader_s"] / e["val_batches"],
+                       "val_device_ms_per_batch": 1e3 * e["val_device_s"] / e["val_batches"],
+                       "val_host_ms_per_batch": 1e3 * e["val_host_s"] / e["val_batches"]} for e in tr.epoch_stats]
+            return path_ok and resume_ok and val_ok, {
+                "dataset_write_s": write_s, "train_call_s": fit_s, "micro_steps": n_steps, "train_batches": nb,
+                "val_batches_per_epoch": nv, "launches": launches, "launches_per_step": steps[:8],
+                "launches_per_val_batch": vals[:4], "files": files, "csv_rows": len(csv_rows) - 1, "rows": rows,
+                "final_metrics": metrics, "path_ok": path_ok, "resume": {"restored_bit_for_bit": restored,
+                                                                           "ok": resume_ok},
+                "val_best_pt": dict(vm), "val_best_pt_s": val_s, "record_max_abs_err": record_err,
+                "record_atol": FIT_RECORD_ATOL,
+                "kernel_vs_plain": {dt: {"metrics_kernel": v[None], "metrics_plain": v["plain"], "metric_rel_err": rel[dt],
+                                         "metric_rtol": FIT_FP32_METRIC_RTOL if dt == "fp32" else "not held",
+                                         "forward_rel_err": v["forward_rel_err"], "forward_rtol": FIT_FORWARD_RTOL[dt]}
+                                    for dt, v in kvp.items()},
+                "val_ok": val_ok,
+                "timing": timing, "loader_alone": loader_alone, "decoder": _decoder(),
+            }, launches
     finally:
-        DetectionTrainer._make_train_step, DetectionValidator.forward_nms = mk, fwd
         DetectionTrainer.save_checkpoint = save
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_yolo11(dev):
+    """The fork's YOLO11 graph at scale m (the module docstring's yolo11 phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    yolo = YOLO(YOLO11, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    widths = sorted({m.norm1.weight.numel() for m in swin_modules(yolo.model)})
+    reset_counts()
+    t0 = time.perf_counter()
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    predict_s = time.perf_counter() - t0
+    predict_launches = counts()
+    boxes_good = boxes_ok(results, 480, 640)
+    x = letterboxed(frames, 640, dev, torch.bfloat16)
+    bf16_ok, bf16_err, out_shape = compare_forward(yolo.model, x, 3e-2)
+    fp32 = YOLO(YOLO11, device="cuda", dtype=torch.float32, seed=SEED).fuse()
+    fp32_ok, fp32_err, _ = no_tf32(compare_forward, fp32.model, letterboxed(frames, 640, dev, torch.float32), 2e-3)
+    del fp32
+    predict_ok = (predict_launches == PREDICT_LAUNCHES and len(results) == 8 and boxes_good and bf16_ok and fp32_ok
+                  and out_shape == (8, 5, 8400) and widths == [512])
+
+    train_ok, train_info, (tr, step), train_launches = train_run(dev, {"model": YOLO11}, YOLO11_STEPS)
+
+    # one epoch of YOLO.train with validation, then YOLO(best.pt).val, on the fit phase's dataset
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_yolo11_"))
+    steps, vals = [], []
+    try:
+        data = write_fit_dataset(tmp / "data")
+        fy = YOLO(YOLO11, device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            t0 = time.perf_counter()
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"), **{**FIT, "epochs": 1, "save_period": -1})
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
+                          verbose=False)
+        e = fy.trainer.epoch_stats[0]
+        fit_ok = (len(steps) == 4 and all(st["launches"] == STEP_LAUNCHES for st in steps) and len(vals) == 4
+                  and all(v == PREDICT_LAUNCHES for v in vals)
+                  and all(np.isfinite(list(metrics.values()))) and all(np.isfinite(list(vm.values())))
+                  and all(np.isfinite([r[k] for r in fy.trainer.metrics_rows for k in r if k.startswith("train/")])))
+        fit = {"train_call_s": fit_s, "launches": fit_launches, "launches_per_step": steps,
+               "launches_per_val_batch": vals, "final_metrics": metrics, "val_best_pt": dict(vm),
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s": e["val_seen"] / e["val_s"], "ok": fit_ok}
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # speed: forward at batch 32 (BN-folded, as predict runs it), train micro-step at batch 16
+    bs = 32
+    xb = torch.rand(bs, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "swin_block_fwd")
+    cycle = itertools.cycle(train_batches(4, dev))
+    step_ms = cuda_ms(lambda: step(next(cycle)), iters=8, warmup=4)
+    del tr, step, yolo
+    torch.cuda.empty_cache()
+    return predict_ok and train_ok and fit["ok"], {
+        "model": YOLO11, "swin_widths": widths, "predict_launches": predict_launches,
+        "detections_per_frame": [len(r) for r in results], "boxes_ok": bool(boxes_good),
+        "predict_s_first_call": predict_s, "decoded_shape": list(out_shape),
+        "bf16_kernel_vs_plain_rel_err": bf16_err, "fp32_kernel_vs_plain_rel_err": fp32_err, "predict_ok": predict_ok,
+        "train": train_info, "fit": fit,
+        "forward_ms_batch32": fwd_ms, "forward_img_per_s": bs * 1e3 / fwd_ms, "forward_profile": profile,
+        "train_ms_per_step_batch16": step_ms, "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms,
+    }, {"yolo11_predict": predict_launches, "yolo11_train": train_launches, "yolo11_fit": fit_launches}
+
+
+def phase_flagship_l(dev):
+    """The flagship at scale l (Swin at C=512): one predict batch of the
+    slice phase's frames and its forward against the plain Swin version
+    (3e-2 of each output's largest magnitude, bf16), and one train
+    micro-step at batch 16 with finite losses, each with its launches
+    counted."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionTrainer
+
+    frames = slice_frames()
+    yolo = YOLO(FLAGSHIP_L, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    widths = sorted({m.norm1.weight.numel() for m in swin_modules(yolo.model)})
+    reset_counts()
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    predict_launches = counts()
+    fwd_ok, fwd_err, out_shape = compare_forward(yolo.model, letterboxed(frames, 640, dev, torch.bfloat16), 3e-2)
+    del yolo
+    tr = DetectionTrainer(overrides={**TRAIN, "model": FLAGSHIP_L}).setup()
+    step, _ = tr._make_train_step(nb=TRAIN_NB)
+    batch = train_batches(1, dev)[0]
+    reset_counts()
+    items = step(batch)
+    torch.cuda.synchronize()
+    step_launches = counts()
+    del tr, step
+    torch.cuda.empty_cache()
+    ok = (predict_launches == PREDICT_LAUNCHES and step_launches == STEP_LAUNCHES and widths == [512]
+          and len(results) == 8 and boxes_ok(results, 480, 640) and fwd_ok and out_shape == (8, 5, 8400)
+          and bool(torch.isfinite(items).all()))
+    return ok, {"model": FLAGSHIP_L, "swin_widths": widths, "predict_launches": predict_launches,
+                "kernel_vs_plain_rel_err": fwd_err, "step_launches": step_launches, "loss_items": items.tolist()}, \
+        {"flagship_l_predict": predict_launches, "flagship_l_train": step_launches}
 
 
 def phase_speed(yolo, train, dev):
@@ -1297,7 +1498,15 @@ def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
     return True, out
 
 
-def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
+def width_rows(rows):
+    """The kernel phase's width cases as the kernels line lists them (ms)."""
+    keep = ("shape", "heads", "dtype", "fast", "mode", "wide", "max_abs_err", "max_abs_err_dx", "max_rel_err",
+            "share_off", "smem_bytes", "bound_by")
+    return [{**{k: r[k] for k in keep if k in r}, "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+             "bound_ms": r["bound_us"] / 1e3} for r in rows]
+
+
+def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
     """Each kernel at the shapes its path hands it, vs its plain version,
     timed, beside its bound. No single PyTorch call computes any of the
     functions (the whole SwinBlock, its backward, its int8 form, the
@@ -1307,7 +1516,10 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
     the built library reports it) and the registers and spills of their
     tensor-core kernels (-Xptxas -v); K3 its workspace's bytes and their
     traffic's time at the HBM peak; K4 its library's IMMA, HMMA and IDP4A
-    instruction counts."""
+    instruction counts. K1, K3 and K4 also list their width cases from the
+    kernel phase (`widths`: C 384 to 768), and their launches by path
+    include the YOLO11 and flagship-l phases, whose Swin blocks are 512
+    wide."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -1328,7 +1540,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "tflops": swin_flops(tuple(x.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms,
            "smem_bytes": S._lib().swin_block_fwd_smem_bytes(S._DTYPES[x.dtype], 256, 2),
-           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_fwd"].items() if "mma" in k}}
+           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_fwd"].items() if "mma" in k or "wide" in k},
+           "widths": width_rows(wide["swin_block_fwd"])}
     # K1 exact and K3: train at 640 px with batch 16 hands them (16, 40, 40, 256) bf16, fp32 masters
     tswin = swin_modules(tr.model)[0]
     tp = {k: v.detach() for k, v in tswin.kernel_params().items()}
@@ -1354,7 +1567,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
            # the workspace is written once and read back: its traffic at the HBM peak
            "workspace_bytes": ws_bytes, "workspace_ms_at_peak": 2e3 * ws_bytes / PEAK_BYTES,
            "smem_bytes": S._bwd_lib().swin_block_bwd_smem_bytes(S._DTYPES[xt.dtype], 256, 2),
-           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_bwd"].items() if "bf16" in k or "mma" in k}}
+           "ptxas": {k: v for k, v in build["ptxas"]["swin_block_bwd"].items() if "bf16" in k or "mma" in k},
+           "widths": width_rows(wide["swin_block_bwd"])}
     # K2: the train path hands it B=16, A=8400, G=4*max_gt=128 after mosaic, nc=1
     # (ms: events over back-to-back calls, host work included; device_ms: CUDA-graph replay)
     args, grid = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED)
@@ -1394,7 +1608,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "tops": swin_int8_tops(tuple(x8.shape), ms), "ms_over_bound": ms / bound_ms,
             "smem_bytes": S8._lib().swin_block_int8_smem_bytes(256, 2, 1),
-            "ptxas": build["ptxas"]["swin_block_int8"], "sass": build["sass"]["swin_block_int8"]})
+            "ptxas": build["ptxas"]["swin_block_int8"], "sass": build["sass"]["swin_block_int8"],
+            **({"widths": width_rows(wide["swin_block_int8"])} if name == "swin_block_int8" else {})})
     rows = [fwd, bwd, tal, *int8_rows]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]], replaces=REPLACES[r["name"]])
@@ -1482,16 +1697,18 @@ def main() -> int:
 
     build = phase_build()
     emit({"phase": "build", "ok": True, "card": smi, **build})
-    run("kernel", phase_kernel, dev)
+    (wide,) = run("kernel", phase_kernel, dev)
     yolo, predict_launches = run("slice", phase_slice, dev)
     train, train_launches = run("train", phase_train, dev)
     int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
     (fit_launches,) = run("fit", phase_fit, dev)
+    (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
+    (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
                            {"predict": predict_launches, "train": train_launches, "int8": int8_launches,
-                            "fit": fit_launches}, build)
+                            "fit": fit_launches, **yolo11_launches, **large_launches}, build, wide)
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

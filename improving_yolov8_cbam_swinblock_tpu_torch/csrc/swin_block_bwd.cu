@@ -52,8 +52,13 @@
 // latencies overlap. The weight-grad products run as a GEMM of 128 x 128
 // block tiles over each 1024-token chunk, both token-major operands through
 // ldmatrix.trans. The attention's per-head products stay scalar fp32 loops
-// (3.5 % of the FLOPs). The workspace keeps its layout: 0.71 GB per launch
-// at (16, 40, 40, 256), written once and read back.
+// (3.5 % of the FLOPs), over a head's dims in slices of up to 128 (HS):
+// the scores and da sum the slices' dots in fp32, the other attention
+// products take their slice's columns, so a head of any width fits in
+// shared memory (121 KB at C=768 with 2 heads; one slice, and the same
+// sums as before, where the head dim is at most 128). The workspace keeps
+// its layout: 0.71 GB per launch at (16, 40, 40, 256), written once and
+// read back.
 //
 // fp32 (the correctness cases only): the products run on the CUDA cores
 // (64x64 output tiles, 4x4 per thread, operand tiles staged in shared
@@ -81,6 +86,7 @@ constexpr int TG_LD = 64 + 1;
 constexpr int TG_CHUNK = 1024;  // tokens per tgemm split
 constexpr int NT = 8;           // n8 tiles per warp in the window's tensor-core products
 constexpr int RSTD = 2 * NTOK + 2;  // floats before the product tiles: LN1 and LN2 1/std, 16-byte aligned after
+constexpr int HS = 128;         // widest slice of a head's dims in the attention's shared memory
 constexpr int WG_TILE = 128;    // bf16 weight-grad block tile: 128 x 128 of dW
 constexpr int WG_LD = WG_TILE + PAD;
 constexpr int WG_STAGE = 2 * swin_mma::KT * WG_LD;  // a G tile and an X tile, KT tokens each
@@ -235,11 +241,11 @@ __global__ void __launch_bounds__(NTHREADS)
                       const float* __restrict__ b2, Work<T> wk) {
   extern __shared__ __align__(16) float smem[];
   const int hd = C / heads;
-  const int hl = hd + 1;
+  const int hl = min(hd, HS) + 1;  // row stride of the attention's slices
   float* rstd1 = smem;
   float* rstd2 = smem + NTOK;
   float* big = smem + RSTD;
-  float* q_s = big;            // attention: one head's q, k, v, do and two 49x49 planes
+  float* q_s = big;            // attention: a slice of one head's q, k, v, do and two 49x49 planes
   float* k_s = q_s + NTOK * hl;
   float* v_s = k_s + NTOK * hl;
   float* d_s = v_s + NTOK * hl;
@@ -314,29 +320,32 @@ __global__ void __launch_bounds__(NTHREADS)
       xn, C, C, wqkv, C, C3, big, [&](int r, int n, float acc, float b) { qkv[r * C3 + n] = from_f<T>(acc + b); },
       {bqkv, 0});
 
-  // ---- attention, one head at a time ----
+  // ---- attention, one head at a time, over slices of its dims ----
   for (int hh = 0; hh < heads; ++hh) {
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int i = e / hd, d = e % hd;
-      q_s[i * hl + d] = to_f(qkv[i * C3 + hh * hd + d]);
-      k_s[i * hl + d] = to_f(qkv[i * C3 + C + hh * hd + d]);
-      v_s[i * hl + d] = to_f(qkv[i * C3 + 2 * C + hh * hd + d]);
+    // scores: the slices' q.k^T dots summed in fp32
+    for (int d0 = 0; d0 < hd; d0 += HS) {
+      const int dn = min(HS, hd - d0);
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        q_s[i * hl + d] = to_f(qkv[i * C3 + hh * hd + d0 + d]);
+        k_s[i * hl + d] = to_f(qkv[i * C3 + C + hh * hd + d0 + d]);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
+        const float* qi = q_s + (e / NTOK) * hl;
+        const float* kj = k_s + (e % NTOK) * hl;
+        float s = 0.f;
+        for (int d = 0; d < dn; ++d) s = fmaf(qi[d], kj[d], s);
+        pa_s[e] = d0 == 0 ? s : pa_s[e] + s;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
-      const float* qi = q_s + (e / NTOK) * hl;
-      const float* kj = k_s + (e % NTOK) * hl;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qi[d], kj[d], s);
-      pa_s[e] = s * scale;
-    }
-    __syncthreads();
     float* ah = a32 + (size_t)hh * NTOK * NTOK;
     for (int i = warp; i < NTOK; i += NWARPS) {
       float* prow = pa_s + i * NTOK;
       const bool two = lane + 32 < NTOK;
-      const float v0 = prow[lane];
-      const float v1 = two ? prow[lane + 32] : v0;
+      const float v0 = prow[lane] * scale;
+      const float v1 = two ? prow[lane + 32] * scale : v0;
       const float m = warp_max(fmaxf(v0, v1));
       const float e0 = expf(v0 - m);
       const float e1 = two ? expf(v1 - m) : 0.f;
@@ -349,14 +358,22 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int i = e / hd, d = e % hd;
-      const float* prow = pa_s + i * NTOK;
-      float s = 0.f;
-      for (int j = 0; j < NTOK; ++j) s = fmaf(prow[j], v_s[j * hl + d], s);
-      o[i * C + hh * hd + d] = from_f<T>(s);
+    for (int d0 = 0; d0 < hd; d0 += HS) {
+      const int dn = min(HS, hd - d0);
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        v_s[i * hl + d] = to_f(qkv[i * C3 + 2 * C + hh * hd + d0 + d]);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        const float* prow = pa_s + i * NTOK;
+        float s = 0.f;
+        for (int j = 0; j < NTOK; ++j) s = fmaf(prow[j], v_s[j * hl + d], s);
+        o[i * C + hh * hd + d0 + d] = from_f<T>(s);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // ---- y1 = xn32 + (o Wout^T + b) ----
@@ -460,35 +477,36 @@ __global__ void __launch_bounds__(NTHREADS)
   gemm49<true>(dout, C, C, wout, C, C, big,
                [&](int r, int n, float acc) { dob[r * C + n] = from_f<T>(acc); });
 
-  // ---- attention backward, one head at a time ----
+  // ---- attention backward, one head at a time, over slices of its dims ----
   for (int hh = 0; hh < heads; ++hh) {
     const float* ah = a32 + (size_t)hh * NTOK * NTOK;
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int i = e / hd, d = e % hd;
-      q_s[i * hl + d] = to_f(qkv[i * C3 + hh * hd + d]);
-      k_s[i * hl + d] = to_f(qkv[i * C3 + C + hh * hd + d]);
-      v_s[i * hl + d] = to_f(qkv[i * C3 + 2 * C + hh * hd + d]);
-      d_s[i * hl + d] = to_f(dob[i * C + hh * hd + d]);
-    }
     for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) pa_s[e] = ah[e];
-    __syncthreads();
-    // dv = a^T do (a rounded); da = do v^T
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int j = e / hd, d = e % hd;
-      float s = 0.f;
-      for (int i = 0; i < NTOK; ++i) s = fmaf(rnd<T>(pa_s[i * NTOK + j]), d_s[i * hl + d], s);
-      const int col = 2 * C + hh * hd + d;
-      dqkv32[j * C3 + col] = s;
-      dqkv[j * C3 + col] = from_f<T>(s);
+    // dv = a^T do (a rounded) for each slice; da = do v^T, the slices' dots summed in fp32
+    for (int d0 = 0; d0 < hd; d0 += HS) {
+      const int dn = min(HS, hd - d0);
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        v_s[i * hl + d] = to_f(qkv[i * C3 + 2 * C + hh * hd + d0 + d]);
+        d_s[i * hl + d] = to_f(dob[i * C + hh * hd + d0 + d]);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int j = e / dn, d = e % dn;
+        float s = 0.f;
+        for (int i = 0; i < NTOK; ++i) s = fmaf(rnd<T>(pa_s[i * NTOK + j]), d_s[i * hl + d], s);
+        const int col = 2 * C + hh * hd + d0 + d;
+        dqkv32[j * C3 + col] = s;
+        dqkv[j * C3 + col] = from_f<T>(s);
+      }
+      for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
+        const float* di = d_s + (e / NTOK) * hl;
+        const float* vj = v_s + (e % NTOK) * hl;
+        float s = 0.f;
+        for (int d = 0; d < dn; ++d) s = fmaf(di[d], vj[d], s);
+        pb_s[e] = d0 == 0 ? s : pb_s[e] + s;
+      }
+      __syncthreads();
     }
-    for (int e = threadIdx.x; e < NTOK * NTOK; e += NTHREADS) {
-      const float* di = d_s + (e / NTOK) * hl;
-      const float* vj = v_s + (e % NTOK) * hl;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(di[d], vj[d], s);
-      pb_s[e] = s;
-    }
-    __syncthreads();
     // ds = a32 * (da - sum_j da * a32), rounded
     for (int i = warp; i < NTOK; i += NWARPS) {
       const float* pa = pa_s + i * NTOK;
@@ -501,21 +519,30 @@ __global__ void __launch_bounds__(NTHREADS)
       if (two) pb[lane + 32] = rnd<T>(pa[lane + 32] * (pb[lane + 32] - s));
     }
     __syncthreads();
-    // dq = ds k * scale; dk = ds^T q * scale
-    for (int e = threadIdx.x; e < NTOK * hd; e += NTHREADS) {
-      const int i = e / hd, d = e % hd;
-      float sq = 0.f, sk = 0.f;
-      for (int j = 0; j < NTOK; ++j) {
-        sq = fmaf(pb_s[i * NTOK + j], k_s[j * hl + d], sq);
-        sk = fmaf(pb_s[j * NTOK + i], q_s[j * hl + d], sk);
+    // dq = ds k * scale; dk = ds^T q * scale, slice by slice
+    for (int d0 = 0; d0 < hd; d0 += HS) {
+      const int dn = min(HS, hd - d0);
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        q_s[i * hl + d] = to_f(qkv[i * C3 + hh * hd + d0 + d]);
+        k_s[i * hl + d] = to_f(qkv[i * C3 + C + hh * hd + d0 + d]);
       }
-      const int cq = hh * hd + d, ck = C + hh * hd + d;
-      dqkv32[i * C3 + cq] = sq * scale;
-      dqkv[i * C3 + cq] = from_f<T>(sq * scale);
-      dqkv32[i * C3 + ck] = sk * scale;
-      dqkv[i * C3 + ck] = from_f<T>(sk * scale);
+      __syncthreads();
+      for (int e = threadIdx.x; e < NTOK * dn; e += NTHREADS) {
+        const int i = e / dn, d = e % dn;
+        float sq = 0.f, sk = 0.f;
+        for (int j = 0; j < NTOK; ++j) {
+          sq = fmaf(pb_s[i * NTOK + j], k_s[j * hl + d], sq);
+          sk = fmaf(pb_s[j * NTOK + i], q_s[j * hl + d], sk);
+        }
+        const int cq = hh * hd + d0 + d, ck = C + hh * hd + d0 + d;
+        dqkv32[i * C3 + cq] = sq * scale;
+        dqkv[i * C3 + cq] = from_f<T>(sq * scale);
+        dqkv32[i * C3 + ck] = sk * scale;
+        dqkv[i * C3 + ck] = from_f<T>(sk * scale);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   for (int n = threadIdx.x; n < C3; n += NTHREADS) {
     float s = 0.f;
@@ -714,7 +741,7 @@ __global__ void swin_bwd_sum_kernel(const float* __restrict__ in, int rows, size
 size_t smem_bytes(int dtype, int C, int heads) {
   const int hd = C / heads;
   const size_t tiles = dtype == 1 ? swin_mma::ring_bytes<NT, true, false>() / sizeof(float) : 2 * 64 * LD;
-  const size_t attn = 4 * (size_t)NTOK * (hd + 1) + 2 * NTOK * NTOK;
+  const size_t attn = 4 * (size_t)NTOK * ((hd < HS ? hd : HS) + 1) + 2 * NTOK * NTOK;
   return sizeof(float) * (RSTD + (tiles > attn ? tiles : attn));
 }
 

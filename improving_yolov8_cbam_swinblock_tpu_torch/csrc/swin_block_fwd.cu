@@ -46,9 +46,26 @@
 // scores and probabilities lie during attention: 182 KB at C=256, 2 heads,
 // so one block per SM.
 //
+// Wide windows (bf16 from C=384 with 2 heads: the layout above would need
+// 257 KB at C=384 and 469 KB at C=768, over a block's 227 KB). One launch,
+// one block per window, the same products and roundings; what stays in
+// shared memory is the fp32 residual stream (49 x C, 147 KB at C=768), the
+// ring (4 stages of 64-row A tiles and 64 x 32 weight tiles) and a slice of
+// the attention. The LN1 and LN2 outputs go to a global scratch row block
+// of the window (bf16, 49 x C, L2-resident) and stream back through the
+// ring as the A operand of the qkv and fc1 products. A head's attention
+// runs in 64-wide slices of its head dim: q.k^T sums the slices' products
+// into the fp32 scores; then each slice of v is computed, multiplied by the
+// probabilities and sent through its rows of Wout onto the residual
+// stream. The biases are read from global memory in the epilogues. Only
+// the order of fp32 sums differs from the narrow layout: 214 KB at C=768.
+//
 // fp32 (the correctness cases only): the products run on the CUDA cores in
 // fp32 (64x64 output tiles, 4x4 per thread, weight tiles staged through
 // shared memory) over fp32 copies of the same operands: 194 KB at C=256.
+// Where the two C-wide buffers do not fit (C >= 384 with 2 heads), the
+// attention output / LN2 output and a head's q|k|v live in the window's
+// global scratch instead, read by the same loops: 190 KB at C=768.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +93,13 @@ constexpr int MMA_THREADS = 128 * WN;
 constexpr int NT = 4;             // n8 tiles per warp: 128-column blocks
 constexpr size_t RING_BYTES = swin_mma::ring_bytes<NT, false, false, WN>();
 constexpr float LN_EPS = 1e-5f;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use on sm_90
+constexpr int WNT = 2;               // n8 tiles per warp of the wide kernel: 64-column blocks
+constexpr int DS = 64;               // head-dim slice of the wide kernel's attention
+constexpr int DS_LD = DS + PAD;      // row stride of its q, k, v and output slices
+constexpr size_t WIDE_RING_BYTES = swin_mma::ring_bytes<WNT, true, false, WN>();
 static_assert(NTOK == swin_mma::NTOK, "one window per block");
+static_assert(DS_LD == P_LD, "the probabilities share the slices' row stride");
 static_assert(RING_BYTES >= sizeof(float) * NTOK * NTOK && RING_BYTES >= sizeof(bf16) * MROWS * P_LD,
               "the scores and the probabilities lie over the ring");
 
@@ -361,6 +384,117 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, wide windows: the LN outputs in global scratch, attention in slices
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline size_t up16(size_t v) { return (v + 15) / 16 * 16; }
+
+// Byte offsets of the wide kernel's shared memory (smem_bytes repeats its total)
+struct WideLayout {
+  size_t ring, attn, total;
+  __host__ __device__ explicit WideLayout(int C) {
+    const size_t qk = sizeof(bf16) * 2 * MROWS * DS_LD + sizeof(float) * NTOK * NTOK;  // q and k slices, scores
+    const size_t hid = sizeof(bf16) * MROWS * (HC + PAD);                               // the MLP hidden chunk
+    ring = sizeof(float) * NTOK * C;  // after the fp32 residual stream
+    attn = ring + WIDE_RING_BYTES;
+    total = attn + up16(qk > hid ? qk : hid);
+  }
+};
+
+__global__ void __launch_bounds__(MMA_THREADS)
+    swin_block_fwd_wide_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int H, int W, int C, int heads,
+                               int fast, float scale, const float* __restrict__ ln1w,
+                               const float* __restrict__ ln1b, const bf16* __restrict__ wqkv,
+                               const float* __restrict__ bqkv, const bf16* __restrict__ wout,
+                               const float* __restrict__ bout, const float* __restrict__ ln2w,
+                               const float* __restrict__ ln2b, const bf16* __restrict__ w1,
+                               const float* __restrict__ b1, const bf16* __restrict__ w2,
+                               const float* __restrict__ b2, bf16* __restrict__ scratch) {
+  using swin_mma::product_smem;
+  using swin_mma::product_stream;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WideLayout L(C);
+  const int hd = C / heads;
+  constexpr int ldm = HC + PAD;  // row stride of the MLP hidden chunk
+  float* res = reinterpret_cast<float*>(smem);  // LN1 output, then the residual stream (fp32)
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L.attn);       // a slice of q, then of v
+  bf16* k_s = q_s + MROWS * DS_LD;                          // a slice of k, then of the head's output
+  float* sc = reinterpret_cast<float*>(k_s + MROWS * DS_LD);  // the head's scores, then its probabilities
+  bf16* p_s = reinterpret_cast<bf16*>(sc);
+  bf16* hid = q_s;  // the MLP hidden chunk, after attention
+  bf16* xg = scratch + (size_t)blockIdx.x * NTOK * C;  // the window's LN1, then LN2 output (bf16, 49 x C)
+
+  // zero the attention slices once: pad rows are never stored, and v's must
+  // be zero (the pad columns of p multiply them)
+  for (size_t e = threadIdx.x; e < (L.total - L.attn) / 16; e += MMA_THREADS)
+    reinterpret_cast<uint4*>(smem + L.attn)[e] = make_uint4(0, 0, 0, 0);
+
+  const int nwh = (H + WS - 1) / WS;
+  const int nww = (W + WS - 1) / WS;
+  const int b = blockIdx.x / (nwh * nww);
+  const int wy = (blockIdx.x / nww) % nwh;
+  const int wx = blockIdx.x % nww;
+  const bool bf16_fast = fast != 0;
+
+  gather_window(x, b, wy, wx, H, W, C, res);
+  ln1_rows(res, C, bf16_fast, ln1w, ln1b, xg, C);  // its barrier makes xg visible to the ring's copies
+
+  for (int hh = 0; hh < heads; ++hh) {
+    // scores: the slices' q.k^T summed in fp32, scaled after the last
+    for (int d0 = 0; d0 < hd; d0 += DS) {
+      const int dn = min(DS, hd - d0);
+      const bool last = d0 + dn == hd;
+      auto qk_row = [=](int n) { return n < dn ? hh * hd + d0 + n : C + hh * hd + d0 + (n - dn); };
+      product_stream<WNT, true, false, 0, WN>(xg, C, C, wqkv, C, 0, 2 * dn, qk_row, ring,
+                                               [&](int r, int n, float acc) {
+                                                 bf16* dst = n < dn ? q_s + r * DS_LD + n : k_s + r * DS_LD + n - dn;
+                                                 *dst = __float2bfloat16(acc + bqkv[qk_row(n)]);
+                                               });
+      product_smem<WNT, false, WN>(q_s, DS_LD, k_s, DS_LD, dn, NTOK, [&](int r, int n, float acc) {
+        float& s = sc[r * NTOK + n];
+        const float t = d0 == 0 ? acc : s + acc;
+        s = last ? t * scale : t;
+      });
+    }
+    softmax_rows(sc, p_s);
+    // each slice of v: its output columns, then their share of the out-projection
+    for (int d0 = 0; d0 < hd; d0 += DS) {
+      const int dn = min(DS, hd - d0);
+      const int c0 = hh * hd + d0;  // the slice's first column of v and of the heads' output
+      product_stream<WNT, true, false, 0, WN>(xg, C, C, wqkv, C, 0, dn, [=](int n) { return 2 * C + c0 + n; }, ring,
+                                               [&](int r, int n, float acc) {
+                                                 q_s[r * DS_LD + n] = __float2bfloat16(acc + bqkv[2 * C + c0 + n]);
+                                               });
+      product_smem<WNT, true, WN>(p_s, P_LD, q_s, DS_LD, MROWS, dn,
+                                  [&](int r, int n, float acc) { k_s[r * DS_LD + n] = __float2bfloat16(acc); });
+      product_stream<WNT, false, false, 0, WN>(k_s, DS_LD, dn, wout, C, c0, C, Identity(), ring,
+                                                [&](int r, int n, float acc) {
+                                                  float& v = res[r * C + n];
+                                                  v = c0 == 0 ? v + (acc + bout[n]) : v + acc;
+                                                });
+    }
+  }
+
+  // the hidden chunk's pad rows lie where the slices were
+  for (int e = threadIdx.x; e < (MROWS - NTOK) * ldm; e += MMA_THREADS) hid[NTOK * ldm + e] = __float2bfloat16(0.f);
+  ln2_window(res, C, ln2w, ln2b, xg, C);
+
+  // ---- MLP in hidden chunks; fc2 accumulates onto the residual stream ----
+  for (int h0 = 0; h0 < 4 * C; h0 += HC) {
+    product_stream<WNT, true, false, 0, WN>(
+        xg, C, C, w1, C, 0, HC, [=](int n) { return h0 + n; }, ring, [&](int r, int n, float acc) {
+          hid[r * ldm + n] = __float2bfloat16(gelu_fwd(acc + b1[h0 + n], bf16_fast));
+        });
+    product_stream<WNT, false, false, 0, WN>(hid, ldm, HC, w2, 4 * C, h0, C, Identity(), ring,
+                                              [&](int r, int n, float acc) {
+                                                res[r * C + n] += h0 == 0 ? acc + b2[n] : acc;
+                                              });
+  }
+  store_window(res, y, b, wy, wx, H, W, C);
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA-core products
 // ---------------------------------------------------------------------------
 
@@ -424,15 +558,25 @@ __global__ void __launch_bounds__(NTHREADS)
                               const float* __restrict__ wout, const float* __restrict__ bout,
                               const float* __restrict__ ln2w, const float* __restrict__ ln2b,
                               const float* __restrict__ w1, const float* __restrict__ b1,
-                              const float* __restrict__ w2, const float* __restrict__ b2) {
+                              const float* __restrict__ w2, const float* __restrict__ b2, float* scratch) {
   extern __shared__ float smem_f[];
   const int hd = C / heads;
   const int ldq = 3 * hd + 1;  // odd stride: rows of k and v fall in distinct banks
-  float* xn_s = smem_f;                // normed tokens, then the fp32 residual stream
-  float* o_s = xn_s + NTOK * C;        // attention output, then the LN2 output
-  float* p_s = o_s + NTOK * C;         // one head's probabilities
-  float* wt_s = p_s + NTOK * NTOK;     // weight tile
-  float* q_s = wt_s + TILE_N * WT_LD;  // one head's q|k|v, then an MLP hidden chunk
+  float* xn_s = smem_f;  // normed tokens, then the fp32 residual stream
+  float *o_s, *p_s, *wt_s, *q_s, *hid_s;
+  if (scratch == nullptr) {
+    o_s = xn_s + NTOK * C;        // attention output, then the LN2 output
+    p_s = o_s + NTOK * C;         // one head's probabilities
+    wt_s = p_s + NTOK * NTOK;     // weight tile
+    q_s = wt_s + TILE_N * WT_LD;  // one head's q|k|v, then an MLP hidden chunk
+    hid_s = q_s;
+  } else {  // wide: the attention / LN2 output and q|k|v in the window's global scratch
+    p_s = xn_s + NTOK * C;
+    wt_s = p_s + NTOK * NTOK;
+    hid_s = wt_s + TILE_N * WT_LD;
+    o_s = scratch + (size_t)blockIdx.x * NTOK * (C + ldq);
+    q_s = o_s + NTOK * C;
+  }
 
   const int nwh = (H + WS - 1) / WS;
   const int nww = (W + WS - 1) / WS;
@@ -494,7 +638,6 @@ __global__ void __launch_bounds__(NTHREADS)
   ln2_window(xn_s, C, ln2w, ln2b, o_s, C);
 
   // ---- MLP in hidden chunks; fc2 accumulates onto the residual stream ----
-  float* hid_s = q_s;
   for (int h0 = 0; h0 < 4 * C; h0 += HC) {
     block_gemm(o_s, C, C, w1, C, 0, HC, [=](int n) { return h0 + n; }, wt_s,
                [&](int r, int n, float acc) { hid_s[r * HC + n] = gelu_fwd(acc + b1[h0 + n], false); });
@@ -504,12 +647,31 @@ __global__ void __launch_bounds__(NTHREADS)
   store_window(xn_s, y, b, wy, wx, H, W, C);
 }
 
-// bytes of shared memory per block (exported as swin_block_fwd_smem_bytes)
-size_t smem_bytes(int dtype, int C, int heads) {
+// bytes of shared memory per block of the narrow layouts, which keep the
+// whole window resident
+size_t narrow_smem_bytes(int dtype, int C, int heads) {
   if (dtype == 1) return MmaLayout(C, heads).total;
   const int hd = C / heads;
   const int q = NTOK * (3 * hd + 1) > NTOK * HC ? NTOK * (3 * hd + 1) : NTOK * HC;
   return sizeof(float) * ((size_t)2 * NTOK * C + NTOK * NTOK + TILE_N * WT_LD + q);
+}
+
+// the wide layout serves the shapes whose narrow one exceeds the block's limit
+bool is_wide(int dtype, int C, int heads) { return narrow_smem_bytes(dtype, C, heads) > MAX_SMEM; }
+
+// bytes of shared memory per block (exported as swin_block_fwd_smem_bytes)
+size_t smem_bytes(int dtype, int C, int heads) {
+  if (!is_wide(dtype, C, heads)) return narrow_smem_bytes(dtype, C, heads);
+  if (dtype == 1) return WideLayout(C).total;
+  return sizeof(float) * ((size_t)NTOK * C + NTOK * NTOK + TILE_N * WT_LD + NTOK * HC);
+}
+
+// bytes of global scratch per window (0 for the narrow layouts): bf16 the
+// LN output (49 x C); fp32 the attention / LN2 output and one head's q|k|v
+size_t scratch_bytes_per_window(int dtype, int C, int heads) {
+  if (!is_wide(dtype, C, heads)) return 0;
+  if (dtype == 1) return sizeof(bf16) * NTOK * C;
+  return sizeof(float) * NTOK * ((size_t)C + 3 * (C / heads) + 1);
 }
 
 template <typename K, typename T, typename... Args>
@@ -531,28 +693,40 @@ extern "C" {
 // 1 = bfloat16) takes at this C and head count.
 size_t swin_block_fwd_smem_bytes(int dtype, int C, int heads) { return smem_bytes(dtype, C, heads); }
 
+// Bytes of global scratch a launch at this shape needs (0 where the window
+// stays in shared memory); the caller passes that many bytes as `scratch`.
+size_t swin_block_fwd_scratch_bytes(int dtype, int B, int H, int W, int C, int heads) {
+  return (size_t)B * ((H + WS - 1) / WS) * ((W + WS - 1) / WS) * scratch_bytes_per_window(dtype, C, heads);
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, y and the four weight matrices).
-// Returns the CUDA error code of the launch (0 on success).
+// scratch: swin_block_fwd_scratch_bytes of device memory, or null where that
+// is 0. Returns the CUDA error code of the launch (0 on success).
 int swin_block_fwd(int dtype, const void* x, void* y, int B, int H, int W, int C, int heads,
                    int fast, const float* ln1w, const float* ln1b, const void* wqkv,
                    const float* bqkv, const void* wout, const float* bout, const float* ln2w,
                    const float* ln2b, const void* w1, const float* b1, const void* w2,
-                   const float* b2, void* stream) {
+                   const float* b2, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf((float)(C / heads));
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool wide = is_wide(dtype, C, heads);
+  if (wide != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<decltype(&swin_block_fwd_f32_kernel), float>(
         swin_block_fwd_f32_kernel, NTHREADS, dtype, x, y, B, H, W, C, heads, s, scale, ln1w, ln1b,
         static_cast<const float*>(wqkv), bqkv, static_cast<const float*>(wout), bout, ln2w, ln2b,
-        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2);
-  if (dtype == 1) {
-    if (C % 32 || (C / heads) % 16) return (int)cudaErrorInvalidValue;  // the tensor-core tiles
-    return launch<decltype(&swin_block_fwd_mma_kernel), bf16>(
-        swin_block_fwd_mma_kernel, MMA_THREADS, dtype, x, y, B, H, W, C, heads, s, fast, scale, ln1w, ln1b,
+        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2, static_cast<float*>(scratch));
+  if (C % 32 || (C / heads) % 16) return (int)cudaErrorInvalidValue;  // the tensor-core tiles
+  if (wide)
+    return launch<decltype(&swin_block_fwd_wide_kernel), bf16>(
+        swin_block_fwd_wide_kernel, MMA_THREADS, dtype, x, y, B, H, W, C, heads, s, fast, scale, ln1w, ln1b,
         static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wout), bout, ln2w, ln2b,
-        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2);
-  }
-  return (int)cudaErrorInvalidValue;
+        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2, static_cast<bf16*>(scratch));
+  return launch<decltype(&swin_block_fwd_mma_kernel), bf16>(
+      swin_block_fwd_mma_kernel, MMA_THREADS, dtype, x, y, B, H, W, C, heads, s, fast, scale, ln1w, ln1b,
+      static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wout), bout, ln2w, ln2b,
+      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2);
 }
 
 }  // extern "C"

@@ -72,6 +72,20 @@
 // heads' outputs) the int8 MLP hidden (64 x 4C+16) later lies, and the ring,
 // over which a head's scores and probabilities lie: 210,944 B, one block of
 // 512 threads per SM.
+//
+// Wide windows (bf16 compute, from C=512 with 2 heads, where that layout
+// would need 361 KB): one launch, the same products, roundings and exact
+// int32 sums. Shared memory keeps the fp32 residual stream, the two int8
+// product inputs, a 64-wide slice of a head's bf16 q and k (then v) with
+// the head's fp32 scores, and a 3-stage ring of 64-byte-deep tiles; the
+// factors and biases are read from global memory in the epilogues (the same
+// fp32 products). A head's q.k^T sums its slices' products in fp32. The MLP
+// runs in 128-column chunks of the hidden: fc1 quantizes a chunk of the
+// hidden into int8, fc2 adds its int32 sums onto the block's int32
+// accumulators, which take the residual stream's place in shared memory
+// while the stream waits in a global scratch row block of the window; the
+// last chunk dequantizes the whole sum once, as the TPU kernel does, and
+// adds it to the stream. 226,704 B at C=512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,6 +121,14 @@ constexpr size_t RING_BYTES = swin_mma::ring_bytes_s8<NT, WN, KT<CBF>, STG>();
 static_assert(RING_BYTES<false> >= sizeof(float) * NTOK * NTOK && RING_BYTES<true> >= sizeof(float) * NTOK * NTOK &&
                   RING_BYTES<true> >= sizeof(bf16) * MROWS * P_LD,
               "the scores and the probabilities lie over the ring");
+
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use on sm_90
+constexpr int KT_W = 64;             // k depth (bytes) of the wide kernel's ring stages
+constexpr int DS = 64;               // head-dim slice of the wide kernel's attention
+constexpr int DS_LD = DS + PAD;      // row stride of its bf16 q, k and v slices
+constexpr int HC8 = 128;             // MLP hidden columns per chunk of the wide kernel
+constexpr size_t WIDE_RING_BYTES = swin_mma::ring_bytes_s8<NT, WN, KT_W, STG>();
+static_assert(DS_LD == P_LD, "the probabilities share the slices' row stride");
 
 enum Kind { KIND_F32 = 0, KIND_BF16 = 1, KIND_I8 = 2 };
 
@@ -335,6 +357,58 @@ __device__ void store_window(const float* res, void* y, int kind, float ys, int 
   }
 }
 
+// LN1 of the gathered rows of res in place, one warp per token, with its
+// affine in the compute dtype (each operation rounded); the result
+// quantized into a8 (row stride ld8) for the qkv product. Ends with a barrier.
+template <bool CBF>
+__device__ void ln1_quant(float* res, int8_t* a8, int ld8, const Args& P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = P.C;
+  const float fc = (float)C, xs_qkv = P.xs[0];
+  for (int t = warp; t < NTOK; t += NWARPS) {
+    float* row = res + t * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mean = warp_sum(s) / fc;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      ss += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
+    for (int c = lane; c < C; c += 32) {
+      const float n = (row[c] - mean) * rstd;
+      const float xn = CBF ? bf(bf(bf(n) * bf(P.ln1w[c])) + bf(P.ln1b[c])) : n * P.ln1w[c] + P.ln1b[c];
+      row[c] = xn;
+      a8[t * ld8 + c] = (int8_t)q8(xn, xs_qkv);
+    }
+  }
+  __syncthreads();
+}
+
+// LN2 (fp32 affine) of the residual stream res, one warp per token,
+// quantized into a8 (row stride ld8) for fc1. Ends with a barrier.
+__device__ void ln2_quant(const float* res, int8_t* a8, int ld8, const Args& P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = P.C;
+  const float fc = (float)C, xs_fc1 = P.xs[2];
+  for (int t = warp; t < NTOK; t += NWARPS) {
+    const float* row = res + t * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mean = warp_sum(s) / fc;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      ss += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
+    for (int c = lane; c < C; c += 32)
+      a8[t * ld8 + c] = (int8_t)q8((row[c] - mean) * rstd * P.ln2w[c] + P.ln2b[c], xs_fc1);
+  }
+  __syncthreads();
+}
+
 template <bool CBF>
 __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
   using swin_mma::product_smem;
@@ -365,11 +439,8 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
   const int b = blockIdx.x / (nwh * nww);
   const int wy = (blockIdx.x / nww) % nwh;
   const int wx = blockIdx.x % nww;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const float xs_qkv = P.xs[0], xs_out = P.xs[1], xs_fc1 = P.xs[2], xs_fc2 = P.xs[3];
   const float xs_in = P.xs[4], ys_out = P.xs[5];
-  const float fc = (float)C;
 
   for (int e = threadIdx.x; e < 9 * C; e += NTHREADS) {
     float f, bv;
@@ -381,27 +452,9 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
     bia[e] = bv;
   }
 
-  // ---- gather the window, LN1 and its affine, quantize the qkv input (one warp per token) ----
+  // ---- gather the window, LN1 and its affine, quantize the qkv input ----
   gather_window(P.x, P.x_kind, xs_in, b, wy, wx, H, W, C, res);
-  for (int t = warp; t < NTOK; t += NWARPS) {
-    float* row = res + t * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mean = warp_sum(s) / fc;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      ss += d * d;
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
-    for (int c = lane; c < C; c += 32) {
-      const float n = (row[c] - mean) * rstd;
-      const float xn = CBF ? bf(bf(bf(n) * bf(P.ln1w[c])) + bf(P.ln1b[c])) : n * P.ln1w[c] + P.ln1b[c];
-      row[c] = xn;
-      a8[t * ld8 + c] = (int8_t)q8(xn, xs_qkv);
-    }
-  }
-  __syncthreads();
+  ln1_quant<CBF>(res, a8, ld8, P);
 
   // ---- attention, one head at a time; each head's output quantized for the out-projection ----
   for (int hh = 0; hh < P.heads; ++hh) {
@@ -445,21 +498,7 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
   });
 
   // ---- LN2 (fp32 affine), quantized for fc1 ----
-  for (int t = warp; t < NTOK; t += NWARPS) {
-    const float* row = res + t * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mean = warp_sum(s) / fc;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      ss += d * d;
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(ss) / fc + LN_EPS);
-    for (int c = lane; c < C; c += 32)
-      a8[t * ld8 + c] = (int8_t)q8((row[c] - mean) * rstd * P.ln2w[c] + P.ln2b[c], xs_fc1);
-  }
-  __syncthreads();
+  ln2_quant(res, a8, ld8, P);
 
   // ---- fc1 and the tanh GELU into the int8 hidden ----
   product_stream_s8<NT, WN, KT<CBF>, STG>(a8, ld8, C, P.w1, C, 4 * C, Identity(), ring, [&](int r, int n, int acc) {
@@ -472,6 +511,149 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
     res[r * C + n] = res[r * C + n] + deq(acc, fac[8 * C + n], bia[8 * C + n]);
   });
   store_window(res, P.y, P.y_kind, ys_out, b, wy, wx, H, W, C);
+}
+
+
+// Byte offsets of the wide kernel's shared memory (bf16 compute; exported
+// through swin_block_int8_smem_bytes, repeated by ops/swin_int8.py)
+struct WideLayout {
+  size_t a8, o8, attn, ring, total;
+  __host__ __device__ explicit WideLayout(int C) {
+    const size_t in8 = (size_t)MROWS * (C + PAD8);  // an int8 product input of C columns
+    a8 = sizeof(float) * NTOK * C;                  // after the fp32 residual stream
+    o8 = a8 + in8;
+    attn = o8 + in8;  // the q and k (then v) slices and the scores (then probabilities)
+    ring = attn + up16(sizeof(bf16) * 2 * MROWS * DS_LD + sizeof(float) * NTOK * NTOK);
+    total = ring + WIDE_RING_BYTES;
+  }
+};
+
+__global__ void __launch_bounds__(NTHREADS) swin_block_int8_wide_kernel(Args P, float* __restrict__ scratch) {
+  using swin_mma::product_smem;
+  using swin_mma::product_stream_s8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = P.C;
+  const int hd = C / P.heads;
+  const WideLayout L(C);
+  const int ld8 = C + PAD8;            // bytes per row of a8 and o8
+  constexpr int ldh8 = HC8 + PAD8;     // bytes per row of an MLP hidden chunk
+  float* res = reinterpret_cast<float*>(smem);  // normed tokens, then the fp32 residual stream
+  int* acc2 = reinterpret_cast<int*>(smem);     // during the MLP: fc2's int32 sums
+  int8_t* a8 = reinterpret_cast<int8_t*>(smem + L.a8);  // the qkv input, then the fc1 input
+  int8_t* o8 = reinterpret_cast<int8_t*>(smem + L.o8);  // the heads' outputs: the out-projection input
+  int8_t* h8 = o8;                                      // an MLP hidden chunk, after the out-projection
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L.attn);   // a slice of q, then of v
+  bf16* k_s = q_s + MROWS * DS_LD;                      // a slice of k
+  float* sc = reinterpret_cast<float*>(k_s + MROWS * DS_LD);  // the head's scores, then its probabilities
+  bf16* p_s = reinterpret_cast<bf16*>(sc);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + L.ring);
+  float* y1g = scratch + (size_t)blockIdx.x * NTOK * C;  // the residual stream during the MLP
+
+  // zero the slices once: pad rows are never stored, and v's must be zero
+  // (the zero pad columns of P multiply them)
+  for (size_t e = threadIdx.x; e < (L.ring - L.attn) / 16; e += NTHREADS)
+    reinterpret_cast<uint4*>(smem + L.attn)[e] = make_uint4(0, 0, 0, 0);
+
+  const int H = P.H, W = P.W;
+  const int nwh = (H + WS - 1) / WS;
+  const int nww = (W + WS - 1) / WS;
+  const int b = blockIdx.x / (nwh * nww);
+  const int wy = (blockIdx.x / nww) % nwh;
+  const int wx = blockIdx.x % nww;
+  const float xs_qkv = P.xs[0], xs_out = P.xs[1], xs_fc1 = P.xs[2], xs_fc2 = P.xs[3];
+  const float xs_in = P.xs[4], ys_out = P.xs[5];
+
+  gather_window(P.x, P.x_kind, xs_in, b, wy, wx, H, W, C, res);
+  ln1_quant<true>(res, a8, ld8, P);
+
+  // ---- attention, one head at a time, in slices of its dims ----
+  for (int hh = 0; hh < P.heads; ++hh) {
+    for (int d0 = 0; d0 < hd; d0 += DS) {
+      const int dn = min(DS, hd - d0);
+      const bool last = d0 + dn == hd;
+      auto qk_row = [=](int n) { return n < dn ? hh * hd + d0 + n : C + hh * hd + d0 + (n - dn); };
+      product_stream_s8<NT, WN, KT_W, STG>(a8, ld8, C, P.wqkv, C, 2 * dn, qk_row, ring, [&](int r, int n, int acc) {
+        const int m = qk_row(n);
+        bf16* dst = n < dn ? q_s + r * DS_LD + n : k_s + r * DS_LD + n - dn;
+        *dst = __float2bfloat16(deq(acc, xs_qkv * P.sqkv[m], P.bqkv[m]));
+      });
+      product_smem<NT, false, WN>(q_s, DS_LD, k_s, DS_LD, dn, NTOK, [&](int r, int n, float acc) {
+        float& s = sc[r * NTOK + n];
+        const float t = d0 == 0 ? acc : s + acc;
+        s = last ? t * P.scale : t;
+      });
+    }
+    softmax_rows(sc, p_s, P.sm16);
+    for (int d0 = 0; d0 < hd; d0 += DS) {
+      const int dn = min(DS, hd - d0);
+      const int c0 = hh * hd + d0;  // the slice's first column of v and of the heads' output
+      product_stream_s8<NT, WN, KT_W, STG>(a8, ld8, C, P.wqkv, C, dn, [=](int n) { return 2 * C + c0 + n; }, ring,
+                                          [&](int r, int n, int acc) {
+                                            const int m = 2 * C + c0 + n;
+                                            q_s[r * DS_LD + n] = __float2bfloat16(deq(acc, xs_qkv * P.sqkv[m], P.bqkv[m]));
+                                          });
+      product_smem<NT, true, WN>(p_s, P_LD, q_s, DS_LD, MROWS, dn, [&](int r, int n, float acc) {
+        o8[r * ld8 + c0 + n] = (int8_t)q8(acc, xs_out);
+      });
+    }
+  }
+
+  // ---- out-projection; residual onto the normed tokens ----
+  product_stream_s8<NT, WN, KT_W, STG>(o8, ld8, C, P.wout, C, C, Identity(), ring, [&](int r, int n, int acc) {
+    res[r * C + n] = res[r * C + n] + deq(acc, xs_out * P.sout[n], P.bout[n]);
+  });
+  ln2_quant(res, a8, ld8, P);
+
+  // the residual stream waits in the scratch; its shared memory takes fc2's int32 sums
+  for (int e = threadIdx.x; e < NTOK * C / 4; e += NTHREADS) {
+    reinterpret_cast<float4*>(y1g)[e] = reinterpret_cast<const float4*>(res)[e];
+    reinterpret_cast<int4*>(acc2)[e] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  // ---- MLP in hidden chunks: fc1 and the tanh GELU into an int8 chunk, fc2's sums over the chunks ----
+  for (int h0 = 0; h0 < 4 * C; h0 += HC8) {
+    product_stream_s8<NT, WN, KT_W, STG>(a8, ld8, C, P.w1, C, HC8, [=](int n) { return h0 + n; }, ring,
+                                        [&](int r, int n, int acc) {
+                                          const int m = h0 + n;
+                                          const float pb = bf(deq(acc, xs_fc1 * P.s1[m], P.b1[m]));
+                                          h8[r * ldh8 + n] = (int8_t)q8(gelu_tanh<true>(pb), xs_fc2);
+                                        });
+    const bool last = h0 + HC8 >= 4 * C;
+    product_stream_s8<NT, WN, KT_W, STG>(h8, ldh8, HC8, P.w2 + h0, 4 * C, C, Identity(), ring,
+                                        [&](int r, int n, int acc) {
+                                          const int i = r * C + n;
+                                          if (!last) {
+                                            acc2[i] += acc;
+                                          } else {  // the whole sum, dequantized once, onto the stream
+                                            const int tot = acc2[i] + acc;
+                                            res[i] = y1g[i] + deq(tot, xs_fc2 * P.s2[n], P.b2[n]);
+                                          }
+                                        });
+  }
+  store_window(res, P.y, P.y_kind, ys_out, b, wy, wx, H, W, C);
+}
+
+// the wide layout serves the bf16-compute shapes whose resident one exceeds the block's limit
+bool is_wide(int C, int heads, bool cbf) { return cbf && Layout(C, heads, true).total > MAX_SMEM; }
+
+size_t smem_bytes(int C, int heads, bool cbf) {
+  return is_wide(C, heads, cbf) ? WideLayout(C).total : Layout(C, heads, cbf).total;
+}
+
+size_t scratch_bytes(int B, int H, int W, int C, int heads, bool cbf) {
+  if (!is_wide(C, heads, cbf)) return 0;
+  return (size_t)B * ((H + WS - 1) / WS) * ((W + WS - 1) / WS) * sizeof(float) * NTOK * C;
+}
+
+int launch_wide(const Args& P, int B, float* scratch, cudaStream_t stream) {
+  const size_t smem = WideLayout(P.C).total;
+  cudaError_t err = cudaFuncSetAttribute(swin_block_int8_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = B * ((P.H + WS - 1) / WS) * ((P.W + WS - 1) / WS);
+  swin_block_int8_wide_kernel<<<blocks, NTHREADS, smem, stream>>>(P, scratch);
+  return (int)cudaGetLastError();
 }
 
 template <bool CBF>
@@ -491,26 +673,36 @@ extern "C" {
 
 // Bytes of shared memory one block takes at this C and head count, in the
 // bf16 (cbf = 1) or fp32 compute dtype.
-size_t swin_block_int8_smem_bytes(int C, int heads, int cbf) { return Layout(C, heads, cbf != 0).total; }
+size_t swin_block_int8_smem_bytes(int C, int heads, int cbf) { return smem_bytes(C, heads, cbf != 0); }
+
+// Bytes of global scratch a launch at this shape needs (0 where the window
+// stays in shared memory); the caller passes that many bytes as `scratch`.
+size_t swin_block_int8_scratch_bytes(int B, int H, int W, int C, int heads, int cbf) {
+  return scratch_bytes(B, H, W, C, heads, cbf != 0);
+}
 
 // x_kind, y_kind: 0 = float32, 1 = bfloat16, 2 = int8. cdt_bf16: the compute
 // dtype is bf16. sm16: bf16 softmax (needs cdt_bf16). xs: the six activation
 // scales on the card. Weights int8 (out, in); their scales, LayerNorm
 // parameters and biases fp32. C % 64 == 0 and a head dim that is a multiple
-// of 16 (the tensor-core tiles). Returns the CUDA error code of the launch
-// (0 on success).
+// of 16 (the tensor-core tiles). scratch: swin_block_int8_scratch_bytes of
+// device memory, or null where that is 0. Returns the CUDA error code of the
+// launch (0 on success).
 int swin_block_int8(int x_kind, int y_kind, int cdt_bf16, int sm16, const void* x, void* y, int B,
                     int H, int W, int C, int heads, float scale, const float* xs, const float* ln1w,
                     const float* ln1b, const float* bqkv, const float* bout, const float* ln2w,
                     const float* ln2b, const float* b1, const float* b2, const int8_t* wqkv,
                     const float* sqkv, const int8_t* wout, const float* sout, const int8_t* w1,
-                    const float* s1, const int8_t* w2, const float* s2, void* stream) {
+                    const float* s1, const int8_t* w2, const float* s2, float* scratch, void* stream) {
   if (x_kind < 0 || x_kind > 2 || y_kind < 0 || y_kind > 2 || C % 64 || C % heads || (C / heads) % 16 ||
       (sm16 && !cdt_bf16))
     return (int)cudaErrorInvalidValue;
+  const bool wide = is_wide(C, heads, cdt_bf16 != 0);
+  if (wide != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
   Args P{x, y, x_kind, y_kind, H, W, C, heads, sm16 != 0, scale, xs,
          ln1w, ln1b, bqkv, bout, ln2w, ln2b, b1, b2, wqkv, wout, w1, w2, sqkv, sout, s1, s2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) return launch_wide(P, B, scratch, s);
   return cdt_bf16 ? launch<true>(P, B, s) : launch<false>(P, B, s);
 }
 

@@ -1,9 +1,9 @@
-"""Building blocks of the flagship graph as torch modules (NCHW, channels_last).
+"""Building blocks of the flagship and YOLO11 graphs as torch modules (NCHW, channels_last).
 
 Same math as the JAX package's nn/modules.py, with parameter names that
 follow the reference's torch state (`conv`/`bn`, `cv1`, `m.0`,
-`ca.shared_MLP.0`, `attn.in_proj_weight`, `mlp.0`, `cv2.0.2`), so weights
-carry across by name. Input channels are explicit constructor arguments
+`ca.shared_MLP.0`, `attn.in_proj_weight`, `mlp.0`, `cv2.0.2`, `attn.qkv`,
+`ffn.0`, `cv3.0.0.0`), so weights carry across by name. Input channels are explicit constructor arguments
 (the JAX modules infer them at init); parse_model supplies them.
 
 Weights are cast to the activation's dtype where they are used, as flax
@@ -68,9 +68,10 @@ def record_amax(calib: Dict[str, torch.Tensor], key: str, t: torch.Tensor) -> No
 
 
 class Conv(nn.Module):
-    """Conv2d(bias=False) + BatchNorm(eps 1e-3) + SiLU. The BatchNorm runs in
-    fp32 and its output is cast back to the compute dtype, as in the JAX
-    package. After `fuse()` the BN is folded into the conv's weight and bias.
+    """Conv2d(bias=False, groups g) + BatchNorm(eps 1e-3) + SiLU (none with
+    act=False). The BatchNorm runs in fp32 and its output is cast back to the
+    compute dtype, as in the JAX package. After `fuse()` the BN is folded into
+    the conv's weight and bias.
 
     Quantized (buffers w_int8 (O, I, kh, kw), w_scale (O,), x_scale ()), the
     eval forward quantizes its input to x_scale, sums the int8 products
@@ -80,10 +81,12 @@ class Conv(nn.Module):
 
     QNAMES = ("w_int8", "w_scale", "x_scale")
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, g: int = 1, act: bool = True):
         super().__init__()
-        self.conv = Conv2d(c1, c2, k, s, k // 2, bias=False)
+        pad = tuple(x // 2 for x in k) if isinstance(k, (tuple, list)) else k // 2  # k: int or (kh, kw)
+        self.conv = Conv2d(c1, c2, k, s, pad, groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = act
         self.calib: Optional[Dict[str, torch.Tensor]] = None  # running input |max| during calibration
         for name in self.QNAMES:
             self.register_buffer(name, None)
@@ -94,11 +97,12 @@ class Conv(nn.Module):
         if self.w_int8 is not None and not self.training:
             y = conv_int8(x, self.w_int8, self.w_scale, self.x_scale, self.conv.stride[0], self.conv.padding[0])
             y = self.bn(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
-            return F.silu(y.to(x.dtype))
+            y = y.to(x.dtype)
+            return F.silu(y) if self.act else y
         y = self.conv(x)
         if self.bn is not None:
             y = (batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())).to(y.dtype)
-        return F.silu(y)
+        return F.silu(y) if self.act else y
 
     @torch.no_grad()
     def fuse(self):
@@ -115,14 +119,23 @@ class Conv(nn.Module):
         self.bn = None
 
 
-class Bottleneck(nn.Module):
-    """Two 3x3 convs at constant width and an optional residual (C2f's inner block)."""
+class DWConv(Conv):
+    """Depth-wise Conv: groups gcd(c1, c2), which is c1 where c2 == c1."""
 
-    def __init__(self, c: int, shortcut: bool):
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2))
+
+
+class Bottleneck(nn.Module):
+    """Two convs (kernels k, hidden width c2 * e) and a residual where
+    shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, k=(3, 3), e: float = 0.5):
         super().__init__()
-        self.cv1 = Conv(c, c, 3)
-        self.cv2 = Conv(c, c, 3)
-        self.add = shortcut
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0])
+        self.cv2 = Conv(c_, c2, k[1])
+        self.add = shortcut and c1 == c2
 
     def forward(self, x):
         y = self.cv2(self.cv1(x))
@@ -137,7 +150,48 @@ class C2f(nn.Module):
         c = c2 // 2
         self.cv1 = Conv(c1, 2 * c)
         self.cv2 = Conv((2 + n) * c, c2)
-        self.m = nn.ModuleList(Bottleneck(c, shortcut) for _ in range(n))
+        self.m = nn.ModuleList(Bottleneck(c, c, shortcut, e=1.0) for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: n bottlenecks (kernels k) on one 1x1
+    branch of c2 / 2 channels, concat with the other, merge."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, k=((1, 1), (3, 3))):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_)
+        self.cv2 = Conv(c1, c_)
+        self.cv3 = Conv(2 * c_, c2)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, k=k, e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k(C3):
+    """C3 with 3x3 kernels in both convs of its bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut, k=((3, 3), (3, 3)))
+
+
+class C3k2(nn.Module):
+    """The CSP block of YOLO11: C2f whose inner blocks are C3k (two 3x3
+    bottlenecks) with c3k, else Bottlenecks of hidden width c / 2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, shortcut: bool = True):
+        super().__init__()
+        c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c)
+        self.cv2 = Conv((2 + n) * c, c2)
+        self.m = nn.ModuleList(C3k(c, c, 2, shortcut) if c3k else Bottleneck(c, c, shortcut) for _ in range(n))
 
     def forward(self, x):
         ys = list(self.cv1(x).chunk(2, 1))
@@ -291,6 +345,66 @@ class SwinBlock(nn.Module):
         return yp[:, :h, :w].contiguous()
 
 
+class Attention(nn.Module):
+    """Position-sensitive attention of YOLO11 over all H*W tokens: a 1x1 qkv
+    conv whose channels are per head [q (kd) | k (kd) | v (hd)], key_dim
+    kd = hd / 2; softmax(q k^T * kd^-0.5) v plus a depth-wise 3x3
+    conv of v, then a 1x1 projection. The scores are computed in fp32 from
+    the compute-dtype q and k (the JAX package's preferred_element_type
+    float32), the softmax in fp32, cast to v's dtype for the product with v.
+    No TPU kernel stands behind it: the JAX package leaves it to XLA."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = self.head_dim // 2
+        self.scale = self.key_dim ** -0.5
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        kd, hd = self.key_dim, self.head_dim
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, h * w, self.num_heads, 2 * kd + hd)
+        q, k, v = qkv.split((kd, kd, hd), -1)
+        scores = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float()) * self.scale
+        attn = scores.softmax(-1).to(v.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        pe = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        return self.proj(out + pe)
+
+
+class PSABlock(nn.Module):
+    """Attention and a 1x1 feed-forward (2c, SiLU; then c, no activation), each with a residual."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.attn = Attention(c, num_heads)
+        self.ffn = nn.Sequential(Conv(c, 2 * c), Conv(2 * c, c, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """YOLO11's CSP wrapper of n PSABlocks (heads of 64 channels) on one half
+    of the channels."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = Conv(c1, 2 * self.c)
+        self.cv2 = Conv(2 * self.c, c2)
+        self.m = nn.Sequential(*(PSABlock(self.c, num_heads=max(1, self.c // 64)) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
 class Concat(nn.Module):
     def forward(self, xs: List[torch.Tensor]):
         return torch.cat(xs, 1)
@@ -308,7 +422,9 @@ class Upsample(nn.Module):
 
 
 class Detect(nn.Module):
-    """Anchor-free YOLOv8 detect head (legacy cls branch).
+    """Anchor-free YOLOv8 / YOLO11 detect head. The cls branch is two 3x3
+    Convs (legacy, YOLOv8), or with legacy=False (YOLO11) a depth-wise 3x3
+    then a 1x1 Conv, twice.
 
     Returns ((B, 4 + nc, A) decoded xywh boxes in input pixels followed by
     class sigmoids, the per-level raw maps (B, 4*reg_max + nc, H, W)); in
@@ -317,7 +433,7 @@ class Detect(nn.Module):
 
     reg_max = 16  # DFL bins per box side
 
-    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32)):
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32), legacy: bool = True):
         super().__init__()
         self.nc = nc
         self.strides = tuple(strides)
@@ -327,9 +443,13 @@ class Detect(nn.Module):
         self.cv2 = nn.ModuleList(
             nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1)) for x in ch
         )
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, nc, 1)) for x in ch
-        )
+        if legacy:
+            self.cv3 = nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, nc, 1)) for x in ch)
+        else:
+            self.cv3 = nn.ModuleList(
+                nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
+                              nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)), Conv2d(c3, nc, 1)) for x in ch
+            )
 
     def bias_init(self):
         """Box logits start at 1, class logits at the prior of 5 objects per 640 px image."""

@@ -1,10 +1,11 @@
 """YAML graph compiler and the detection model of the PyTorch port.
 
 `yaml_model_load` resolves `yolov8s-cbam-swin.yaml` to the base file plus
-scale 's'; `parse_model` builds the rows of a detect graph into torch
-modules with the reference's channel bookkeeping (width and depth gains,
-make_divisible, pass-through channels for CBAM and SwinBlock) and derives
-each layer's stride from the graph instead of a probe forward.
+scale 's' (and `yolo11m-cbam-swin.yaml` to the YOLO11 graph at scale 'm');
+`parse_model` builds the rows of a detect graph into torch modules with the
+reference's channel bookkeeping (width and depth gains, make_divisible,
+pass-through channels for CBAM and SwinBlock) and derives each layer's
+stride from the graph instead of a probe forward.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from . import modules as M
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
-# YAML module names this port builds; any other name raises KeyError
-BASE_MODULES = ("Conv", "C2f", "SPPF")
+# YAML module names this port builds with width-scaled output channels (plus
+# CBAM, SwinBlock, Concat, Upsample and Detect); any other name raises KeyError
+BASE_MODULES = ("Conv", "C2f", "C3k2", "SPPF", "C2PSA")
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -76,6 +78,7 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
 
     chs, factors = [3], [1]  # per produced output: channels, spatial downsample
     layers, save = [], set()
+    legacy = True  # the Detect cls branch of YOLOv8; a C3k2 row makes it YOLO11's
     for i, (f, n, mname, args) in enumerate(list(d["backbone"]) + list(d["head"])):
         args = [nc if a == "nc" else _literal(a) for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
@@ -99,6 +102,15 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             elif mname == "C2f":
                 m = M.C2f(c1, c2, n, shortcut=args[1] if len(args) > 1 else False)
                 n = 1
+            elif mname == "C3k2":  # [c2, c3k, e, shortcut]; scales m, l and x force c3k, as the reference
+                legacy = False
+                c3k = args[1] if len(args) > 1 else False
+                m = M.C3k2(c1, c2, n, c3k=True if scale in "mlx" else c3k, e=args[2] if len(args) > 2 else 0.5,
+                           shortcut=args[3] if len(args) > 3 else True)
+                n = 1
+            elif mname == "C2PSA":
+                m = M.C2PSA(c1, c2, n)
+                n = 1
             else:
                 m = M.SPPF(c1, c2, args[1] if len(args) > 1 else 5)
         elif mname == "CBAM":
@@ -118,7 +130,7 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             m = M.Upsample(scale_f)
         elif mname == "Detect":
             c2 = 0
-            m = M.Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
+            m = M.Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy)
         else:
             raise KeyError(f"Unknown module in YAML: {mname!r} (row {i})")
         if n > 1:

@@ -154,7 +154,19 @@ def load_quant_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Mod
 
 def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
-    model in place; returns the model. YOLO.predict then serves it in int8."""
+    model in place; returns the model. YOLO.predict then serves it in int8.
+    Raises NotImplementedError, naming the module, for what the int8 path
+    does not take (the YOLO11 graph): a grouped conv (conv_int8 has no
+    groups) or YOLO11's position-sensitive Attention."""
+    from ..nn.modules import Attention, Conv
+
+    for name, m in model.named_modules():
+        if isinstance(m, Attention):
+            raise NotImplementedError(f"quantize_model: {name} is a YOLO11 Attention, which the int8 path does not "
+                                      "take yet")
+        if isinstance(m, Conv) and m.conv.groups > 1:
+            raise NotImplementedError(f"quantize_model: {name} is a grouped conv (groups={m.conv.groups}); "
+                                      "conv_int8 has no groups")
     return load_quant_state(model, build_quant_state(model, calibrate(model, batches)))
 
 

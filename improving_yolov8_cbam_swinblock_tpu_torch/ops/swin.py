@@ -114,10 +114,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(build("swin_block_fwd", ("swin_block_fwd.cu",))))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.swin_block_fwd.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, i32] + [ptr] * 13
+    lib.swin_block_fwd.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, i32] + [ptr] * 14
     lib.swin_block_fwd.restype = i32
     lib.swin_block_fwd_smem_bytes.argtypes = [i32, i32, i32]
     lib.swin_block_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.swin_block_fwd_scratch_bytes.argtypes = [i32] * 6
+    lib.swin_block_fwd_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -128,19 +130,41 @@ def _ring_bytes(bn: int, a_streams: bool) -> int:
     return 2 * 4 * ((64 if a_streams else 0) + bn) * 40
 
 
-def fwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block of the forward kernel, a copy of smem_bytes
-    in csrc/swin_block_fwd.cu for checks without the library (on the card
-    the library's own number is used). bf16: the fp32 residual stream
-    (49 x C), the 9C fp32 biases, the bf16 LN output (64 x C+8), one head's
-    q, k, v (3 x 64 x hd+8; the 64 x 136 MLP hidden chunk later) and the
-    ring (4 stages of 128 x 32 weight tiles). fp32: two 49 x C buffers, the 49x49
-    probabilities, a 64x33 weight tile and one head's q|k|v or hidden chunk."""
+def _narrow_fwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
+    """Shared memory of the layouts that keep the whole window resident. bf16:
+    the fp32 residual stream (49 x C), the 9C fp32 biases, the bf16 LN output
+    (64 x C+8), one head's q, k, v (3 x 64 x hd+8; the 64 x 136 MLP hidden
+    chunk later) and the ring (4 stages of 128 x 32 weight tiles). fp32: two
+    49 x C buffers, the 49x49 probabilities, a 64x33 weight tile and one
+    head's q|k|v or hidden chunk."""
     hd = c // num_heads
     if dtype == torch.bfloat16:
         return (4 * 49 * c + 4 * 9 * c + 2 * 64 * (c + 8) + 2 * max(3 * 64 * (hd + 8), 64 * 136)
                 + _ring_bytes(128, False))
     return 4 * (2 * 49 * c + 49 * 49 + 64 * 33 + 49 * max(3 * hd + 1, 128))
+
+
+def fwd_is_wide(c: int, num_heads: int, dtype: torch.dtype) -> bool:
+    """Whether the forward kernel takes its wide layout at this width: the one
+    for windows whose resident layout exceeds a block's shared memory (bf16
+    and fp32 from C=384 with 2 heads)."""
+    return _narrow_fwd_smem_bytes(c, num_heads, dtype) > MAX_SMEM
+
+
+def fwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the forward kernel, a copy of smem_bytes
+    in csrc/swin_block_fwd.cu for checks without the library (on the card
+    the library's own number is used). The wide layout keeps the fp32
+    residual stream, the ring (4 stages of a 64-row A tile and a 64-row
+    weight tile, 32 deep) and, in bf16, 64-wide q and k slices with the fp32
+    scores (later the 64 x 136 MLP hidden chunk); in fp32 the probabilities,
+    a weight tile and a 49 x 128 hidden chunk."""
+    if not fwd_is_wide(c, num_heads, dtype):
+        return _narrow_fwd_smem_bytes(c, num_heads, dtype)
+    if dtype == torch.bfloat16:
+        attn = max(2 * 2 * 64 * 72 + 4 * 49 * 49, 2 * 64 * 136)
+        return 4 * 49 * c + 2 * 4 * (64 + 64) * 40 + -(-attn // 16) * 16
+    return 4 * (49 * c + 49 * 49 + 64 * 33 + 49 * 128)
 
 
 def check_supported(c: int, num_heads: int, window_size: int, dtype: torch.dtype,
@@ -178,12 +202,15 @@ def swin_block_cuda(x: torch.Tensor, p: Params, num_heads: int = 2, window_size:
     x = _aligned(x.contiguous())
     args = _cast_params(p, c, x.device, x.dtype)
     y = torch.empty_like(x)
+    # the wide layout's per-window LN outputs (bf16) or attention buffers (fp32)
+    nbytes = lib.swin_block_fwd_scratch_bytes(_DTYPES[x.dtype], b, h, w, c, num_heads)
+    scratch = torch.empty(nbytes, device=x.device, dtype=torch.uint8) if nbytes else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.swin_block_fwd(
             _DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), b, h, w, c, num_heads, int(fast),
             *(args[k].data_ptr() for k in PKEYS),
-            stream,
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"swin_block_fwd launch failed with CUDA error {rc}")
@@ -301,9 +328,10 @@ def bwd_smem_bytes(c: int, num_heads: int, dtype: torch.dtype) -> int:
     smem_bytes in csrc/swin_block_bwd.cu for checks without the library (on
     the card the library's own number is used): LN1 and LN2 1/std (100
     floats), then the larger of the product tiles (bf16: the ring, both
-    operands streaming; fp32: two 64x33 tiles) and one head's attention
-    scratch (q, k, v, do at 49 x hd+1 and two 49x49 planes, fp32)."""
-    hd = c // num_heads
+    operands streaming; fp32: two 64x33 tiles) and the attention's scratch
+    (a slice of up to 128 of a head's dims of q, k, v and do at 49 x
+    slice+1, and two 49x49 planes, fp32)."""
+    hd = min(c // num_heads, 128)
     tiles = _ring_bytes(128, True) // 4 if dtype == torch.bfloat16 else 2 * 64 * 33
     return 4 * (100 + max(tiles, 4 * 49 * (hd + 1) + 2 * 49 * 49))
 

@@ -147,10 +147,8 @@ def swin_block_int8_plain(x: torch.Tensor, p: Params, q: Params, num_heads: int 
     return _from_windows(out, b, h, w, window_size)
 
 
-def smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
-    """Shared memory of one block of the kernel in the bf16 (cbf) or fp32
-    compute dtype, a copy of Layout in csrc/swin_block_int8.cu for checks
-    without the library (on the card the library's own number is used): the
+def _resident_smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
+    """Shared memory of the layout that keeps the whole window resident: the
     fp32 residual stream (49 x C), the 9C dequantize factors and 9C biases
     (fp32), two int8 product inputs (64 x C+16), one head's q, k, v (bf16
     3 x 64 x hd+8, or fp32 49 x 3hd+1), the int8 MLP hidden (64 x 4C+16)
@@ -161,6 +159,24 @@ def smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
     head = 2 * 3 * 64 * (hd + 8) if cbf else 4 * 49 * (3 * hd + 1)
     region = -(-max(in8 + head, 64 * (4 * c + 16)) // 16) * 16
     return 4 * 49 * c + 4 * 18 * c + in8 + region + 3 * 128 * ((128 if cbf else 64) + 16)
+
+
+def int8_is_wide(c: int, num_heads: int, cbf: bool) -> bool:
+    """Whether the kernel takes its wide layout: bf16 compute where the
+    resident layout exceeds a block's shared memory (C=512 with 2 heads)."""
+    return cbf and _resident_smem_bytes(c, num_heads, True) > MAX_SMEM
+
+
+def smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
+    """Shared memory of one block of the kernel in the bf16 (cbf) or fp32
+    compute dtype, a copy of Layout and WideLayout in csrc/swin_block_int8.cu
+    for checks without the library (on the card the library's own number is
+    used). The wide layout keeps the fp32 residual stream, the two int8
+    product inputs, 64-wide bf16 q and k slices with the fp32 scores, and the
+    ring (3 stages of 128 rows of 64 + 16 bytes)."""
+    if not int8_is_wide(c, num_heads, cbf):
+        return _resident_smem_bytes(c, num_heads, cbf)
+    return 4 * 49 * c + 2 * 64 * (c + 16) + -(-(2 * 2 * 64 * 72 + 4 * 49 * 49) // 16) * 16 + 3 * 128 * (64 + 16)
 
 
 def check_int8_supported(c: int, num_heads: int, window_size: int, x_dtype: torch.dtype, in8: bool,
@@ -193,10 +209,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(build("swin_block_int8", ("swin_block_int8.cu",), ("-fmad=false",))))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.swin_block_int8.argtypes = [i32] * 4 + [ptr, ptr] + [i32] * 5 + [ctypes.c_float] + [ptr] * 18
+    lib.swin_block_int8.argtypes = [i32] * 4 + [ptr, ptr] + [i32] * 5 + [ctypes.c_float] + [ptr] * 19
     lib.swin_block_int8.restype = i32
     lib.swin_block_int8_smem_bytes.argtypes = [i32, i32, i32]
     lib.swin_block_int8_smem_bytes.restype = ctypes.c_size_t
+    lib.swin_block_int8_scratch_bytes.argtypes = [i32] * 6
+    lib.swin_block_int8_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -240,14 +258,17 @@ def swin_block_int8_cuda(x: torch.Tensor, p: Params, q: Params, num_heads: int =
     vec, wts, wsc, xs = _kernel_args(x, p, q, c)
     y = torch.empty(x.shape, device=x.device, dtype=torch.int8 if out8 else cdt)
     lib = _lib()
+    cbf = int(cdt == torch.bfloat16)
+    nbytes = lib.swin_block_int8_scratch_bytes(b, h, w, c, num_heads, cbf)  # the wide layout's residual stream
+    scratch = torch.empty(nbytes, device=x.device, dtype=torch.uint8) if nbytes else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.swin_block_int8(
-            _KINDS[x.dtype], _KINDS[y.dtype], int(cdt == torch.bfloat16), int(sm16), x.data_ptr(), y.data_ptr(),
+            _KINDS[x.dtype], _KINDS[y.dtype], cbf, int(sm16), x.data_ptr(), y.data_ptr(),
             b, h, w, c, num_heads, 1.0 / (c // num_heads) ** 0.5, xs.data_ptr(),
             *(vec[k].data_ptr() for k in _VECTORS),
             *(t.data_ptr() for k in QKEYS for t in (wts[k], wsc[k])),
-            stream,
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"swin_block_int8 launch failed with CUDA error {rc}")

@@ -26,12 +26,16 @@ import torch
 
 
 def _module_tokens(mods: Tuple[str, ...]) -> list:
-    """flax module scopes -> the port's module path tokens."""
+    """flax module scopes -> the port's module path tokens. The JAX package's
+    DWConv wraps a Conv in a `dw` scope and its C3k a C3 in a `c3` scope;
+    the port's DWConv is a Conv and its C3k a C3, so both scopes drop."""
     toks = []
     for m in mods:
+        if m in ("dw", "c3"):
+            continue
         if m.startswith("model_"):
             toks.append("model." + ".".join(m.split("_")[1:]))
-        elif m.startswith(("cv2_", "cv3_", "m_")):  # Detect per-level stacks, C2f bottlenecks
+        elif m.startswith(("cv2_", "cv3_", "m_", "ffn_")):  # Detect per-level stacks, C2f bottlenecks, PSA FFN
             toks.append(".".join(m.split("_")))
         elif m.startswith("mlp_fc"):  # Swin MLP: fc1 -> mlp.0, fc2 -> mlp.2
             toks.append("mlp.0" if m.endswith("1") else "mlp.2")

@@ -37,14 +37,17 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,heads", [((8, 42, 42, 256), 2), ((8, 14, 14, 128), 2), ((1, 12, 17, 256), 2),
-                                         ((2, 9, 9, 128), 4), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)])
+                                         ((2, 9, 9, 128), 4), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4),
+                                         ((2, 14, 14, 384), 2), ((2, 12, 17, 512), 2), ((2, 14, 14, 640), 2),
+                                         ((2, 14, 14, 768), 2), ((1, 12, 17, 512), 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])  # False: the exact mode of the train path
 def test_kernel_matches_plain(cuda, shape, heads, dtype, fast):
     """fp32: max abs error <= 1e-3 (fp32 sums in another order). bf16: max
     error <= 3e-2 of the output's largest magnitude (a bf16 rounding that
     lands one ulp off grows through the next product). Head dims 32 and 64
-    and C=64 exercise the padded tensor-core tiles of the bf16 kernel."""
+    and C=64 exercise the padded tensor-core tiles of the bf16 kernel; C
+    from 384 runs the wide layout (head dims 192 to 384 in 64-wide slices)."""
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
     p = swin_params(shape[-1], rng, cuda, dtype)
@@ -74,7 +77,8 @@ def test_kernel_reads_a_channels_last_view(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,heads", [(256, 2), (128, 2), (128, 4), (64, 2), (96, 2), (384, 4), (512, 4)])
+@pytest.mark.parametrize("c,heads", [(256, 2), (128, 2), (128, 4), (64, 2), (96, 2), (384, 4), (512, 4), (384, 2),
+                                     (512, 2), (640, 2), (768, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_smem_copies_match_library(cuda, c, heads, dtype):
     """fwd_smem_bytes and bwd_smem_bytes, the checks' copies for the CPU,
@@ -84,7 +88,8 @@ def test_smem_copies_match_library(cuda, c, heads, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,heads", [(256, 2), (128, 1), (128, 2), (128, 4), (64, 2), (192, 2), (384, 4), (512, 4)])
+@pytest.mark.parametrize("c,heads", [(256, 2), (128, 1), (128, 2), (128, 4), (64, 2), (192, 2), (384, 4), (512, 4),
+                                     (512, 2), (768, 2)])
 @pytest.mark.parametrize("cbf", [True, False])
 def test_int8_smem_copy_matches_library(cuda, c, heads, cbf):
     """smem_bytes of ops/swin_int8.py, the check's copy for the CPU, gives
@@ -104,13 +109,15 @@ def test_kernel_raises_on_unsupported_shape(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,heads", [((2, 40, 40, 256), 2), ((2, 20, 20, 256), 2), ((1, 12, 17, 128), 4),
-                                         ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4)])
+                                         ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4), ((2, 14, 14, 384), 2),
+                                         ((2, 14, 14, 512), 2), ((1, 12, 17, 640), 2), ((2, 14, 14, 768), 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_matches_plain(cuda, shape, heads, dtype):
     """dx and the 12 grads of K3 vs swin_block_bwd_plain, each within
     tol * its largest magnitude: fp32 1e-4 (fp32 sums in another order),
     bf16 3e-2 (a bf16 rounding one ulp off grows through the next product).
-    40x40 and 20x20 pad to 42x42 and 21x21: pad tokens act as keys and values."""
+    40x40 and 20x20 pad to 42x42 and 21x21: pad tokens act as keys and values.
+    Head dims above 128 run the attention in 128-wide slices."""
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
     g = torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=cuda).to(dtype)
@@ -378,18 +385,12 @@ def int8_quant(x, p, heads):
     return q
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 256), 2), ((2, 20, 17, 256), 2), ((1, 12, 9, 128), 1),
-                                         ((2, 14, 14, 128), 2), ((1, 9, 12, 192), 2)])
-@pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "fp32_io", "sm16_int8_io", "sm16_bf16_io"])
-def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
+def check_int8_case(cuda, shape, heads, mode):
     """K4 (and K4v's bf16 softmax, sm16) vs swin_block_int8_plain. The
     integer sums are exact; fp32 sums in another order may move a value
     across a quantization boundary, which the later products carry: int8
     output within 3 levels and at most 1 % of it off, float output within
-    3e-2 of its largest magnitude. 40x40, 20x17, 12x9 and 9x12 pad to whole
-    windows. Head dim 64 runs the attention tiles below the flagship's 128;
-    C=192 (head dim 96) is not a multiple of the products' 128-column blocks."""
+    3e-2 of its largest magnitude."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 
     rng = np.random.default_rng(5)
@@ -412,6 +413,31 @@ def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
         assert d.max().item() <= 3 and (d > 0).float().mean().item() <= 1e-2
     else:
         assert d.max().item() <= 3e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 256), 2), ((2, 20, 17, 256), 2), ((1, 12, 9, 128), 1),
+                                         ((2, 14, 14, 128), 2), ((1, 9, 12, 192), 2)])
+@pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "fp32_io", "sm16_int8_io", "sm16_bf16_io"])
+def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
+    """check_int8_case in every I/O mode. 40x40, 20x17, 12x9 and 9x12 pad to
+    whole windows. Head dim 64 runs the attention tiles below the flagship's
+    128; C=192 (head dim 96) is not a multiple of the products' 128-column
+    blocks."""
+    check_int8_case(cuda, shape, heads, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 512), 2), ((2, 20, 17, 512), 2), ((1, 12, 9, 512), 4)])
+@pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "sm16_int8_io", "sm16_bf16_io"])
+def test_int8_kernel_matches_plain_wide(cuda, shape, heads, mode):
+    """check_int8_case where K4 takes its wide layout (bf16 compute at
+    C=512): the attention in 64-wide slices of the head, the MLP in hidden
+    chunks whose int32 sums are dequantized once."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    assert S8.int8_is_wide(shape[-1], heads, True)
+    check_int8_case(cuda, shape, heads, mode)
 
 
 @pytest.mark.cuda

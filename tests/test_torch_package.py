@@ -95,8 +95,8 @@ def test_parse_model_channels_and_unknown_module():
     assert layers[7].norm1.weight.numel() == layers[16].norm1.weight.numel() == 256
     assert save == [4, 7, 10, 16, 19, 22, 25]
     d = yaml_model_load("yolov8n-cbam-swin.yaml")
-    d["head"] = d["head"][:-1] + [[-1, 1, "C2PSA", [256]]]
-    with pytest.raises(KeyError, match="C2PSA"):
+    d["head"] = d["head"][:-1] + [[-1, 1, "C2fPSA", [256]]]
+    with pytest.raises(KeyError, match="C2fPSA"):
         parse_model(d)
 
 

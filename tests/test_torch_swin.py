@@ -123,7 +123,7 @@ def test_dispatch_on_cpu_runs_plain_and_never_the_kernel():
     (128, 2, 7, torch.float16),  # dtype the kernel lacks
     (1024, 2, 7, torch.float32),  # shared memory beyond the block limit
     (96, 4, 7, torch.bfloat16),  # head dim 24: the tensor-core tiles take multiples of 16
-    (512, 4, 7, torch.bfloat16),  # the bf16 layout needs more shared memory than a block may use
+    (1024, 2, 7, torch.bfloat16),  # even the wide bf16 layout needs more shared memory than a block may use
 ])
 def test_kernel_rejects_unsupported(c, heads, ws, dtype):
     with pytest.raises(ValueError):
@@ -134,3 +134,16 @@ def test_kernel_rejects_unsupported(c, heads, ws, dtype):
 def test_kernel_supports_flagship_widths(c, heads):
     S.check_supported(c, heads, 7, torch.float32)
     S.check_supported(c, heads, 7, torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [256, 384, 512, 640, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_every_swin_width_of_both_graphs(c, dtype):
+    """The flagship builds 2-head SwinBlocks at C 256 (s), 384 (m), 512 (l),
+    640 (x); the YOLO11 graph at 256 (s), 512 (m, l), 768 (x): the forward
+    and the backward kernel take each, within a block's shared memory. From
+    C=384 the forward takes its wide layout."""
+    S.check_supported(c, 2, 7, dtype)
+    S.check_bwd_supported(c, 2, 7, dtype)
+    assert S.fwd_smem_bytes(c, 2, dtype) <= S.MAX_SMEM and S.bwd_smem_bytes(c, 2, dtype) <= S.MAX_SMEM
+    assert S.fwd_is_wide(c, 2, dtype) == (c >= 384)
