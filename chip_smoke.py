@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 PARENT_DIR   # K2 alone, against another checkout
+    python3 chip_smoke.py --predict PARENT_DIR   # predict img/s, against another checkout
 
 Phases, one JSON line each; the script exits non-zero if any phase fails:
   build   compile the four CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
@@ -29,6 +30,20 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           frames at 640 px, bf16, seeded random weights: the predict path,
           with its kernel launches counted; then the same model with the Swin
           blocks forced to the plain version (bf16), and an fp32 model the same way
+  serve   serving from files, on the flagship at 640 px, bf16 over fp32
+          master weights: the model written as JAX-format .ckpt files
+          (unfused and BN-folded) and a trainer-style payload, each read back
+          (state and detections bit for bit); predict from the slice phase's
+          frames written as PNGs (a directory, a glob, a list of paths),
+          equal to the in-memory predict, with save, save_txt and save_crop
+          counted; a 16-frame MJPG video (cv2) with stream=True and
+          vid_stride=2; test-time augmentation (K1 6 launches a batch, its
+          P4 grids 40, 34 and 28; K1 alone at the new grids vs its plain
+          version, fp32 and bf16; its three forwards with K1 vs the plain
+          Swin version); an ensemble of two checkpoints (K1 4 launches a
+          batch); predict img/s at batch 32 from 32 PNGs and from frames in
+          memory, and the TTA forward's ms at batch 32 and its device time
+          by kernel
   train   the detect train step of the same model at 640 px, bf16 over fp32
           master weights, batch 16, nbs 64 (accumulate 4), SGD, max_gt 32,
           device augmentation on: 8 micro-steps on seeded synthetic batches,
@@ -43,7 +58,8 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           with K4 vs with its plain version; each int8 SwinBlock vs the
           float block on the same input (the JAX package's oracle bounds),
           and the int8 vs the float model at each Swin layer; int8 forward
-          and predict img/s at batch 32
+          and predict img/s at batch 32; the int8 model served from the 8
+          frames written as PNG files (K4 counted, the same detections)
   fit     the data path and the train loop: a seeded synthetic YOLO dataset
           written as PNGs (64 train and 32 val images, most 480x640, some
           384x512 and 300x700, 1-5 boxes each, nc=1), then
@@ -78,6 +94,7 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           over one accumulation cycle of the train step (torch.profiler)
 Then the card's name and power limit, the {"kernels": [...]} line (K1, K3
 and K4 with their achieved TFLOP/s or TOP/s, time over bound, shared memory
+(K1 also at the two grids that only test-time augmentation hands it, `tta`)
 and registers, K3 with its workspace, K4 with its library's IMMA, HMMA and
 IDP4A counts, K2 with its device time, its candidate pairs, the dense
 bound beside its bound, and its registers, stack frame and spills), and last {"ok": true, "device": {...}}. Without CUDA
@@ -87,6 +104,12 @@ it prints no result and exits 2.
 G=128, nc=1, chip_smoke's seeded inputs), with the port of PARENT_DIR (a
 checkout unpacked with git archive) and of this checkout in turns: parent,
 this, this, parent, each in its own process, one JSON line each (k2_run).
+
+--predict PARENT_DIR times YOLO.predict at batch 32 (the speed phase's
+seeded weights and frames) in five pairs of turns, parent first in every
+other pair, one process each: the img/s of 8 calls on in-memory frames
+after a warm-up, and, for this checkout, of 8 calls on the same frames
+read from PNG files (predict_run).
 """
 
 from __future__ import annotations
@@ -197,6 +220,11 @@ ORACLE_MEAN, ORACLE_MAX = 0.05, 0.25
 YOLO11, FLAGSHIP_L = "yolo11m-cbam-swin.yaml", "yolov8l-cbam-swin.yaml"
 WIDE_FWD, WIDE_BWD, WIDE_INT8 = (384, 512, 640, 768), (512, 640, 768), (512,)
 YOLO11_STEPS = 4
+# the serve phase: test-time augmentation runs the model at 640, 544 and 448
+# px, where the P4 Swin site is 40x40, 34x34 (padded to 35x35) and 28x28;
+# K1 is timed alone at the two new grids with predict's batch of 32
+TTA_SWIN_GRIDS = (40, 34, 28)
+TTA_K1_SHAPES = ((32, 34, 34, 256), (32, 28, 28, 256))
 # the launches of one predict batch, one train micro-step and one val batch
 PREDICT_LAUNCHES = {"swin_block_fwd": 2, "swin_block_fwd_exact": 0, "swin_block_bwd": 0, "tal_assign": 0,
                     "swin_block_int8": 0, "swin_block_int8_sm16": 0}
@@ -816,7 +844,7 @@ def phase_slice(dev):
     yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, seed=SEED)
     reset_counts()
     t0 = time.perf_counter()
-    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
     seconds = time.perf_counter() - t0
     launches = counts()
     dets = [len(r) for r in results]
@@ -835,6 +863,195 @@ def phase_slice(dev):
         "bf16_kernel_vs_plain_rel_err": bf16_err,
         "fp32_kernel_vs_plain_rel_err": fp32_err,
     }, yolo, launches
+
+
+def same_detections(a, b) -> bool:
+    """The same frames' Results, box for box and bit for bit."""
+    return len(a) == len(b) and all(np.array_equal(x.boxes.data, y.boxes.data) for x, y in zip(a, b))
+
+
+def same_state(m1, m2) -> bool:
+    s1, s2 = m1.state_dict(), m2.state_dict()
+    return s1.keys() == s2.keys() and all(s1[k].dtype == s2[k].dtype and torch.equal(s1[k], s2[k]) for k in s1)
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts and lists with equal leaves: arrays and tensors by dtype, shape and bits."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list) or isinstance(b, list):
+        return isinstance(a, list) and isinstance(b, list) and len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(
+            a.cpu(), b.cpu())
+    if isinstance(a, (np.ndarray, np.generic)):
+        return np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def write_pngs(frames, root: Path) -> list:
+    root.mkdir(parents=True, exist_ok=True)
+    paths = [root / f"frame{i:02d}.png" for i in range(len(frames))]
+    for f, p in zip(frames, paths):
+        p.write_bytes(png_bytes(np.ascontiguousarray(f[..., ::-1])))  # BGR frames, RGB PNGs
+    return paths
+
+
+def counted(fn):
+    """fn()'s result and the kernels' launches in that call alone."""
+    reset_counts()
+    out = fn()
+    return out, counts()
+
+
+def phase_serve(dev):
+    """Serving from files: the flagship with fp32 masters, bf16 compute,
+    written as JAX-format .ckpt files (unfused, then BN-folded) and as a
+    trainer-style payload, each read back (state bit for bit, detections on
+    the slice phase's frames bit for bit); predict from the frames written
+    as PNGs (a directory, a glob, a list of paths: detections equal to the
+    in-memory predict's), with save, save_txt and save_crop; a 16-frame MJPG
+    video (cv2) served with stream=True, vid_stride=2; test-time
+    augmentation (K1 6 launches a batch, at P4 grids 40, 34 and 28), K1
+    alone at the two new grids vs its plain version (fwd_cases' limits) and
+    the three forwards with K1 vs the plain Swin version (bf16 3e-2, fp32
+    2e-3 with TF32 off); an ensemble of two checkpoints (4 launches a batch);
+    predict img/s at batch 32 from 32 PNGs and from in-memory frames, and
+    the TTA forward's ms at batch 32 beside the plain forward's, with its
+    device time by kernel (these on the checkpoint loaded with bf16
+    weights, BN-folded, as the speed phase serves)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import tta_inputs
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils import serialization
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import jax_variables_from_state
+
+    frames = slice_frames()
+    kw = dict(imgsz=640, conf=0.001, batch=8, verbose=False)
+    build = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    launches = {}
+    try:
+        # 1. checkpoints, unfused and fused, and a trainer-style payload
+        base = YOLO("yolov8s-cbam-swin.yaml", seed=SEED, **build)
+        base.save(str(root / "unfused.ckpt"))
+        unfused = YOLO(str(root / "unfused.ckpt"), **build)
+        state_ok = same_state(base.model, unfused.model) and not unfused.is_fused
+        ref = base.predict(frames, **kw)
+        base.save(str(root / "fused.ckpt"))
+        fused = YOLO(str(root / "fused.ckpt"), **build)
+        state_ok = state_ok and fused.is_fused and same_state(base.model, fused.model)
+        ckpt_predict_ok = same_detections(ref, unfused.predict(frames, **kw)) and same_detections(
+            ref, fused.predict(frames, **kw))
+        fresh = YOLO(str(root / "unfused.ckpt"), **build).model  # `unfused` was BN-folded by its predict
+        v = jax_variables_from_state(fresh)
+        payload = {"step": np.asarray(8), "params": v["params"], "batch_stats": v["batch_stats"],
+                   "mom_buf": {k: torch.from_numpy(a).to(torch.bfloat16) for k, a in v["params"]["model_0"]["conv"].items()},
+                   "var_buf": {}, "ema_params": v["params"], "ema_stats": v["batch_stats"],
+                   "ema_updates": np.asarray(8), "epoch": np.asarray(0), "best_fitness": np.asarray(0.5),
+                   "model_yaml": base.model.yaml, "nc": 1, "names": {"0": "object"},
+                   "args": {"imgsz": 640, "lr0": 0.01, "amp": True, "name": "train"}}
+        (root / "last.ckpt").write_bytes(serialization.dumps(payload))
+        back = serialization.loads((root / "last.ckpt").read_bytes())
+        last = YOLO(str(root / "last.ckpt"), **build)
+        payload_ok = (same_tree(back, payload) and same_state(last.model, fresh)
+                      and last.names == {0: "object"} and last.overrides == {"imgsz": 640})
+        sizes = {p.name: p.stat().st_size for p in root.glob("*.ckpt")}
+
+        # 2. files: a directory, a glob and a list of PNG paths; the outputs; a video
+        paths = write_pngs(frames, root / "frames")
+        by_dir, launches["files"] = counted(lambda: unfused.predict(str(root / "frames"), **kw))
+        by_glob = unfused.predict(str(root / "frames" / "*.png"), **kw)
+        by_list = unfused.predict([str(p) for p in paths], **kw)
+        files_ok = (all(same_detections(ref, r) for r in (by_dir, by_glob, by_list))
+                    and [r.path for r in by_dir] == [str(p) for p in paths])
+        out_dir = root / "runs" / "predict"
+        saved = unfused.predict(str(root / "frames"), save=True, save_txt=True, save_crop=True, max_det=20,
+                                project=str(root / "runs"), **kw)
+        crops_expected = sum(1 for r in saved for b in r.boxes.xyxy
+                             if min(int(b[2]), 640) > max(int(b[0]), 0) and min(int(b[3]), 480) > max(int(b[1]), 0))
+        written = {"images": len(list(out_dir.glob("*.jpg"))), "labels": len(list((out_dir / "labels").glob("*.txt"))),
+                   "crops": len(list((out_dir / "crops").rglob("*.jpg")))}
+        outputs_ok = written == {"images": 8, "labels": 8, "crops": crops_expected} and crops_expected > 0
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        video = {"cv2": cv2 is not None}
+        video_ok = False
+        if cv2 is not None:
+            clip = root / "clip.avi"
+            vw = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"MJPG"), 30, (640, 480))
+            for i in range(16):
+                vw.write(frames[i % 8])
+            vw.release()
+            vres, launches["video"] = counted(
+                lambda: list(unfused.predict(str(clip), stream=True, vid_stride=2, **kw)))
+            video.update(paths=[r.path.rsplit("/", 1)[-1] for r in vres], launches=launches["video"]["swin_block_fwd"])
+            video_ok = ([r.path for r in vres] == [f"{clip}#{i}" for i in range(0, 16, 2)] and boxes_ok(vres, 480, 640)
+                        and launches["video"]["swin_block_fwd"] == 2 * 8)
+
+        # 3. test-time augmentation
+        grids = []
+        hook = unfused.model.model[7].register_forward_hook(lambda m, i, o: grids.append(o.shape[2]))
+        try:
+            tta, launches["tta"] = counted(lambda: unfused.predict(frames, augment=True, **kw))
+        finally:
+            hook.remove()
+        tta_ok = (launches["tta"]["swin_block_fwd"] == 6 and grids == list(TTA_SWIN_GRIDS) and len(tta) == 8
+                  and boxes_ok(tta, 480, 640))
+        fp32 = YOLO(str(root / "unfused.ckpt"), device="cuda", dtype=torch.float32).fuse()
+        k1_ok, k1_rows = no_tf32(fwd_cases, dev, [((8, g, g, 256), 2, dt, True) for g in TTA_SWIN_GRIDS[1:]
+                                                   for dt in (torch.bfloat16, torch.float32)])
+        tta_ok = tta_ok and k1_ok
+        tta_errs = {}
+        for dtype, model, rtol in (("bf16", unfused.model, 3e-2), ("fp32", fp32.model, 2e-3)):
+            x = letterboxed(frames, 640, dev, model.dtype)
+            for grid, xi in zip(TTA_SWIN_GRIDS, tta_inputs(x, 32)):
+                good, errs, _ = no_tf32(compare_forward, model, xi, rtol)
+                tta_errs[f"{dtype}_p4_{grid}"] = {"ok": good, **errs}
+                tta_ok = tta_ok and good
+
+        # 4. an ensemble of two checkpoints
+        YOLO("yolov8s-cbam-swin.yaml", seed=SEED + 1, **build).save(str(root / "seed1.ckpt"))
+        ens = YOLO([str(root / "unfused.ckpt"), str(root / "seed1.ckpt")], **build)
+        ens_res, launches["ensemble"] = counted(lambda: ens.predict(frames, **kw))
+        ensemble_ok = launches["ensemble"]["swin_block_fwd"] == 4 and len(ens_res) == 8 and boxes_ok(ens_res, 480, 640)
+
+        # 5. times at batch 32, served as the speed phase serves: bf16 weights, BN-folded
+        serving = YOLO(str(root / "unfused.ckpt"), device="cuda", dtype=torch.bfloat16).fuse()
+        bs = 32
+        rng = np.random.default_rng(SEED + 1)
+        frames32 = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(bs)]
+        write_pngs(frames32, root / "png32")
+        times = {"batch": bs}
+        for label, src in (("disk_png", str(root / "png32")), ("in_memory", frames32)):
+            serving.predict(src, imgsz=640, batch=bs, verbose=False)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                serving.predict(src, imgsz=640, batch=bs, verbose=False)
+            times[f"predict_img_per_s_{label}"] = 2 * bs / (time.perf_counter() - t0)
+        xb = torch.rand(bs, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+        xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            times["forward_ms"] = cuda_ms(lambda: serving.model(xb), iters=10)
+            times["tta_forward_ms"] = cuda_ms(lambda: serving.model.predict_augment(xb), iters=5)
+            times["tta_inputs_ms"] = cuda_ms(lambda: list(tta_inputs(xb, 32)), iters=5)  # flip, resize, pad
+        times["tta_over_forward"] = times["tta_forward_ms"] / times["forward_ms"]
+        times["tta_profile"] = forward_profile(serving.model.predict_augment, xb, times["tta_forward_ms"],
+                                               "swin_block_fwd")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: sum(v[k] for v in launches.values()) for k in PREDICT_LAUNCHES}
+    ok = state_ok and ckpt_predict_ok and payload_ok and files_ok and outputs_ok and video_ok and tta_ok and ensemble_ok
+    return ok, {
+        "ckpt_state_bit_equal": state_ok, "ckpt_predict_bit_equal": ckpt_predict_ok, "trainer_payload_ok": payload_ok,
+        "ckpt_bytes": sizes, "files_equal_in_memory": files_ok, "written": written, "outputs_ok": outputs_ok,
+        "video": video, "video_ok": video_ok, "tta_ok": tta_ok, "tta_p4_grids": grids,
+        "tta_kernel_vs_plain_rel_err": tta_errs, "k1_at_tta_grids": k1_rows, "ensemble_ok": ensemble_ok,
+        "launches": launches, "times": times,
+    }, total
 
 
 def train_batches(n, dev, aug=True):
@@ -1003,7 +1220,8 @@ def phase_int8(dev):
     with the plain version; each int8 SwinBlock vs the float block on the
     input it receives in the int8 model (the JAX oracle's bounds), and the
     int8 vs the float model at each Swin layer; int8 forward and predict
-    img/s at batch 32."""
+    img/s at batch 32; the int8 model served from the frames written as PNG
+    files (K4 2 launches, the same detections)."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block
 
@@ -1019,11 +1237,15 @@ def phase_int8(dev):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     calib_launches = counts()
-    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
     t2 = time.perf_counter()
     launches = counts()
     predict_launches = {k: v - calib_launches[k] for k, v in launches.items()}
     boxes_good = boxes_ok(results, 480, 640)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as d:  # served from PNG files: the same detections
+        write_pngs(frames, Path(d))
+        from_files, file_launches = counted(lambda: yolo.predict(d, imgsz=640, conf=0.001, batch=8, verbose=False))
+    files_ok = file_launches["swin_block_int8"] == 2 and same_detections(results, from_files)
     ok = (calib_launches["swin_block_fwd"] == 2 * len(calib) and calib_launches["swin_block_int8"] == 0
           and predict_launches["swin_block_int8"] == 2 and predict_launches["swin_block_fwd"] == 0
           and launches["swin_block_int8_sm16"] == 0 and len(results) == 8 and boxes_good)
@@ -1048,14 +1270,15 @@ def phase_int8(dev):
         int8_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
         float_ms = cuda_ms(lambda: float_model(xb), iters=10)
     frames32 = [np.random.default_rng(SEED + 1).integers(0, 256, (480, 640, 3), dtype=np.uint8)] * bs
-    yolo.predict(frames32, imgsz=640, batch=bs)  # warm-up
+    yolo.predict(frames32, imgsz=640, batch=bs, verbose=False)  # warm-up
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     for _ in range(2):
-        yolo.predict(frames32, imgsz=640, batch=bs)
+        yolo.predict(frames32, imgsz=640, batch=bs, verbose=False)
     predict_img_s = 2 * bs / (time.perf_counter() - t3)
-    return ok and k_ok and oracle_ok and out_shape == (8, 5, 8400), {
+    return ok and k_ok and oracle_ok and files_ok and out_shape == (8, 5, 8400), {
         "calibration_launches": calib_launches, "predict_launches": predict_launches,
+        "from_png_files_equal": files_ok, "from_png_files_launches": file_launches,
         "calibrate_s": t1 - t0, "predict_s_first_call": t2 - t1,
         "detections_per_frame": [len(r) for r in results], "boxes_ok": bool(boxes_good),
         "kernel_vs_plain_rel_err": k_err, "kernel_vs_plain_ok": k_ok, "kernel_vs_plain_rtol": INT8_MODEL_RTOL,
@@ -1294,7 +1517,7 @@ def phase_yolo11(dev):
     widths = sorted({m.norm1.weight.numel() for m in swin_modules(yolo.model)})
     reset_counts()
     t0 = time.perf_counter()
-    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
     predict_s = time.perf_counter() - t0
     predict_launches = counts()
     boxes_good = boxes_ok(results, 480, 640)
@@ -1371,7 +1594,7 @@ def phase_flagship_l(dev):
     yolo = YOLO(FLAGSHIP_L, device="cuda", dtype=torch.bfloat16, seed=SEED)
     widths = sorted({m.norm1.weight.numel() for m in swin_modules(yolo.model)})
     reset_counts()
-    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8)
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
     predict_launches = counts()
     fwd_ok, fwd_err, out_shape = compare_forward(yolo.model, letterboxed(frames, 640, dev, torch.bfloat16), 3e-2)
     del yolo
@@ -1405,12 +1628,12 @@ def phase_speed(yolo, train, dev):
     frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(bs)]
     out = {"batch": bs, "forward_ms": fwd_ms, "forward_img_per_s": bs * 1e3 / fwd_ms}
     for conf in (0.25, 0.001):
-        yolo.predict(frames, imgsz=640, conf=conf, batch=bs)  # warm-up
+        yolo.predict(frames, imgsz=640, conf=conf, batch=bs, verbose=False)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         reps = 2
         for _ in range(reps):
-            yolo.predict(frames, imgsz=640, conf=conf, batch=bs)
+            yolo.predict(frames, imgsz=640, conf=conf, batch=bs, verbose=False)
         dt = (time.perf_counter() - t0) / reps
         out[f"predict_img_per_s_conf{conf}"] = bs / dt
     tr, step = train
@@ -1542,6 +1765,19 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
            "smem_bytes": S._lib().swin_block_fwd_smem_bytes(S._DTYPES[x.dtype], 256, 2),
            "ptxas": {k: v for k, v in build["ptxas"]["swin_block_fwd"].items() if "mma" in k or "wide" in k},
            "widths": width_rows(wide["swin_block_fwd"])}
+    # K1 at the P4 grids that only test-time augmentation hands it (34x34, padded to 35x35, and 28x28), batch 32
+    trng = np.random.default_rng(SEED + 7)
+    fwd["tta"] = []
+    for shape in TTA_K1_SHAPES:
+        xs = torch.tensor(trng.normal(0, 1, shape).astype(np.float32), device=dev).to(torch.bfloat16)
+        got, ref = swin_block(xs, p, 2), swin_block(xs, p, 2, impl="plain")
+        ms = cuda_ms(lambda: swin_block(xs, p, 2))
+        bound_ms, bound_by = swin_bound(shape, xs.dtype)
+        fwd["tta"].append({"shape": list(shape), "ms": ms,
+                           "plain_ms": cuda_ms(lambda: swin_block(xs, p, 2, impl="plain"), iters=5),
+                           "bound_ms": bound_ms, "bound_by": bound_by, "tflops": swin_flops(shape) / ms / 1e9,
+                           "ms_over_bound": ms / bound_ms, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                           "max_rel_err": rel_err(got, ref)})
     # K1 exact and K3: train at 640 px with batch 16 hands them (16, 40, 40, 256) bf16, fp32 masters
     tswin = swin_modules(tr.model)[0]
     tp = {k: v.detach() for k, v in tswin.kernel_params().items()}
@@ -1674,12 +1910,76 @@ def k2_compare(parent: Path) -> int:
     return rc
 
 
+def predict_run(root: Path, disk: bool) -> dict:
+    """YOLO.predict of the port under `root`, imported from there by this
+    process, at batch 32, 640 px, bf16, BN-folded, seeded weights, on the
+    speed phase's frames: the img/s of each of 8 calls after a warm-up (host
+    clock, what a caller waits), in memory and, with `disk`, from the frames
+    written as PNGs; and the forward's ms (CUDA events)."""
+    import inspect
+    import statistics
+
+    sys.path.insert(0, str(root))
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    mod = sys.modules["improving_yolov8_cbam_swinblock_tpu_torch"].__file__
+    if not Path(mod).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {mod}, not the port under {root}")
+    dev, bs = torch.device("cuda"), 32
+    yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    rng = np.random.default_rng(SEED + 1)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(bs)]
+    kw = dict(imgsz=640, batch=bs)
+    if any(p.kind is p.VAR_KEYWORD for p in inspect.signature(yolo.predict).parameters.values()):
+        kw["verbose"] = False  # the serving facade's keys (a checkout that has them prints a line per image)
+    out = {"root": str(root)}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_predict_"))
+    try:
+        sources = [("in_memory", frames)]
+        if disk:
+            write_pngs(frames, tmp / "png32")
+            sources.append(("disk_png", str(tmp / "png32")))
+        for label, src in sources:
+            yolo.predict(src, **kw)  # warm-up
+            torch.cuda.synchronize()
+            rates = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                yolo.predict(src, **kw)
+                rates.append(bs / (time.perf_counter() - t0))
+            out[f"predict_img_per_s_{label}"] = rates
+            out[f"predict_img_per_s_{label}_median"] = statistics.median(rates)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    x = torch.rand(bs, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        out["forward_ms"] = cuda_ms(lambda: yolo.model(x), iters=10)
+    return out
+
+
+def predict_compare(parent: Path) -> int:
+    """predict_run for parent, this checkout, this checkout, parent, ... (5
+    runs of each), each in its own process; the card's name and power limit first."""
+    here = Path(__file__).resolve().parent
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    rc = 0
+    for root, disk in [(parent, False), (here, True), (here, True), (parent, False)] * 2 + [(parent, False), (here, True)]:
+        code = (f"import sys, json; from pathlib import Path; sys.path.insert(0, {str(here)!r}); import chip_smoke; "
+                f"print(json.dumps(chip_smoke.predict_run(Path({str(root)!r}), {disk})))")
+        rc |= subprocess.run([sys.executable, "-c", code], cwd=root, timeout=600).returncode
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--k2":
         return k2_compare(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 3 and sys.argv[1] == "--predict":
+        return predict_compare(Path(sys.argv[2]).resolve())
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1699,6 +1999,7 @@ def main() -> int:
     emit({"phase": "build", "ok": True, "card": smi, **build})
     (wide,) = run("kernel", phase_kernel, dev)
     yolo, predict_launches = run("slice", phase_slice, dev)
+    (serve_launches,) = run("serve", phase_serve, dev)
     train, train_launches = run("train", phase_train, dev)
     int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
     (fit_launches,) = run("fit", phase_fit, dev)
@@ -1707,8 +2008,9 @@ def main() -> int:
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
-                           {"predict": predict_launches, "train": train_launches, "int8": int8_launches,
-                            "fit": fit_launches, **yolo11_launches, **large_launches}, build, wide)
+                           {"predict": predict_launches, "serve": serve_launches, "train": train_launches,
+                            "int8": int8_launches, "fit": fit_launches, **yolo11_launches, **large_launches},
+                           build, wide)
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

@@ -3,16 +3,26 @@
 Builds the fork's YAML graphs as torch modules, serves `YOLO(cfg).predict`,
 quantizes a model to int8 in place (`quantize_model`, post-training), runs
 the detect train step (`DetectionTrainer`), and trains and validates from a
-YOLO-format dataset on disk (`YOLO.train`, `YOLO.val`). Hand-written CUDA kernels
+YOLO-format dataset on disk (`YOLO.train`, `YOLO.val`), and serves a model
+trained by the JAX package from its `.ckpt` files: predict from image,
+video, directory, glob and stream sources, with test-time augmentation,
+ensembles (`YOLO([a, b])`) and the predictor's outputs (`save`,
+`save_txt`, `save_crop`). Hand-written CUDA kernels
 for Hopper: the SwinBlock forward (csrc/swin_block_fwd.cu), its backward
 (csrc/swin_block_bwd.cu) and its int8 form (csrc/swin_block_int8.cu), and
 the task-aligned assigner (csrc/tal_assign.cu). Entry points run on the
 card unless the caller passes device="cpu".
 """
 
+from pathlib import Path as _Path
+
 from .engine.model import YOLO
+from .engine.results import Results
 from .engine.trainer import DetectionTrainer
-from .nn.tasks import DetectionModel
+from .nn.tasks import DetectionModel, EnsembleModel
 from .ops.quant import quantize_model
 
-__all__ = ["YOLO", "DetectionModel", "DetectionTrainer", "quantize_model"]
+# the sample images that YOLO.predict serves without a source (copies of the JAX package's assets)
+ASSETS = _Path(__file__).parent / "assets"
+
+__all__ = ["ASSETS", "YOLO", "DetectionModel", "DetectionTrainer", "EnsembleModel", "Results", "quantize_model"]

@@ -2,8 +2,12 @@
 
 `YOLO("yolov8s-cbam-swin.yaml")` builds the graph with a seeded random init
 on the card; `device="cpu"` is the only way to the CPU. Weights come from
-the JAX package's variables (`load_jax_variables`) or from a file that
-`save` wrote. For int8 serving, build with fp32 weights
+a file: the port's own `.pt` (`save`), or a `.ckpt` / `.msgpack` of the JAX
+package (its YOLO.save, fused or not, and its trainer's last.ckpt,
+best.ckpt, epochN.ckpt), whose EMA weights it serves; `YOLO([a, b])`
+serves several checkpoints as one ensemble. `load` overlays weights by
+name and shape; `load_jax_variables` takes the JAX package's variables in
+memory. For int8 serving, build with fp32 weights
 (`param_dtype=torch.float32`), `fuse()`, then quantize the model in place
 with `ops.quant.quantize_model(yolo.model, batches)`; `predict` and `val`
 then run it. `train(data=...)` trains on the model's device (a model loaded
@@ -14,44 +18,93 @@ from a file warm-starts the trainer) and adopts best.pt's EMA weights;
 from __future__ import annotations
 
 import math
+import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..cfg import get_cfg
 from ..data.build import build_dataloader, build_yolo_dataset
 from ..data.dataset import check_det_dataset
-from ..nn.tasks import DetectionModel
+from ..data.loaders import VID_EXTS
+from ..nn.tasks import DetectionModel, EnsembleModel
 from ..ops.quant import is_quantized
-from ..utils.jax_import import state_dict_from_jax
+from ..utils import serialization
+from ..utils.callbacks import EVENTS, PREDICT_EVENTS, default_callbacks
+from ..utils.jax_import import (ema_state, fused_state_from_jax, jax_variables_from_state, overlay_state,
+                                read_checkpoint, state_dict_from_jax)
 from ..utils.metrics import ValMetrics
 from .predictor import DetectionPredictor
-from .trainer import DetectionTrainer, check_supported
+from .results import Results
+from .trainer import DetectionTrainer, check_supported, checkpoint_state
 from .validator import DetectionValidator
+
+JAX_SUFFIXES = (".ckpt", ".msgpack")
 
 
 class YOLO:
-    def __init__(self, model: str = "yolov8s-cbam-swin.yaml", device=None, dtype: torch.dtype = torch.float32,
+    def __init__(self, model="yolov8s-cbam-swin.yaml", device=None, dtype: torch.dtype = torch.float32,
                  seed: int = 0, param_dtype: Optional[torch.dtype] = None):
+        """A YAML name or file, a dict, a `.pt` or `.ckpt`/`.msgpack` file, or
+        a list of checkpoints (an ensemble). `dtype` and `param_dtype` set
+        the model built for a YAML or a JAX checkpoint (a `.pt` file carries
+        its own)."""
         self.task = "detect"
         self.ckpt_path = None
         self.trainer = None
         self.validator = None
-        if str(model).endswith(".pt"):
-            payload = torch.load(model, map_location="cpu", weights_only=True)
-            dtype = getattr(torch, payload["dtype"])
-            param_dtype = getattr(torch, payload["param_dtype"]) if "param_dtype" in payload else None
-            self.model = DetectionModel(payload["yaml"], dtype=dtype, device=device, seed=seed,
-                                        param_dtype=param_dtype)
-            if payload["fused"]:
-                self.model.fuse()
-            self.model.load_state_dict(payload["state_dict"], strict=True)
-            if "names" in payload:
-                self.model.names = dict(payload["names"])
-            self.ckpt_path = str(model)
+        self.predictor: Optional[DetectionPredictor] = None
+        self.overrides: Dict[str, Any] = {}
+        self.callbacks = default_callbacks()
+        self._build = {"device": device, "dtype": dtype, "seed": seed, "param_dtype": param_dtype}
+        if isinstance(model, (list, tuple)):
+            self.model = EnsembleModel([YOLO(m, **self._build).model for m in model])
+            self.ckpt_path = str(model[0])
+        elif str(model).endswith(".pt"):
+            self._load_pt(str(model))
+        elif str(model).endswith(JAX_SUFFIXES):
+            self._load_ckpt(str(model))
         else:
-            self.model = DetectionModel(model, dtype=dtype, device=device, seed=seed, param_dtype=param_dtype)
+            self.model = DetectionModel(model, **self._build)
+
+    def _load_pt(self, path: str) -> None:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        dtype = getattr(torch, payload["dtype"])
+        param_dtype = getattr(torch, payload["param_dtype"]) if "param_dtype" in payload else None
+        self.model = DetectionModel(payload["yaml"], dtype=dtype, device=self._build["device"],
+                                    seed=self._build["seed"], param_dtype=param_dtype)
+        if payload["fused"]:
+            self.model.fuse()
+        self.model.load_state_dict(payload["state_dict"], strict=True)
+        if "names" in payload:
+            self.model.names = dict(payload["names"])
+        self.ckpt_path = path
+
+    def _load_ckpt(self, path: str) -> None:
+        """The deploy weights of a JAX-format checkpoint, as the JAX package's
+        YOLO._load reads them: the graph (model_yaml with nc), the EMA
+        weights, a fused collection onto a fused model, names, and args.imgsz."""
+        payload = read_checkpoint(path)
+        cfg = dict(payload["model_yaml"])
+        cfg["nc"] = int(payload["nc"])
+        self.model = DetectionModel(cfg, **self._build)
+        if payload.get("fused"):
+            self.model.fuse()
+            state = fused_state_from_jax({"params": payload["ema_params"], "fused": payload["fused"]})
+        else:
+            state = ema_state(payload)
+        self.model.load_state_dict(state, strict=True)
+        names = payload.get("names") or {}
+        if names:
+            self.model.names = {int(k): str(v) for k, v in names.items()}
+        self.ckpt_path = path
+        self.overrides = {k: v for k, v in (payload.get("args") or {}).items() if k == "imgsz"}
+
+    @property
+    def names(self) -> Dict[int, str]:
+        return self.model.names
 
     @property
     def is_fused(self) -> bool:
@@ -62,6 +115,14 @@ class YOLO:
         self.model.fuse()
         return self
 
+    def info(self) -> Dict[str, Any]:
+        return {"params": sum(p.numel() for p in self.model.parameters()), "strides": tuple(self.model.strides),
+                "nc": self.model.nc, "task": self.task, "fused": self.is_fused}
+
+    def _single(self, what: str) -> None:
+        if isinstance(self.model, EnsembleModel):
+            raise NotImplementedError(f"{what} an ensemble is not supported: use one member")
+
     def load_jax_variables(self, variables) -> "YOLO":
         """Load the JAX package's {"params", "batch_stats"} (numpy leaves) into an unfused model."""
         if self.is_fused:
@@ -69,16 +130,136 @@ class YOLO:
         self.model.load_state_dict(state_dict_from_jax(variables), strict=True)
         return self
 
-    def predict(self, source, imgsz: int = 640, conf: Optional[float] = None, iou: float = 0.7,
-                max_det: int = 300, batch: int = 1):
-        """Detections for in-memory BGR uint8 frames; BN-folds a float model
-        first (a quantized one keeps its BatchNorms after the int8 convs)."""
+    def load(self, weights) -> "YOLO":
+        """Overlay weights onto this graph by name and shape, keeping this
+        model's tensor where a name is missing or its shape differs: the EMA
+        of a `.ckpt`/`.msgpack`, the state of a `.pt`, or an `.npz` of the
+        reference's torch state (tools/export_ref_state.py), whose names are
+        the port's. `transfer_stats` counts the leaves matched and skipped."""
+        self._single("loading weights into")
+        if self.is_fused:
+            raise ValueError("load weights before fuse(): the fused model has no BatchNorm to fill")
+        w = str(weights)
+        if w.endswith(".npz"):
+            with np.load(w) as npz:
+                src = {k: torch.from_numpy(np.array(npz[k])) for k in npz.files}
+        else:
+            src = checkpoint_state(w)
+        self.transfer_stats = overlay_state(DetectionTrainer._named_state(self.model), src)
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """A fresh seeded init of the same graph, dtypes and device."""
+        self._single("resetting")
+        names = self.model.names
+        self.model = DetectionModel(self.model.yaml, **{**self._build, "device": self.model.device})
+        self.model.names = names
+        self.ckpt_path = None
+        return self
+
+    # -- callbacks: the predictor fires the predict events; the trainer, validator and exporter fire none
+    def add_callback(self, event: str, func) -> None:
+        if event not in EVENTS:
+            raise ValueError(f"unknown callback event {event!r} (see utils.callbacks.EVENTS)")
+        if event not in PREDICT_EVENTS:
+            raise NotImplementedError(f"callback event {event!r} is never fired by the port: only the predict "
+                                      f"events {PREDICT_EVENTS} are")
+        self.callbacks[event].append(func)
+
+    def clear_callback(self, event: str) -> None:
+        self.callbacks[event] = []
+
+    def reset_callbacks(self) -> None:
+        self.callbacks = default_callbacks()
+
+    def predict(self, source=None, stream: bool = False, **kwargs):
+        """Detections for `source` (frames, PIL images, tensors, image or video
+        paths, directories, globs, lists of these; None: the two sample
+        images), with the predict settings of cfg/default.yaml in kwargs.
+        BN-folds a float model first (a quantized one keeps its BatchNorms
+        after the int8 convs). stream=True returns a generator of Results
+        (videos, webcams and stream URLs frame by frame). save, save_txt
+        and save_crop write under <project>/<name> (runs/detect/predict)."""
+        if source is None:
+            from .. import ASSETS
+
+            source = str(ASSETS)
+            print(f"WARNING: 'source' is missing. Using default 'source={source}'.")
+        args = get_cfg({**self.overrides, **kwargs})
+        if args.visualize:
+            raise NotImplementedError("visualize=True: feature maps are not drawn by the port")
+        if args.embed:
+            raise NotImplementedError("embed: embeddings are not in the port")
+        if args.augment and isinstance(self.model, EnsembleModel):
+            raise NotImplementedError("augment=True on an ensemble: test-time augmentation runs one model")
         stride = max(self.model.strides)
-        imgsz = math.ceil(int(imgsz) / stride) * stride
+        args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         if not self.is_fused and not is_quantized(self.model):
             self.fuse()
-        predictor = DetectionPredictor(self.model, conf=conf, iou=iou, max_det=max_det, batch=batch)
-        return predictor(source, imgsz)
+        self.predictor = DetectionPredictor(self.model, args, callbacks=self.callbacks)
+        if stream:
+            return self.predictor.stream(source, imgsz=args.imgsz)
+        results = self.predictor(source, imgsz=args.imgsz)
+        if kwargs.get("save") or kwargs.get("save_txt") or kwargs.get("save_crop"):
+            self._save_results(results, args, kwargs)
+        if args.show:
+            self._show_results(results)
+        return results
+
+    def __call__(self, source=None, stream: bool = False, **kwargs):
+        return self.predict(source, stream=stream, **kwargs)
+
+    @staticmethod
+    def _save_results(results: List[Results], args, kwargs) -> None:
+        """Under <project>/<name>: annotated images (save); the frames of a
+        video (paths `video.ext#i`) muxed into <stem>.mp4 (mp4v, 30 fps), and
+        with save_frames also each frame as <stem>_frames/<stem>_<i>.jpg;
+        labels/<stem>.txt (save_txt, save_conf); crops/<class>/<stem>_<i>.jpg (save_crop)."""
+        import cv2
+
+        out = Path(args.project or "runs/detect") / (args.name or "predict")
+        out.mkdir(parents=True, exist_ok=True)
+        writers: Dict[str, Any] = {}
+        try:
+            for i, r in enumerate(results):
+                pstr = str(r.path)
+                vid = pstr.split("#")[0] if "#" in pstr else None
+                is_frame = vid is not None and Path(vid).suffix.lower() in VID_EXTS
+                stem = Path(pstr).stem or f"img{i}"
+                if kwargs.get("save"):
+                    if is_frame:
+                        w = writers.get(vid)
+                        if w is None:
+                            h0, w0 = r.orig_img.shape[:2]
+                            w = cv2.VideoWriter(str(out / f"{Path(vid).stem}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                                                30, (w0, h0))
+                            writers[vid] = w
+                        w.write(r.plot())
+                        if args.save_frames:
+                            fd = out / f"{Path(vid).stem}_frames"
+                            fd.mkdir(exist_ok=True)
+                            r.save(str(fd / f"{Path(vid).stem}_{pstr.split('#', 1)[1]}.jpg"))
+                    else:
+                        r.save(str(out / f"{stem}.jpg"))
+                if kwargs.get("save_txt"):
+                    r.save_txt(str(out / "labels" / f"{stem}.txt"), save_conf=bool(kwargs.get("save_conf")))
+                if kwargs.get("save_crop"):
+                    r.save_crop(str(out / "crops"), file_name=stem)
+        finally:
+            for w in writers.values():
+                w.release()
+
+    @staticmethod
+    def _show_results(results: List[Results]) -> None:
+        """show=True: the annotated frames where a display is available; headless, a warning."""
+        if not os.environ.get("DISPLAY") and os.name != "nt":
+            print("WARNING: show=True requires a GUI environment; skipping display")
+            return
+        import cv2
+
+        for r in results:
+            cv2.imshow("improving_yolov8_cbam_swinblock_tpu_torch", r.plot())
+            cv2.waitKey(1)
 
     def train(self, data: str, **kwargs) -> Dict[str, float]:
         """Train on `data` (a data YAML or dict) with the trainer's settings in
@@ -86,7 +267,10 @@ class YOLO:
         loaded from a file hands its weights to the trainer's warm start
         (same-shape overlay). Afterwards this YOLO holds best.pt's EMA
         weights, or the final EMA when no best.pt was written."""
-        overrides = {**kwargs, "data": data, "model": self.model.yaml}
+        self._single("training")
+        if self.is_fused:
+            raise ValueError("a BN-folded model cannot warm-start training: train from the unfused checkpoint")
+        overrides = {**self.overrides, **kwargs, "data": data, "model": self.model.yaml}
         trainer = DetectionTrainer(overrides=overrides, device=kwargs.get("device") or self.model.device)
         if self.ckpt_path is not None:
             trainer.pretrained_state = self.model.state_dict()
@@ -103,7 +287,8 @@ class YOLO:
         """Detection metrics of this model (float or quantized, as it is) on
         the `split` (default val) of `data`, with `batch`, `imgsz`, `rect`,
         `max_det`, `workers` and `verbose` from kwargs."""
-        args = get_cfg(kwargs)
+        self._single("validating")
+        args = get_cfg({**self.overrides, **kwargs})
         check_supported(args)
         stride = max(self.model.strides)
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
@@ -119,15 +304,28 @@ class YOLO:
         out.box = self.validator.metrics.box
         return out
 
-    def save(self, path: str) -> None:
-        """Write the graph, the compute dtype, the dtype of the Conv and Swin
-        weight matrices (param_dtype, so fp32 masters reload as fp32) and the
-        state of a float model. A quantized model is refused: save the float
+    def save(self, path: str = "model.pt") -> str:
+        """Write this model. A `.ckpt` or `.msgpack` path gets the JAX
+        package's format (what its YOLO.save writes: model_yaml, nc, names,
+        ema_params, ema_stats, the fused collection of a fused model, args),
+        which the JAX package and this port load. Any other path gets the
+        port's `.pt`: the graph, the compute dtype, the dtype of the Conv
+        and Swin weight matrices (param_dtype, so fp32 masters reload as
+        fp32) and the state. A quantized model is refused: save the float
         model and quantize after loading."""
+        self._single("saving")
         if is_quantized(self.model):
             raise ValueError("YOLO.save does not write a quantized model: save the float model, then run "
                              "quantize_model after loading it")
         m = self.model
+        if str(path).endswith(JAX_SUFFIXES):
+            variables = jax_variables_from_state(m)
+            payload = {"model_yaml": m.yaml, "nc": m.nc, "names": {str(k): str(v) for k, v in m.names.items()},
+                       "ema_params": variables["params"], "ema_stats": variables["batch_stats"],
+                       "fused": variables.get("fused", {}), "args": {}}
+            Path(path).write_bytes(serialization.dumps(payload))
+            return str(path)
         torch.save({"yaml": m.yaml, "fused": self.is_fused, "dtype": str(m.dtype).removeprefix("torch."),
                     "param_dtype": str(m.param_dtype).removeprefix("torch."), "state_dict": m.state_dict()},
                    Path(path))
+        return str(path)

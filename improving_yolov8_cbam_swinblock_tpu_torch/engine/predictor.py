@@ -1,48 +1,68 @@
-"""Detection predictor: letterbox on the device -> batched forward + NMS -> rescale.
+"""Detection predictor: sources -> letterbox on the device -> batched forward + NMS -> rescale.
 
-Counterpart of the JAX package's engine/predictor.py for in-memory
-sources: an (H, W, 3) BGR uint8 array, a (B, H, W, 3) stack or a list of
-them. Frames go through the model `batch` at a time; a short last batch is
-padded with zero frames to the same shape.
+Counterpart of the JAX package's engine/predictor.py. Sources: an (H, W, 3)
+BGR uint8 array or a (B, H, W, 3) stack, a PIL image, an object with
+__array__ (a torch tensor), the path of an image or a video, a directory
+(its images), a glob, and lists of any of these (`_load_sources`); and,
+through `stream`, webcams, URLs and files frame by frame. Frames go
+through the model `batch` at a time; a short last batch is padded with
+zero frames to the same shape. Options, from the configuration:
+`conf`, `iou`, `max_det`, `agnostic_nms`, `augment` (the model's
+predict_augment: three scales, one flipped), `vid_stride`,
+`stream_buffer`, `verbose` (one line per image). The predict events of
+utils/callbacks.py fire around each batch.
 """
 
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.augment import letterbox
+from ..data.build import check_source, load_inference_source
+from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
+from ..utils.callbacks import default_callbacks, run_callbacks
 from .results import Results
 
 
 class DetectionPredictor:
-    def __init__(self, model, conf: Optional[float] = None, iou: float = 0.7, max_det: int = 300, batch: int = 1):
+    def __init__(self, model, args, callbacks=None):
         self.model = model
-        self.conf = 0.25 if conf is None else float(conf)
-        self.iou = float(iou)
-        self.max_det = int(max_det)
-        self.batch = max(1, int(batch))
+        self.args = args
+        self.callbacks = callbacks if callbacks is not None else default_callbacks()
+        self.results: List[Results] = []
+        self._seen = 0
 
-    @staticmethod
-    def load_sources(source) -> List[Tuple[np.ndarray, str]]:
+    def _load_sources(self, source) -> List[Tuple[np.ndarray, str]]:
+        """(BGR frame, path) of each image of `source`; a video yields every
+        vid_stride-th frame, tagged `path#i`."""
         if isinstance(source, (list, tuple)):
-            return [s for item in source for s in DetectionPredictor.load_sources(item)]
+            return [s for item in source for s in self._load_sources(item)]
+        if hasattr(source, "convert") and hasattr(source, "size"):  # PIL
+            return [(np.asarray(source.convert("RGB"))[..., ::-1].copy(), "pil")]
+        if isinstance(source, torch.Tensor):
+            source = source.detach().cpu().numpy()
+        elif hasattr(source, "__array__") and not isinstance(source, np.ndarray):
+            source = np.asarray(source)
         if isinstance(source, np.ndarray):
             if source.ndim == 4:
                 return [(source[i], f"array[{i}]") for i in range(source.shape[0])]
-            if source.ndim == 3:
-                return [(source, "array")]
-        raise TypeError("the port's predict takes (H, W, 3) or (B, H, W, 3) uint8 arrays or lists of them; "
-                        f"got {type(source).__name__}")
+            return [(source, "array")]
+        if not isinstance(source, (str, Path)):
+            raise TypeError(f"unsupported predict source type: {type(source).__name__}")
+        # a directory or a glob gives its images only, as in the JAX predictor; a video every vid_stride-th frame
+        return list(LoadImagesAndVideos(source, vid_stride=int(self.args.vid_stride or 1), exts=IMG_EXTS))
 
     @torch.inference_mode()
     def run_batch(self, frames: Sequence[Tuple[np.ndarray, str]], imgsz: int, bs: int) -> List[Results]:
         t0 = time.perf_counter()
+        a = self.args
         dev = self.model.device
         pre = [letterbox(img0, imgsz, device=dev) for img0, _ in frames]
         batch = torch.stack([img.flip(-1) for img, _, _ in pre])  # BGR -> RGB
@@ -51,9 +71,9 @@ class DetectionPredictor:
             batch = torch.cat([batch, batch.new_zeros((bs - n, *batch.shape[1:]))])
         x = batch.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0  # NCHW view of NHWC: channels_last
         t1 = time.perf_counter()
-        pred, _ = self.model(x)
-        dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
-                                   nc=self.model.nc)
+        pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
+        dets = non_max_suppression(pred, conf_thres=0.25 if a.conf is None else float(a.conf), iou_thres=float(a.iou),
+                                   max_det=int(a.max_det), nc=self.model.nc, agnostic=bool(a.agnostic_nms))
         dets = dets[:n].cpu().numpy()
         t2 = time.perf_counter()
         out = []
@@ -65,12 +85,48 @@ class DetectionPredictor:
             res.speed = {"preprocess": (t1 - t0) * 1000 / n, "inference": (t2 - t1) * 1000 / n,
                          "postprocess": 0.0}
             out.append(res)
+        self._log_results(out)
         return out
 
-    def __call__(self, source, imgsz: int) -> List[Results]:
-        sources = self.load_sources(source)
-        bs = min(len(sources), self.batch)
+    def _log_results(self, results: Sequence[Results]) -> None:
+        """With verbose, one line per image: 'image i path: HxW 2 persons, 12.3ms'."""
+        if not self.args.verbose:
+            return
+        for res in results:
+            self._seen += 1
+            h, w = res.orig_img.shape[:2]
+            print(f"image {self._seen} {res.path}: {h}x{w} {res.verbose()}{res.speed['inference']:.1f}ms")
+
+    def __call__(self, source, imgsz: Optional[int] = None) -> List[Results]:
+        imgsz = int(imgsz or self.args.imgsz)
+        run_callbacks(self.callbacks, "on_predict_start", self)
+        sources = self._load_sources(source)
+        bs = max(1, min(len(sources), int(self.args.batch or 1)))
         results: List[Results] = []
         for lo in range(0, len(sources), bs):
-            results.extend(self.run_batch(sources[lo:lo + bs], imgsz, bs))
+            run_callbacks(self.callbacks, "on_predict_batch_start", self)
+            self.results = self.run_batch(sources[lo:lo + bs], imgsz, bs)  # the current batch while its hooks fire
+            run_callbacks(self.callbacks, "on_predict_postprocess_end", self)
+            results.extend(self.results)
+            run_callbacks(self.callbacks, "on_predict_batch_end", self)
+        self.results = results
+        run_callbacks(self.callbacks, "on_predict_end", self)
         return results
+
+    def stream(self, source, imgsz: Optional[int] = None):
+        """Results one batch at a time from a lazy source: a webcam index or
+        stream URL (one frame per stream a batch), or an image, video or
+        directory read frame by frame."""
+        imgsz = int(imgsz or self.args.imgsz)
+        _, st = check_source(source)
+        loader = load_inference_source(source, vid_stride=int(self.args.vid_stride or 1),
+                                       stream_buffer=bool(self.args.stream_buffer))
+        if st.stream:
+            try:
+                for frames, paths in loader:
+                    yield from self.run_batch(list(zip(frames, paths)), imgsz, len(frames))
+            finally:
+                loader.close()
+        else:
+            for frame, path in loader:
+                yield from self.run_batch([(frame, path)], imgsz, 1)

@@ -1,18 +1,30 @@
-"""Inference results of the predict path: numpy-backed, like the JAX package's engine/results.py."""
+"""Inference results of the predict path: numpy-backed, like the JAX
+package's engine/results.py (its detection part).
+
+`Results` holds one image's detections and writes them out: a log string
+(`verbose`), dicts and JSON (`summary`, `to_json`), a sqlite table
+(`to_sql`), an annotated copy of the image (`plot`, `save`, `show`), YOLO
+label lines (`save_txt`) and crops (`save_crop`). Drawing and image files
+need cv2, as in the JAX package.
+"""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
 
 class Boxes:
-    """Detections (n, 6): x1, y1, x2, y2, conf, cls in original image pixels."""
+    """Detections (n, 6) [x1, y1, x2, y2, conf, cls], or (n, 7) with a track
+    id column [x1, y1, x2, y2, id, conf, cls], in original image pixels."""
 
     def __init__(self, data: np.ndarray, orig_shape):
-        self.data = np.asarray(data, dtype=np.float32).reshape(-1, 6)
+        data = np.asarray(data, dtype=np.float32)
+        self.data = data.reshape(-1, data.shape[-1] if data.ndim > 1 and data.shape[-1] == 7 else 6)
         self.orig_shape = tuple(orig_shape)
+        self.is_track = self.data.shape[-1] == 7
 
     @property
     def xyxy(self):
@@ -20,16 +32,34 @@ class Boxes:
 
     @property
     def conf(self):
-        return self.data[:, 4]
+        return self.data[:, -2]
 
     @property
     def cls(self):
-        return self.data[:, 5]
+        return self.data[:, -1]
+
+    @property
+    def id(self):
+        """Track ids, or None for plain detections."""
+        return self.data[:, 4] if self.is_track else None
 
     @property
     def xywh(self):
         b = self.data[:, :4]
         return np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], 1)
+
+    @property
+    def xyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxy / np.array([w, h, w, h], np.float32)
+
+    @property
+    def xywhn(self):
+        h, w = self.orig_shape
+        return self.xywh / np.array([w, h, w, h], np.float32)
+
+    def __getitem__(self, idx):
+        return Boxes(np.atleast_2d(self.data[idx]), self.orig_shape)
 
     def __len__(self):
         return len(self.data)
@@ -48,3 +78,141 @@ class Results:
 
     def __len__(self):
         return len(self.boxes)
+
+    def __getitem__(self, idx):
+        """A new Results over the selected detections."""
+        r = self.new()
+        r.boxes = self.boxes[idx]
+        return r
+
+    def new(self):
+        """Empty Results over the same image."""
+        r = Results(self.orig_img, self.path, self.names)
+        r.speed = dict(self.speed)
+        return r
+
+    def update(self, boxes=None):
+        """Replace the detections in place."""
+        if boxes is not None:
+            self.boxes = Boxes(boxes, self.orig_shape)
+        return self
+
+    def verbose(self) -> str:
+        """The log string: '2 persons, 1 bus, ', or '(no detections), '."""
+        if not len(self.boxes):
+            return "(no detections), "
+        cls = self.boxes.cls.astype(int)
+        out = ""
+        for c in np.unique(cls):
+            n = int((cls == c).sum())
+            out += f"{n} {self.names.get(int(c), str(int(c)))}{'s' * (n > 1)}, "
+        return out
+
+    def summary(self):
+        """One dict per detection: name, class, confidence (5 decimals), box,
+        and track_id for tracked boxes."""
+        out = []
+        b = self.boxes
+        for i in range(len(b)):
+            cls, conf = int(b.cls[i]), float(b.conf[i])
+            x1, y1, x2, y2 = (float(v) for v in b.xyxy[i])
+            row = {"name": self.names.get(cls, str(cls)), "class": cls, "confidence": round(conf, 5),
+                   "box": {"x1": x1, "y1": y1, "x2": x2, "y2": y2}}
+            if b.id is not None:
+                row["track_id"] = int(b.id[i])
+            out.append(row)
+        return out
+
+    def to_json(self):
+        import json
+
+        return json.dumps(self.summary(), indent=2)
+
+    def tojson(self):
+        """The older name of to_json."""
+        return self.to_json()
+
+    def to_sql(self, table_name: str = "results", db_path: str = "results.db"):
+        """Append the detections to a sqlite table (class_name, confidence, the summary row as JSON)."""
+        import json
+        import sqlite3
+
+        con = sqlite3.connect(db_path)
+        try:
+            cur = con.cursor()
+            cur.execute(f'CREATE TABLE IF NOT EXISTS "{table_name}" '
+                        "(id INTEGER PRIMARY KEY AUTOINCREMENT, class_name TEXT, confidence REAL, data TEXT)")
+            for row in self.summary():
+                cur.execute(f'INSERT INTO "{table_name}" (class_name, confidence, data) VALUES (?, ?, ?)',
+                            (row["name"], row["confidence"], json.dumps(row)))
+            con.commit()
+        finally:
+            con.close()
+        return db_path
+
+    def plot(self, line_width: Optional[int] = None):
+        """An annotated copy of the original image (BGR): each box and its
+        'name conf' label (with 'id:n' for tracked boxes), coloured by class."""
+        import cv2
+
+        img = self.orig_img.copy()
+        lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
+        b = self.boxes
+        for i in range(len(b)):
+            x1, y1, x2, y2 = (int(v) for v in b.xyxy[i])
+            cls, conf = int(b.cls[i]), float(b.conf[i])
+            color = tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
+            cv2.rectangle(img, (x1, y1), (x2, y2), color, lw)
+            label = f"{self.names.get(cls, cls)} {conf:.2f}"
+            if b.id is not None:
+                label = f"id:{int(b.id[i])} " + label
+            cv2.putText(img, label, (x1, max(y1 - 3, 10)), cv2.FONT_HERSHEY_SIMPLEX, lw / 6, color, 1)
+        return img
+
+    def show(self, *args, **kwargs):
+        """Display the annotated image where a GUI is available; returns it."""
+        img = self.plot()
+        try:
+            import cv2
+
+            cv2.imshow(str(self.path), img)
+            cv2.waitKey(1)
+        except Exception:  # no GUI: the rendered array is the result
+            pass
+        return img
+
+    def save(self, filename: str):
+        import cv2
+
+        cv2.imwrite(filename, self.plot())
+        return filename
+
+    def save_txt(self, txt_file: str, save_conf: bool = False):
+        """YOLO label lines, 'cls x y w h' normalised (and conf with save_conf), '%.6g'."""
+        lines = []
+        for i in range(len(self.boxes)):
+            cls, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
+            vals = [cls, *self.boxes.xywhn[i].tolist()] + ([conf] if save_conf else [])
+            lines.append(" ".join(f"{v:.6g}" if not isinstance(v, int) else str(v) for v in vals))
+        p = Path(txt_file)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text("\n".join(lines) + ("\n" if lines else ""))
+        return str(p)
+
+    def save_crop(self, save_dir: str, file_name: str = "crop"):
+        """Each detection's crop as save_dir/<class name>/<file_name>_<i>.jpg."""
+        import cv2
+
+        saved = []
+        for i in range(len(self.boxes)):
+            (x1, y1, x2, y2), cls = self.boxes.xyxy[i], self.boxes.cls[i]
+            x1, y1 = max(int(x1), 0), max(int(y1), 0)
+            x2, y2 = min(int(x2), self.orig_shape[1]), min(int(y2), self.orig_shape[0])
+            if x2 <= x1 or y2 <= y1:
+                continue
+            d = Path(save_dir) / self.names.get(int(cls), str(int(cls)))
+            d.mkdir(parents=True, exist_ok=True)
+            out = d / f"{file_name}_{i}.jpg"
+            cv2.imwrite(str(out), self.orig_img[y1:y2, x1:x2])
+            saved.append(str(out))
+        return saved

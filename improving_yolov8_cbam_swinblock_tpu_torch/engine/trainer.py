@@ -57,6 +57,7 @@ from ..nn.tasks import DetectionModel, yaml_model_load
 from ..ops.augment_device import device_augment
 from ..utils.device import select_device
 from ..utils.files import get_save_dir
+from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
 from ..utils.loss import detection_loss
 from .validator import DetectionValidator
 
@@ -77,6 +78,19 @@ def check_supported(args) -> None:
     if bad:
         raise NotImplementedError(f"{bad}: the device augmentation applies mosaic, scale, translate, fliplr and "
                                   "HSV only; the host augmentation stack is not in the port")
+
+
+def checkpoint_state(path) -> Dict[str, torch.Tensor]:
+    """The unfused weights a checkpoint file hands to an overlay: the EMA of
+    a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
+    file raises (jax_import.ema_state says why)."""
+    p = str(path)
+    if p.endswith((".ckpt", ".msgpack")):
+        return ema_state(read_checkpoint(p))
+    payload = torch.load(p, map_location="cpu", weights_only=True)
+    if payload.get("fused"):
+        raise ValueError(f"{p} is BN-folded: its weights cannot be overlaid onto an unfused model")
+    return payload["state_dict"]
 
 
 def latest_run(search_dir) -> Optional[Path]:
@@ -209,30 +223,23 @@ class DetectionTrainer:
             self.val_loader = build_dataloader(val_ds, int(a.batch), workers=a.workers, train=False, seed=a.seed,
                                                rect_shape=rect_shape)
 
-    @torch.no_grad()
     def _warm_start(self) -> None:
         """Overlay pretrained weights onto the fresh init: each parameter and
         BN statistic takes the source's tensor of the same name where its
         shape matches (another nc keeps the fresh Detect class convs).
-        Sources, in order: `pretrained=<path of a .pt>`, then the weights
-        that YOLO.train handed over."""
+        Sources, in order: `pretrained=<path>` (a `.pt`, or the EMA weights
+        of a JAX-format `.ckpt`/`.msgpack`, as the JAX package's warm start
+        reads them), then the weights that YOLO.train handed over."""
         pre = self.args.pretrained
         src = None
         if isinstance(pre, str) and pre not in ("true", "false", "True", "False"):
-            src = torch.load(pre, map_location="cpu", weights_only=True)["state_dict"]
+            src = checkpoint_state(pre)
         elif self.pretrained_state is not None and pre not in (False, "false", "False"):
             src = self.pretrained_state
         if src is None:
             return
-        matched = skipped = 0
-        for name, t in self._ema_sources():
-            s = src.get(name)
-            if s is not None and tuple(s.shape) == tuple(t.shape):
-                t.copy_(s)
-                matched += 1
-            else:
-                skipped += 1
-        self.transfer_stats = {"matched": matched, "skipped": skipped}
+        self.transfer_stats = overlay_state(self._ema_sources(), src)
+        matched, skipped = self.transfer_stats["matched"], self.transfer_stats["skipped"]
         print(f"Transferred {matched}/{matched + skipped} weight leaves from pretrained checkpoint")
 
     def _ema_sources(self):

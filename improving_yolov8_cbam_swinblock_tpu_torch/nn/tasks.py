@@ -5,7 +5,9 @@ scale 's' (and `yolo11m-cbam-swin.yaml` to the YOLO11 graph at scale 'm');
 `parse_model` builds the rows of a detect graph into torch modules with the
 reference's channel bookkeeping (width and depth gains, make_divisible,
 pass-through channels for CBAM and SwinBlock) and derives each layer's
-stride from the graph instead of a probe forward.
+stride from the graph instead of a probe forward. `DetectionModel` also
+runs the JAX package's test-time augmentation (`predict_augment`), and
+`EnsembleModel` serves several detection models behind one NMS.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import yaml
 
 from ..utils.device import select_device
@@ -250,3 +253,110 @@ class DetectionModel(nn.Module):
     @property
     def is_fused(self) -> bool:
         return not any(isinstance(m, M.Conv) and m.bn is not None for m in self.modules())
+
+    def predict_augment(self, x: torch.Tensor) -> torch.Tensor:
+        """Three-scale and left-right flip test-time augmentation, as the JAX
+        package's DetectionModel.predict_augment: x (B, 3, H, W) in [0, 1]
+        runs at scales 1, 0.83 (flipped along the width) and 0.67. A scaled
+        copy is resized as jax.image.resize(method="linear") resizes, which
+        filters as it shrinks (`tta_resize`), then padded at the bottom and
+        right with 0.447 to a multiple of the largest stride. Each run's boxes
+        go back to the input's scale (xywh / scale; the flipped run's x centre
+        becomes W - x), the first run drops the anchors of its coarsest level
+        (large objects) and the last those of its finest (small objects), and
+        the three concatenate along the anchors: (B, 4 + nc, A') in fp32."""
+        w0 = x.shape[3]
+        outs = []
+        for (si, flip), xi in zip(TTA_RUNS, tta_inputs(x, int(max(self.strides)))):
+            yi = self(xi)[0].float()
+            box = yi[:, :4] / si
+            if flip:
+                box = torch.cat([w0 - box[:, :1], box[:, 1:]], 1)
+            outs.append(torch.cat([box, yi[:, 4:]], 1))
+        nl = len(self.strides)
+        g = sum(4 ** k for k in range(nl))
+        outs[0] = outs[0][..., :-(outs[0].shape[-1] // g)]
+        outs[-1] = outs[-1][..., (outs[-1].shape[-1] // g) * 4 ** (nl - 1):]
+        return torch.cat(outs, -1)
+
+
+TTA_RUNS = ((1.0, False), (0.83, True), (0.67, False))  # (scale, flip along the width) of predict_augment
+
+
+def tta_inputs(x: torch.Tensor, gs: int):
+    """The inputs of predict_augment's runs (TTA_RUNS): x flipped along the
+    width where the run flips, resized by its scale (tta_resize) and padded
+    at the bottom and right with 0.447 to a multiple of the stride gs."""
+    h0, w0 = x.shape[2], x.shape[3]
+    for si, flip in TTA_RUNS:
+        xi = x.flip(-1) if flip else x
+        if si != 1.0:
+            nh, nw = int(h0 * si), int(w0 * si)
+            ph, pw = math.ceil(h0 * si / gs) * gs - nh, math.ceil(w0 * si / gs) * gs - nw
+            xi = F.pad(tta_resize(xi, nh, nw), (0, pw, 0, ph), value=0.447)
+        yield xi
+
+
+def resize_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_in, n_out) fp32 weights of one axis of jax.image.resize with the
+    linear (triangle) kernel and antialias=True: the kernel widened by
+    1 / scale when it shrinks, each output's weights normalised to sum 1,
+    computed in fp32 as JAX computes them."""
+    inv = 1.0 / torch.tensor(n_out / n_in, dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / torch.clamp(inv, min=1.0)
+    w = torch.clamp(1.0 - dist.abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def tta_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """x (B, C, H, W) resized to (h, w) as jax.image.resize(method="linear")
+    resizes the NHWC twin: a product with each axis's weights, cast to x's
+    dtype as JAX casts them, the width first (two matrix products, never the
+    (H, W, h, w) outer product of the weights)."""
+    wh = resize_weights(x.shape[2], h, x.device).to(x.dtype)
+    ww = resize_weights(x.shape[3], w, x.device).to(x.dtype)
+    return torch.matmul(wh.t(), torch.matmul(x, ww))
+
+
+class EnsembleModel(nn.Module):
+    """Detection models served as one, as the JAX package's EnsembleModel:
+    every member runs on the same input, their (B, 4 + nc, A) predictions
+    concatenate along the anchors, and the predictor's one NMS keeps the
+    best boxes of all. Inference only: the members must share nc, and the
+    input is padded to the coarsest member stride."""
+
+    def __init__(self, models):
+        super().__init__()
+        if not models:
+            raise ValueError("an ensemble needs at least one model")
+        ncs = sorted({m.nc for m in models})
+        if len(ncs) != 1:
+            raise ValueError(f"ensemble members disagree on nc: {ncs}")
+        self.members = nn.ModuleList(models)
+        m0 = models[0]
+        self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype
+        self.strides = tuple(max(s) for s in zip(*(tuple(m.strides) for m in models)))
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.members[0].device
+
+    @property
+    def is_fused(self) -> bool:
+        return all(m.is_fused for m in self.members)
+
+    def fuse(self) -> "EnsembleModel":
+        for m in self.members:
+            m.fuse()
+        return self
+
+    def forward(self, x: torch.Tensor):
+        if self.training:
+            raise NotImplementedError("an ensemble is not trained: train one member")
+        return torch.cat([m(x)[0] for m in self.members], -1), None

@@ -6,7 +6,8 @@ equal scores) or, with `multi_label` and nc > 1, the top `MAX_NMS`
 (anchor, class) pairs by score (the lower flat index anchor * nc + class
 first among equal scores), then exact greedy suppression truncated at
 `max_det` picks, one image per row of the batch, classes kept apart by a
-coordinate offset (class-aware only).
+coordinate offset (class-aware) or not (`agnostic`: one box of any class
+suppresses the others).
 Output (B, max_det, 6) rows x1, y1, x2, y2, conf, cls; rows with conf 0
 are padding.
 """
@@ -22,7 +23,8 @@ MAX_NMS = 4096  # candidates per image that enter suppression
 
 
 def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
-                        max_det: int = 300, nc: int = 80, multi_label: bool = False) -> torch.Tensor:
+                        max_det: int = 300, nc: int = 80, multi_label: bool = False,
+                        agnostic: bool = False) -> torch.Tensor:
     """prediction (B, 4 + nc, A): xywh boxes then class scores."""
     pred = prediction.transpose(1, 2).float()  # (B, A, 4+nc)
     boxes = xywh2xyxy(pred[..., :4])
@@ -40,7 +42,7 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_
         cls_k = cls.gather(1, idx).float()
     cand = boxes.gather(1, idx[..., None].expand(b, k, 4))
     live = torch.where(top > conf_thres, top, torch.full_like(top, -1.0))
-    ob = cand + (cls_k * MAX_WH)[..., None]
+    ob = cand + (cls_k * (0.0 if agnostic else MAX_WH))[..., None]
     x1, y1, x2, y2 = ob.unbind(-1)
     areas = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
     rows = torch.arange(b, device=pred.device)

@@ -1,8 +1,9 @@
-"""Weight bridge: the JAX package's variables -> this port's state_dict.
+"""Weight bridge between the JAX package's variables and this port's state_dict.
 
-Takes the flax `{"params", "batch_stats"}` tree as nested mappings of numpy
-arrays and names each leaf the way the reference's torch state names it
-(the inverse of the JAX package's torch importer), with layout transforms:
+`state_dict_from_jax` takes the flax `{"params", "batch_stats"}` tree as
+nested mappings of numpy arrays and names each leaf the way the
+reference's torch state names it (the inverse of the JAX package's torch
+importer), with layout transforms:
 
   * conv kernels HWIO -> OIHW;
   * Dense kernels (in, out) -> Linear weights (out, in);
@@ -10,8 +11,14 @@ arrays and names each leaf the way the reference's torch state names it
   * BatchNorm scale/bias and mean/var -> weight/bias and
     running_mean/running_var (plus num_batches_tracked, which flax has not).
 
-A tree that already holds a BN-folded `fused` collection is refused: load
-the unfused variables and call the port's `fuse()` instead.
+A tree that holds a BN-folded `fused` collection is refused there;
+`fused_state_from_jax` maps such a tree (the JAX package's fuse_variables:
+folded kernels under `params`, their biases under `fused`, the unused BN
+leaves beside them) onto a fused port model without folding again.
+`jax_variables_from_state` is the way back: a port model's state as the
+JAX package's variables, which `.ckpt` files carry. `overlay_state` copies
+a source state onto a model by name and shape, as the JAX package's
+warm start and `YOLO.load` overlay their trees.
 
 `quant_state_from_jax` carries the JAX package's int8 `quant` collection
 into the buffers that ops/quant.py's load_quant_state sets.
@@ -19,10 +26,15 @@ into the buffers that ops/quant.py's load_quant_state sets.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from pathlib import Path
+from typing import Dict, Iterable, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+from ..nn import modules as M
+from . import serialization
 
 
 def _module_tokens(mods: Tuple[str, ...]) -> list:
@@ -75,12 +87,23 @@ def _transform(arr: np.ndarray, tag: str) -> np.ndarray:
     return arr
 
 
+def _numpy(val) -> np.ndarray:
+    """A leaf as numpy: a torch tensor (bfloat16 leaves of a checkpoint) in fp32."""
+    if isinstance(val, torch.Tensor):
+        return val.detach().float().cpu().numpy()
+    return np.asarray(val)
+
+
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
     for key, val in tree.items():
         if isinstance(val, Mapping):
             yield from _leaves(val, prefix + (str(key),))
         else:
-            yield prefix + (str(key),), np.asarray(val)
+            yield prefix + (str(key),), _numpy(val)
+
+
+def _tensor(arr: np.ndarray, tag: str = "none") -> torch.Tensor:
+    return torch.from_numpy(np.array(_transform(arr, tag), dtype=np.float32, order="C"))
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -96,10 +119,153 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             name, tag = _torch_name(path, collection)
             if name in state:
                 raise KeyError(f"two flax leaves map to {name}")
-            state[name] = torch.from_numpy(np.array(_transform(arr, tag), dtype=np.float32, order="C"))
+            state[name] = _tensor(arr, tag)
             if name.endswith(".running_mean"):
                 state[name[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return state
+
+
+def fused_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """BN-folded JAX variables -> the state of a fused port model (each Conv
+    a conv.weight and a conv.bias, no BatchNorm): the folded kernels of
+    `params` and the biases of `fused` map straight across, the BN leaves of
+    every folded Conv and the batch statistics are dropped."""
+    fused = variables.get("fused") or {}
+    if not fused:
+        raise ValueError("variables hold no 'fused' collection: use state_dict_from_jax")
+    folded = {path[:-1] for path, _ in _leaves(fused)}  # the scopes of the folded Conv blocks
+    state: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(variables["params"]):
+        if len(path) > 2 and path[-2] == "bn" and path[:-2] in folded:
+            continue
+        name, tag = _torch_name(path, "params")
+        state[name] = _tensor(arr, tag)
+    for path, arr in _leaves(fused):
+        if path[-1] != "bias":
+            raise KeyError(f"unmapped leaf of the fused collection: {'/'.join(path)}")
+        state[".".join(_module_tokens(path[:-1]) + ["conv", "bias"])] = _tensor(arr)
+    return state
+
+
+def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """Each module path of a port model -> the flax scope of its JAX twin:
+    numbered containers join their indices to their name (cv2.0.1 ->
+    cv2_0_1, m.0 -> m_0, model.7 -> model_7), the Swin MLP's 0 and 2 are
+    mlp_fc1 and mlp_fc2, CBAM's shared_MLP.0 and .2 are fc1 and fc2, and a
+    DWConv and a C3k open the `dw` and `c3` scopes the JAX package wraps them in."""
+    scopes: Dict[str, Tuple[str, ...]] = {"": ()}
+    renamed = {(M.SwinBlock, "mlp"): {"0": "mlp_fc1", "2": "mlp_fc2"},
+               (M.ChannelAttention, "shared_MLP"): {"0": "fc1", "2": "fc2"}}
+
+    def walk(mod: nn.Module, path: str, scope: Tuple[str, ...], group):
+        for name, child in mod.named_children():
+            cpath = f"{path}.{name}" if path else name
+            token = f"{group}_{name}" if group else name
+            rename = next((v for (cls, attr), v in renamed.items() if isinstance(mod, cls) and attr == name), None)
+            if rename is not None:
+                for idx, sub in child.named_children():
+                    if idx in rename:
+                        scopes[f"{cpath}.{idx}"] = scope + (rename[idx],)
+            elif type(child) in (nn.ModuleList, nn.Sequential):
+                walk(child, cpath, scope, token)
+            else:
+                cscope = scope + (token,) + (("dw",) if isinstance(child, M.DWConv) else ()) + \
+                    (("c3",) if isinstance(child, M.C3k) else ())
+                scopes[cpath] = cscope
+                walk(child, cpath, cscope, None)
+
+    walk(model, "", (), None)
+    return scopes
+
+
+def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
+    """(collection, leaf path within the module's scope, transform tag) of a
+    port tensor; the bias of a fused Conv's conv goes to `fused` under the Conv's scope."""
+    if isinstance(mod, nn.Conv2d):
+        if attr == "bias" and isinstance(parent, M.Conv):
+            return "fused", (), "bias"
+        return "params", (), {"weight": "kernel", "bias": "bias"}[attr]
+    if isinstance(mod, nn.BatchNorm2d):
+        return {"weight": ("params", (), "scale"), "bias": ("params", (), "bias"),
+                "running_mean": ("batch_stats", (), "mean"), "running_var": ("batch_stats", (), "var")}[attr]
+    if isinstance(mod, nn.LayerNorm):
+        return "params", (), {"weight": "scale", "bias": "bias"}[attr]
+    if isinstance(mod, nn.Linear):
+        return "params", (), {"weight": "kernel", "bias": "bias"}[attr]
+    if isinstance(mod, nn.MultiheadAttention):
+        return "params", ("in_proj",), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}[attr]
+    raise KeyError(f"no JAX twin for {type(mod).__name__}.{attr}")
+
+
+def jax_variables_from_state(model: nn.Module) -> Dict[str, dict]:
+    """The port model's weights as the JAX package's variables, fp32 numpy
+    leaves in its layouts: {"params", "batch_stats"}, and for a fused model
+    {"params", "batch_stats": {}, "fused"} (folded kernels, their biases).
+    Every name is checked against the forward bridge (`_torch_name`)."""
+    if any(getattr(m, "w_int8", None) is not None or getattr(m, "qkv_w_int8", None) is not None
+           for m in model.modules()):
+        raise ValueError("a quantized model has no JAX variables here: write the float model")
+    scopes = _flax_scopes(model)
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        mpath, attr = name.rsplit(".", 1)
+        mod = model.get_submodule(mpath)
+        ppath = mpath.rsplit(".", 1)[0] if "." in mpath else ""
+        coll, sub, leaf = _flax_leaf(mod, model.get_submodule(ppath), attr)
+        if coll == "fused":
+            path = scopes[ppath] + ("bias",)
+            tag = "none"
+        else:
+            path = scopes[mpath] + sub + (leaf,)
+            back, tag = _torch_name(path, coll)
+            if back != name:
+                raise KeyError(f"{name} maps to {'/'.join(path)}, which maps back to {back}")
+        arr = t.detach().float().cpu().numpy()
+        if tag in ("kernel", "linear_t"):
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = out.setdefault(coll, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr, dtype=np.float32)
+    return out
+
+
+def overlay_state(targets: Iterable[Tuple[str, torch.Tensor]], src: Mapping[str, torch.Tensor]) -> Dict[str, int]:
+    """Copy src[name] into each target tensor whose shape it matches (cast
+    to the target's dtype and device); a missing name or another shape keeps
+    the target (another nc keeps the fresh Detect class convs). Returns the
+    leaves matched and skipped."""
+    matched = skipped = 0
+    with torch.no_grad():
+        for name, t in targets:
+            s = src.get(name)
+            if s is not None and tuple(s.shape) == tuple(t.shape):
+                t.copy_(s)
+                matched += 1
+            else:
+                skipped += 1
+    return {"matched": matched, "skipped": skipped}
+
+
+def read_checkpoint(path) -> dict:
+    """The payload of a `.ckpt` / `.msgpack` file: the JAX package's YOLO.save
+    (model_yaml, nc, names, ema_params, ema_stats, fused, args), its
+    trainer's checkpoints (the same plus step, params, batch_stats, mom_buf,
+    var_buf, ema_updates, epoch, best_fitness) or the port's YOLO.save."""
+    return serialization.loads(Path(path).read_bytes())
+
+
+def ema_state(payload: Mapping) -> Dict[str, torch.Tensor]:
+    """A checkpoint's EMA weights (ema_params, ema_stats) as an unfused port
+    state, what the warm start and YOLO.load overlay. A BN-folded checkpoint
+    (a non-empty `fused` collection) raises: its folded kernels beside
+    BatchNorms would apply the fold twice, or lose the folded biases."""
+    if payload.get("fused"):
+        raise ValueError("a BN-folded checkpoint cannot be overlaid onto an unfused model: "
+                         "load it with YOLO(path), or use the unfused checkpoint")
+    return state_dict_from_jax({"params": payload["ema_params"], "batch_stats": payload.get("ema_stats") or {}})
 
 
 def quant_state_from_jax(quant: Mapping) -> Dict[str, torch.Tensor]:

@@ -39,7 +39,8 @@ def cuda():
 @pytest.mark.parametrize("shape,heads", [((8, 42, 42, 256), 2), ((8, 14, 14, 128), 2), ((1, 12, 17, 256), 2),
                                          ((2, 9, 9, 128), 4), ((2, 21, 21, 64), 2), ((4, 20, 20, 128), 4),
                                          ((2, 14, 14, 384), 2), ((2, 12, 17, 512), 2), ((2, 14, 14, 640), 2),
-                                         ((2, 14, 14, 768), 2), ((1, 12, 17, 512), 4)])
+                                         ((2, 14, 14, 768), 2), ((1, 12, 17, 512), 4),
+                                         ((2, 34, 34, 256), 2), ((2, 28, 28, 256), 2)])  # the TTA grids at 640 px
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fast", [True, False])  # False: the exact mode of the train path
 def test_kernel_matches_plain(cuda, shape, heads, dtype, fast):
@@ -465,3 +466,26 @@ def test_int8_model_runs_the_int8_kernel_and_int_mm_is_exact(cuda):
     assert (S.swin_block_cuda.launches - f0, S8.swin_block_int8_cuda.launches - k0) == (4, 0)
     res = y.predict(frames[0, 0], imgsz=128, conf=0.001)
     assert S8.swin_block_int8_cuda.launches - k0 == 2 and np.isfinite(res[0].boxes.data).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_ckpt_round_trip_on_the_card(cuda, tmp_path, fused):
+    """A JAX-format .ckpt written from a model on the card and read back onto
+    the card: the same state, bit for bit, in the same dtypes (bf16 compute
+    over fp32 masters), and the same detections."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    build = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    y = YOLO("yolov8n-cbam-swin.yaml", seed=1, **build)
+    if fused:
+        y.fuse()
+    y.save(str(tmp_path / "m.ckpt"))
+    back = YOLO(str(tmp_path / "m.ckpt"), **build)
+    a, b = y.model.state_dict(), back.model.state_dict()
+    assert back.is_fused == fused and a.keys() == b.keys()
+    assert all(a[k].dtype == b[k].dtype and a[k].is_cuda and torch.equal(a[k], b[k]) for k in a)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    r1 = y.predict(frames, imgsz=128, conf=0.001, verbose=False)
+    r2 = back.predict(frames, imgsz=128, conf=0.001, verbose=False)
+    assert all(np.array_equal(p.boxes.data, q.boxes.data) for p, q in zip(r1, r2))

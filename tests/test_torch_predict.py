@@ -13,7 +13,9 @@ from improving_yolov8_cbam_swinblock_tpu.nn.tasks import DetectionModel as JaxDe
 from improving_yolov8_cbam_swinblock_tpu.ops import boxes as JB
 from improving_yolov8_cbam_swinblock_tpu.ops.nms import non_max_suppression as jax_nms
 from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+from improving_yolov8_cbam_swinblock_tpu_torch.cfg import get_cfg
 from improving_yolov8_cbam_swinblock_tpu_torch.data.augment import letterbox
+from improving_yolov8_cbam_swinblock_tpu_torch.data.build import check_source, load_inference_source
 from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import DetectionPredictor
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import boxes as TB
 from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import MAX_NMS, non_max_suppression
@@ -35,12 +37,17 @@ def random_prediction(rng, b, nc, a, ties):
     return np.concatenate([xy, wh, scores], 1).astype(np.float32)
 
 
-@pytest.mark.parametrize("nc,ties,a", [(1, False, 300), (1, True, 300), (3, True, 300), (3, False, 300),
-                                       (2, True, MAX_NMS + 500)])  # the last one truncates at MAX_NMS
-def test_nms_matches_jax_exactly(nc, ties, a):
+NMS_CASES = [(1, False, 300, False), (1, True, 300, False), (3, True, 300, False), (3, False, 300, False),
+             (2, True, MAX_NMS + 500, False),  # truncates at MAX_NMS
+             (3, True, 300, True), (3, False, 300, True), (2, True, MAX_NMS + 500, True)]  # agnostic_nms
+
+
+@pytest.mark.parametrize("nc,ties,a,agnostic", NMS_CASES,
+                         ids=[f"{nc}-{t}-{a}" + ("-agnostic" if g else "") for nc, t, a, g in NMS_CASES])
+def test_nms_matches_jax_exactly(nc, ties, a, agnostic):
     rng = np.random.default_rng(nc * 10 + ties)
     pred = random_prediction(rng, 3, nc, a, ties)
-    kw = dict(conf_thres=0.3, iou_thres=0.5, max_det=50, nc=nc)
+    kw = dict(conf_thres=0.3, iou_thres=0.5, max_det=50, nc=nc, agnostic=agnostic)
     ref = np.asarray(jax_nms(jnp.asarray(pred), max_nms=MAX_NMS, **kw))
     out = non_max_suppression(torch.from_numpy(pred), **kw).numpy()
     np.testing.assert_array_equal(out, ref)
@@ -75,10 +82,24 @@ def test_letterbox_matches_jax(shape, size):
     assert np.abs(out.numpy().astype(int) - ref.astype(int)).max() <= 2
 
 
-def test_predictor_rejects_unknown_sources():
-    with pytest.raises(TypeError):
-        DetectionPredictor.load_sources("images/bus.jpg")
-    assert len(DetectionPredictor.load_sources(np.zeros((3, 8, 8, 3), np.uint8))) == 3
+def test_predictor_rejects_unknown_sources(tmp_path):
+    """What predict still refuses: an object of another type, a path that is
+    no image, screen capture (needs `mss`); an array stack is three frames."""
+    predictor = DetectionPredictor(None, get_cfg())
+    with pytest.raises(TypeError, match="unsupported"):
+        predictor._load_sources(object())
+    with pytest.raises(TypeError, match="unsupported"):
+        check_source({"frames": 1})
+    with pytest.raises(FileNotFoundError):
+        predictor._load_sources(str(tmp_path / "missing.jpg"))
+    (tmp_path / "junk.png").write_bytes(b"not an image")
+    with pytest.raises(FileNotFoundError):
+        predictor._load_sources([str(tmp_path / "junk.png")])
+    with pytest.raises(NotImplementedError, match="mss"):
+        load_inference_source("screen 0 10 10 64 64")
+    with pytest.raises(TypeError, match="in-memory"):
+        load_inference_source(np.zeros((8, 8, 3), np.uint8))
+    assert len(predictor._load_sources(np.zeros((3, 8, 8, 3), np.uint8))) == 3
 
 
 @pytest.fixture(scope="module")
