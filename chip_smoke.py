@@ -60,6 +60,19 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           and the int8 vs the float model at each Swin layer; int8 forward
           and predict img/s at batch 32; the int8 model served from the 8
           frames written as PNG files (K4 counted, the same detections)
+  export  the export path on the flagship at 640 px, seeded weights:
+          YOLO.export to torch.export programs (.pt2): bf16 with a dynamic
+          batch, fp32 at a static batch of 8, int8 (quantize_model on the
+          int8 phase's calibration frames) at batch 8, and bf16 with nms=True
+          at batch 8; a second process loads each through the port's Backend
+          and runs the slice phase's frames letterboxed to 640 (bf16 at
+          batches 1, 8 and 32, the frames repeated), with K1 or K4 counted
+          per call; each held to the live model (bit for bit, or within the
+          slice phase's forward tolerances, the gap printed), the nms
+          program's (8, 300, 6) to e2e_postprocess of the live output, the
+          static program refusing a batch of 4; the loaded bf16 program's
+          forward at batch 32 against the live forward (CUDA events, in
+          turns); each export's seconds; YOLO.benchmark's torch and pt2 rows
   fit     the data path and the train loop: a seeded synthetic YOLO dataset
           written as PNGs (64 train and 32 val images, most 480x640, some
           384x512 and 300x700, 1-5 boxes each, nc=1), then
@@ -95,8 +108,10 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
 Then the card's name and power limit, the {"kernels": [...]} line (K1, K3
 and K4 with their achieved TFLOP/s or TOP/s, time over bound, shared memory
 (K1 also at the two grids that only test-time augmentation hands it, `tta`)
-and registers, K3 with its workspace, K4 with its library's IMMA, HMMA and
-IDP4A counts, K2 with its device time, its candidate pairs, the dense
+and registers, K1 and K4 (whose wrappers now call PyTorch operators) with
+their device time (CUDA-graph replay) and host time per call, K3 with its
+workspace, K4 with its library's IMMA, HMMA and IDP4A counts, K2 with its
+device time, its candidate pairs, the dense
 bound beside its bound, and its registers, stack frame and spills), and last {"ok": true, "device": {...}}. Without CUDA
 it prints no result and exits 2.
 
@@ -229,6 +244,10 @@ TTA_K1_SHAPES = ((32, 34, 34, 256), (32, 28, 28, 256))
 PREDICT_LAUNCHES = {"swin_block_fwd": 2, "swin_block_fwd_exact": 0, "swin_block_bwd": 0, "tal_assign": 0,
                     "swin_block_int8": 0, "swin_block_int8_sm16": 0}
 STEP_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1}
+# the export phase: the bf16 dynamic program's batches; a loaded program against the live model, where
+# not bit for bit: the slice phase's forward tolerances (of the largest magnitude)
+EXPORT_BATCHES = (1, 8, 32)
+EXPORT_RTOL = {"bf16": 3e-2, "fp32": 2e-3}
 
 
 def emit(obj) -> None:
@@ -453,6 +472,20 @@ def tal_inputs(b, g, nc, imgsz, device, seed):
         return torch.tensor(v, device=device)
 
     return (t(scores), t(pboxes), (anc * st).to(device), t(glab), t(gbox), t(gmask)), grid
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of fn() per call, after a synchronise, with no wait for the
+    card: where it exceeds the device time, back-to-back calls (cuda_ms)
+    time the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
 def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
@@ -1290,6 +1323,140 @@ def phase_int8(dev):
     }, yolo, launches, int8_ms
 
 
+def served_frames(dev) -> torch.Tensor:
+    """The slice phase's 8 frames letterboxed to 640, uint8 RGB (8, 640, 640, 3) on the card."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.data.augment import letterbox
+
+    return torch.stack([letterbox(f, 640, device=dev)[0].flip(-1) for f in slice_frames()]).contiguous()
+
+
+def repeat_frames(x: torch.Tensor, b: int) -> torch.Tensor:
+    """b frames: x's, repeated."""
+    return x[torch.arange(b, device=x.device) % x.shape[0]].contiguous()
+
+
+def export_serve(d: Path) -> None:
+    """The export phase's second process: the programs listed in
+    d/programs.json loaded by the port's Backend alone (nothing else of the
+    port is imported here), each run on d/frames.npy at its batches with the
+    kernels' launches counted per call, TF32 off; a static program is also
+    called at a batch it must refuse. Writes d/served.pt."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    x8 = torch.from_numpy(np.load(d / "frames.npy")).cuda()
+    served = {}
+    for name, spec in json.loads((d / "programs.json").read_text()).items():
+        t0 = time.perf_counter()
+        be = Backend(spec["path"])
+        row = {"load_s": time.perf_counter() - t0, "outputs": {}, "launches": {},
+               "ops": [str(n.target) for n in be._fn.graph.nodes if "yolov8_cbam_swin" in str(n.target)]}
+        for b in spec["batches"]:
+            x = repeat_frames(x8, b)
+            reset_counts()
+            row["outputs"][b] = torch.from_numpy(be(x))
+            torch.cuda.synchronize()
+            row["launches"][b] = counts()
+        if spec.get("refuse"):
+            try:
+                be(repeat_frames(x8, spec["refuse"]))
+                row["refused"] = False
+            except Exception as e:  # noqa: BLE001  the static program must refuse; record how
+                row["refused"] = f"{type(e).__name__}: {e}"[:160]
+        served[name] = row
+    torch.save(served, d / "served.pt")
+
+
+def held(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> dict:
+    """Bit for bit, or else within rtol of the largest magnitude, with the gap."""
+    exact = got.shape == ref.shape and torch.equal(got, ref)
+    err = rel_err(got, ref) if got.shape == ref.shape else float("inf")
+    return {"bit_for_bit": bool(exact), "max_rel_err": err, "ok": bool(exact or err <= rtol)}
+
+
+def phase_export(dev):
+    """The export path on the flagship at 640 px, seeded weights: YOLO.export
+    to .pt2 programs (bf16 dynamic; fp32 static batch 8; int8 batch 8; bf16
+    nms batch 8), each loaded by Backend in a second process (export_serve)
+    and held to the live model on the slice phase's frames (bit for bit, or
+    within EXPORT_RTOL with the gap printed); K1 or K4 launches per call;
+    the loaded bf16 program's forward at batch 32 against the live forward
+    (CUDA events, in turns); each export's seconds; YOLO.benchmark's sweep."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.exporter import ExportForward
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import e2e_postprocess
+
+    x8 = served_frames(dev)
+    y16 = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    y32 = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.float32, seed=SEED).fuse()
+    yq = YOLO("yolov8s-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32,
+              seed=SEED).fuse()
+    rng = np.random.default_rng(SEED)  # the exporter's synthetic calibration frames (and the int8 phase's)
+    live8 = quantize_model(copy.deepcopy(yq.model), [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8)
+                                                     for _ in range(2)])
+    info, export_s = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        d = Path(tmp)
+        programs = {}
+        for name, y, kw, batches, refuse in (
+                ("bf16_dynamic", y16, dict(half=True, dynamic=True), EXPORT_BATCHES, None),
+                ("fp32_batch8", y32, dict(batch=8), (8,), 4),
+                ("int8_batch8", yq, dict(int8=True, batch=8), (8,), None),
+                ("bf16_nms_batch8", y16, dict(half=True, nms=True, batch=8), (8,), None)):
+            t0 = time.perf_counter()
+            path = y.export(format="pt2", imgsz=640, project=str(d / name), **kw)
+            export_s[name] = time.perf_counter() - t0
+            programs[name] = {"path": path, "batches": list(batches), "refuse": refuse}
+        np.save(d / "frames.npy", x8.cpu().numpy())
+        (d / "programs.json").write_text(json.dumps(programs))
+        here = Path(__file__).resolve().parent
+        code = (f"import sys; from pathlib import Path; sys.path.insert(0, {str(here)!r}); import chip_smoke; "
+                f"chip_smoke.export_serve(Path({str(d)!r}))")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", code], cwd=here, timeout=900, capture_output=True, text=True)
+        info["second_process_s"] = time.perf_counter() - t0
+        if child.returncode:
+            return False, {**info, "export_s": export_s, "second_process_rc": child.returncode,
+                           "second_process_stderr": child.stderr[-3000:]}, {}
+        served = torch.load(d / "served.pt")
+        # the loaded bf16 program against the live forward at batch 32, CUDA events, in turns
+        prog, live = Backend(programs["bf16_dynamic"]["path"])._fn, ExportForward(y16.model)
+        x32 = repeat_frames(x8, 32)
+        with torch.inference_mode():
+            t = {"live": [], "program": []}
+            for which in ("live", "program", "program", "live"):
+                t[which].append(cuda_ms(lambda: (live if which == "live" else prog)(x32), iters=10))
+    with torch.inference_mode():
+        refs = {"bf16_dynamic": {b: no_tf32(live, repeat_frames(x8, b)) for b in EXPORT_BATCHES},
+                "fp32_batch8": {8: no_tf32(ExportForward(y32.model), x8)},
+                "int8_batch8": {8: no_tf32(ExportForward(live8), x8)}}
+    refs["bf16_nms_batch8"] = {8: e2e_postprocess(refs["bf16_dynamic"][8], 300, 1)}
+    rtols = {"bf16_dynamic": EXPORT_RTOL["bf16"], "fp32_batch8": EXPORT_RTOL["fp32"],
+             "int8_batch8": EXPORT_RTOL["bf16"], "bf16_nms_batch8": EXPORT_RTOL["bf16"]}
+    kernel = {"bf16_dynamic": "swin_block_fwd", "fp32_batch8": "swin_block_fwd", "int8_batch8": "swin_block_int8",
+              "bf16_nms_batch8": "swin_block_fwd"}
+    ok, launches = True, {k: 0 for k in counts()}
+    for name, row in served.items():
+        per = {}
+        for b, out in row["outputs"].items():
+            per[b] = {**held(out, refs[name][b].float().cpu(), rtols[name]), "launches": row["launches"][b]}
+            ok &= per[b]["ok"] and row["launches"][b][kernel[name]] == 2 and sum(row["launches"][b].values()) == 2
+            for k, v in row["launches"][b].items():
+                launches[k] += v
+        op = "yolov8_cbam_swin." + ("swin_block_int8" if name.startswith("int8") else "swin_block_fwd") + ".default"
+        ok &= row["ops"] == [op] * 2
+        info[name] = {"export_s": export_s[name], "load_s": row["load_s"], "ops": row["ops"], "by_batch": per,
+                      **({"refused_batch4": row["refused"]} if "refused" in row else {})}
+    ok &= bool(served["fp32_batch8"]["refused"]) and tuple(served["bf16_nms_batch8"]["outputs"][8].shape) == (8, 300, 6)
+    live_ms, prog_ms = sum(t["live"]) / 2, sum(t["program"]) / 2
+    rows = y16.benchmark(formats=["torch", "pt2"], imgsz=640, batch=32)
+    ok &= [r["status"] for r in rows] == ["ok", "ok"]
+    return ok, {**info, "batch32_forward_ms": {"live": t["live"], "program": t["program"], "live_mean": live_ms,
+                                               "program_mean": prog_ms, "program_over_live": prog_ms / live_ms},
+                "benchmark": rows}, launches
+
+
 def png_bytes(rgb: np.ndarray) -> bytes:
     """An 8-bit RGB PNG (rows unfiltered, zlib level 1), written with the stdlib only."""
     h, w, _ = rgb.shape
@@ -1739,7 +1906,10 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
     the built library reports it) and the registers and spills of their
     tensor-core kernels (-Xptxas -v); K3 its workspace's bytes and their
     traffic's time at the HBM peak; K4 its library's IMMA, HMMA and IDP4A
-    instruction counts. K1, K3 and K4 also list their width cases from the
+    instruction counts; K1 and K4 their device time alone (device_ms, a
+    CUDA graph's replay) and their wrappers' host time per call
+    (host_ms_per_call), since ms times back-to-back calls, which the host
+    paces once it takes longer than the card. K1, K3 and K4 also list their width cases from the
     kernel phase (`widths`: C 384 to 768), and their launches by path
     include the YOLO11 and flagship-l phases, whose Swin blocks are 512
     wide."""
@@ -1759,7 +1929,9 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
     fwd = {"name": "swin_block_fwd", "launches": sum(v["swin_block_fwd"] for v in launches.values()),
            "launches_by_path": {k: v["swin_block_fwd"] for k, v in launches.items()},
            "max_abs_err": (swin_block(x, p, 2).float() - swin_block(x, p, 2, impl="plain").float()).abs().max().item(),
-           "ms": ms, "plain_ms": cuda_ms(lambda: swin_block(x, p, 2, impl="plain"), iters=5),
+           "ms": ms, "device_ms": graph_ms(lambda: swin_block(x, p, 2)),
+           "host_ms_per_call": host_ms(lambda: swin_block(x, p, 2)),
+           "plain_ms": cuda_ms(lambda: swin_block(x, p, 2, impl="plain"), iters=5),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "tflops": swin_flops(tuple(x.shape)) / ms / 1e9, "ms_over_bound": ms / bound_ms,
            "smem_bytes": S._lib().swin_block_fwd_smem_bytes(S._DTYPES[x.dtype], 256, 2),
@@ -1838,7 +2010,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
             "name": name, "launches": launches["int8"][name],
             "launches_by_path": {k: v[name] for k, v in launches.items()},
             "max_abs_err": cmp["max_abs_err"], "share_off": cmp["share_off"],
-            "ms": ms,
+            "ms": ms, "device_ms": graph_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16)),
+            "host_ms_per_call": host_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16)),
             "plain_ms": cuda_ms(lambda: swin_block_int8(x8, p8, q, 2, in8=True, out8=True, sm16=sm16, impl="plain"),
                                 iters=5),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2002,6 +2175,7 @@ def main() -> int:
     (serve_launches,) = run("serve", phase_serve, dev)
     train, train_launches = run("train", phase_train, dev)
     int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
+    (export_launches,) = run("export", phase_export, dev)
     (fit_launches,) = run("fit", phase_fit, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
@@ -2009,7 +2183,8 @@ def main() -> int:
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
                            {"predict": predict_launches, "serve": serve_launches, "train": train_launches,
-                            "int8": int8_launches, "fit": fit_launches, **yolo11_launches, **large_launches},
+                            "int8": int8_launches, "export": export_launches, "fit": fit_launches,
+                            **yolo11_launches, **large_launches},
                            build, wide)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -7,7 +7,9 @@ YOLO-format dataset on disk (`YOLO.train`, `YOLO.val`), and serves a model
 trained by the JAX package from its `.ckpt` files: predict from image,
 video, directory, glob and stream sources, with test-time augmentation,
 ensembles (`YOLO([a, b])`) and the predictor's outputs (`save`,
-`save_txt`, `save_crop`). Hand-written CUDA kernels
+`save_txt`, `save_crop`), and exports a model as a torch.export program
+(`YOLO.export(format="pt2")`, served by nn/autobackend.py `Backend`).
+Hand-written CUDA kernels
 for Hopper: the SwinBlock forward (csrc/swin_block_fwd.cu), its backward
 (csrc/swin_block_bwd.cu) and its int8 form (csrc/swin_block_int8.cu), and
 the task-aligned assigner (csrc/tal_assign.cu). Entry points run on the

@@ -32,7 +32,7 @@ from ..data.loaders import VID_EXTS
 from ..nn.tasks import DetectionModel, EnsembleModel
 from ..ops.quant import is_quantized
 from ..utils import serialization
-from ..utils.callbacks import EVENTS, PREDICT_EVENTS, default_callbacks
+from ..utils.callbacks import EVENTS, EXPORT_EVENTS, PREDICT_EVENTS, default_callbacks
 from ..utils.jax_import import (ema_state, fused_state_from_jax, jax_variables_from_state, overlay_state,
                                 read_checkpoint, state_dict_from_jax)
 from ..utils.metrics import ValMetrics
@@ -157,13 +157,14 @@ class YOLO:
         self.ckpt_path = None
         return self
 
-    # -- callbacks: the predictor fires the predict events; the trainer, validator and exporter fire none
+    # -- callbacks: the predictor fires the predict events, the exporter the export events; the trainer and
+    # validator fire none
     def add_callback(self, event: str, func) -> None:
         if event not in EVENTS:
             raise ValueError(f"unknown callback event {event!r} (see utils.callbacks.EVENTS)")
-        if event not in PREDICT_EVENTS:
+        if event not in PREDICT_EVENTS + EXPORT_EVENTS:
             raise NotImplementedError(f"callback event {event!r} is never fired by the port: only the predict "
-                                      f"events {PREDICT_EVENTS} are")
+                                      f"events {PREDICT_EVENTS} and the export events {EXPORT_EVENTS} are")
         self.callbacks[event].append(func)
 
     def clear_callback(self, event: str) -> None:
@@ -303,6 +304,23 @@ class YOLO:
             out[f"metrics/{k}(B)"] = out[k]
         out.box = self.validator.metrics.box
         return out
+
+    def export(self, **kwargs) -> str:
+        """Write this model as a torch.export program (format="pt2") with the
+        export settings of cfg/default.yaml in kwargs (batch, dynamic, half,
+        int8, nms, imgsz, project, data, max_det); returns its path
+        (engine/exporter.py). The model itself is not altered."""
+        from .exporter import Exporter
+
+        self._single("exporting")
+        return Exporter(self.model, get_cfg({**self.overrides, **kwargs}), callbacks=self.callbacks)()
+
+    def benchmark(self, **kwargs):
+        """The format sweep of utils/benchmarks.py: one row of latency (and
+        mAP with data=) for the live model and for its pt2 program."""
+        from ..utils.benchmarks import benchmark
+
+        return benchmark(self, **kwargs)
 
     def save(self, path: str = "model.pt") -> str:
         """Write this model. A `.ckpt` or `.msgpack` path gets the JAX

@@ -63,3 +63,29 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_
         if i % 16 == 15 and not bool((live > 0).any()):  # every later row is padding
             break
     return out
+
+
+def _topk_first(t: torch.Tensor, k: int):
+    """The k largest values along dim 1 and their indices, the lower index
+    first among equal values (as jax.lax.top_k orders them; torch.topk
+    promises no order among ties)."""
+    v, i = torch.sort(t, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def e2e_postprocess(prediction: torch.Tensor, max_det: int = 300, nc: int = 80) -> torch.Tensor:
+    """NMS-free top-k of the JAX package's e2e_postprocess (its ops/nms.py:76-95):
+    the top min(max_det, A) anchors by their best class score, then the top
+    of those (anchor, class) pairs by score -> (B, k, 6) rows of the four box
+    values as the prediction holds them (the Detect head's xywh), score,
+    class. No box suppresses another."""
+    p = prediction.transpose(1, 2).float()  # (B, A, 4+nc)
+    boxes, scores = p[..., :4], p[..., 4:4 + nc]
+    b, a = boxes.shape[:2]
+    k = min(max_det, a)
+    _, idx = _topk_first(scores.amax(-1), k)
+    boxes_k = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+    scores_k = scores.gather(1, idx[..., None].expand(-1, -1, nc))
+    top2, idx2 = _topk_first(scores_k.reshape(b, k * nc), k)
+    out_boxes = boxes_k.gather(1, (idx2 // nc)[..., None].expand(-1, -1, 4))
+    return torch.cat([out_boxes, top2[..., None], (idx2 % nc).float()[..., None]], -1)

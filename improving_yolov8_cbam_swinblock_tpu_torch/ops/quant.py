@@ -157,7 +157,8 @@ def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     model in place; returns the model. YOLO.predict then serves it in int8.
     Raises NotImplementedError, naming the module, for what the int8 path
     does not take (the YOLO11 graph): a grouped conv (conv_int8 has no
-    groups) or YOLO11's position-sensitive Attention."""
+    groups) or YOLO11's position-sensitive Attention; and ValueError for a
+    Conv whose weights are not fp32, before it calibrates."""
     from ..nn.modules import Attention, Conv
 
     for name, m in model.named_modules():
@@ -167,6 +168,8 @@ def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
         if isinstance(m, Conv) and m.conv.groups > 1:
             raise NotImplementedError(f"quantize_model: {name} is a grouped conv (groups={m.conv.groups}); "
                                       "conv_int8 has no groups")
+        if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
+            _fp32_weight(f"{name}.conv.weight", m.conv.weight)
     return load_quant_state(model, build_quant_state(model, calibrate(model, batches)))
 
 

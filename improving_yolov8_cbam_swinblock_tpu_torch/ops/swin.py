@@ -6,7 +6,10 @@ tokens, as the reference pads with zeros before the block and crops after it.
 On a CUDA tensor it launches the kernel (csrc/swin_block_fwd.cu), which
 replaces the TPU kernel `_swin_flat_kernel` / `fused_swin_block`; on a CPU
 tensor it runs `swin_block_plain`, which repeats the kernel's arithmetic in
-PyTorch. `impl="plain"` forces the plain version on the card, for comparison.
+PyTorch. Both go through the PyTorch operator `yolov8_cbam_swin::swin_block_fwd`
+(`swin_block_op`), which a torch.export program keeps as one node, so the
+program launches the kernel when it runs on the card. `impl="plain"` forces
+the plain version on the card, for comparison.
 
 `p` holds the block's parameters in PyTorch layout:
   ln1_w, ln1_b, ln2_w, ln2_b  (C,)      LayerNorm scale and shift, fp32
@@ -30,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -223,16 +226,44 @@ swin_block_cuda.launches = 0  # kernel launches since the last reset
 swin_block_cuda.exact_launches = 0  # of those, launches in exact mode (fast=False: the train path)
 
 
+@torch.library.custom_op("yolov8_cbam_swin::swin_block_fwd", mutates_args=(), device_types="cpu")
+def swin_block_op(x: torch.Tensor, params: List[torch.Tensor], num_heads: int, window_size: int,
+                  fast: bool) -> torch.Tensor:
+    """The SwinBlock forward as a PyTorch operator, so that torch.export keeps
+    it as one node of the graph and a loaded program launches the kernel.
+    `params` are the 12 parameters in PKEYS order. On a CPU tensor: the plain
+    version; on a CUDA tensor: the kernel (registered below)."""
+    return swin_block_plain(x, dict(zip(PKEYS, params)), num_heads, window_size, fast).contiguous()
+
+
+@swin_block_op.register_kernel("cuda")
+def _swin_block_op_cuda(x, params, num_heads, window_size, fast):
+    return swin_block_cuda(x, dict(zip(PKEYS, params)), num_heads, window_size, fast)
+
+
+@swin_block_op.register_fake
+def _swin_block_op_fake(x, params, num_heads, window_size, fast):
+    """The output's shape and dtype, without the library. A CUDA input is
+    checked with fwd_smem_bytes's copy, so that a shape the kernel does not
+    take fails when the program is exported, not when it runs."""
+    if x.dim() != 4:
+        raise ValueError(f"swin_block takes (B, H, W, C), got {tuple(x.shape)}")
+    if x.device.type == "cuda":
+        check_supported(x.shape[-1], num_heads, window_size, x.dtype)
+    return x.new_empty(x.shape)
+
+
 def swin_block(x: torch.Tensor, p: Params, num_heads: int = 2, window_size: int = 7, fast: bool = True,
                impl: Optional[str] = None) -> torch.Tensor:
-    """SwinBlock forward on x (B, H, W, C): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor. impl="plain" forces the plain version, to
-    compare with the kernel on the card; the main path never passes impl."""
+    """SwinBlock forward on x (B, H, W, C) through swin_block_op: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor. impl="plain"
+    forces the plain version, to compare with the kernel on the card; the
+    main path never passes impl."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', not {impl!r}")
-    if impl == "plain" or x.device.type == "cpu":
+    if impl == "plain":
         return swin_block_plain(x, p, num_heads, window_size, fast)
-    return swin_block_cuda(x, p, num_heads, window_size, fast)
+    return swin_block_op(x, [p[k] for k in PKEYS], num_heads, window_size, fast)
 
 
 # ---------------------------------------------------------------------------

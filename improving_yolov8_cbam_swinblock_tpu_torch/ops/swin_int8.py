@@ -9,6 +9,8 @@ block and crops after it. On a CUDA tensor it launches the kernel
 `_swin_flat_int8_kernel` of `fused_swin_block_int8` and, with sm16=True, its
 experimental variant `_swin_int8_io_kernel`; on a CPU tensor it runs
 `swin_block_int8_plain`, which repeats the kernel's arithmetic in PyTorch.
+Both go through the PyTorch operator `yolov8_cbam_swin::swin_block_int8`
+(`swin_block_int8_op`), which a torch.export program keeps as one node.
 `impl="plain"` forces the plain version on the card, for comparison.
 
 `p` holds the block's float parameters in the layout of ops/swin.py; only the
@@ -29,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -281,14 +283,51 @@ swin_block_int8_cuda.launches = 0  # kernel launches since the last reset
 swin_block_int8_cuda.sm16_launches = 0  # of those, launches with the bf16 softmax (sm16)
 
 
+@torch.library.custom_op("yolov8_cbam_swin::swin_block_int8", mutates_args=(), device_types="cpu")
+def swin_block_int8_op(x: torch.Tensor, p: List[torch.Tensor], q: List[torch.Tensor], num_heads: int,
+                       window_size: int, in8: bool, out8: bool, sm16: bool) -> torch.Tensor:
+    """The int8 SwinBlock as a PyTorch operator, so that torch.export keeps it
+    as one node of the graph and a loaded program launches the kernel. `p`
+    holds the 8 float vectors in _VECTORS order, `q` the quant entries in
+    QNAMES order. On a CPU tensor: the plain version; on a CUDA tensor: the
+    kernel (registered below)."""
+    return swin_block_int8_plain(x, dict(zip(_VECTORS, p)), dict(zip(QNAMES, q)), num_heads, window_size, in8,
+                                 out8, sm16).contiguous()
+
+
+@swin_block_int8_op.register_kernel("cuda")
+def _swin_block_int8_op_cuda(x, p, q, num_heads, window_size, in8, out8, sm16):
+    return swin_block_int8_cuda(x, dict(zip(_VECTORS, p)), dict(zip(QNAMES, q)), num_heads, window_size, in8, out8,
+                                sm16)
+
+
+@swin_block_int8_op.register_fake
+def _swin_block_int8_op_fake(x, p, q, num_heads, window_size, in8, out8, sm16):
+    """The output's shape and dtype (int8 with out8, else the compute dtype),
+    without the library. A CUDA input is checked with smem_bytes's copy, so
+    that a shape the kernel does not take fails when the program is
+    exported, not when it runs."""
+    if x.dim() != 4:
+        raise ValueError(f"swin_block_int8 takes (B, H, W, C), got {tuple(x.shape)}")
+    if x.device.type == "cuda":
+        check_int8_supported(x.shape[-1], num_heads, window_size, x.dtype, in8, sm16)
+    return x.new_empty(x.shape, dtype=torch.int8 if out8 else compute_dtype(x.dtype, in8, sm16))
+
+
 def swin_block_int8(x: torch.Tensor, p: Params, q: Params, num_heads: int = 2, window_size: int = 7,
                     in8: bool = False, out8: bool = False, sm16: bool = False,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """int8 SwinBlock on x (B, H, W, C): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor. impl="plain" forces the plain version, to
-    compare with the kernel on the card; the main path never passes impl."""
+    """int8 SwinBlock on x (B, H, W, C) through swin_block_int8_op: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor. impl="plain"
+    forces the plain version, to compare with the kernel on the card; the
+    main path never passes impl. An input or output scale that in8 or out8
+    needs must be in q; one that is not needed may be absent."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', not {impl!r}")
-    if impl == "plain" or x.device.type == "cpu":
+    if impl == "plain":
         return swin_block_int8_plain(x, p, q, num_heads, window_size, in8, out8, sm16)
-    return swin_block_int8_cuda(x, p, q, num_heads, window_size, in8, out8, sm16)
+    missing = [k for k, need in (("x_in_scale", in8), ("y_out_scale", out8)) if need and k not in q]
+    if missing:
+        raise ValueError(f"swin_block_int8 with in8={in8}, out8={out8} needs q{missing}")
+    qs = [q[k] if k in q else torch.ones((), device=x.device) for k in QNAMES]  # an unused scale: 1
+    return swin_block_int8_op(x, [p[k] for k in _VECTORS], qs, num_heads, window_size, in8, out8, sm16)

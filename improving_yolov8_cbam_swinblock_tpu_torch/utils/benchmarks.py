@@ -1,0 +1,95 @@
+"""Benchmark mode: the format sweep of the JAX package's utils/benchmarks.py
+(benchmark, :20-135), for the port's formats.
+
+`benchmark(yolo, formats=["torch", "pt2"], imgsz=640, batch=32)` serves the
+live model (`torch`) and its torch.export program (`pt2`, exported at a
+static `batch`) through the same Backend (nn/autobackend.py), and gives each
+a row: latency on the host clock over `iters` calls of seeded uint8 frames,
+after two warm-up calls and a synchronise of the card; with `data=`, the
+mAP50 and mAP50-95 of that Backend's outputs on the val (else train) split,
+through the port's NMS and the validator's matching and metrics. A format
+that fails gives a row whose status is `error: ...`, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import tempfile
+import time
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+FORMATS = ("torch", "pt2")
+
+
+def _time_backend(be, img: np.ndarray, iters: int) -> Dict[str, float]:
+    be(img)  # build the kernels, allocate
+    be(img)
+    if be.device.type == "cuda":
+        torch.cuda.synchronize(be.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        be(img)  # returns host numpy: the call has finished on the card
+    dt = time.perf_counter() - t0
+    return {"ms/batch": dt / iters * 1e3, "img/s": img.shape[0] * iters / dt}
+
+
+def _eval_backend_map(be, loader, names, max_det: int) -> Dict[str, float]:
+    """mAP of a Backend's (B, 4+nc, A) outputs over a val loader: NMS at conf
+    0.001, iou 0.7, multi-label when nc > 1, then the validator's matching
+    and metrics (engine/validator.py)."""
+    from ..engine.validator import DetectionValidator
+    from ..ops.nms import non_max_suppression
+
+    v = DetectionValidator(SimpleNamespace(names=names), loader, SimpleNamespace(max_det=max_det))
+    nc = len(names)
+    for batch in loader:
+        pred = torch.from_numpy(be(batch["img"]))
+        dets = non_max_suppression(pred, conf_thres=v.conf, iou_thres=v.iou, max_det=max_det, nc=nc,
+                                   multi_label=nc > 1)
+        v.update_metrics(dets.numpy(), batch)
+    return v.metrics.compute()
+
+
+def benchmark(model, imgsz: int = 640, batch: int = 1, iters: int = 20, formats: Optional[List[str]] = None,
+              out_dir: Optional[str] = None, data: Optional[str] = None, max_det: int = 300) -> List[Dict]:
+    """Sweep the formats (default: all of FORMATS) for a YOLO facade on its
+    model's device; one row a format. The pt2 program is written under
+    out_dir, or under a temporary directory removed afterwards."""
+    from ..cfg import get_cfg
+    from ..data.dataset import DataLoader, YOLODataset, check_det_dataset
+    from ..engine.exporter import Exporter
+    from ..nn.autobackend import Backend
+
+    net = model.model
+    img = np.random.default_rng(0).integers(0, 255, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+    loader = None
+    if data is not None:
+        info = check_det_dataset(data)
+        split = "val" if info.get("val") else "train"
+        loader = DataLoader(YOLODataset(info[split], imgsz=imgsz, max_gt=32, nc=net.nc), batch, train=False,
+                            workers=1)
+    rows: List[Dict] = []
+    with tempfile.TemporaryDirectory(prefix="bench_") as tmp:
+        for fmt in formats or FORMATS:
+            row = {"format": fmt, "imgsz": imgsz, "batch": batch, "status": "ok"}
+            try:
+                if fmt == "torch":
+                    be = Backend(net, imgsz=imgsz)
+                elif fmt == "pt2":
+                    args = get_cfg({"format": "pt2", "imgsz": imgsz, "batch": batch, "max_det": max_det,
+                                    "project": out_dir or tmp})
+                    be = Backend(Exporter(net, args)(), device=net.device)
+                else:
+                    raise ValueError(f"unknown benchmark format {fmt!r}: use one of {FORMATS}")
+                row.update(_time_backend(be, img, iters))
+                if loader is not None:
+                    acc = _eval_backend_map(be, loader, net.names, max_det)
+                    row.update({"mAP50": float(acc["mAP50"]), "mAP50-95": float(acc["mAP50-95"])})
+            except Exception as e:  # noqa: BLE001  the sweep reports each format's failure in its row
+                row["status"] = f"error: {type(e).__name__}: {e}"[:200]
+            rows.append(row)
+    return rows

@@ -2,7 +2,7 @@
 
 Its 25 events (the reference's vocabulary); a callback is a plain callable
 that receives the object firing the event. Of these the port fires only
-the predictor's five (PREDICT_EVENTS)."""
+the predictor's five (PREDICT_EVENTS) and the exporter's two (EXPORT_EVENTS)."""
 
 from __future__ import annotations
 
@@ -40,8 +40,9 @@ EVENTS = [
     "on_export_start",
     "on_export_end",
 ]
-# the events the port fires: its predictor's
+# the events the port fires: its predictor's and its exporter's
 PREDICT_EVENTS = [e for e in EVENTS if e.startswith("on_predict")]
+EXPORT_EVENTS = [e for e in EVENTS if e.startswith("on_export")]
 
 
 def default_callbacks() -> Dict[str, List[Callable]]:

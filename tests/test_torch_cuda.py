@@ -489,3 +489,47 @@ def test_ckpt_round_trip_on_the_card(cuda, tmp_path, fused):
     r1 = y.predict(frames, imgsz=128, conf=0.001, verbose=False)
     r2 = back.predict(frames, imgsz=128, conf=0.001, verbose=False)
     assert all(np.array_equal(p.boxes.data, q.boxes.data) for p, q in zip(r1, r2))
+
+
+@pytest.mark.cuda
+def test_swin_operators_pass_opcheck_on_the_card(cuda):
+    """The two SwinBlock operators (K1's and K4's), with the kernels behind them:
+    schema, fake (shape) implementation and a traced call."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(0, 1, (2, 9, 8, 128)).astype(np.float32), device=cuda)
+    for dtype, fast in ((torch.bfloat16, True), (torch.float32, False)):
+        p = swin_params(128, rng, cuda, dtype)
+        torch.library.opcheck(S.swin_block_op, (x.to(dtype), [p[k] for k in S.PKEYS], 2, 7, fast))
+    p = swin_params(128, rng, cuda, torch.float32)
+    q = int8_quant(x, p, 1)
+    xq = S8.q8(x.float(), q["x_in_scale"]).to(torch.int8)
+    pv, qv = [p[k] for k in S8._VECTORS], [q[k] for k in S8.QNAMES]
+    before = S8.swin_block_int8_cuda.launches
+    for xin, in8, out8 in ((xq, True, True), (x.to(torch.bfloat16), False, False)):
+        torch.library.opcheck(S8.swin_block_int8_op, (xin, pv, qv, 1, 7, in8, out8, False))
+    assert S8.swin_block_int8_cuda.launches > before
+
+
+@pytest.mark.cuda
+def test_pt2_program_launches_k1_on_the_card(cuda, tmp_path):
+    """A dynamic bf16 program of scale n exported on the card: loaded by
+    Backend it launches K1 twice a call at batches 1 and 3 and gives the live
+    model's output; a static fp32 program refuses another batch."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+
+    y = YOLO("yolov8n-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16).fuse()
+    be = Backend(y.export(imgsz=128, half=True, dynamic=True, project=str(tmp_path)))
+    live = Backend(y.model)
+    for b in (1, 3):
+        img = np.random.default_rng(b).integers(0, 256, (b, 128, 128, 3), dtype=np.uint8)
+        before = S.swin_block_cuda.launches
+        out = be(img)
+        assert S.swin_block_cuda.launches - before == 2
+        ref = live(img)
+        assert np.abs(out - ref).max() <= 3e-2 * np.abs(ref).max()
+    be32 = Backend(YOLO("yolov8n-cbam-swin.yaml", device="cuda").export(imgsz=128, batch=2, project=str(tmp_path)))
+    with pytest.raises(Exception):
+        be32(np.zeros((3, 128, 128, 3), np.uint8))

@@ -258,25 +258,29 @@ def test_reader_refuses_what_it_does_not_read(jax_files):
 
 
 def test_no_new_module_imports_flax_or_msgpack():
-    """The modules that read and write checkpoints, sources and results import none of jax, flax, msgpack."""
+    """The modules that read and write checkpoints, sources, results and programs import none of jax, flax,
+    msgpack."""
     pkg = ROOT / "improving_yolov8_cbam_swinblock_tpu_torch"
     bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|msgpack|improving_yolov8_cbam_swinblock_tpu(?!_torch))\b",
                      re.M)
     files = [pkg / f for f in ("utils/serialization.py", "utils/jax_import.py", "utils/callbacks.py",
                                "utils/plotting.py", "data/loaders.py", "data/build.py", "engine/model.py",
-                               "engine/predictor.py", "engine/results.py", "nn/tasks.py")]
+                               "engine/predictor.py", "engine/results.py", "nn/tasks.py", "engine/exporter.py",
+                               "nn/autobackend.py", "utils/benchmarks.py")]
     assert [str(f) for f in files if bad.search(f.read_text())] == []
 
 
 def test_default_yaml_keys_match_jax():
     """Every setting of the port has the JAX package's name and default
-    (plots excepted: the port draws none)."""
+    (plots excepted: the port draws none; and format: the port exports pt2,
+    a format the JAX package does not write)."""
     import yaml
 
     mine = yaml.safe_load(Path(DEFAULT_CFG).read_text())
     theirs = yaml.safe_load(Path(JAX_DEFAULT_CFG).read_text())
+    assert mine["format"] == "pt2" and theirs["format"] == "stablehlo"
     assert {k: (v, theirs.get(k, "missing")) for k, v in mine.items()
-            if k != "plots" and theirs.get(k, "missing") != v} == {}
+            if k not in ("plots", "format") and theirs.get(k, "missing") != v} == {}
 
 
 # ---------------------------------------------------------------------------
@@ -479,10 +483,10 @@ def test_predict_dir_from_ckpt_matches_jax(jax_files, source_dir, tmp_path):
         y.add_callback("on_nothing", print)
 
 
-@pytest.mark.parametrize("event", ["on_train_epoch_end", "on_val_end", "on_export_start"])
+@pytest.mark.parametrize("event", ["on_train_epoch_end", "on_val_end", "on_model_save"])
 def test_add_callback_refuses_events_never_fired(event):
-    """Only the predictor fires events in the port: a trainer, validator or
-    exporter hook raises rather than being accepted and ignored."""
+    """Only the predictor and the exporter fire events in the port: a trainer
+    or validator hook raises rather than being accepted and ignored."""
     y = YOLO(CFG, device="cpu")
     with pytest.raises(NotImplementedError, match=event):
         y.add_callback(event, print)

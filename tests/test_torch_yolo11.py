@@ -154,6 +154,30 @@ def test_yolo11n_matches_jax(yolo11n, fused):
         np.testing.assert_allclose(nhwc(f), np.asarray(rf), rtol=GRAPH_TOL, atol=GRAPH_TOL)
 
 
+def test_yolo11n_ckpt_bridge_matches_jax(yolo11n, tmp_path):
+    """The .ckpt that JAX YOLO.save writes for yolo11n-cbam-swin, read by the
+    port's YOLO(ckpt) and its Backend: both forwards against JAX's on the
+    variables written (uint8 frames / 255, as the Backend feeds them)."""
+    from improving_yolov8_cbam_swinblock_tpu import YOLO as JaxYOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+
+    _, v, _, fwd = yolo11n
+    jy = JaxYOLO(CFG)
+    jy.variables = v
+    jy.save(str(tmp_path / "y11.ckpt"))
+    img = np.random.default_rng(11).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    ref = np.asarray(fwd(v, jnp.asarray(img.astype(np.float32) / 255))[0])
+    with torch.no_grad():
+        out = YOLO(str(tmp_path / "y11.ckpt"), device="cpu").model(to_torch(img.astype(np.float32) / 255))[0].numpy()
+    be = Backend(str(tmp_path / "y11.ckpt"), device="cpu")
+    assert be.format == "ckpt" and be.nc == 1
+    for got in (out, be(img)):
+        assert got.shape == ref.shape == (2, 5, 84)
+        np.testing.assert_allclose(got[:, :4], ref[:, :4], rtol=GRAPH_TOL, atol=GRAPH_TOL * np.abs(ref[:, :4]).max())
+        np.testing.assert_allclose(got[:, 4:], ref[:, 4:], rtol=GRAPH_TOL, atol=GRAPH_TOL)
+
+
 def test_yolo11n_builds_both_c3k2_branches_and_yolo11_head(yolo11n):
     pm = yolo11n[2]
     kinds = {type(m.m[0]).__name__ for m in pm.model if isinstance(m, M.C3k2)}
