@@ -44,6 +44,18 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           batch); predict img/s at batch 32 from 32 PNGs and from frames in
           memory, and the TTA forward's ms at batch 32 and its device time
           by kernel
+  track   the predict-side verbs on the slice phase's model: YOLO.track over
+          the serve phase's video at batch 16 with bytetrack.yaml and
+          botsort.yaml (every frame with detections; boxes and ids equal to
+          predict's detections replayed through a fresh port tracker; a
+          second call with persist=True continuing the ids; stream=True equal
+          to the list path at its batch of 1; K1 2 launches a batch), the
+          tracker's update ms per frame against predict's (host clock), the
+          slice phase's frames tracked as a list in memory; YOLO.embed of 32
+          frames from layer 25, (32, 512), equal bit for bit to a forward
+          hook's mean pool and within 3e-2 of the plain Swin version's, its
+          ms at batch 32 beside the forward's; predict(visualize=True) on 2
+          frames, one PNG per rank-4 layer per frame, and its seconds
   train   the detect train step of the same model at 640 px, bf16 over fp32
           master weights, batch 16, nbs 64 (accumulate 4), SGD, max_gt 32,
           device augmentation on: 8 micro-steps on seeded synthetic batches,
@@ -244,6 +256,11 @@ TTA_K1_SHAPES = ((32, 34, 34, 256), (32, 28, 28, 256))
 PREDICT_LAUNCHES = {"swin_block_fwd": 2, "swin_block_fwd_exact": 0, "swin_block_bwd": 0, "tal_assign": 0,
                     "swin_block_int8": 0, "swin_block_int8_sm16": 0}
 STEP_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1}
+# the track phase: YOLO.track's detections above TRACK_CONF (the seeded weights score their boxes about 0.5,
+# so every frame has up to max_det, all above the trackers' thresholds), both packaged trackers; embed at a batch
+# of EMBED_BATCH frames, from the layer before Detect (25: (B, 512) at scale s)
+TRACK_CONF, TRACKERS = 0.1, ("bytetrack.yaml", "botsort.yaml")
+EMBED_BATCH, EMBED_LAYER = 32, 25
 # the export phase: the bf16 dynamic program's batches; a loaded program against the live model, where
 # not bit for bit: the slice phase's forward tolerances (of the largest magnitude)
 EXPORT_BATCHES = (1, 8, 32)
@@ -1013,11 +1030,7 @@ def phase_serve(dev):
         video = {"cv2": cv2 is not None}
         video_ok = False
         if cv2 is not None:
-            clip = root / "clip.avi"
-            vw = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"MJPG"), 30, (640, 480))
-            for i in range(16):
-                vw.write(frames[i % 8])
-            vw.release()
+            clip = write_clip(root / "clip.avi", frames)
             vres, launches["video"] = counted(
                 lambda: list(unfused.predict(str(clip), stream=True, vid_stride=2, **kw)))
             video.update(paths=[r.path.rsplit("/", 1)[-1] for r in vres], launches=launches["video"]["swin_block_fwd"])
@@ -1085,6 +1098,168 @@ def phase_serve(dev):
         "tta_kernel_vs_plain_rel_err": tta_errs, "k1_at_tta_grids": k1_rows, "ensemble_ok": ensemble_ok,
         "launches": launches, "times": times,
     }, total
+
+
+def write_clip(path: Path, frames) -> Path:
+    """A 16-frame 480x640 MJPG video (cv2) of the 8 frames twice over."""
+    import cv2
+
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 30, (640, 480))
+    for i in range(16):
+        vw.write(frames[i % 8])
+    vw.release()
+    return path
+
+
+def track_replay(results_per_call, tracker_yaml):
+    """predict's detections through a fresh port tracker (which resets the
+    shared id counter), frame by frame across calls: each frame's (n, 8)
+    tracks, and each update's host seconds."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.trackers import build_tracker
+
+    trk = build_tracker(tracker_yaml)
+    tracks, secs = [], []
+    for r in (r for results in results_per_call for r in results):
+        d = r.boxes.data
+        t0 = time.perf_counter()
+        tracks.append(trk.update(d[:, :4], d[:, 4], d[:, 5]))
+        secs.append(time.perf_counter() - t0)
+    return tracks, secs
+
+
+def tracked_as(results, tracks) -> bool:
+    """track's Results against a replay: where a frame has tracks, its boxes
+    are their 7 columns [x1, y1, x2, y2, id, conf, cls] and its track_ids
+    their ids, bit for bit; where it has none, no ids."""
+    return len(results) == len(tracks) and all(
+        (r.boxes.data.shape[1] == 7 and np.array_equal(r.boxes.data, t[:, :7])
+         and np.array_equal(r.track_ids, t[:, 4].astype(int))) if len(t) else len(r.track_ids) == 0
+        for r, t in zip(results, tracks))
+
+
+def add_counts(*cs) -> dict:
+    return {k: sum(c[k] for c in cs) for k in PREDICT_LAUNCHES}
+
+
+def phase_track(yolo, dev):
+    """The last predict-side verbs on the slice phase's model (the flagship s,
+    bf16, BN-folded, seeded weights) at 640 px. Track: YOLO.track over the
+    serve phase's 16-frame MJPG video at batch 16 with each packaged
+    tracker (ids equal to a host replay of predict's detections through a
+    fresh port tracker; a second call with persist=True continues them;
+    stream=True equals the list path at its batch of 1; K1 2 launches per
+    predict batch), the tracker's update ms per frame against predict's ms
+    per frame (host clock), and the slice phase's frames tracked as a list in
+    memory. Embed: YOLO.embed of 32 frames (layer 25) equal bit for bit to a
+    forward hook's mean pool, against the plain Swin version within 3e-2 of
+    the largest magnitude, and its ms at batch 32 beside the forward's (CUDA
+    events). Visualize: predict(visualize=True) on 2 frames, one PNG per
+    rank-4 layer per frame, and its seconds."""
+    import scipy
+
+    frames = slice_frames()
+    kw = dict(imgsz=640, conf=TRACK_CONF, verbose=False)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_track_"))
+    c = {}
+    try:
+        # 1. a video, each tracker: list, persist, stream (against the list path at its batch of 1), replay
+        clip = str(write_clip(root / "clip.avi", frames))
+        trackers, ok = {}, True
+        for name in TRACKERS:
+            first, c[f"{name}_list"] = counted(lambda: yolo.track(clip, tracker=name, batch=16, **kw))
+            second, c[f"{name}_persist"] = counted(
+                lambda: yolo.track(clip, tracker=name, batch=16, persist=True, **kw))
+            streamed, c[f"{name}_stream"] = counted(lambda: list(yolo.track(clip, tracker=name, stream=True, **kw)))
+            listed = yolo.track(clip, tracker=name, batch=1, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = yolo.predict(clip, batch=16, **kw)
+            predict_ms = (time.perf_counter() - t0) * 1e3 / len(preds)
+            tracks, secs = track_replay([preds, preds], name)
+            ids = [set(r.track_ids.tolist()) for r in first + second]
+            row = {
+                "detections_per_frame": [len(r) for r in preds],
+                "tracked_per_frame": [len(r.track_ids) for r in first],
+                "max_id": {"first": max(map(max, filter(None, ids[:16])), default=0),
+                           "persist": max(map(max, filter(None, ids[16:])), default=0)},
+                "equal_replay": tracked_as(first + second, tracks),
+                "stream_equal_list_batch1": len(streamed) == len(listed) == 16 and all(
+                    np.array_equal(a.boxes.data, b.boxes.data) and np.array_equal(a.track_ids, b.track_ids)
+                    for a, b in zip(streamed, listed)),
+                "stream_ids_equal_batch16": [r.track_ids.tolist() for r in streamed] == [
+                    r.track_ids.tolist() for r in first],
+                # why not: the detections themselves differ between batches of 1 and 16 (bf16 convs)
+                "detections_equal_batch1_batch16": same_detections(yolo.predict(clip, batch=1, **kw), preds),
+                "k1_launches": {k.split("_")[-1]: v["swin_block_fwd"] for k, v in c.items() if k.startswith(name)},
+                "predict_ms_per_frame": predict_ms,
+                "update_ms_per_frame": {"median": 1e3 * float(np.median(secs)), "mean": 1e3 * float(np.mean(secs)),
+                                        "max": 1e3 * max(secs)},
+            }
+            row["ok"] = (row["equal_replay"] and row["stream_equal_list_batch1"] and min(row["detections_per_frame"]) > 0
+                         and sum(row["tracked_per_frame"]) > 0
+                         and row["max_id"]["persist"] > row["max_id"]["first"] > 0
+                         and row["k1_launches"] == {"list": 2, "persist": 2, "stream": 2 * 16})
+            trackers[name] = row
+            ok = ok and row["ok"]
+
+        # 2. frames in memory, as a list of arrays (no cv2 on this path)
+        mem, c["memory"] = counted(lambda: yolo.track(frames, tracker="bytetrack.yaml", batch=8, **kw))
+        mem_tracks, _ = track_replay([yolo.predict(frames, batch=8, **kw)], "bytetrack.yaml")
+        memory = {"tracked_per_frame": [len(r.track_ids) for r in mem], "equal_replay": tracked_as(mem, mem_tracks),
+                  "k1_launches": c["memory"]["swin_block_fwd"]}
+        memory_ok = memory["equal_replay"] and sum(memory["tracked_per_frame"]) > 0 and memory["k1_launches"] == 2
+
+        # 3. embed at batch 32 from the layer before Detect
+        rng = np.random.default_rng(SEED + 1)
+        frames32 = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(EMBED_BATCH)]
+        pooled = []
+        hook = yolo.model.model[EMBED_LAYER].register_forward_hook(
+            lambda m, i, o: pooled.append(o.mean((2, 3)).float().cpu().numpy()))
+        try:
+            emb, c["embed"] = counted(lambda: yolo.embed(frames32, imgsz=640))
+        finally:
+            hook.remove()
+        swins = swin_modules(yolo.model)
+        try:
+            for m in swins:
+                m.impl = "plain"
+            plain = yolo.embed(frames32, imgsz=640)
+        finally:
+            for m in swins:
+                m.impl = None
+        x = letterboxed(frames32, 640, dev, torch.bfloat16)
+        with torch.inference_mode():
+            embed_ms = cuda_ms(lambda: yolo.model.embed(x, (EMBED_LAYER,)), iters=10)
+            forward_ms = cuda_ms(lambda: yolo.model(x), iters=10)
+        embed = {"shape": list(emb.shape), "dtype": str(emb.dtype),
+                 "equal_hook": len(pooled) == 1 and np.array_equal(emb, pooled[0]),
+                 "kernel_vs_plain_rel_err": float(np.abs(emb - plain).max() / np.abs(plain).max()),
+                 "k1_launches": c["embed"]["swin_block_fwd"], "batch": EMBED_BATCH, "embed_ms": embed_ms,
+                 "forward_ms": forward_ms}
+        embed_ok = (embed["shape"] == [EMBED_BATCH, 512] and embed["equal_hook"] and embed["k1_launches"] == 2
+                    and embed["kernel_vs_plain_rel_err"] <= 3e-2 and bool(np.isfinite(emb).all()))
+
+        # 4. visualize on 2 frames
+        two = np.stack(frames[:2])
+        t0 = time.perf_counter()
+        _, c["visualize"] = counted(
+            lambda: yolo.predict(two, visualize=True, project=str(root), name="vis", batch=2, **kw))
+        vis_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            n_maps = len(yolo.model.features(letterboxed(frames[:1], 640, dev, torch.bfloat16)))
+        pngs = {d.name: len(list(d.glob("stage*_features.png"))) for d in (root / "vis").iterdir()}
+        visualize = {"pngs_per_frame": pngs, "rank4_layers": n_maps, "seconds": vis_s, "seconds_per_frame": vis_s / 2,
+                     "k1_launches": c["visualize"]["swin_block_fwd"]}
+        visualize_ok = pngs == {"array[0]": n_maps, "array[1]": n_maps} and n_maps == 26 and visualize[
+            "k1_launches"] == 4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = ok and memory_ok and embed_ok and visualize_ok
+    launches = {"track": add_counts(*(v for k, v in c.items() if k.endswith(("list", "persist", "stream", "memory")))),
+                "embed": c["embed"], "visualize": c["visualize"]}
+    return ok, {"scipy": scipy.__version__, "trackers": trackers, "memory": memory, "memory_ok": memory_ok,
+                "embed": embed, "embed_ok": embed_ok, "visualize": visualize, "visualize_ok": visualize_ok,
+                "launches": {k: v["swin_block_fwd"] for k, v in launches.items()}}, launches
 
 
 def train_batches(n, dev, aug=True):
@@ -1911,8 +2086,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
     (host_ms_per_call), since ms times back-to-back calls, which the host
     paces once it takes longer than the card. K1, K3 and K4 also list their width cases from the
     kernel phase (`widths`: C 384 to 768), and their launches by path
-    include the YOLO11 and flagship-l phases, whose Swin blocks are 512
-    wide."""
+    include the track phase's paths (track, embed, visualize) and the
+    YOLO11 and flagship-l phases, whose Swin blocks are 512 wide."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -2173,6 +2348,7 @@ def main() -> int:
     (wide,) = run("kernel", phase_kernel, dev)
     yolo, predict_launches = run("slice", phase_slice, dev)
     (serve_launches,) = run("serve", phase_serve, dev)
+    (track_launches,) = run("track", phase_track, yolo, dev)
     train, train_launches = run("train", phase_train, dev)
     int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
     (export_launches,) = run("export", phase_export, dev)
@@ -2182,7 +2358,8 @@ def main() -> int:
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
-                           {"predict": predict_launches, "serve": serve_launches, "train": train_launches,
+                           {"predict": predict_launches, "serve": serve_launches, **track_launches,
+                            "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches,
                             **yolo11_launches, **large_launches},
                            build, wide)

@@ -12,7 +12,9 @@ memory. For int8 serving, build with fp32 weights
 with `ops.quant.quantize_model(yolo.model, batches)`; `predict` and `val`
 then run it. `train(data=...)` trains on the model's device (a model loaded
 from a file warm-starts the trainer) and adopts best.pt's EMA weights;
-`val(data=...)` returns ValMetrics.
+`val(data=...)` returns ValMetrics. `track` runs predict with ByteTrack or
+BoT-SORT on its events (trackers/), `embed` returns pooled layer
+embeddings, and predict's visualize writes feature maps.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..data.dataset import check_det_dataset
 from ..data.loaders import VID_EXTS
 from ..nn.tasks import DetectionModel, EnsembleModel
 from ..ops.quant import is_quantized
+from ..trackers.track import on_predict_postprocess_end, on_predict_start
 from ..utils import serialization
 from ..utils.callbacks import EVENTS, EXPORT_EVENTS, PREDICT_EVENTS, default_callbacks
 from ..utils.jax_import import (ema_state, fused_state_from_jax, jax_variables_from_state, overlay_state,
@@ -58,6 +61,7 @@ class YOLO:
         self.predictor: Optional[DetectionPredictor] = None
         self.overrides: Dict[str, Any] = {}
         self.callbacks = default_callbacks()
+        self._trackers = None  # YOLO.track's, kept for persist=True
         self._build = {"device": device, "dtype": dtype, "seed": seed, "param_dtype": param_dtype}
         if isinstance(model, (list, tuple)):
             self.model = EnsembleModel([YOLO(m, **self._build).model for m in model])
@@ -180,24 +184,31 @@ class YOLO:
         BN-folds a float model first (a quantized one keeps its BatchNorms
         after the int8 convs). stream=True returns a generator of Results
         (videos, webcams and stream URLs frame by frame). save, save_txt
-        and save_crop write under <project>/<name> (runs/detect/predict)."""
+        and save_crop write under <project>/<name> (runs/detect/predict),
+        and so does visualize (feature maps, predictor.save_feature_maps).
+        embed=[layers] returns what `embed` returns in place of Results."""
+        return self._predict(source, stream, self.callbacks, kwargs)
+
+    def _predict(self, source, stream: bool, callbacks, kwargs):
         if source is None:
             from .. import ASSETS
 
             source = str(ASSETS)
             print(f"WARNING: 'source' is missing. Using default 'source={source}'.")
         args = get_cfg({**self.overrides, **kwargs})
-        if args.visualize:
-            raise NotImplementedError("visualize=True: feature maps are not drawn by the port")
-        if args.embed:
-            raise NotImplementedError("embed: embeddings are not in the port")
-        if args.augment and isinstance(self.model, EnsembleModel):
-            raise NotImplementedError("augment=True on an ensemble: test-time augmentation runs one model")
+        if isinstance(self.model, EnsembleModel):
+            for key, what in (("augment", "test-time augmentation"), ("visualize", "feature maps"),
+                              ("embed", "embeddings")):
+                if getattr(args, key):
+                    raise NotImplementedError(f"{key} on an ensemble: {what} of one model; use one member")
         stride = max(self.model.strides)
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         if not self.is_fused and not is_quantized(self.model):
             self.fuse()
-        self.predictor = DetectionPredictor(self.model, args, callbacks=self.callbacks)
+        self.predictor = DetectionPredictor(self.model, args, callbacks=callbacks)
+        if args.embed:
+            layers = args.embed if isinstance(args.embed, (list, tuple)) else [args.embed]
+            return self.predictor.embed(source, layers, args.imgsz)
         if stream:
             return self.predictor.stream(source, imgsz=args.imgsz)
         results = self.predictor(source, imgsz=args.imgsz)
@@ -206,6 +217,44 @@ class YOLO:
         if args.show:
             self._show_results(results)
         return results
+
+    def embed(self, source, layers=None, imgsz: int = 640) -> np.ndarray:
+        """Pooled embeddings (B, sum of C) float32 of `source`'s frames, all in
+        one batch, preprocessed as predict preprocesses them: each of `layers`
+        mean-pooled over H and W (DetectionModel.embed). layers=None takes the
+        layer before Detect; an index that names Detect raises ValueError."""
+        self._single("embedding")
+        layers = [len(self.model.model) - 2] if layers is None else list(layers)
+        return self.predict(source, embed=layers, imgsz=imgsz)
+
+    def track(self, source=None, tracker: Optional[str] = None, persist: bool = False, stream: bool = False,
+              **kwargs):
+        """predict with the frames associated across time by a tracker
+        (trackers/): each Results gets 7-column boxes [x1, y1, x2, y2, id,
+        conf, cls] and `track_ids`. The tracker YAML is `tracker`, else the
+        overrides', else cfg/default.yaml's (botsort.yaml). The sources are
+        predict's; all but streams feed one tracker frame by frame in order,
+        a stream one per stream; stream=True yields as predict does. A new
+        call builds new trackers, which restart the ids at 1 (the id counter
+        is shared and reset by every new tracker, as in the JAX package);
+        persist=True keeps this YOLO's trackers from the last call, so
+        their ids go on."""
+        self._single("tracking")
+        tracker = tracker or get_cfg(self.overrides).tracker
+        if not persist:
+            self._trackers = None
+
+        def start(p):
+            if self._trackers:  # kept only with persist
+                p.trackers = self._trackers
+            else:
+                on_predict_start(p)
+                self._trackers = p.trackers
+
+        callbacks = {event: list(fns) for event, fns in self.callbacks.items()}
+        callbacks["on_predict_start"].append(start)
+        callbacks["on_predict_postprocess_end"].append(lambda p: on_predict_postprocess_end(p, persist))
+        return self._predict(source, stream, callbacks, {**kwargs, "tracker": tracker})
 
     def __call__(self, source=None, stream: bool = False, **kwargs):
         return self.predict(source, stream=stream, **kwargs)

@@ -9,8 +9,11 @@ through the model `batch` at a time; a short last batch is padded with
 zero frames to the same shape. Options, from the configuration:
 `conf`, `iou`, `max_det`, `agnostic_nms`, `augment` (the model's
 predict_augment: three scales, one flipped), `vid_stride`,
-`stream_buffer`, `verbose` (one line per image). The predict events of
-utils/callbacks.py fire around each batch.
+`stream_buffer`, `verbose` (one line per image), `visualize` (a
+per-channel grid of every rank-4 layer output per image, written as PNGs).
+The predict events of utils/callbacks.py fire around each batch, in
+`__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
+returns pooled layer embeddings of the same preprocessed frames.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data.augment import letterbox
-from ..data.build import check_source, load_inference_source
+from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
 from ..ops.boxes import scale_boxes
 from ..ops.nms import non_max_suppression
@@ -38,6 +41,8 @@ class DetectionPredictor:
         self.callbacks = callbacks if callbacks is not None else default_callbacks()
         self.results: List[Results] = []
         self._seen = 0
+        self.source_type = SourceTypes()  # what stream() serves; __call__'s sources are never streams
+        self.bs = 1  # frames a batch of a stream source: one per stream
 
     def _load_sources(self, source) -> List[Tuple[np.ndarray, str]]:
         """(BGR frame, path) of each image of `source`; a video yields every
@@ -59,23 +64,29 @@ class DetectionPredictor:
         # a directory or a glob gives its images only, as in the JAX predictor; a video every vid_stride-th frame
         return list(LoadImagesAndVideos(source, vid_stride=int(self.args.vid_stride or 1), exts=IMG_EXTS))
 
+    def preprocess(self, frames: Sequence[Tuple[np.ndarray, str]], imgsz: int, bs: int = 0) -> torch.Tensor:
+        """The frames letterboxed on the model's device, BGR -> RGB, in [0, 1]
+        in the model's dtype: (max(n, bs), 3, imgsz, imgsz), an NCHW view of
+        NHWC memory (channels_last), padded with zero frames to bs."""
+        batch = torch.stack([letterbox(img0, imgsz, device=self.model.device)[0].flip(-1) for img0, _ in frames])
+        if len(frames) < bs:
+            batch = torch.cat([batch, batch.new_zeros((bs - len(frames), *batch.shape[1:]))])
+        return batch.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0
+
     @torch.inference_mode()
     def run_batch(self, frames: Sequence[Tuple[np.ndarray, str]], imgsz: int, bs: int) -> List[Results]:
         t0 = time.perf_counter()
         a = self.args
-        dev = self.model.device
-        pre = [letterbox(img0, imgsz, device=dev) for img0, _ in frames]
-        batch = torch.stack([img.flip(-1) for img, _, _ in pre])  # BGR -> RGB
+        x = self.preprocess(frames, imgsz, bs)
         n = len(frames)
-        if n < bs:
-            batch = torch.cat([batch, batch.new_zeros((bs - n, *batch.shape[1:]))])
-        x = batch.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0  # NCHW view of NHWC: channels_last
         t1 = time.perf_counter()
         pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
         dets = non_max_suppression(pred, conf_thres=0.25 if a.conf is None else float(a.conf), iou_thres=float(a.iou),
                                    max_det=int(a.max_det), nc=self.model.nc, agnostic=bool(a.agnostic_nms))
         dets = dets[:n].cpu().numpy()
         t2 = time.perf_counter()
+        if a.visualize:
+            self.save_feature_maps(x[:n], [path for _, path in frames])
         out = []
         for det, (img0, path) in zip(dets, frames):
             det = det[det[:, 4] > 0].copy()
@@ -87,6 +98,28 @@ class DetectionPredictor:
             out.append(res)
         self._log_results(out)
         return out
+
+    def save_feature_maps(self, x: torch.Tensor, paths: Sequence[str]) -> None:
+        """visualize: for each image, a grid of every rank-4 layer output of
+        the model on x as <project>/<name>/<stem>/stage{i}_{module}_features.png,
+        the JAX package's names (project runs/detect, name predict by default)."""
+        from ..utils.plotting import feature_visualization
+
+        feats = self.model.features(x)
+        root = Path(self.args.project or "runs/detect") / (self.args.name or "predict")
+        for bi, p in enumerate(paths):
+            d = root / (Path(str(p)).stem or f"img{bi}")
+            d.mkdir(parents=True, exist_ok=True)
+            for i, name, f in feats:
+                feature_visualization(f[bi:bi + 1], f"stage{i}_{name}", save_dir=str(d))
+
+    @torch.inference_mode()
+    def embed(self, source, layers: Sequence[int], imgsz: int) -> np.ndarray:
+        """(B, sum of C) float32: each listed layer's output mean-pooled over H
+        and W (DetectionModel.embed), on all frames of source in one batch,
+        preprocessed as predict preprocesses them."""
+        x = self.preprocess(self._load_sources(source), imgsz)
+        return self.model.embed(x, layers).float().cpu().numpy()
 
     def _log_results(self, results: Sequence[Results]) -> None:
         """With verbose, one line per image: 'image i path: HxW 2 persons, 12.3ms'."""
@@ -116,17 +149,27 @@ class DetectionPredictor:
     def stream(self, source, imgsz: Optional[int] = None):
         """Results one batch at a time from a lazy source: a webcam index or
         stream URL (one frame per stream a batch), or an image, video or
-        directory read frame by frame."""
+        directory read frame by frame. The predict events fire as in
+        __call__, self.results holding the current batch (at
+        on_predict_end, the last)."""
         imgsz = int(imgsz or self.args.imgsz)
-        _, st = check_source(source)
+        _, self.source_type = check_source(source)
         loader = load_inference_source(source, vid_stride=int(self.args.vid_stride or 1),
                                        stream_buffer=bool(self.args.stream_buffer))
-        if st.stream:
-            try:
-                for frames, paths in loader:
-                    yield from self.run_batch(list(zip(frames, paths)), imgsz, len(frames))
-            finally:
-                loader.close()
+        self.bs = len(loader.sources) if self.source_type.stream else 1
+        run_callbacks(self.callbacks, "on_predict_start", self)
+        if self.source_type.stream:
+            batches = (list(zip(frames, paths)) for frames, paths in loader)
         else:
-            for frame, path in loader:
-                yield from self.run_batch([(frame, path)], imgsz, 1)
+            batches = ([item] for item in loader)
+        try:
+            for frames in batches:
+                run_callbacks(self.callbacks, "on_predict_batch_start", self)
+                self.results = self.run_batch(frames, imgsz, len(frames))
+                run_callbacks(self.callbacks, "on_predict_postprocess_end", self)
+                yield from self.results
+                run_callbacks(self.callbacks, "on_predict_batch_end", self)
+        finally:
+            if self.source_type.stream:
+                loader.close()
+        run_callbacks(self.callbacks, "on_predict_end", self)

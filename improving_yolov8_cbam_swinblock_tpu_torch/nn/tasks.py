@@ -2,11 +2,13 @@
 
 `yaml_model_load` resolves `yolov8s-cbam-swin.yaml` to the base file plus
 scale 's' (and `yolo11m-cbam-swin.yaml` to the YOLO11 graph at scale 'm');
-`parse_model` builds the rows of a detect graph into torch modules with the
+`parse_model` builds the rows of a detect graph into torch modules (each
+with its row `.i`, its inputs `.f` and its YAML name `.type`) with the
 reference's channel bookkeeping (width and depth gains, make_divisible,
 pass-through channels for CBAM and SwinBlock) and derives each layer's
 stride from the graph instead of a probe forward. `DetectionModel` also
-runs the JAX package's test-time augmentation (`predict_augment`), and
+runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
+embeddings (`embed`) and every layer's feature maps (`features`), and
 `EnsembleModel` serves several detection models behind one NMS.
 """
 
@@ -143,6 +145,7 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             return j if j == -1 else j % i
 
         m.i, m.f = i, tuple(norm(j) for j in f) if isinstance(f, (list, tuple)) else norm(f)
+        m.type = mname  # the YAML name, which feature maps' file names carry
         layers.append(m)
         save.update(j % i for j in ([f] if isinstance(f, int) else f) if j != -1)
         chs.append(c2)
@@ -242,6 +245,48 @@ class DetectionModel(nn.Module):
             if m.i in self.save:
                 y[m.i] = out
         return out
+
+    def _outputs(self, x: torch.Tensor):
+        """Each layer and its output in order, as forward computes them."""
+        y: Dict[int, Any] = {}
+        out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        for m in self.model:
+            if m.f != -1:
+                out = y[m.f] if isinstance(m.f, int) else [out if j == -1 else y[j] for j in m.f]
+            out = m(out)
+            if m.i in self.save:
+                y[m.i] = out
+            yield m, out
+
+    def embed(self, x: torch.Tensor, layers) -> torch.Tensor:
+        """(B, sum of C): the output of each of `layers` (indices into the
+        graph's rows, negative from the end) mean-pooled over H and W,
+        concatenated in row order. The layers after the largest listed one
+        do not run. An index that names Detect raises ValueError: its output
+        is no feature map. The JAX package's DetectionModel.embed."""
+        n = len(self.model)
+        wanted = {int(i) % n for i in layers}
+        for i in wanted:
+            if isinstance(self.model[i], M.Detect):
+                raise ValueError(f"embed: layer {i} is Detect, whose output is no feature map; "
+                                 f"take a layer before it (0 to {i - 1})")
+        pooled = []
+        for m, out in self._outputs(x):
+            if m.i in wanted:
+                pooled.append(out.mean((2, 3)))
+                if m.i == max(wanted):
+                    break
+        return torch.cat(pooled, 1)
+
+    def features(self, x: torch.Tensor, layers=None):
+        """[(row, YAML name, (B, C, H, W) output)] of every layer in `layers`
+        (default: all) whose output is one rank-4 tensor, for the feature
+        maps of predict's visualize: the JAX package's DetectionModel.features
+        in the port's layout."""
+        n = len(self.model)
+        wanted = set(range(n)) if layers is None else {int(i) % n for i in layers}
+        return [(m.i, m.type, out) for m, out in self._outputs(x)
+                if m.i in wanted and isinstance(out, torch.Tensor) and out.dim() == 4]
 
     def fuse(self) -> "DetectionModel":
         """Fold every Conv's BatchNorm into its kernel for inference."""

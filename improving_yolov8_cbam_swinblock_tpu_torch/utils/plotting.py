@@ -1,7 +1,7 @@
 """Drawing helpers of the predict path: the port's copy of the detection
 part of the JAX package's utils/plotting.py (Colors, the cv2 Annotator,
-save_one_box). Drawing needs cv2, imported where it draws, so the package
-imports without it."""
+save_one_box, feature_visualization). Drawing needs cv2, imported where it
+draws, so the package imports without it."""
 
 from __future__ import annotations
 
@@ -109,3 +109,31 @@ def save_one_box(xyxy, im: np.ndarray, file: Optional[str] = None, gain: float =
         Path(file).parent.mkdir(parents=True, exist_ok=True)
         cv2.imwrite(str(file), crop)
     return crop
+
+
+def feature_visualization(features, module_name: str, save_dir: str = ".", n: int = 32) -> Optional[str]:
+    """The feature-map grid of one layer's output, as the JAX package's
+    feature_visualization draws it: `features` is (B, C, H, W) (a tensor or
+    an array); the first image's first n channels, each min-max normalised
+    in float32, tiled row by row on a ceil(sqrt(n)) square grid and written
+    as <save_dir>/<module_name>_features.png (grey, 8 bit). Returns the
+    path, or None for an output that is not rank 4."""
+    import cv2
+
+    if features.ndim != 4:
+        return None
+    f = features[0, :n]
+    f = f.detach().float().cpu().numpy() if hasattr(f, "detach") else np.asarray(f)
+    c = f.shape[0]
+    ns = int(np.ceil(c**0.5))
+    h, w = f.shape[1:]
+    grid = np.zeros((ns * h, ns * w), np.float32)
+    for i in range(c):
+        ch = f[i].astype(np.float32)
+        lo, hi = float(ch.min()), float(ch.max())
+        ch = (ch - lo) / (hi - lo + 1e-9)
+        r, col = divmod(i, ns)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = ch
+    out = str(Path(save_dir) / f"{module_name}_features.png")
+    cv2.imwrite(out, (grid * 255).astype(np.uint8))
+    return out

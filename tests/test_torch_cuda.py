@@ -533,3 +533,42 @@ def test_pt2_program_launches_k1_on_the_card(cuda, tmp_path):
     be32 = Backend(YOLO("yolov8n-cbam-swin.yaml", device="cuda").export(imgsz=128, batch=2, project=str(tmp_path)))
     with pytest.raises(Exception):
         be32(np.zeros((3, 128, 128, 3), np.uint8))
+
+
+@pytest.mark.cuda
+def test_embed_equals_a_forward_hook_on_the_card(cuda):
+    """YOLO.embed at scale n in bf16: the layer before Detect (25) mean-pooled,
+    bit for bit what a forward hook on that layer pools in the same forward,
+    with K1 launched at both Swin sites."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16)
+    frames = np.random.default_rng(4).integers(0, 256, (3, 96, 128, 3), dtype=np.uint8)
+    pooled = []
+    hook = y.model.model[25].register_forward_hook(lambda m, i, o: pooled.append(o.mean((2, 3)).float().cpu()))
+    before = S.swin_block_cuda.launches
+    try:
+        e = y.embed(frames, imgsz=128)
+    finally:
+        hook.remove()
+    assert S.swin_block_cuda.launches - before == 2
+    assert e.shape == (3, 256) and e.dtype == np.float32 and np.isfinite(e).all()
+    assert len(pooled) == 1 and np.array_equal(e, pooled[0].numpy())
+
+
+@pytest.mark.cuda
+def test_track_gives_seven_column_boxes_on_the_card(cuda):
+    """YOLO.track with ByteTrack over 4 frames at scale n: 7-column boxes
+    [x1, y1, x2, y2, id, conf, cls] whose ids are the Results' track_ids, K1
+    launched twice for the one batch."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16)
+    frames = list(np.random.default_rng(5).integers(0, 256, (4, 96, 128, 3), dtype=np.uint8))
+    before = S.swin_block_cuda.launches
+    res = y.track(frames, tracker="bytetrack.yaml", imgsz=128, conf=0.1, batch=4, verbose=False)
+    assert S.swin_block_cuda.launches - before == 2 and len(res) == 4
+    assert res[0].boxes.data.shape[1] == 7 and res[0].boxes.id.min() == 1
+    for r in res:
+        if len(r.track_ids):
+            assert r.boxes.data.shape[1] == 7 and np.array_equal(r.boxes.id.astype(int), r.track_ids)

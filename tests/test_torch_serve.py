@@ -473,10 +473,6 @@ def test_predict_dir_from_ckpt_matches_jax(jax_files, source_dir, tmp_path):
     y.clear_callback("on_predict_batch_end")
     y.predict(str(source_dir / "im0.png"), imgsz=64, verbose=False)
     assert events == [2, 1]
-    with pytest.raises(NotImplementedError, match="visualize"):
-        y.predict(str(source_dir), visualize=True)
-    with pytest.raises(NotImplementedError, match="embed"):
-        y.predict(str(source_dir), embed=[3])
     with pytest.raises(KeyError):
         y.predict(str(source_dir), not_a_setting=1)
     with pytest.raises(ValueError, match="unknown callback"):
