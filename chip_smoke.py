@@ -24,8 +24,10 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           the two graphs build above the flagship's, K1 fast, exact and fp32
           at (8, 40, 40, C) for C 384 to 768, K3 bf16 at (16, 40, 40, C) for
           C 512 to 768 (fp32 at (4, 20, 20, C) for 640 and 768), K4 int8 I/O
-          at (8, 40, 40, 512); K1 from C=384 and K4 at C=512 take their wide
-          layouts
+          at (8, 40, 40, C) for C 512 and 768 and at (2, 14, 14, 768), with
+          its global scratch bytes; K1 from C=384 and K4 at C=512 take their
+          wide layouts, K4 at C=768 the wide layout with the fp32 residual
+          stream in the global scratch
   slice   YOLO("yolov8s-cbam-swin.yaml").predict on 8 synthetic 480x640
           frames at 640 px, bf16, seeded random weights: the predict path,
           with its kernel launches counted; then the same model with the Swin
@@ -112,6 +114,21 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           at C=512): one predict batch of the 8 frames and its forward
           against the plain Swin version, and one train micro-step, each with
           its launches counted
+  yolo11_int8  int8 PTQ of the fork's YOLO11 graph: yolo11m (Swin C=512)
+          quantized on the int8 phase's two seeded batches of 8, then
+          YOLO.predict on the slice phase's frames (K4 2 launches a batch, no
+          K1), grouped convs on their float path; each SwinBlock's K4 vs its
+          plain version on the input it receives, and the int8 model with K4
+          vs with the plain version; int8 forward ms at batch 32 beside the
+          float forward's, device time by kernel of both, int8 predict img/s;
+          the int8 yolo11m exported with dynamic=True, loaded and held bit
+          for bit to the live int8 model at batches 1 and 8 (K4 2 launches a
+          call); one int8 predict batch of yolo11x (Swin C=768, K4 2
+          launches) with its SwinBlocks held the same way
+  profile_models  ProfileModels' rows (params, GFLOPs, sigma-clipped ms at
+          batch 1, 640 px) for yolov8s-cbam-swin and yolo11m-cbam-swin; the
+          flagship's trainer with batch=-1 (autobatch) and one micro-step at
+          the batch it picked (launches, peak memory)
   speed   predict img/s at batch 32, 640 px, bf16, BN-folded (forward alone
           and end to end) and train img/s at batch 16, with and without the
           device augmentation
@@ -245,7 +262,9 @@ ORACLE_MEAN, ORACLE_MAX = 0.05, 0.25
 # graphs build above the flagship's 256 (flagship m 384, l 512, x 640; YOLO11
 # m and l 512, x 768), all with 2 heads
 YOLO11, FLAGSHIP_L = "yolo11m-cbam-swin.yaml", "yolov8l-cbam-swin.yaml"
-WIDE_FWD, WIDE_BWD, WIDE_INT8 = (384, 512, 640, 768), (512, 640, 768), (512,)
+WIDE_FWD, WIDE_BWD, WIDE_INT8 = (384, 512, 640, 768), (512, 640, 768), (512, 768)
+# K4 at yolo11x's width also at a small batch (2 images of 14x14: 32 windows), where few blocks share the card
+INT8_SMALL_CASES = (((2, 14, 14, 768), 2),)
 YOLO11_STEPS = 4
 # the serve phase: test-time augmentation runs the model at 640, 544 and 448
 # px, where the P4 Swin site is 40x40, 34x34 (padded to 35x35) and 28x28;
@@ -265,6 +284,14 @@ EMBED_BATCH, EMBED_LAYER = 32, 25
 # not bit for bit: the slice phase's forward tolerances (of the largest magnitude)
 EXPORT_BATCHES = (1, 8, 32)
 EXPORT_RTOL = {"bf16": 3e-2, "fp32": 2e-3}
+# the yolo11_int8 phase: the fork's YOLO11 graph quantized at m (Swin C=512) and x (C=768), both with heads of
+# a multiple of 128, so K4 runs in place of K1: the launches of one int8 predict batch; the batches at which the
+# int8 program with a dynamic batch is held to the live int8 model
+YOLO11X = "yolo11x-cbam-swin.yaml"
+INT8_PREDICT_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd": 0, "swin_block_int8": 2}
+YOLO11_INT8_PROGRAM_BATCHES = (1, 8)
+# the profile_models phase: ProfileModels' rows (batch 1, 640 px) and the flagship's autobatch
+PROFILE_MODELS = ("yolov8s-cbam-swin.yaml", YOLO11)
 
 
 def emit(obj) -> None:
@@ -584,14 +611,15 @@ def wide_cases(dev):
     K1 fast and exact in bf16 and fp32 at (8, 40, 40, C), C in WIDE_FWD; K3
     in bf16 at (16, 40, 40, C), C in WIDE_BWD, and in fp32 at the padded
     (4, 20, 20, C) for 640 and 768; K4 with int8 I/O at (8, 40, 40, C), C in
-    WIDE_INT8. The tolerances, times and shared-memory checks of fwd_cases,
-    bwd_cases and int8_cases."""
+    WIDE_INT8, and at INT8_SMALL_CASES. The tolerances, times and
+    shared-memory checks of fwd_cases, bwd_cases and int8_cases."""
     fwd_ok, fwd = fwd_cases(dev, [((8, 40, 40, c), 2, dt, fast) for c in WIDE_FWD
                                   for dt, fast in ((torch.bfloat16, True), (torch.bfloat16, False),
                                                    (torch.float32, False))])
     bwd_ok, bwd = bwd_cases(dev, [((16, 40, 40, c), 2, torch.bfloat16) for c in WIDE_BWD]
                             + [((4, 20, 20, c), 2, torch.float32) for c in (640, 768)])
-    int8_ok, int8 = int8_cases(dev, [((8, 40, 40, c), 2) for c in WIDE_INT8], modes=("int8_io",))
+    int8_ok, int8 = int8_cases(dev, [((8, 40, 40, c), 2) for c in WIDE_INT8] + list(INT8_SMALL_CASES),
+                               modes=("int8_io",))
     return fwd_ok and bwd_ok and int8_ok, {"swin_block_fwd": fwd, "swin_block_bwd": bwd, "swin_block_int8": int8}
 
 
@@ -774,7 +802,9 @@ def int8_cases(dev, cases=(((8, 40, 40, 256), 2), ((32, 40, 40, 256), 2)),
     (or `modes` of these); fp32 weights quantized as quantize_model does,
     activation scales from the input; and the shared memory the built
     library asks for at each C against smem_bytes, the wrapper's copy of it
-    for the CPU."""
+    for the CPU, with the global scratch bytes a launch at the shape takes
+    (the wide layouts' residual stream); times by events over back-to-back
+    calls and on the device alone (graph_ms)."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
 
@@ -801,7 +831,10 @@ def int8_cases(dev, cases=(((8, 40, 40, 256), 2), ((32, 40, 40, 256), 2)),
             rows.append({
                 "shape": list(shape), "heads": heads, "mode": mode, "out_dtype": str(y.dtype).split(".")[-1], **row,
                 "wide": S8.int8_is_wide(c, heads, True),
+                "stream_in_global": S8.int8_stream_in_global(c, heads, True),
+                "scratch_bytes": S8._lib().swin_block_int8_scratch_bytes(*shape, heads, 1),
                 "kernel_us": 1e3 * ms, "tops": swin_int8_tops(shape, ms),
+                "device_us": 1e3 * graph_ms(lambda: swin_block_int8(xin, p, q, heads, **kw)),
                 "plain_us": 1e3 * cuda_ms(lambda: swin_block_int8(xin, p, q, heads, impl="plain", **kw), iters=3),
                 "bound_us": 1e3 * bound_ms, "bound_by": bound_by, "smem_bytes": smem,
             })
@@ -1262,17 +1295,18 @@ def phase_track(yolo, dev):
                 "launches": {k: v["swin_block_fwd"] for k, v in launches.items()}}, launches
 
 
-def train_batches(n, dev, aug=True):
+def train_batches(n, dev, aug=True, b=TRAIN["batch"]):
     """Seeded synthetic batches in the loader's format, on the card: img
-    (16, 640, 640, 3) uint8, cls (16, 32) (one class), bboxes (16, 32, 4)
-    normalised xywh, mask (16, 32) with about half the rows valid, and aug,
-    the default hyperparameters of the device augmentation."""
+    (b, 640, 640, 3) uint8, cls (b, 32) (one class), bboxes (b, 32, 4)
+    normalised xywh, mask (b, 32) with about half the rows valid, and aug,
+    the default hyperparameters of the device augmentation; b is the train
+    path's 16 unless given."""
     from improving_yolov8_cbam_swinblock_tpu_torch.cfg import AUG_KEYS, get_cfg
 
     defaults = get_cfg()
     hyp = torch.tensor([float(getattr(defaults, k)) for k in AUG_KEYS], device=dev)
     rng = np.random.default_rng(SEED + 2)
-    b, s = TRAIN["batch"], TRAIN["imgsz"]
+    s = TRAIN["imgsz"]
     out = []
     for _ in range(n):
         xy, wh = rng.uniform(0.15, 0.85, (b, MAX_GT, 2)), rng.uniform(0.05, 0.4, (b, MAX_GT, 2))
@@ -1957,6 +1991,194 @@ def phase_flagship_l(dev):
         {"flagship_l_predict": predict_launches, "flagship_l_train": step_launches}
 
 
+def int8_swin_layers(model, x):
+    """Each int8 SwinBlock of `model` on the input it receives there in one
+    forward on x: K4 against its plain version on the same int8 input
+    (int8_compare: INT8_LEVELS, INT8_SHARE)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin_int8 import q8, swin_block_int8
+
+    outs, rows = swin_outputs(model, x), {}
+    with torch.inference_mode():
+        for m in swin_modules(model):
+            xq = q8(outs[m.i][0].permute(0, 2, 3, 1).float(), m.x_in_scale).to(torch.int8)
+            q, p = {k: getattr(m, k) for k in m.QNAMES}, m.kernel_params()
+            got = swin_block_int8(xq, p, q, m.num_heads, m.window_size, in8=True, out8=True)
+            ref = swin_block_int8(xq, p, q, m.num_heads, m.window_size, in8=True, out8=True, impl="plain")
+            rows[m.i] = {"shape": list(xq.shape), **int8_compare(got, ref)}
+    return bool(rows) and all(r["ok"] for r in rows.values()), rows
+
+
+def quantized(cfg, calib):
+    """YOLO(cfg) with fp32 weights, bf16 compute, BN-folded, quantized by
+    quantize_model on `calib`: (the YOLO, a float copy taken before, the
+    launches and seconds of the calibration)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32, seed=SEED).fuse()
+    float_model = copy.deepcopy(yolo.model)
+    reset_counts()
+    t0 = time.perf_counter()
+    quantize_model(yolo.model, calib)
+    torch.cuda.synchronize()
+    return yolo, float_model, counts(), time.perf_counter() - t0
+
+
+def phase_yolo11_int8(dev):
+    """int8 PTQ of the fork's YOLO11 graph: yolo11m quantized on the int8
+    phase's two seeded batches of 8 (K1 2 launches a calibration batch),
+    then YOLO.predict on the slice phase's 8 frames (K4 2 launches, no K1);
+    every grouped conv keeps its float path; each SwinBlock's K4 against its
+    plain version on the input it receives (INT8_LEVELS, INT8_SHARE) and
+    the whole int8 model with K4 against it with the plain version (the
+    decoded output within INT8_RTOL; the Swin layers and raw Detect maps
+    reported); the int8 forward's ms at batch 32 beside the float
+    forward's (the same fp32 weights, bf16 compute), device time by kernel
+    of both, and int8 predict img/s at batch 32; the int8 yolo11m exported
+    with dynamic=True (the exporter calibrates on the same synthetic
+    frames), loaded by Backend and held bit for bit to the live int8 model
+    at YOLO11_INT8_PROGRAM_BATCHES, K4 2 launches a call; then one int8
+    predict batch of yolo11x (Swin C=768, K4 2 launches) with its layers
+    held the same way."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.exporter import ExportForward
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Conv
+
+    rng = np.random.default_rng(SEED)  # the int8 phase's calibration frames, and the exporter's synthetic ones
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    frames = slice_frames()
+    x = letterboxed(frames, 640, dev, torch.bfloat16)
+    yolo, float_model, calib_launches, calib_s = quantized(YOLO11, calib)
+    convs = [m for m in yolo.model.modules() if isinstance(m, Conv)]
+    grouped = [m for m in convs if m.conv.groups > 1]
+    grouped_float = bool(grouped) and all(m.w_int8 is not None and not m.runs_int8 for m in grouped)
+    widths = sorted({m.norm1.weight.numel() for m in swin_modules(yolo.model)})
+    results, launches = counted(lambda: yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False))
+    layers_ok, layers = int8_swin_layers(yolo.model, x)
+    # the whole int8 model with K4 vs with the plain version: the decoded (B, 5, A) that predict reads is held
+    # to INT8_RTOL of each channel's largest magnitude; the Swin layers and raw Detect maps are reported, since
+    # every int8 conv after a block quantizes its input again, and a block output's move of a level (held
+    # above, on the same input) moves such an input across a boundary, which the convs after it carry
+    _, k_err, out_shape = compare_forward(yolo.model, x, INT8_MODEL_RTOL)
+    k_ok = max(k_err["decoded_channels"]) <= INT8_RTOL
+    predict_ok = (launches == INT8_PREDICT_LAUNCHES and calib_launches["swin_block_fwd"] == 2 * len(calib)
+                  and calib_launches["swin_block_int8"] == 0 and len(results) == 8
+                  and boxes_ok(results, 480, 640) and out_shape == (8, 5, 8400) and grouped_float
+                  and widths == [512] and layers_ok and k_ok)
+
+    bs = 32
+    xb = torch.rand(bs, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        int8_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+        float_ms = cuda_ms(lambda: float_model(xb), iters=10)
+    by_kernel = {"int8": forward_profile(yolo.model, xb, int8_ms, "swin_block_int8"),
+                 "float": forward_profile(float_model, xb, float_ms, "swin_block_fwd")}
+    del float_model
+    frames32 = [np.random.default_rng(SEED + 1).integers(0, 256, (480, 640, 3), dtype=np.uint8)] * bs
+    yolo.predict(frames32, imgsz=640, batch=bs, verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        yolo.predict(frames32, imgsz=640, batch=bs, verbose=False)
+    predict_img_s = 2 * bs / (time.perf_counter() - t0)
+
+    # the int8 program with a dynamic batch, against the live int8 model
+    yq = YOLO(YOLO11, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32, seed=SEED)
+    x8 = served_frames(dev)
+    program, program_launches = {}, {k: 0 for k in counts()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_yolo11_int8_") as d:
+        t0 = time.perf_counter()
+        path = yq.export(format="pt2", imgsz=640, int8=True, dynamic=True, project=d)
+        program["export_s"] = time.perf_counter() - t0
+        del yq
+        t0 = time.perf_counter()
+        be = Backend(path)
+        program["load_s"] = time.perf_counter() - t0
+        program["ops"] = [str(n.target) for n in be._fn.graph.nodes if "yolov8_cbam_swin" in str(n.target)]
+        program_ok = program["ops"] == ["yolov8_cbam_swin.swin_block_int8.default"] * 2
+        live = ExportForward(yolo.model)
+        for b in YOLO11_INT8_PROGRAM_BATCHES:
+            xs = repeat_frames(x8, b)
+            out, la = counted(lambda: torch.from_numpy(be(xs)))
+            with torch.inference_mode():
+                ref = live(xs).float().cpu()
+            program[b] = {**held(out, ref, 0.0), "launches": la}
+            program_ok &= program[b]["bit_for_bit"] and la == INT8_PREDICT_LAUNCHES
+            for k, v in la.items():
+                program_launches[k] += v
+        del be
+    del yolo
+    torch.cuda.empty_cache()
+
+    # yolo11x: Swin at C=768, K4's wide layout with the residual stream in global memory
+    yx, _, x_calib_launches, x_calib_s = quantized(YOLO11X, calib)
+    x_widths = sorted({m.norm1.weight.numel() for m in swin_modules(yx.model)})
+    x_results, x_launches = counted(lambda: yx.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False))
+    x_layers_ok, x_layers = int8_swin_layers(yx.model, x)
+    del yx, _
+    torch.cuda.empty_cache()
+    x_ok = (x_launches == INT8_PREDICT_LAUNCHES and x_widths == [768] and len(x_results) == 8
+            and boxes_ok(x_results, 480, 640) and x_layers_ok and x_calib_launches["swin_block_int8"] == 0)
+    return predict_ok and program_ok and x_ok, {
+        "model": YOLO11, "swin_widths": widths, "calibration_launches": calib_launches, "calibrate_s": calib_s,
+        "int8_convs": sum(m.runs_int8 for m in convs), "grouped_convs_float": len(grouped) if grouped_float else 0,
+        "predict_launches": launches, "detections_per_frame": [len(r) for r in results],
+        "k4_vs_plain_at_swin_layers": layers, "kernel_vs_plain_rel_err": k_err, "kernel_vs_plain_ok": k_ok,
+        "decoded_rtol": INT8_RTOL, "int8_levels": INT8_LEVELS, "int8_share": INT8_SHARE,
+        "batch": bs, "int8_forward_ms": int8_ms, "float_fp32_weights_forward_ms": float_ms,
+        "int8_forward_img_per_s": bs * 1e3 / int8_ms, "int8_predict_img_per_s_conf0.25": predict_img_s,
+        "forward_by_kernel": by_kernel, "dynamic_program": program, "dynamic_program_ok": bool(program_ok),
+        "yolo11x": {"model": YOLO11X, "swin_widths": x_widths, "calibration_launches": x_calib_launches,
+                    "calibrate_s": x_calib_s, "predict_launches": x_launches,
+                    "detections_per_frame": [len(r) for r in x_results], "k4_vs_plain_at_swin_layers": x_layers},
+    }, {"yolo11_int8": launches, "yolo11_int8_program": program_launches, "yolo11x_int8": x_launches}
+
+
+def phase_profile_models(dev):
+    """ProfileModels' rows (params, GFLOPs, sigma-clipped ms of a bf16
+    forward at batch 1, 640 px, CUDA events) for PROFILE_MODELS; then the
+    flagship's trainer with batch=-1 (autobatch: each power of two's train
+    micro-step peak against 60 % of the card's memory) and one micro-step
+    at the batch it picked, its launches counted and its peak memory read."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.benchmarks import ProfileModels
+
+    t0 = time.perf_counter()
+    rows = ProfileModels(list(PROFILE_MODELS), imgsz=640).profile()
+    profile_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = DetectionTrainer(overrides={**TRAIN, "batch": -1}).setup()
+    autobatch_s = time.perf_counter() - t0
+    b = int(tr.args.batch)
+    step, acc = tr._make_train_step(nb=TRAIN_NB)
+    batch = train_batches(1, dev, b=b)[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        items = step(batch)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:  # the phase fails and says so; later phases still run
+        del tr, step, batch
+        torch.cuda.empty_cache()
+        return False, {"profile_models": rows, "autobatch_batch": b, "step_error": str(e)[:300]}, {}
+    step_s = time.perf_counter() - t0
+    launches = counts()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peak = torch.cuda.max_memory_allocated()
+    del tr, step, batch
+    torch.cuda.empty_cache()
+    ok = (len(rows) == len(PROFILE_MODELS) and all(r["ms_mean"] > 0 and r["GFLOPs"] > 0 for r in rows)
+          and b >= 2 and b & (b - 1) == 0 and launches == STEP_LAUNCHES and bool(torch.isfinite(items).all()))
+    return ok, {"profile_models": rows, "profile_models_s": profile_s, "autobatch_batch": b,
+                "autobatch_s": autobatch_s, "accumulate": acc, "step_launches": launches,
+                "step_s_first": step_s, "step_peak_mem_gib": peak / 2**30,
+                "step_peak_share_of_card": peak / total, "loss_items": items.tolist()}, \
+        {"autobatch_step": launches}
+
+
 def phase_speed(yolo, train, dev):
     """Predict img/s at batch 32, 640 px, bf16, BN-folded; train img/s at
     batch 16 (CUDA events over 8 micro-steps, two optimizer steps), with and
@@ -2065,10 +2287,11 @@ def phase_profile(yolo, train, dev, forward_ms, int8_yolo, int8_ms):
 
 def width_rows(rows):
     """The kernel phase's width cases as the kernels line lists them (ms)."""
-    keep = ("shape", "heads", "dtype", "fast", "mode", "wide", "max_abs_err", "max_abs_err_dx", "max_rel_err",
-            "share_off", "smem_bytes", "bound_by")
+    keep = ("shape", "heads", "dtype", "fast", "mode", "wide", "stream_in_global", "max_abs_err", "max_abs_err_dx",
+            "max_rel_err", "share_off", "smem_bytes", "scratch_bytes", "tops", "bound_by")
     return [{**{k: r[k] for k in keep if k in r}, "ms": r["kernel_us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
-             "bound_ms": r["bound_us"] / 1e3} for r in rows]
+             "bound_ms": r["bound_us"] / 1e3, **({"device_ms": r["device_us"] / 1e3} if "device_us" in r else {})}
+            for r in rows]
 
 
 def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
@@ -2355,13 +2578,15 @@ def main() -> int:
     (fit_launches,) = run("fit", phase_fit, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
+    (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
+    (autobatch_launches,) = run("profile_models", phase_profile_models, dev)
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches,
-                            **yolo11_launches, **large_launches},
+                            **yolo11_launches, **large_launches, **yolo11_int8_launches, **autobatch_launches},
                            build, wide)
     print(smi, flush=True)
     emit({"kernels": kernels})

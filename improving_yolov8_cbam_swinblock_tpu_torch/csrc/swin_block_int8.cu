@@ -86,6 +86,18 @@
 // while the stream waits in a global scratch row block of the window; the
 // last chunk dequantizes the whole sum once, as the TPU kernel does, and
 // adds it to the stream. 226,704 B at C=512.
+//
+// Wide windows with the stream in global memory (from C=640 with 2 heads,
+// where the wide layout would need 268 KB, 309,648 B at C=768): the same
+// kernel with the fp32 residual stream kept in the window's global scratch
+// row block for the whole block (gathered there, LN1 in place, the
+// out-projection and the MLP added onto it there, stored from there), so
+// shared memory holds only the two int8 product inputs, the slices and
+// scores and the ring during attention (159,120 B at C=768). During the MLP
+// fc2's int32 sums lie over the heads' outputs, the slices and that ring,
+// followed by the hidden chunk and a 2-stage ring of 64-byte-deep tiles:
+// 230,400 B at C=768. Every value is the same operation on the same
+// operands as in the wide layout; only where the stream lives differs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -514,40 +526,58 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_kernel(Args P) {
 }
 
 
-// Byte offsets of the wide kernel's shared memory (bf16 compute; exported
-// through swin_block_int8_smem_bytes, repeated by ops/swin_int8.py)
+constexpr int MLP_STG_G = 2;  // ring stages of the MLP where the stream lives in global memory
+constexpr size_t WIDE_MLP_RING_BYTES = swin_mma::ring_bytes_s8<NT, WN, KT_W, MLP_STG_G>();
+
+// Byte offsets of the wide kernels' shared memory (bf16 compute; exported
+// through swin_block_int8_smem_bytes, repeated by ops/swin_int8.py). gres:
+// the fp32 residual stream stays in the global scratch for the whole block.
 struct WideLayout {
-  size_t a8, o8, attn, ring, total;
-  __host__ __device__ explicit WideLayout(int C) {
+  size_t a8, o8, attn, ring, acc, h8, mring, total;
+  __host__ __device__ WideLayout(int C, bool gres) {
     const size_t in8 = (size_t)MROWS * (C + PAD8);  // an int8 product input of C columns
-    a8 = sizeof(float) * NTOK * C;                  // after the fp32 residual stream
+    const size_t stream = sizeof(float) * NTOK * C;  // the fp32 residual stream, or fc2's int32 sums
+    a8 = gres ? 0 : stream;  // after the fp32 residual stream where it is resident
     o8 = a8 + in8;
     attn = o8 + in8;  // the q and k (then v) slices and the scores (then probabilities)
     ring = attn + up16(sizeof(bf16) * 2 * MROWS * DS_LD + sizeof(float) * NTOK * NTOK);
     total = ring + WIDE_RING_BYTES;
+    if (!gres) {  // fc2's sums take the resident stream's place; the hidden chunk lies over o8
+      acc = 0, h8 = o8, mring = ring;
+    } else {  // fc2's sums over o8, the slices and the ring, then the hidden chunk and the MLP's ring
+      acc = o8;
+      h8 = acc + stream;
+      mring = h8 + (size_t)MROWS * (HC8 + PAD8);
+      const size_t mlp_end = mring + WIDE_MLP_RING_BYTES;
+      total = total > mlp_end ? total : mlp_end;
+    }
   }
 };
 
+template <bool GRES>
 __global__ void __launch_bounds__(NTHREADS) swin_block_int8_wide_kernel(Args P, float* __restrict__ scratch) {
   using swin_mma::product_smem;
   using swin_mma::product_stream_s8;
+  constexpr int MLP_STG = GRES ? MLP_STG_G : STG;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = P.C;
   const int hd = C / P.heads;
-  const WideLayout L(C);
+  const WideLayout L(C, GRES);
   const int ld8 = C + PAD8;            // bytes per row of a8 and o8
   constexpr int ldh8 = HC8 + PAD8;     // bytes per row of an MLP hidden chunk
-  float* res = reinterpret_cast<float*>(smem);  // normed tokens, then the fp32 residual stream
-  int* acc2 = reinterpret_cast<int*>(smem);     // during the MLP: fc2's int32 sums
+  float* y1g = scratch + (size_t)blockIdx.x * NTOK * C;  // the window's scratch row block
+  // normed tokens, then the fp32 residual stream: in shared memory, or (GRES) in the scratch throughout
+  float* res = GRES ? y1g : reinterpret_cast<float*>(smem);
+  int* acc2 = reinterpret_cast<int*>(smem + L.acc);     // during the MLP: fc2's int32 sums
   int8_t* a8 = reinterpret_cast<int8_t*>(smem + L.a8);  // the qkv input, then the fc1 input
   int8_t* o8 = reinterpret_cast<int8_t*>(smem + L.o8);  // the heads' outputs: the out-projection input
-  int8_t* h8 = o8;                                      // an MLP hidden chunk, after the out-projection
+  int8_t* h8 = reinterpret_cast<int8_t*>(smem + L.h8);  // an MLP hidden chunk, after the out-projection
   bf16* q_s = reinterpret_cast<bf16*>(smem + L.attn);   // a slice of q, then of v
   bf16* k_s = q_s + MROWS * DS_LD;                      // a slice of k
   float* sc = reinterpret_cast<float*>(k_s + MROWS * DS_LD);  // the head's scores, then its probabilities
   bf16* p_s = reinterpret_cast<bf16*>(sc);
   int8_t* ring = reinterpret_cast<int8_t*>(smem + L.ring);
-  float* y1g = scratch + (size_t)blockIdx.x * NTOK * C;  // the residual stream during the MLP
+  int8_t* mring = reinterpret_cast<int8_t*>(smem + L.mring);  // the MLP's ring
 
   // zero the slices once: pad rows are never stored, and v's must be zero
   // (the zero pad columns of P multiply them)
@@ -604,41 +634,44 @@ __global__ void __launch_bounds__(NTHREADS) swin_block_int8_wide_kernel(Args P, 
   });
   ln2_quant(res, a8, ld8, P);
 
-  // the residual stream waits in the scratch; its shared memory takes fc2's int32 sums
+  // fc2's int32 sums start at 0; a resident stream waits in the scratch, its shared memory taking the sums
   for (int e = threadIdx.x; e < NTOK * C / 4; e += NTHREADS) {
-    reinterpret_cast<float4*>(y1g)[e] = reinterpret_cast<const float4*>(res)[e];
+    if constexpr (!GRES) reinterpret_cast<float4*>(y1g)[e] = reinterpret_cast<const float4*>(res)[e];
     reinterpret_cast<int4*>(acc2)[e] = make_int4(0, 0, 0, 0);
   }
   __syncthreads();
 
   // ---- MLP in hidden chunks: fc1 and the tanh GELU into an int8 chunk, fc2's sums over the chunks ----
   for (int h0 = 0; h0 < 4 * C; h0 += HC8) {
-    product_stream_s8<NT, WN, KT_W, STG>(a8, ld8, C, P.w1, C, HC8, [=](int n) { return h0 + n; }, ring,
-                                        [&](int r, int n, int acc) {
-                                          const int m = h0 + n;
-                                          const float pb = bf(deq(acc, xs_fc1 * P.s1[m], P.b1[m]));
-                                          h8[r * ldh8 + n] = (int8_t)q8(gelu_tanh<true>(pb), xs_fc2);
-                                        });
+    product_stream_s8<NT, WN, KT_W, MLP_STG>(a8, ld8, C, P.w1, C, HC8, [=](int n) { return h0 + n; }, mring,
+                                            [&](int r, int n, int acc) {
+                                              const int m = h0 + n;
+                                              const float pb = bf(deq(acc, xs_fc1 * P.s1[m], P.b1[m]));
+                                              h8[r * ldh8 + n] = (int8_t)q8(gelu_tanh<true>(pb), xs_fc2);
+                                            });
     const bool last = h0 + HC8 >= 4 * C;
-    product_stream_s8<NT, WN, KT_W, STG>(h8, ldh8, HC8, P.w2 + h0, 4 * C, C, Identity(), ring,
-                                        [&](int r, int n, int acc) {
-                                          const int i = r * C + n;
-                                          if (!last) {
-                                            acc2[i] += acc;
-                                          } else {  // the whole sum, dequantized once, onto the stream
-                                            const int tot = acc2[i] + acc;
-                                            res[i] = y1g[i] + deq(tot, xs_fc2 * P.s2[n], P.b2[n]);
-                                          }
-                                        });
+    product_stream_s8<NT, WN, KT_W, MLP_STG>(h8, ldh8, HC8, P.w2 + h0, 4 * C, C, Identity(), mring,
+                                            [&](int r, int n, int acc) {
+                                              const int i = r * C + n;
+                                              if (!last) {
+                                                acc2[i] += acc;
+                                              } else {  // the whole sum, dequantized once, onto the stream
+                                                const int tot = acc2[i] + acc;
+                                                res[i] = y1g[i] + deq(tot, xs_fc2 * P.s2[n], P.b2[n]);
+                                              }
+                                            });
   }
   store_window(res, P.y, P.y_kind, ys_out, b, wy, wx, H, W, C);
 }
 
-// the wide layout serves the bf16-compute shapes whose resident one exceeds the block's limit
+// the wide layout serves the bf16-compute shapes whose resident one exceeds
+// the block's limit, with the stream in global memory where it exceeds it too
 bool is_wide(int C, int heads, bool cbf) { return cbf && Layout(C, heads, true).total > MAX_SMEM; }
 
+bool is_gres(int C, int heads, bool cbf) { return is_wide(C, heads, cbf) && WideLayout(C, false).total > MAX_SMEM; }
+
 size_t smem_bytes(int C, int heads, bool cbf) {
-  return is_wide(C, heads, cbf) ? WideLayout(C).total : Layout(C, heads, cbf).total;
+  return is_wide(C, heads, cbf) ? WideLayout(C, is_gres(C, heads, cbf)).total : Layout(C, heads, cbf).total;
 }
 
 size_t scratch_bytes(int B, int H, int W, int C, int heads, bool cbf) {
@@ -646,13 +679,14 @@ size_t scratch_bytes(int B, int H, int W, int C, int heads, bool cbf) {
   return (size_t)B * ((H + WS - 1) / WS) * ((W + WS - 1) / WS) * sizeof(float) * NTOK * C;
 }
 
+template <bool GRES>
 int launch_wide(const Args& P, int B, float* scratch, cudaStream_t stream) {
-  const size_t smem = WideLayout(P.C).total;
-  cudaError_t err = cudaFuncSetAttribute(swin_block_int8_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const size_t smem = WideLayout(P.C, GRES).total;
+  cudaError_t err = cudaFuncSetAttribute(swin_block_int8_wide_kernel<GRES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = B * ((P.H + WS - 1) / WS) * ((P.W + WS - 1) / WS);
-  swin_block_int8_wide_kernel<<<blocks, NTHREADS, smem, stream>>>(P, scratch);
+  swin_block_int8_wide_kernel<GRES><<<blocks, NTHREADS, smem, stream>>>(P, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -702,7 +736,8 @@ int swin_block_int8(int x_kind, int y_kind, int cdt_bf16, int sm16, const void* 
   Args P{x, y, x_kind, y_kind, H, W, C, heads, sm16 != 0, scale, xs,
          ln1w, ln1b, bqkv, bout, ln2w, ln2b, b1, b2, wqkv, wout, w1, w2, sqkv, sout, s1, s2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide) return launch_wide(P, B, scratch, s);
+  if (wide) return is_gres(C, heads, true) ? launch_wide<true>(P, B, scratch, s)
+                                            : launch_wide<false>(P, B, scratch, s);
   return cdt_bf16 ? launch<true>(P, B, s) : launch<false>(P, B, s);
 }
 

@@ -20,7 +20,9 @@ Options, resolved as the JAX exporter resolves them (:61-93):
   int8        a BN-folded fp32 copy calibrated and quantized by
               ops/quant.py quantize_model, on `data`'s val images or on the
               JAX exporter's synthetic frames (numpy default_rng(0), 2
-              batches of 8 at imgsz); needs fp32 weights and a static batch
+              batches of 8 at imgsz), which also stand in, with a warning,
+              where `data` cannot be read; needs fp32 weights; takes a
+              static batch or dynamic
   nms         the program ends in e2e_postprocess with max_det
 half with int8 turns half off, with a warning; keras=True raises; the
 torch-ecosystem keys (optimize, simplify, opset, workspace, dnn) warn when
@@ -89,30 +91,33 @@ class Exporter:
         if opts["half"] and opts["int8"]:
             print("WARNING: half=True and int8=True are mutually exclusive, setting half=False")
             opts["half"] = False
-        if opts["int8"] and opts["dynamic"]:
-            raise ValueError("int8=True with dynamic=True is not supported: ops/quant.py int_mm pads an int8 product "
-                             "of 16 rows or fewer, a test on the batch that one program cannot keep; export a "
-                             "static batch")
         return opts
 
     def _calib_batches(self) -> List[np.ndarray]:
         """Calibration frames for int8: up to 32 val (else train) images of
-        `data` in batches of 8, letterboxed to imgsz; without data, the JAX
-        exporter's synthetic frames, so both packages calibrate on the same."""
+        `data` in batches of 8, letterboxed to imgsz; without data, or where
+        reading `data` fails or gives no image (with a warning, as the JAX
+        exporter does), the JAX exporter's synthetic frames, so both packages
+        calibrate on the same."""
         imgsz = int(self.args.imgsz)
         if self.args.data:
-            from ..data.dataset import DataLoader, YOLODataset, check_det_dataset
+            try:
+                from ..data.dataset import DataLoader, YOLODataset, check_det_dataset
 
-            info = check_det_dataset(self.args.data)
-            ds = YOLODataset(info.get("val") or info["train"], imgsz=imgsz, max_gt=8, nc=int(info["nc"]))
-            batches, n = [], 0
-            for b in DataLoader(ds, 8, train=False, workers=2):
-                batches.append(b["img"])
-                n += len(b["img"])
-                if n >= 32:
-                    break
-            return batches
-        print("WARNING: int8=True without data=; calibrating on synthetic frames")
+                info = check_det_dataset(self.args.data)
+                ds = YOLODataset(info.get("val") or info["train"], imgsz=imgsz, max_gt=8, nc=int(info["nc"]))
+                batches, n = [], 0
+                for b in DataLoader(ds, 8, train=False, workers=2):
+                    batches.append(b["img"])
+                    n += len(b["img"])
+                    if n >= 32:
+                        break
+                if batches:
+                    return batches
+            except Exception as e:  # noqa: BLE001  the JAX exporter falls back on any failure of the data
+                print(f"WARNING: int8 calibration on data={self.args.data!r} failed ({e}); using synthetic frames")
+        else:
+            print("WARNING: int8=True without data=; calibrating on synthetic frames")
         rng = np.random.default_rng(0)
         return [rng.integers(0, 255, (8, imgsz, imgsz, 3), dtype=np.uint8) for _ in range(2)]
 

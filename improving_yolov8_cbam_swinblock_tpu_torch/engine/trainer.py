@@ -34,8 +34,14 @@ parameters and BN statistics, the optimizer's state, the EMA and its
 update count, the step, the epoch, best_fitness, the scalar args and the
 device augmentation's generator state; `resume` restores it bit for bit.
 
-Not in this slice: callbacks, plots, multi-host sharding, autobatch,
-profile, multi_scale and the other tasks' losses.
+`batch=-1` picks the batch at setup (utils/model_utils.py
+check_train_batch_size: the largest power of two whose train micro-step fits
+in 60 % of the card's memory), and `profile=True` prints the per-layer
+table of utils/model_utils.py profile_layers once at setup, as the JAX
+trainer does.
+
+Not in this slice: callbacks, plots, multi-host sharding, multi_scale and
+the other tasks' losses.
 """
 
 from __future__ import annotations
@@ -199,6 +205,15 @@ class DetectionTrainer:
         stride = max(self.model.strides)
         a.imgsz = math.ceil(int(a.imgsz) / stride) * stride
         self.model.train()
+        if int(a.batch) == -1:  # autobatch, as the JAX trainer's setup runs it
+            from ..utils.model_utils import check_train_batch_size
+
+            a.batch = check_train_batch_size(self.model, imgsz=int(a.imgsz), amp=bool(a.amp))
+            print(f"autobatch: batch={a.batch} for imgsz={a.imgsz}")
+        if a.profile:  # the per-layer table, once at setup, as the JAX trainer logs it
+            from ..utils.model_utils import profile_layers
+
+            profile_layers(self.model, imgsz=int(a.imgsz))
         self.step = 0
         if self.data is not None:
             self._warm_start()

@@ -154,11 +154,14 @@ def check_class_names(names, nc: Optional[int] = None) -> Dict[int, str]:
 
 
 def default_class_names(data=None) -> Dict[int, str]:
-    """The class names of a data YAML, else COCO's 80 (cfg/datasets/coco8.yaml).
-    A data YAML that cannot be read raises; the JAX package falls back to COCO's."""
+    """The class names of a data YAML, else COCO's 80 (cfg/datasets/coco8.yaml):
+    also where the data YAML cannot be read, as the JAX package falls back."""
     if data is not None:
-        from ..data.dataset import check_det_dataset
+        try:
+            from ..data.dataset import check_det_dataset
 
-        return check_class_names(check_det_dataset(str(data))["names"])
+            return check_class_names(check_det_dataset(str(data))["names"])
+        except Exception:  # noqa: BLE001  the JAX package falls back to COCO's names on any failure
+            pass
     coco = Path(__file__).resolve().parent.parent / "cfg" / "datasets" / "coco8.yaml"
     return check_class_names(yaml.safe_load(coco.read_text())["names"])

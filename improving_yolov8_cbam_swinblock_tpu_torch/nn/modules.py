@@ -74,10 +74,13 @@ class Conv(nn.Module):
     the conv's weight and bias.
 
     Quantized (buffers w_int8 (O, I, kh, kw), w_scale (O,), x_scale ()), the
-    eval forward quantizes its input to x_scale, sums the int8 products
-    exactly (ops/quant.py conv_int8), dequantizes in fp32, adds the folded
-    bias in fp32 (or applies the BN), casts to the compute dtype and applies
-    SiLU, as the JAX package's int8 branch does."""
+    eval forward of an ungrouped conv quantizes its input to x_scale, sums
+    the int8 products exactly (ops/quant.py conv_int8), dequantizes in fp32,
+    adds the folded bias in fp32 (or applies the BN), casts to the compute
+    dtype and applies SiLU, as the JAX package's int8 branch does. A grouped
+    conv (YOLO11's depth-wise convs) is calibrated and holds the buffers
+    too, but keeps its float path: the JAX package gates its int8 branch on
+    g == 1."""
 
     QNAMES = ("w_int8", "w_scale", "x_scale")
 
@@ -91,10 +94,15 @@ class Conv(nn.Module):
         for name in self.QNAMES:
             self.register_buffer(name, None)
 
+    @property
+    def runs_int8(self) -> bool:
+        """Quantized and ungrouped (the JAX package's gate)."""
+        return self.w_int8 is not None and self.conv.groups == 1
+
     def forward(self, x):
         if self.calib is not None:
             record_amax(self.calib, "x_amax", x)
-        if self.w_int8 is not None and not self.training:
+        if self.runs_int8 and not self.training:
             y = conv_int8(x, self.w_int8, self.w_scale, self.x_scale, self.conv.stride[0], self.conv.padding[0])
             y = self.bn(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
             y = y.to(x.dtype)

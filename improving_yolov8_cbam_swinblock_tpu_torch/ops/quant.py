@@ -12,7 +12,10 @@ scales from the running |max| of a calibration sweep, amax / 127.
   load_quant_state(model, state)      set those buffers on the modules
   quantize_model(model, batches)      all three
 
-Every `Conv` records its input (`x_amax`); CBAM's convs and the Detect
+Every `Conv` records its input (`x_amax`) and gets int8 weights, grouped
+ones included, as in the JAX package; a grouped conv (YOLO11's depth-wise
+convs) keeps its float path (Conv.runs_int8), and so do YOLO11 Attention's
+products, whose qkv and proj Convs go int8. CBAM's convs and the Detect
 head's last 1x1 convs stay float, as in the JAX package. Every SwinBlock
 records the inputs of its four products (`qkv_amax`, `out_amax`,
 `fc1_amax`, `fc2_amax`), its input (`xin_amax`) and its float output
@@ -33,15 +36,19 @@ from .swin_int8 import QKEYS, QWEIGHTS, q8
 Calib = Dict[str, Dict[str, torch.Tensor]]
 
 
-def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int_mm(a: torch.Tensor, w: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
     """(M, K) int8 @ (N, K)^T int8 -> (M, N) int32, exact (torch._int_mm).
-    K is zero-padded to a multiple of 8 and M to more than 16 rows, which the
-    card's int8 product needs."""
+    K is zero-padded to a multiple of 8, which the card's int8 product
+    needs; it also needs more than 16 rows, so where `min_rows`, the fewest
+    rows `a` can have (one image's rows, for conv_int8), is 16 or fewer, 16
+    zero rows are appended. The pad depends on that bound only, never on the
+    batch, so one torch.export program keeps it at every batch. min_rows=0:
+    M itself is the bound."""
     m, k = a.shape
     if k % 8:
         a, w = F.pad(a, (0, -k % 8)), F.pad(w, (0, -k % 8))
-    if m <= 16:
-        a = F.pad(a, (0, 0, 0, 17 - m))
+    if (min_rows or m) <= 16:
+        a = F.pad(a, (0, 0, 0, 16))
     return torch._int_mm(a.contiguous(), w.contiguous().t())[:m]
 
 
@@ -65,7 +72,7 @@ def conv_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor, x_sc
         ho, wo = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
         cols = torch.cat([xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
                           for dy in range(kh) for dx in range(kw)], -1).reshape(-1, kh * kw * c)
-    acc = int_mm(cols, w_int8.permute(0, 2, 3, 1).reshape(o, kh * kw * c))
+    acc = int_mm(cols, w_int8.permute(0, 2, 3, 1).reshape(o, kh * kw * c), min_rows=ho * wo)
     y = acc.view(b, ho, wo, o).permute(0, 3, 1, 2).float()
     return y * (x_scale.float() * w_scale.float()).view(1, -1, 1, 1)
 
@@ -155,19 +162,12 @@ def load_quant_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Mod
 def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
     model in place; returns the model. YOLO.predict then serves it in int8.
-    Raises NotImplementedError, naming the module, for what the int8 path
-    does not take (the YOLO11 graph): a grouped conv (conv_int8 has no
-    groups) or YOLO11's position-sensitive Attention; and ValueError for a
-    Conv whose weights are not fp32, before it calibrates."""
-    from ..nn.modules import Attention, Conv
+    Both graphs are taken: YOLO11's grouped convs and Attention products
+    stay float (see the module docstring). Raises ValueError for a Conv
+    whose weights are not fp32, before it calibrates."""
+    from ..nn.modules import Conv
 
     for name, m in model.named_modules():
-        if isinstance(m, Attention):
-            raise NotImplementedError(f"quantize_model: {name} is a YOLO11 Attention, which the int8 path does not "
-                                      "take yet")
-        if isinstance(m, Conv) and m.conv.groups > 1:
-            raise NotImplementedError(f"quantize_model: {name} is a grouped conv (groups={m.conv.groups}); "
-                                      "conv_int8 has no groups")
         if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
             _fp32_weight(f"{name}.conv.weight", m.conv.weight)
     return load_quant_state(model, build_quant_state(model, calibrate(model, batches)))

@@ -165,20 +165,39 @@ def _resident_smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
 
 def int8_is_wide(c: int, num_heads: int, cbf: bool) -> bool:
     """Whether the kernel takes its wide layout: bf16 compute where the
-    resident layout exceeds a block's shared memory (C=512 with 2 heads)."""
+    resident layout exceeds a block's shared memory (C from 384 with 2 heads)."""
     return cbf and _resident_smem_bytes(c, num_heads, True) > MAX_SMEM
+
+
+def _wide_smem_bytes(c: int, stream_in_global: bool) -> int:
+    """Shared memory of the wide layout: the two int8 product inputs, 64-wide
+    bf16 q and k slices with the fp32 scores, and the ring (3 stages of 128
+    rows of 64 + 16 bytes), after the fp32 residual stream where that is
+    resident. With the stream in global memory, the MLP's fc2 int32 sums
+    (49 x C) lie over the second input, the slices and that ring, followed by
+    the int8 hidden chunk (64 x 128 + 16) and a 2-stage ring."""
+    in8, stream = 64 * (c + 16), 4 * 49 * c
+    attention = 2 * in8 + -(-(2 * 2 * 64 * 72 + 4 * 49 * 49) // 16) * 16 + 3 * 128 * (64 + 16)
+    if not stream_in_global:
+        return stream + attention
+    return max(attention, in8 + stream + 64 * (128 + 16) + 2 * 128 * (64 + 16))
+
+
+def int8_stream_in_global(c: int, num_heads: int, cbf: bool) -> bool:
+    """Whether the wide layout keeps the fp32 residual stream in its global
+    scratch for the whole block: where the stream would not fit beside the
+    rest (C from 640 with 2 heads; yolo11x's C=768)."""
+    return int8_is_wide(c, num_heads, cbf) and _wide_smem_bytes(c, False) > MAX_SMEM
 
 
 def smem_bytes(c: int, num_heads: int, cbf: bool) -> int:
     """Shared memory of one block of the kernel in the bf16 (cbf) or fp32
     compute dtype, a copy of Layout and WideLayout in csrc/swin_block_int8.cu
     for checks without the library (on the card the library's own number is
-    used). The wide layout keeps the fp32 residual stream, the two int8
-    product inputs, 64-wide bf16 q and k slices with the fp32 scores, and the
-    ring (3 stages of 128 rows of 64 + 16 bytes)."""
+    used)."""
     if not int8_is_wide(c, num_heads, cbf):
         return _resident_smem_bytes(c, num_heads, cbf)
-    return 4 * 49 * c + 2 * 64 * (c + 16) + -(-(2 * 2 * 64 * 72 + 4 * 49 * 49) // 16) * 16 + 3 * 128 * (64 + 16)
+    return _wide_smem_bytes(c, int8_stream_in_global(c, num_heads, cbf))
 
 
 def check_int8_supported(c: int, num_heads: int, window_size: int, x_dtype: torch.dtype, in8: bool,

@@ -90,7 +90,7 @@ def test_smem_copies_match_library(cuda, c, heads, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,heads", [(256, 2), (128, 1), (128, 2), (128, 4), (64, 2), (192, 2), (384, 4), (512, 4),
-                                     (512, 2), (768, 2)])
+                                     (512, 2), (640, 2), (768, 2)])
 @pytest.mark.parametrize("cbf", [True, False])
 def test_int8_smem_copy_matches_library(cuda, c, heads, cbf):
     """smem_bytes of ops/swin_int8.py, the check's copy for the CPU, gives
@@ -429,15 +429,19 @@ def test_int8_kernel_matches_plain(cuda, shape, heads, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 512), 2), ((2, 20, 17, 512), 2), ((1, 12, 9, 512), 4)])
+@pytest.mark.parametrize("shape,heads", [((8, 40, 40, 512), 2), ((2, 20, 17, 512), 2), ((1, 12, 9, 512), 4),
+                                         ((2, 14, 14, 768), 2), ((1, 12, 17, 640), 2)])
 @pytest.mark.parametrize("mode", ["int8_io", "bf16_io", "sm16_int8_io", "sm16_bf16_io"])
 def test_int8_kernel_matches_plain_wide(cuda, shape, heads, mode):
-    """check_int8_case where K4 takes its wide layout (bf16 compute at
-    C=512): the attention in 64-wide slices of the head, the MLP in hidden
-    chunks whose int32 sums are dequantized once."""
+    """check_int8_case where K4 takes its wide layout (bf16 compute from
+    C=384 with 2 heads): the attention in 64-wide slices of the head, the MLP
+    in hidden chunks whose int32 sums are dequantized once. From C=640 (2
+    heads; yolo11x's 768) the fp32 residual stream stays in the global
+    scratch for the whole block."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 
-    assert S8.int8_is_wide(shape[-1], heads, True)
+    c = shape[-1]
+    assert S8.int8_is_wide(c, heads, True) and S8.int8_stream_in_global(c, heads, True) == (c >= 640)
     check_int8_case(cuda, shape, heads, mode)
 
 
@@ -445,16 +449,18 @@ def test_int8_kernel_matches_plain_wide(cuda, shape, heads, mode):
 def test_int8_model_runs_the_int8_kernel_and_int_mm_is_exact(cuda):
     """A quantized scale-n graph with one-head SwinBlocks launches K4 twice
     per forward and K1 twice per calibration batch; the int8 product of the
-    convs is exact at the stem's K=27 and at fewer than 17 rows."""
+    convs is exact at the stem's K=27, at fewer than 17 rows and where one
+    image's rows (min_rows) are 16 or fewer at a batch of several."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
     from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 
-    for m, k, n in ((5, 27, 16), (4096, 288, 64)):
+    for m, k, n, min_rows in ((5, 27, 16, 0), (4096, 288, 64, 0), (16, 64, 32, 16), (12, 27, 16, 4),
+                              (48, 72, 8, 16), (1, 8, 8, 1)):
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=cuda)
         w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda)
-        assert torch.equal(Q.int_mm(a, w), (a.double() @ w.double().t()).int())
+        assert torch.equal(Q.int_mm(a, w, min_rows), (a.double() @ w.double().t()).int())
     d = yaml_model_load("yolov8n-cbam-swin.yaml")
     for row in d["backbone"] + d["head"]:
         if row[2] == "SwinBlock":
@@ -466,6 +472,31 @@ def test_int8_model_runs_the_int8_kernel_and_int_mm_is_exact(cuda):
     assert (S.swin_block_cuda.launches - f0, S8.swin_block_int8_cuda.launches - k0) == (4, 0)
     res = y.predict(frames[0, 0], imgsz=128, conf=0.001)
     assert S8.swin_block_int8_cuda.launches - k0 == 2 and np.isfinite(res[0].boxes.data).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,k4", [("s", 2), ("n", 0)])
+def test_yolo11_int8_launches_k4_where_the_head_dim_allows(cuda, scale, k4):
+    """The fork's YOLO11 graph quantized on the card at 128 px: yolo11s
+    (Swin C=256, head dim 128) runs K4 twice a forward; yolo11n (head dim
+    64) keeps the float SwinBlock (K1), as the JAX package's gate says.
+    Every grouped conv holds its quant buffers and keeps its float path."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Conv
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
+
+    y = YOLO(f"yolo11{scale}-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16,
+             param_dtype=torch.float32).fuse()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 2, 128, 128, 3), dtype=np.uint8)
+    quantize_model(y.model, list(frames))
+    convs = [m for m in y.model.modules() if isinstance(m, Conv)]
+    grouped = [m for m in convs if m.conv.groups > 1]
+    assert grouped and all(m.w_int8 is not None and not m.runs_int8 for m in grouped)
+    assert all(m.runs_int8 for m in convs if m.conv.groups == 1)
+    f0, k0 = S.swin_block_cuda.launches, S8.swin_block_int8_cuda.launches
+    res = y.predict(frames[0, 0], imgsz=128, conf=0.001, verbose=False)
+    assert S8.swin_block_int8_cuda.launches - k0 == k4 and S.swin_block_cuda.launches - f0 == 2 - k4
+    assert np.isfinite(res[0].boxes.data).all()
 
 
 @pytest.mark.cuda

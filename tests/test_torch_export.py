@@ -10,7 +10,9 @@ values but `layout` and `description`. A dynamic program serves batches 1
 and 3, a static one refuses another batch; nms=True against the JAX
 package's e2e_postprocess; the int8 program equals the port's live
 quantized model bit for bit (the same operators; that model is held to JAX
-by tests/test_torch_quant.py). The two SwinBlock operators pass
+by tests/test_torch_quant.py), at a static batch and, with dynamic=True, at
+batches 1 and 3. Calibration and the class names fall back as the JAX
+package's do where a data YAML cannot be read. The two SwinBlock operators pass
 torch.library.opcheck on CPU tensors. The JAX side compiles the stablehlo
 artifact at batches 1 and 3 and its Backend's checkpoint forward at batch 3.
 """
@@ -142,6 +144,52 @@ def test_int8_program_equals_the_live_quantized_model(tmp_path, capsys):
         YOLO(CFG, device="cpu", dtype=torch.bfloat16).export(imgsz=64, int8=True, project=str(tmp_path))
 
 
+def test_int8_dynamic_program_serves_batches_1_and_3(tmp_path):
+    """int8 with dynamic=True: one program serves batches 1 and 3, equal bit
+    for bit to the live quantized model at each. Its convs reach int_mm with
+    one image's rows at 16 (4x4) and 4 (2x2), where the pad is decided by
+    those rows, not by the batch; its SwinBlock is K4's operator."""
+    y = YOLO(INT8_CFG, device="cpu", param_dtype=torch.float32)
+    path = y.export(imgsz=64, int8=True, dynamic=True, project=str(tmp_path))
+    assert yaml.safe_load(open(f"{path}.yaml"))["batch"] == -1
+    be = Backend(path, device="cpu")
+    assert swin_ops(be) == ["yolov8_cbam_swin.swin_block_int8.default"]
+    rng = np.random.default_rng(0)  # the exporter's synthetic calibration frames
+    live = Backend(quantize_model(copy.deepcopy(y.model).fuse(), [rng.integers(0, 255, (8, 64, 64, 3), np.uint8)
+                                                                  for _ in range(2)]))
+    for b in (1, 3):
+        img = frames(b, seed=b)
+        out = be(img)
+        assert out.shape == (b, 5, 84)
+        np.testing.assert_array_equal(out, live(img))
+
+
+def test_calibration_falls_back_to_synthetic_frames(tmp_path, capsys):
+    """_calib_batches on a data YAML that cannot be read warns and gives the
+    synthetic frames, as the JAX exporter does; so does a dataset without
+    images."""
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("path: /nonexistent\ntrain: images/train\nval: images/val\nnc: 1\nnames: [a]\n")
+    rng = np.random.default_rng(0)
+    synthetic = [rng.integers(0, 255, (8, 64, 64, 3), dtype=np.uint8) for _ in range(2)]
+    for data in (str(bad), str(tmp_path / "missing.yaml")):
+        got = Exporter(None, get_cfg({"int8": True, "imgsz": 64, "data": data}))._calib_batches()
+        assert len(got) == 2 and all(np.array_equal(a, b) for a, b in zip(got, synthetic))
+        assert "using synthetic frames" in capsys.readouterr().out
+
+
+def test_default_class_names_falls_back_as_jax(tmp_path):
+    """A data YAML that cannot be read gives COCO's 80 names, as the JAX
+    package's default_class_names does; a readable one gives its own."""
+    from improving_yolov8_cbam_swinblock_tpu.nn.autobackend import default_class_names as jax_default_class_names
+
+    for data in (str(tmp_path / "missing.yaml"), str(tmp_path)):
+        got = default_class_names(data)
+        assert got == jax_default_class_names(data) and len(got) == 80 and got[0] == "person"
+    good = make_synth_dataset(tmp_path / "synth", n_train=1, n_val=1, imgsz=32, nc=2)
+    assert default_class_names(str(good)) == jax_default_class_names(str(good))
+
+
 @pytest.mark.parametrize("fmt", ["stablehlo", "saved_model", "tflite", "pb", "onnx"])
 def test_formats_the_port_does_not_write_raise(both, fmt):
     with pytest.raises(ValueError, match="pt2"):
@@ -152,8 +200,8 @@ def test_option_rules(both, capsys):
     y = both.y
     with pytest.raises(ValueError, match="keras"):
         y.export(keras=True)
-    with pytest.raises(ValueError, match="dynamic"):
-        y.export(int8=True, dynamic=True)
+    opts = Exporter(y.model, get_cfg({"int8": True, "dynamic": True}))._resolve_options()
+    assert opts["int8"] and opts["dynamic"]  # one int8 program serves any batch
     args = get_cfg({"half": True, "int8": True, "opset": 12, "simplify": False, "workspace": 4, "optimize": True,
                     "dnn": True})
     opts = Exporter(y.model, args)._resolve_options()

@@ -227,7 +227,7 @@ def test_int8_block_dispatch_on_cpu_never_launches():
     (128, 1, 7, torch.float16, False),  # dtype the kernel lacks
     (128, 1, 7, torch.float32, True),  # in8 without int8 input
     (128, 1, 7, torch.int8, False),  # int8 input without in8
-    (768, 2, 7, torch.int8, True),  # shared memory beyond the block limit, even in the wide layout
+    (768, 2, 7, torch.float32, False),  # fp32 compute at yolo11x's width: no wide layout in fp32
     (192, 8, 7, torch.int8, True),  # head dim 24, not a multiple of the tensor-core tiles' 16
     (384, 4, 7, torch.float32, False),  # fp32 compute: its int8 MLP hidden (64 x 4C) beyond the limit
     (256, 1, 7, torch.float32, False),  # fp32 q|k|v of a 256-wide head beyond the limit
@@ -243,15 +243,20 @@ def test_int8_kernel_supports_flagship_widths(c, heads):
         S8.check_int8_supported(c, heads, 7, dtype, in8)
 
 
-@pytest.mark.parametrize("c", [256, 512])
+@pytest.mark.parametrize("c", [256, 512, 768])
 def test_int8_kernel_takes_the_int8_path_widths(c):
     """The int8 path runs K4 where the head dim is a multiple of 128: the
-    flagship's 2-head blocks at C 256 (s) and 512 (l). K4 takes both with
-    int8 I/O within a block's shared memory, C=512 in its wide layout."""
+    2-head blocks at C 256 (flagship s, yolo11s), 512 (flagship l, yolo11m
+    and l) and 768 (yolo11x). K4 takes each with int8 I/O within a block's
+    shared memory: C=512 in its wide layout, C=768 in the wide layout with
+    the fp32 residual stream in the global scratch (230,400 B)."""
     S8.check_int8_supported(c, 2, 7, torch.int8, True)
     S8.check_int8_supported(c, 2, 7, torch.bfloat16, False)
     assert S8.smem_bytes(c, 2, True) <= S8.MAX_SMEM
-    assert S8.int8_is_wide(c, 2, True) == (c == 512)
+    assert S8.int8_is_wide(c, 2, True) == (c >= 512)
+    assert S8.int8_stream_in_global(c, 2, True) == (c == 768)
+    if c == 768:
+        assert S8.smem_bytes(c, 2, True) == 230400
 
 
 # --------------------------------------------------------------------------------------------

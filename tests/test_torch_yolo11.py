@@ -205,14 +205,20 @@ def test_weight_bridge_strict_yolo11m():
             "model.6.m.0.m.1.cv2.conv.weight", "model.27.cv3.2.1.0.conv.weight"} <= set(own)
 
 
-def test_quantize_model_refuses_the_yolo11_graph():
-    """conv_int8 has no groups and the int8 path has no Attention: quantize_model
-    raises before calibrating, naming the first module it cannot take."""
+def test_quantize_model_takes_the_yolo11_graph():
+    """quantize_model takes yolo11n: every Conv gets its quant buffers, and
+    exactly its 80 ungrouped convs run int8; the 8 grouped ones (C2PSA's
+    `pe`, Detect's depth-wise convs) keep their float path, as the JAX
+    package's Conv gates its int8 branch on g == 1. The int8 model predicts."""
     m = DetectionModel(CFG, device="cpu", param_dtype=torch.float32).fuse()
-    frame = np.zeros((1, 64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match=r"model\.12\.m\.0\.attn"):
-        quantize_model(m, [frame])
-    d = DetectionModel("yolov8n-cbam-swin.yaml", device="cpu", param_dtype=torch.float32)
-    d.model[-1].cv3[0][0] = M.DWConv(64, 64, 3)
-    with pytest.raises(NotImplementedError, match=r"model\.26\.cv3\.0\.0 is a grouped conv"):
-        quantize_model(d, [frame])
+    frames = np.random.default_rng(3).integers(0, 256, (2, 1, 64, 64, 3), dtype=np.uint8)
+    quantize_model(m, list(frames))
+    convs = {n: c for n, c in m.named_modules() if isinstance(c, M.Conv)}
+    assert len(convs) == 88 and all(c.w_int8 is not None for c in convs.values())
+    grouped = sorted(n for n, c in convs.items() if c.conv.groups > 1)
+    assert sum(c.runs_int8 for c in convs.values()) == 80 and len(grouped) == 8
+    assert not any(convs[n].runs_int8 for n in grouped)
+    assert {"model.12.m.0.attn.pe", "model.13.m.0.attn.pe", "model.27.cv3.0.0.0", "model.27.cv3.2.1.0"} <= set(grouped)
+    with torch.no_grad():
+        out, _ = m(torch.from_numpy(frames[0]).permute(0, 3, 1, 2).float() / 255)
+    assert out.shape == (1, 5, 84) and torch.isfinite(out).all()
