@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2 PARENT_DIR   # K2 alone, against another checkout
     python3 chip_smoke.py --predict PARENT_DIR   # predict img/s, against another checkout
+    python3 chip_smoke.py --fit PARENT_DIR   # YOLO.train img/s with the loader, against another checkout
 
 Phases, one JSON line each; the script exits non-zero if any phase fails:
   build   compile the four CUDA kernels from csrc/ (nvcc, sm_90a), one nvcc
@@ -100,6 +101,24 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           with K1 against val with its plain version (the forward on the val
           batches in bf16 and fp32, the metrics in fp32); loader ms per batch,
           micro-step ms, epoch seconds, train img/s with the loader, val img/s
+  fit_host the host side of YOLO.train and YOLO.val on the fit phase's dataset:
+          YOLO("yolov8s-cbam-swin.yaml").train for 2 epochs at batch 16, 640
+          px, with device_augment=False (the loader's host augmentation
+          stack: mosaic 2x2 and, with mosaic9=0.5, 3x3; random_perspective
+          with degrees 10, shear 2, perspective 5e-4; mixup 0.5; flipud 0.5;
+          pixel_augment, HSV, fliplr), close_mosaic 1, multi_scale, the RAM
+          image cache, plots, save_json and a callback on every event: K1 /
+          K3 / K2 launches per micro-step and K1 per val batch, the loader's
+          mosaic per epoch, every batch's boxes finite and inside [0, 1] under
+          their mask, the events in the JAX package's order, results.csv,
+          metrics.jsonl and predictions.json (as many records as val kept
+          detections), the plots written or skipped (cv2, matplotlib); the host
+          loader alone (mosaic on and off, with and without the cache) beside
+          the fit phase's device-path loader, each host transform's ms on one
+          thread, the first batch's ms over 1, 2, 4 and 8 loader threads,
+          train img/s with the loader per epoch; YOLO(best.pt) BN-folded and quantized on two batches of the
+          train images, its YOLO.val (K4 2 launches per val batch) beside the
+          float val of the same weights: both mAP50 and mAP50-95
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
           slice phase's frames in bf16 (K1 counted, 2 per batch) and its
@@ -154,6 +173,15 @@ seeded weights and frames) in five pairs of turns, parent first in every
 other pair, one process each: the img/s of 8 calls on in-memory frames
 after a warm-up, and, for this checkout, of 8 calls on the same frames
 read from PNG files (predict_run).
+
+--fit PARENT_DIR times YOLO.train on the device augmentation path (the fit
+phase's seeded PNG dataset and settings, 4 epochs, mosaic closed for the
+last 2, after a warm-up epoch) with the port of PARENT_DIR and of this
+checkout, this one with TensorBoard on and off, in five rounds of the
+three, each run in its own process: each epoch's train img/s with the
+loader, the loader's wait and the rest of the loop per micro-step (the
+trainer's epoch_stats, host clock), one JSON line each (fit_run), then the
+medians over the epochs of every run of each variant and each run's own.
 """
 
 from __future__ import annotations
@@ -231,6 +259,12 @@ INT8_MODEL_RTOL = 5e-2
 FIT = {"epochs": 2, "batch": 16, "imgsz": 640, "nbs": 64, "optimizer": "SGD", "max_gt": MAX_GT,
        "close_mosaic": 1, "workers": 8, "seed": SEED, "save_period": 1, "verbose": False}
 FIT_TRAIN, FIT_VAL = 64, 32
+# the fit_host phase: YOLO.train on the loader's host augmentation stack with every transform it adds to the device
+# path's, multi_scale, the RAM image cache, plots, save_json and a callback on every event
+FIT_HOST = {"epochs": 2, "batch": 16, "imgsz": 640, "nbs": 64, "optimizer": "SGD", "max_gt": MAX_GT,
+            "close_mosaic": 1, "workers": 8, "seed": SEED, "verbose": False, "device_augment": False,
+            "mosaic9": 0.5, "mixup": 0.5, "degrees": 10.0, "shear": 2.0, "perspective": 5e-4, "flipud": 0.5,
+            "multi_scale": True, "cache": "ram", "plots": True, "save_json": True}
 # YOLO(best.pt).val against the metrics the trainer recorded for that epoch:
 # the same graph, dtypes, weights and images, so equal but for the order of
 # cuDNN's sums, should it pick another algorithm: FIT_RECORD_ATOL on each metric
@@ -1748,8 +1782,10 @@ def val_pair(model, validator, rtol) -> dict:
 @contextlib.contextmanager
 def counted_fit(steps, vals):
     """While open, each train micro-step of a DetectionTrainer appends to
-    `steps` its epoch, the mosaic value it was handed and its kernel
-    launches, and each validation batch appends its launches to `vals`."""
+    `steps` its epoch, the mosaic value it was handed (the batch's `aug` on
+    the device path, the loader's hyp on the host path), its kernel launches
+    and whether the batch's boxes are finite and inside [0, 1] under their
+    mask, and each validation batch appends its launches to `vals`."""
     from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
     from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator
 
@@ -1763,8 +1799,12 @@ def counted_fit(steps, vals):
 
         def run(batch):
             before = counts()
+            m = batch["mask"] > 0
+            boxes_ok = bool(np.isfinite(batch["bboxes"]).all() and (batch["bboxes"][m] >= 0).all()
+                            and (batch["bboxes"][m] <= 1).all())
             out = step(batch)
-            steps.append({"epoch": self.epoch, "mosaic": float(batch["aug"][0]), "launches": delta(before)})
+            mosaic = float(batch["aug"][0]) if "aug" in batch else float(self.train_loader.hyp["mosaic"])
+            steps.append({"epoch": self.epoch, "mosaic": mosaic, "launches": delta(before), "boxes_ok": boxes_ok})
             return out
         return run, acc
 
@@ -1878,9 +1918,178 @@ def phase_fit(dev):
                                     for dt, v in kvp.items()},
                 "val_ok": val_ok,
                 "timing": timing, "loader_alone": loader_alone, "decoder": _decoder(),
-            }, launches
+            }, launches, loader_alone["train_ms_per_batch"]
     finally:
         DetectionTrainer.save_checkpoint = save
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def host_events(epochs: int, batches: int, val_batches: int) -> list:
+    """The callback events the JAX package's trainer fires in YOLO.train, in
+    order (its engine/trainer.py setup, train and validate, and
+    engine/validator.py's val batches)."""
+    val = ["on_val_start"] + ["on_val_batch_start", "on_val_batch_end"] * val_batches + ["on_val_end"]
+    epoch = ["on_train_epoch_start"] + ["on_train_batch_end"] * batches + val + ["on_model_save", "on_fit_epoch_end"]
+    return ["on_pretrain_routine_start", "on_pretrain_routine_end", "on_train_start"] + epoch * epochs + [
+        "on_train_end"]
+
+
+def loader_ms(loader, epoch: int = 0) -> float:
+    """ms per batch of one epoch of the loader by itself: decode (or the cache), transforms, stack."""
+    loader.set_epoch(epoch)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def host_stack_ms(ds, hyp: dict, reps: int = 3) -> dict:
+    """ms of each host transform on one thread at the phase's imgsz, on the
+    dataset's first 13 frames (the median of `reps`), and of one whole
+    train_transform with the phase's hyp."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.data import augment as A
+
+    s = ds.imgsz
+    samples = [ds.load_sample(i % len(ds)) for i in range(13)]
+
+    def ms(fn):
+        out = []
+        for r in range(reps):
+            t0 = time.perf_counter()
+            fn(np.random.default_rng(r))
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    canvas = A.mosaic4(samples[:4], s, np.random.default_rng(0))
+    border = canvas.pop("mosaic_border")
+    img = A.random_perspective(dict(canvas), np.random.default_rng(0), border=border)["img"]
+    return {"mosaic4": ms(lambda g: A.mosaic4(samples[:4], s, g)),
+            "mosaic9": ms(lambda g: A.mosaic9(samples[:9], s, g)),
+            "random_perspective_affine": ms(lambda g: A.random_perspective(dict(canvas), g, border=border,
+                                                                           degrees=10.0, shear=2.0)),
+            "random_perspective_perspective": ms(lambda g: A.random_perspective(
+                dict(canvas), g, border=border, degrees=10.0, shear=2.0, perspective=5e-4)),
+            "random_hsv": ms(lambda g: A.random_hsv(img, g)),
+            "mixup": ms(lambda g: A.mixup({"img": img, "bboxes": np.zeros((0, 4)), "cls": np.zeros(0)},
+                                          {"img": img, "bboxes": np.zeros((0, 4)), "cls": np.zeros(0)}, g)),
+            "train_transform": ms(lambda g: A.train_transform(samples, s, MAX_GT, g, hyp))}
+
+
+def phase_fit_host(dev, device_loader_ms):
+    """The host side of YOLO.train and YOLO.val (the module docstring's fit_host phase)."""
+    import importlib.util
+
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.callbacks import EVENTS, NEVER_FIRED
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_host_"))
+    steps, vals = [], []
+    try:
+        with counted_fit(steps, vals):
+            data = write_fit_dataset(tmp / "data")
+            yolo = YOLO("yolov8s-cbam-swin.yaml", device=str(dev), seed=SEED)
+            events = []
+            for e in EVENTS:
+                if e not in NEVER_FIRED and not e.startswith(("on_predict", "on_export")):
+                    yolo.add_callback(e, lambda obj, e=e: events.append(e))
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = yolo.train(data=str(data), project=str(tmp / "runs"), **FIT_HOST)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = counts()
+            train_vals = list(vals)
+            tr = yolo.trainer
+            nb, nv = len(tr.train_loader), len(tr.val_loader)
+            v = tr.validator
+            kept = sum(len(st[1]) for st in v.metrics.stats)
+            pred_json = tmp / "runs" / "val" / "predictions.json"
+            records = len(json.loads(pred_json.read_text())) if pred_json.exists() else 0
+            files = {f: (tr.save_dir / f).exists() for f in ("results.csv", "metrics.jsonl")}
+            have = {"cv2": importlib.util.find_spec("cv2") is not None,
+                    "matplotlib": importlib.util.find_spec("matplotlib") is not None}
+            plots = {**{f: (tr.save_dir / f, "cv2") for f in ("train_batch0.jpg", "train_batch1.jpg",
+                                                                "train_batch2.jpg")},
+                     **{f: (tr.save_dir / f, "matplotlib") for f in ("labels.jpg", "results.png")},
+                     **{f: (tmp / "runs" / "val" / f, "matplotlib") for f in (
+                         "confusion_matrix.png", "PR_curve.png", "P_curve.png", "R_curve.png", "F1_curve.png")}}
+            written = {f: path.exists() for f, (path, _) in plots.items()}
+            plots_ok = all(written[f] == have[need] for f, (_, need) in plots.items())
+            path_ok = (nb == 4 and nv == 2 and len(steps) == 8 and all(st["launches"] == STEP_LAUNCHES for st in steps)
+                       and [st["mosaic"] for st in steps] == [1.0] * 4 + [0.0] * 4
+                       and all(st["boxes_ok"] for st in steps) and not tr.train_loader.device_augment
+                       and len(train_vals) == 4 and all(x == PREDICT_LAUNCHES for x in train_vals)
+                       and events == host_events(2, nb, nv) and all(files.values()) and pred_json.exists()
+                       and records == kept and plots_ok
+                       and all(np.isfinite([r[k] for k in r if k.startswith("train/")]).all() for r in tr.metrics_rows))
+
+            # the loader by itself, one epoch each: the host stack with its RAM cache warm, mosaic on (epoch
+            # 1's transforms) and off (epoch 2's); the same without the cache (every image decoded again)
+            ld = tr.train_loader
+            alone = {"host_mosaic_off_cached_ms_per_batch": loader_ms(ld, 1)}
+            ld.hyp["mosaic"] = 1.0
+            alone["host_mosaic_on_cached_ms_per_batch"] = loader_ms(ld)
+            cold = DataLoader(YOLODataset(ld.ds.img_dir, imgsz=FIT_HOST["imgsz"], max_gt=MAX_GT, nc=1), FIT_HOST["batch"], train=True,
+                              hyp=dict(ld.hyp), seed=SEED, workers=FIT_HOST["workers"], device_augment=False)
+            alone["host_mosaic_on_uncached_ms_per_batch"] = loader_ms(cold)
+            alone["device_path_ms_per_batch"] = device_loader_ms  # the fit phase's loader_alone
+            alone["one_thread_ms_per_sample"] = host_stack_ms(ld.ds, dict(ld.hyp))
+            alone["first_batch_ms_by_workers"] = {}  # mosaic on, cached: how the host stack scales over threads
+            for w in (1, 2, 4, 8):
+                it = iter(DataLoader(ld.ds, FIT_HOST["batch"], train=True, hyp=dict(ld.hyp), seed=SEED, workers=w,
+                                     device_augment=False))
+                t0 = time.perf_counter()
+                next(it)
+                alone["first_batch_ms_by_workers"][w] = 1e3 * (time.perf_counter() - t0)
+                it.close()
+            bs = FIT_HOST["batch"]
+            timing = [{"epoch": e["epoch"] + 1, "train_loop_s": e["train_s"],
+                       "train_img_per_s_with_loader": e["batches"] * bs / e["train_s"],
+                       "loader_wait_ms_per_train_batch": 1e3 * e["loader_wait_s"] / e["batches"],
+                       "micro_step_ms": 1e3 * (e["train_s"] - e["loader_wait_s"]) / e["batches"],
+                       "val_s": e["val_s"]} for e in tr.epoch_stats]
+
+            # int8 on the trained weights: YOLO(best.pt) BN-folded and quantized on two batches of the train
+            # images (letterboxed), then YOLO.val beside the float val of the same weights
+            best = str(tr.wdir / "best.pt")
+            calib_loader = DataLoader(YOLODataset(ld.ds.img_dir, imgsz=FIT_HOST["imgsz"], max_gt=MAX_GT, nc=1), FIT_HOST["batch"], train=False,
+                                      workers=FIT_HOST["workers"])
+            it = iter(calib_loader)
+            calib = [next(it)["img"] for _ in range(2)]
+            it.close()
+            vkw = {"batch": bs, "imgsz": FIT_HOST["imgsz"], "workers": FIT_HOST["workers"], "verbose": False}
+            float_yolo = YOLO(best, device=str(dev))
+            del vals[:]
+            reset_counts()
+            float_val = float_yolo.val(data=str(data), **vkw)
+            float_vals = list(vals)
+            int8_yolo = YOLO(best, device=str(dev)).fuse()
+            quantize_model(int8_yolo.model, calib)
+            del vals[:]
+            reset_counts()
+            int8_val = int8_yolo.val(data=str(data), **vkw)
+            int8_launches = counts()
+            int8_vals = list(vals)
+            keys = ("precision", "recall", "mAP50", "mAP50-95")
+            int8_ok = (len(int8_vals) == 2 and all(x == INT8_PREDICT_LAUNCHES for x in int8_vals)
+                       and len(float_vals) == 2 and all(x == PREDICT_LAUNCHES for x in float_vals)
+                       and all(np.isfinite(int8_val[k]) for k in keys))
+            return path_ok and int8_ok, {
+                "settings": FIT_HOST, "train_call_s": train_s, "train_batches": nb, "val_batches_per_epoch": nv,
+                "launches": launches, "launches_per_step": steps[:8], "launches_per_val_batch": train_vals,
+                "mosaic_by_step": [st["mosaic"] for st in steps], "boxes_ok": all(st["boxes_ok"] for st in steps),
+                "events_ok": events == host_events(2, nb, nv), "event_counts": {e: events.count(e) for e in set(events)},
+                "integrations": tr.integrations, "files": files, "predictions_json_records": records,
+                "val_kept_detections": kept, "have": have, "plots_written": written, "plots_ok": plots_ok,
+                "final_metrics": metrics, "path_ok": path_ok, "loader_alone": alone, "timing": timing,
+                "int8_on_trained_weights": {
+                    "float": {k: float_val[k] for k in keys}, "int8": {k: int8_val[k] for k in keys},
+                    "int8_minus_float": {k: int8_val[k] - float_val[k] for k in keys},
+                    "launches_per_float_val_batch": float_vals, "launches_per_int8_val_batch": int8_vals,
+                    "ok": int8_ok},
+            }, {"fit_host": launches, "fit_host_int8_val": int8_launches}
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2543,6 +2752,101 @@ def predict_compare(parent: Path) -> int:
     return rc
 
 
+def fit_run(root: Path, tensorboard: bool) -> dict:
+    """YOLO.train of the port under `root`, imported from there by this
+    process, on the fit phase's dataset and settings with the device
+    augmentation: one warm-up epoch (the kernels' first use, cuDNN's
+    algorithm search), then 4 epochs timed by the trainer's epoch_stats.
+    `tensorboard` sets the port's SETTINGS["tensorboard"] where it has
+    the setting; the seconds that registering the loggers took in each run."""
+    import statistics
+
+    sys.path.insert(0, str(root))
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    mod = sys.modules["improving_yolov8_cbam_swinblock_tpu_torch"].__file__
+    if not Path(mod).resolve().is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported {mod}, not the port under {root}")
+    out = {"root": str(root), "tensorboard": None, "integrations_s": []}
+    try:
+        from improving_yolov8_cbam_swinblock_tpu_torch.utils import integrations, settings
+    except ImportError:  # a port without the logger integrations
+        integrations = None
+    if integrations is not None:
+        settings.SETTINGS["tensorboard"] = out["tensorboard"] = tensorboard
+        add = integrations.add_integration_callbacks
+
+        def timed_add(trainer):
+            t0 = time.perf_counter()
+            got = add(trainer)
+            out["integrations_s"].append(time.perf_counter() - t0)  # the warm-up's, then the timed run's
+            out["integrations"] = got
+            return got
+
+        integrations.add_integration_callbacks = timed_add
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_run_"))
+    try:
+        data = str(write_fit_dataset(tmp / "data"))
+        YOLO("yolov8s-cbam-swin.yaml", device="cuda", seed=SEED).train(
+            data=data, project=str(tmp / "runs"), name="warmup", **{**FIT, "epochs": 1, "close_mosaic": 0})
+        yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", seed=SEED)
+        t0 = time.perf_counter()
+        yolo.train(data=data, project=str(tmp / "runs"), name="timed", **{**FIT, "epochs": 4, "close_mosaic": 2})
+        torch.cuda.synchronize()
+        out["train_call_s"] = time.perf_counter() - t0
+        bs = FIT["batch"]
+        out["epochs"] = [{"epoch": e["epoch"] + 1, "train_img_per_s_with_loader": e["batches"] * bs / e["train_s"],
+                          "loader_wait_ms_per_train_batch": 1e3 * e["loader_wait_s"] / e["batches"],
+                          "micro_step_ms": 1e3 * (e["train_s"] - e["loader_wait_s"]) / e["batches"],
+                          "val_s": e["val_s"]} for e in yolo.trainer.epoch_stats]
+        out["median_train_img_per_s"] = statistics.median(e["train_img_per_s_with_loader"] for e in out["epochs"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fit_compare(parent: Path) -> int:
+    """fit_run for parent, this checkout with TensorBoard on, this checkout
+    with it off, in five rounds, the order turned each round, each run in
+    its own process (the first of each checkout builds its kernels first);
+    the card's name and power limit first, the medians of each variant last."""
+    import statistics
+
+    here = Path(__file__).resolve().parent
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    variants = [("parent", parent, True), ("tensorboard_on", here, True), ("tensorboard_off", here, False)]
+    rows = {name: [] for name, _, _ in variants}
+    rc = 0
+    for r in range(5):
+        for name, root, tb in variants[r % 3:] + variants[:r % 3]:
+            code = (f"import sys, json; from pathlib import Path; sys.path.insert(0, {str(here)!r}); import chip_smoke; "
+                    f"print('FIT_RUN ' + json.dumps({{'variant': {name!r}, "
+                    f"**chip_smoke.fit_run(Path({str(root)!r}), {tb})}}), flush=True)")
+            if r == 0:
+                code = (f"import sys; sys.path.insert(0, {str(root)!r}); "
+                        "from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin, tal; "
+                        "[f() for f in (swin._lib, swin._bwd_lib, tal._lib)]; " + code)
+            child = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=600, capture_output=True, text=True)
+            rc |= child.returncode
+            for line in child.stdout.splitlines():
+                if line.startswith("FIT_RUN "):
+                    print(line[len("FIT_RUN "):], flush=True)
+                    rows[name].append(json.loads(line[len("FIT_RUN "):]))
+            if child.returncode:
+                print(child.stderr[-3000:], file=sys.stderr, flush=True)
+    summary = {}
+    for name, runs in rows.items():
+        eps = [e for run in runs for e in run["epochs"]]
+        summary[name] = {"runs": len(runs), "epochs": len(eps),
+                         "run_medians": [run["median_train_img_per_s"] for run in runs]} | ({
+            k: statistics.median(e[k] for e in eps)
+            for k in ("train_img_per_s_with_loader", "loader_wait_ms_per_train_batch", "micro_step_ms", "val_s")}
+            if eps else {})
+    print(json.dumps({"fit_compare_medians": summary}), flush=True)
+    return rc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2551,6 +2855,8 @@ def main() -> int:
         return k2_compare(Path(sys.argv[2]).resolve())
     if len(sys.argv) == 3 and sys.argv[1] == "--predict":
         return predict_compare(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 3 and sys.argv[1] == "--fit":
+        return fit_compare(Path(sys.argv[2]).resolve())
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2575,7 +2881,8 @@ def main() -> int:
     train, train_launches = run("train", phase_train, dev)
     int8_yolo, int8_launches, int8_ms = run("int8", phase_int8, dev)
     (export_launches,) = run("export", phase_export, dev)
-    (fit_launches,) = run("fit", phase_fit, dev)
+    fit_launches, fit_loader_ms = run("fit", phase_fit, dev)
+    (fit_host_launches,) = run("fit_host", phase_fit_host, dev, fit_loader_ms)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
@@ -2585,7 +2892,7 @@ def main() -> int:
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
-                            "int8": int8_launches, "export": export_launches, "fit": fit_launches,
+                            "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
                             **yolo11_launches, **large_launches, **yolo11_int8_launches, **autobatch_launches},
                            build, wide)
     print(smi, flush=True)

@@ -3,28 +3,32 @@ JAX package's data/dataset.py: check_det_dataset, YOLODataset, DataLoader).
 
   * labels are parsed and verified up front into memory, through the
     hash-keyed `labels/<split>.cache` that the JAX package also reads;
-  * the loader decodes and letterboxes in a thread pool and yields
+  * the image cache: cache=True or 'ram' keeps decoded frames in memory and
+    hands out copies, 'disk' writes a sibling `.npy` of each image (the JAX
+    package's names, so each package reads the other's);
+  * the loader decodes and transforms in a thread pool and yields
     fixed-shape numpy batches: img (B, H, W, 3) uint8 RGB, cls (B, G),
-    bboxes (B, G, 4) normalised xywh, mask (B, G), plus `aug` (the 7
-    device-augmentation hyperparameters in AUG_KEYS order) on the train
-    path, ratio_pad and orig_shape on the val path;
+    bboxes (B, G, 4) normalised xywh, mask (B, G), plus ratio_pad and
+    orig_shape on the val path. The train path either letterboxes only and
+    adds `aug` (the 7 device-augmentation hyperparameters in AUG_KEYS
+    order; device_augment=True, the default) or runs the host augmentation
+    stack (data/augment.py train_transform; device_augment=False), each
+    sample from its own generator seeded by (seed, epoch, image, position
+    in the epoch), with the JAX package's draws of the mosaic and mixup donors;
   * batch i of epoch e is a pure function of (seed, e, i): the epoch's
     permutation is default_rng(seed + epoch), and a short last batch wraps
     around to the first images (on the val path too, as in the JAX package,
     whose metrics then count those images twice). The next batch is
     submitted to the pool before the current one is yielded, so decoding
     overlaps the step.
-
-In this slice: the device-augmented train path (device_augment=True, the
-default) and the val path. The host augmentation stack
-(device_augment=False), the image cache and packaged dataset descriptors
-raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import math
+import os
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -33,26 +37,37 @@ import yaml
 
 from ..cfg import AUG_KEYS
 from ..utils.patches import image_size, imread
-from .augment import raw_train_transform, val_transform
+from .augment import raw_train_transform, train_transform, val_transform
 from .utils import load_or_build_cache
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
+DATASETS_DIR = Path(__file__).resolve().parent.parent / "cfg" / "datasets"
 AUG_DEFAULTS = {"mosaic": 1.0, "scale": 0.5, "translate": 0.1, "fliplr": 0.5, "hsv_h": 0.015, "hsv_s": 0.7,
                 "hsv_v": 0.4}
 
 
 def check_det_dataset(data) -> Dict:
     """A data YAML (path) or dict with absolute split paths, names as a
-    dict and nc. A relative `path:` is anchored at the YAML's directory."""
+    dict and nc. A bare YAML name that is not a file (`"coco8.yaml"`) is
+    read from the packaged cfg/datasets/, and its relative `path:` is
+    anchored at SETTINGS["datasets_dir"]; a user YAML's relative `path:` is
+    anchored at the YAML's directory. Nothing is downloaded."""
+    packaged = False
     if isinstance(data, (str, Path)):
         p = Path(data)
         if not p.exists() and p.suffix in (".yaml", ".yml") and len(p.parts) == 1:
-            raise NotImplementedError(f"packaged dataset descriptors such as {p.name!r} are not in the port; "
-                                      "pass the path of a data YAML")
+            cand = DATASETS_DIR / p.name
+            if cand.exists():
+                p, packaged = cand, True
         data = yaml.safe_load(p.read_text()) | {"yaml_file": str(p)}
     root = Path(data.get("path", "."))
-    if not root.is_absolute() and "yaml_file" in data:
-        root = Path(data["yaml_file"]).parent / root
+    if not root.is_absolute():
+        if packaged:
+            from ..utils.settings import SETTINGS
+
+            root = Path(SETTINGS["datasets_dir"]) / root
+        elif "yaml_file" in data:
+            root = Path(data["yaml_file"]).parent / root
     out = dict(data)
     for split in ("train", "val", "test"):
         if data.get(split):
@@ -71,8 +86,11 @@ class YOLODataset:
 
     def __init__(self, img_dir: str, imgsz: int = 640, max_gt: int = 300, nc: int = 80, single_cls: bool = False,
                  fraction: float = 1.0, cache=False):
-        if cache:
-            raise NotImplementedError(f"cache={cache!r}: the image cache is not in the port; use cache=False")
+        self.cache = "ram" if cache is True else (str(cache).lower() if cache else None)
+        if self.cache not in (None, "ram", "disk"):
+            raise ValueError(f"cache={cache!r} must be True/'ram', 'disk' or False")
+        self._ram: Dict[int, np.ndarray] = {}
+        self._ram_lock = threading.Lock()
         self.img_dir = Path(img_dir)
         self.imgsz = imgsz
         self.max_gt = max_gt
@@ -104,11 +122,36 @@ class YOLODataset:
     def __len__(self):
         return len(self.img_files)
 
-    def load_sample(self, idx: int) -> Dict:
-        """Raw sample: BGR image and pixel xyxy boxes."""
+    def _read_image(self, idx: int) -> np.ndarray:
+        """Decode one frame through the cache; the RAM cache hands out copies,
+        which the transforms may change in place."""
+        if self.cache == "ram":
+            with self._ram_lock:
+                hit = self._ram.get(idx)
+            if hit is not None:
+                return hit.copy()
+        elif self.cache == "disk":
+            npy = Path(self.img_files[idx]).with_suffix(".npy")
+            if npy.exists():
+                return np.load(npy)
         img = imread(self.img_files[idx])
         if img is None:
             raise IOError(f"failed to read {self.img_files[idx]}")
+        if self.cache == "ram":
+            with self._ram_lock:
+                self._ram[idx] = img
+            return img.copy()
+        if self.cache == "disk":  # written aside, then renamed: another thread may read the .npy at any time
+            npy = Path(self.img_files[idx]).with_suffix(".npy")
+            tmp = npy.with_name(f".{npy.name}.{threading.get_ident()}.tmp")
+            with open(tmp, "wb") as fh:
+                np.save(fh, img)
+            os.replace(tmp, npy)
+        return img
+
+    def load_sample(self, idx: int) -> Dict:
+        """Raw sample: BGR image and pixel xyxy boxes."""
+        img = self._read_image(idx)
         h, w = img.shape[:2]
         lab = self.labels[idx]
         xywhn = lab["xywhn"]
@@ -126,12 +169,10 @@ class DataLoader:
     def __init__(self, dataset: YOLODataset, batch_size: int, train: bool = True, hyp: Optional[Dict] = None,
                  seed: int = 0, workers: int = 8, device_augment: bool = True,
                  rect_shape=None):
-        if train and not device_augment:
-            raise NotImplementedError("device_augment=False needs the host augmentation stack (mosaic, "
-                                      "random_perspective, mixup, pixel_augment), which is not in the port")
         self.ds = dataset
         self.bs = batch_size
         self.train = train
+        self.device_augment = device_augment and train
         self.rect_shape = tuple(rect_shape) if rect_shape else None  # val only: (h, w)
         self.hyp = dict(hyp or {})
         self.seed = seed
@@ -151,11 +192,18 @@ class DataLoader:
         n = len(self.ds)
         return np.random.default_rng(self.seed + self.epoch).permutation(n) if self.train else np.arange(n)
 
-    def _make_sample(self, i: int) -> Dict[str, np.ndarray]:
-        sample = self.ds.load_sample(i)
+    def _make_sample(self, epoch: int, pos: int, i: int) -> Dict[str, np.ndarray]:
+        """Image i at position pos of the epoch. The host path's generator and
+        donor draws are the JAX package's (its DataLoader._make_sample)."""
+        if self.device_augment:
+            return raw_train_transform(self.ds.load_sample(i), self.ds.imgsz, self.ds.max_gt)
         if self.train:
-            return raw_train_transform(sample, self.ds.imgsz, self.ds.max_gt)
-        return val_transform(sample, self.ds.imgsz, self.ds.max_gt, shape=self.rect_shape)
+            rng = np.random.default_rng((self.seed * 1_000_003 + epoch) * 1_000_003 + i * 7 + pos)
+            base = 8 if self.hyp.get("mosaic9", 0.0) > 0 else 3  # the 3x3 or 2x2 grid's donors
+            extra = rng.integers(0, len(self.ds), base + (4 if self.hyp.get("mixup", 0.0) > 0 else 0))
+            samples = [self.ds.load_sample(i)] + [self.ds.load_sample(int(j)) for j in extra]
+            return train_transform(samples, self.ds.imgsz, self.ds.max_gt, rng, self.hyp)
+        return val_transform(self.ds.load_sample(i), self.ds.imgsz, self.ds.max_gt, shape=self.rect_shape)
 
     def __len__(self):
         return self.batches_per_epoch
@@ -166,7 +214,8 @@ class DataLoader:
         n = len(idx)
         with cf.ThreadPoolExecutor(max_workers=self.workers) as pool:
             def submit(b):
-                return [pool.submit(self._make_sample, int(idx[(b * self.bs + j) % n])) for j in range(self.bs)]
+                return [pool.submit(self._make_sample, self.epoch, b * self.bs + j, int(idx[(b * self.bs + j) % n]))
+                        for j in range(self.bs)]
 
             nxt = submit(0)
             for b in range(self.batches_per_epoch):
@@ -175,6 +224,6 @@ class DataLoader:
                     nxt = submit(b + 1)
                 samples = [f.result() for f in futs]
                 batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-                if self.train:
+                if self.device_augment:
                     batch["aug"] = np.asarray([self.hyp.get(k, AUG_DEFAULTS[k]) for k in AUG_KEYS], np.float32)
                 yield batch

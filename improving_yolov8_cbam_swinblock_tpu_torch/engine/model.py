@@ -35,13 +35,13 @@ from ..nn.tasks import DetectionModel, EnsembleModel
 from ..ops.quant import is_quantized
 from ..trackers.track import on_predict_postprocess_end, on_predict_start
 from ..utils import serialization
-from ..utils.callbacks import EVENTS, EXPORT_EVENTS, PREDICT_EVENTS, default_callbacks
+from ..utils.callbacks import EVENTS, NEVER_FIRED, default_callbacks
 from ..utils.jax_import import (ema_state, fused_state_from_jax, jax_variables_from_state, overlay_state,
                                 read_checkpoint, state_dict_from_jax)
 from ..utils.metrics import ValMetrics
 from .predictor import DetectionPredictor
 from .results import Results
-from .trainer import DetectionTrainer, check_supported, checkpoint_state
+from .trainer import DetectionTrainer, checkpoint_state
 from .validator import DetectionValidator
 
 JAX_SUFFIXES = (".ckpt", ".msgpack")
@@ -161,14 +161,13 @@ class YOLO:
         self.ckpt_path = None
         return self
 
-    # -- callbacks: the predictor fires the predict events, the exporter the export events; the trainer and
-    # validator fire none
+    # -- callbacks: the trainer, the validator, the predictor and the exporter fire the JAX package's events
     def add_callback(self, event: str, func) -> None:
         if event not in EVENTS:
             raise ValueError(f"unknown callback event {event!r} (see utils.callbacks.EVENTS)")
-        if event not in PREDICT_EVENTS + EXPORT_EVENTS:
-            raise NotImplementedError(f"callback event {event!r} is never fired by the port: only the predict "
-                                      f"events {PREDICT_EVENTS} and the export events {EXPORT_EVENTS} are")
+        if event in NEVER_FIRED:
+            raise NotImplementedError(f"callback event {event!r} is never fired, by the port or the JAX package "
+                                      f"(never fired: {NEVER_FIRED})")
         self.callbacks[event].append(func)
 
     def clear_callback(self, event: str) -> None:
@@ -325,6 +324,8 @@ class YOLO:
         if self.ckpt_path is not None:
             trainer.pretrained_state = self.model.state_dict()
         self.trainer = trainer
+        for event, fns in self.callbacks.items():  # the user's hooks ride the trainer's bus
+            trainer.callbacks[event].extend(fns)
         metrics = trainer.train()
         best = trainer.wdir / "best.pt"
         if best.exists():
@@ -336,10 +337,10 @@ class YOLO:
     def val(self, data: Optional[str] = None, **kwargs) -> ValMetrics:
         """Detection metrics of this model (float or quantized, as it is) on
         the `split` (default val) of `data`, with `batch`, `imgsz`, `rect`,
-        `max_det`, `workers` and `verbose` from kwargs."""
+        `max_det`, `workers`, `verbose`, `plots` and `save_json` from kwargs;
+        fires the val batch events of this YOLO's callbacks."""
         self._single("validating")
         args = get_cfg({**self.overrides, **kwargs})
-        check_supported(args)
         stride = max(self.model.strides)
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         info = check_det_dataset(data or args.data)
@@ -347,7 +348,7 @@ class YOLO:
         ds = build_yolo_dataset(args, info[split], info, mode="val")
         rect_shape = ds.rect_shape(stride=int(stride)) if args.rect else None
         loader = build_dataloader(ds, int(args.batch), workers=args.workers, train=False, rect_shape=rect_shape)
-        self.validator = DetectionValidator(self.model, loader, args)
+        self.validator = DetectionValidator(self.model, loader, args, callbacks=self.callbacks)
         out = ValMetrics(self.validator())
         for k in ("precision", "recall", "mAP50", "mAP50-95"):
             out[f"metrics/{k}(B)"] = out[k]

@@ -40,8 +40,18 @@ in 60 % of the card's memory), and `profile=True` prints the per-layer
 table of utils/model_utils.py profile_layers once at setup, as the JAX
 trainer does.
 
-Not in this slice: callbacks, plots, multi-host sharding, multi_scale and
-the other tasks' losses.
+`device_augment=False` trains on the loader's host augmentation stack
+(data/augment.py train_transform) and the step applies no device
+augmentation. `multi_scale=True` scales each batch's content by k ~ U(0.5,
+1.5) about the centre inside the fixed canvas, as the JAX step does (k from
+the trainer's generator). The trainer fires the JAX trainer's callback
+events at its points, hands its bus to its validator, and registers the
+logger integrations (utils/integrations.py: metrics.jsonl always) when
+train() starts; `plots=True` draws labels.jpg at setup, the first three
+train batches of the first epoch and results.png at the end, as the JAX
+trainer does.
+
+Not in the port yet: multi-host sharding and the other tasks' losses.
 """
 
 from __future__ import annotations
@@ -60,7 +70,8 @@ from ..cfg import AUG_KEYS, get_cfg
 from ..data.build import HYP_KEYS, build_dataloader, build_yolo_dataset
 from ..data.dataset import check_det_dataset
 from ..nn.tasks import DetectionModel, yaml_model_load
-from ..ops.augment_device import device_augment
+from ..ops.augment_device import device_augment, scale_content
+from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.device import select_device
 from ..utils.files import get_save_dir
 from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
@@ -70,22 +81,6 @@ from .validator import DetectionValidator
 OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
-# hyperparameters of the host augmentation stack that the device augmentation
-# does not apply: a value other than 0 raises rather than being ignored
-HOST_ONLY_AUG = ("degrees", "shear", "perspective", "flipud", "mixup", "copy_paste", "mosaic9", "mosaic3")
-
-
-def check_supported(args) -> None:
-    """Raise NotImplementedError for a setting that the port does not honour."""
-    for k in ("plots", "save_json"):
-        if getattr(args, k):
-            raise NotImplementedError(f"{k}=True: not in the port; pass {k}=False")
-    bad = {k: getattr(args, k) for k in HOST_ONLY_AUG if float(getattr(args, k))}
-    if bad:
-        raise NotImplementedError(f"{bad}: the device augmentation applies mosaic, scale, translate, fliplr and "
-                                  "HSV only; the host augmentation stack is not in the port")
-
-
 def checkpoint_state(path) -> Dict[str, torch.Tensor]:
     """The unfused weights a checkpoint file hands to an overlay: the EMA of
     a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
@@ -166,7 +161,7 @@ class DetectionTrainer:
     def __init__(self, overrides: Optional[Dict] = None, model: Optional[DetectionModel] = None, device=None):
         self.args = get_cfg(overrides)
         self.device = select_device(device if device is not None else self.args.device)
-        check_supported(self.args)
+        self.callbacks = default_callbacks()
         self.model = model
         self.step = 0
         self.ema: Dict[str, torch.Tensor] = {}
@@ -192,6 +187,7 @@ class DetectionTrainer:
         bf16 compute with amp; nc and names from the data), training mode,
         EMA. With data: the pretrained overlay (before the EMA is taken),
         the datasets and loaders, and the train step."""
+        run_callbacks(self.callbacks, "on_pretrain_routine_start", self)
         a = self.args
         if self.model is None:
             cfg = a.model or FLAGSHIP
@@ -222,7 +218,15 @@ class DetectionTrainer:
         self.aug_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
         if self.data is not None:
             self._build_datasets()
+            if a.plots:
+                from ..utils.plotting import plot_labels
+
+                labs = self.train_loader.ds.labels
+                plot_labels(np.concatenate([lab["cls"].reshape(-1) for lab in labs]),
+                            np.concatenate([lab["xywhn"].reshape(-1, 4) for lab in labs]),
+                            names=self.model.names, save_dir=str(self.save_dir))
             self.train_step, self.accumulate = self._make_train_step(len(self.train_loader))
+        run_callbacks(self.callbacks, "on_pretrain_routine_end", self)
         return self
 
     def _build_datasets(self) -> None:
@@ -302,7 +306,7 @@ class DetectionTrainer:
             frac = min(max(ni / nw, 0.0), 1.0)
             return frac * base, bias_lr0 + frac * (base - bias_lr0), mom_w + frac * (mom_f - mom_w)
 
-        device_aug = bool(a.device_augment)
+        device_aug, multi_scale = bool(a.device_augment), bool(a.multi_scale)
         nc, strides = model.nc, model.strides
         dev = self.device
 
@@ -316,6 +320,10 @@ class DetectionTrainer:
                 hyp = {k: h[i] for i, k in enumerate(AUG_KEYS)}
                 img, bboxes, cls, mask = device_augment(self.aug_gen, img, bboxes, cls, mask, hyp)
             x = img.permute(0, 3, 1, 2).to(model.dtype) / 255.0
+            if multi_scale:
+                k = 0.5 + torch.rand((), generator=self.aug_gen, device=dev)
+                xs, bboxes, mask = scale_content(x.float(), bboxes, mask, k)
+                x = xs.to(model.dtype).clamp(0.0, 1.0)
             feats = model(x)
             total, items = detection_loss(feats, cls, bboxes, mask, nc=nc, strides=strides, box_gain=a.box,
                                           cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
@@ -359,6 +367,10 @@ class DetectionTrainer:
             if path.exists():
                 self.load_checkpoint(path)
                 start_epoch = self.epoch + 1
+        from ..utils.integrations import add_integration_callbacks
+
+        self.integrations = add_integration_callbacks(self)
+        run_callbacks(self.callbacks, "on_train_start", self)
         nb = len(self.train_loader)
         print(f"{self.model.yaml.get('yaml_file', 'model')}: {self.model.nc} classes, imgsz={a.imgsz}, "
               f"optimizer={self.optimizer_name}, batch={a.batch} on {self.device}")
@@ -369,6 +381,7 @@ class DetectionTrainer:
         budget_s = float(a.time) * 3600 if a.time else None
         for epoch in range(start_epoch, epochs):
             self.epoch = epoch
+            run_callbacks(self.callbacks, "on_train_epoch_start", self)
             self.train_loader.set_epoch(epoch)
             # >= so that a resume past the close point still closes mosaic
             if a.close_mosaic and not mosaic_closed and epoch >= epochs - a.close_mosaic:
@@ -385,6 +398,12 @@ class DetectionTrainer:
                 if batch is None:
                     break
                 losses.append(self.train_step(batch))
+                if a.plots and epoch == 0 and len(losses) <= 3:
+                    from ..utils.plotting import plot_images
+
+                    plot_images(batch["img"], batch["cls"], batch["bboxes"], batch["mask"],
+                                fname=str(self.save_dir / f"train_batch{len(losses) - 1}.jpg"), names=self.model.names)
+                run_callbacks(self.callbacks, "on_train_batch_end", self)
             mean_loss = torch.stack(losses).float().mean(0).cpu().numpy()  # waits for the epoch's last step
             dt = time.perf_counter() - t0
             print(("%11s" + "%11.4g" * 3 + "%11s   %.1f img/s") % (
@@ -410,9 +429,11 @@ class DetectionTrainer:
             self.save_checkpoint(self.wdir / "last.pt")
             if a.save_period and a.save_period > 0 and (epoch + 1) % int(a.save_period) == 0:
                 self.save_checkpoint(self.wdir / f"epoch{epoch}.pt")
+            run_callbacks(self.callbacks, "on_model_save", self)
             self.metrics_rows.append(row)
             self.epoch_stats.append(stats)
             self._write_csv()
+            run_callbacks(self.callbacks, "on_fit_epoch_end", self)
             stop = patience_left <= 0
             if budget_s is not None:
                 # stop once the budget is spent, or when the mean epoch says the next would overshoot it
@@ -423,6 +444,11 @@ class DetectionTrainer:
             if stop:
                 print(f"Stopping at epoch {epoch + 1}")
                 break
+        if a.plots:
+            from ..utils.plotting import plot_results
+
+            plot_results(str(self.save_dir / "results.csv"))
+        run_callbacks(self.callbacks, "on_train_end", self)
         return final
 
     def eval_model(self) -> DetectionModel:
@@ -446,12 +472,15 @@ class DetectionTrainer:
                 yield name, buf
 
     def validate(self) -> Dict[str, float]:
-        """Metrics of the EMA weights on the val loader."""
+        """Metrics of the EMA weights on the val loader, between on_val_start and on_val_end."""
+        run_callbacks(self.callbacks, "on_val_start", self)
         ev = self.eval_model()
         if self.validator is None:
-            self.validator = DetectionValidator(ev, self.val_loader, self.args)
+            self.validator = DetectionValidator(ev, self.val_loader, self.args, callbacks=self.callbacks, owner=self)
             self.validator.standalone = False
-        return self.validator()
+        out = self.validator()
+        run_callbacks(self.callbacks, "on_val_end", self)
+        return out
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: Path) -> None:

@@ -1,11 +1,15 @@
 """Detection validator: forward and NMS on the model's device, matching and AP on the host.
 
 Counterpart of the JAX package's engine/validator.py (_iter_val_batches and
-DetectionValidator, without sharding, callbacks, save_json or plots):
-letterboxed batches -> forward (eval mode) -> greedy NMS at conf 0.001,
-iou 0.7, `max_det`, multi-label when nc > 1 -> boxes clipped to each
-image's content region (ratio_pad) -> TP matching against the GT in
-letterboxed pixels over 10 IoU thresholds -> ap_per_class.
+DetectionValidator, without sharding): letterboxed batches -> forward (eval
+mode) -> greedy NMS at conf 0.001, iou 0.7, `max_det`, multi-label when
+nc > 1 -> boxes clipped to each image's content region (ratio_pad) -> TP
+matching against the GT in letterboxed pixels over 10 IoU thresholds ->
+ap_per_class. on_val_batch_start and on_val_batch_end fire around each
+batch on `callbacks`. With `plots`, the confusion matrix and the PR, P, R
+and F1 curves, and with `save_json` the kept detections (letterboxed
+pixels, one running image id per image) as predictions.json, go to
+<project or runs/detect>/<name or val>, as in the JAX package.
 
 `times` holds the seconds of the last call: waiting for the loader, the
 device part (forward, NMS and the copy of the detections to the host) and
@@ -15,21 +19,29 @@ the host part (matching and AP).
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops.boxes import xywh2xyxy
 from ..ops.nms import non_max_suppression
-from ..utils.metrics import DetMetrics, box_iou_np, match_predictions
+from pathlib import Path
+
+from ..utils.callbacks import run_callbacks
+from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions, plot_pr_curves
 
 
 class DetectionValidator:
-    def __init__(self, model, loader, args):
+    def __init__(self, model, loader, args, callbacks: Optional[Dict] = None, owner=None):
         self.model = model
         self.loader = loader
         self.args = args
+        self.callbacks = callbacks  # fire on_val_batch_start / _end on this bus
+        self.owner = owner  # what the events receive: the trainer, or this validator
+        self.confusion_matrix: Optional[ConfusionMatrix] = None  # with plots, per call
+        self.json_dets: Optional[list] = None  # with save_json, per call
+        self.image_id = 0
         self.conf = 0.001
         self.iou = 0.7
         self.metrics = DetMetrics(model.names)
@@ -48,7 +60,8 @@ class DetectionValidator:
         return dets.cpu().numpy()
 
     def update_metrics(self, dets: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
-        """Match one batch's detections to its GT and add them to the metrics."""
+        """Match one batch's detections to its GT and add them to the metrics
+        (and to the confusion matrix and the JSON records, where asked for)."""
         fh, fw = batch["img"].shape[1:3]
         frame = np.array([fw, fh, fw, fh], np.float32)  # GT scale: the letterboxed (maybe rect) frame
         for i in range(dets.shape[0]):
@@ -63,6 +76,11 @@ class DetectionValidator:
             gt_m = batch["mask"][i] > 0
             gt_cls = batch["cls"][i][gt_m].astype(int)
             gt_xyxy = xywh2xyxy(torch.from_numpy(batch["bboxes"][i][gt_m] * frame)).numpy()
+            if self.confusion_matrix is not None:
+                self.confusion_matrix.process_batch(det, gt_xyxy, gt_cls)
+            if self.json_dets is not None and len(det):
+                self.json_dets.append({"image_id": self.image_id, "boxes": det[:, :6]})
+            self.image_id += 1
             if len(det) == 0:
                 if len(gt_cls):
                     self.metrics.update(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
@@ -74,6 +92,11 @@ class DetectionValidator:
         self.model.eval()
         self.metrics = DetMetrics(self.model.names)
         self.seen = 0
+        plots, save_json = bool(self.args.plots), bool(self.args.save_json)
+        self.confusion_matrix = ConfusionMatrix(self.model.nc) if plots else None
+        self.json_dets = [] if save_json else None
+        self.image_id = 0
+        owner = self.owner if self.owner is not None else self
         times = {"loader": 0.0, "device": 0.0, "host": 0.0}
         it = iter(self.loader)
         while True:
@@ -83,18 +106,37 @@ class DetectionValidator:
             times["loader"] += t1 - t0
             if batch is None:
                 break
+            if self.callbacks is not None:
+                run_callbacks(self.callbacks, "on_val_batch_start", owner)
             self.seen += int(batch["img"].shape[0])
             dets = self.forward_nms(batch["img"])
             t2 = time.perf_counter()
             self.update_metrics(dets, batch)
             times["device"] += t2 - t1
             times["host"] += time.perf_counter() - t2
+            if self.callbacks is not None:
+                run_callbacks(self.callbacks, "on_val_batch_end", owner)
         t0 = time.perf_counter()
         out = self.metrics.compute()
         times["host"] += time.perf_counter() - t0
         self.times = times
         self.print_results(out)
+        self.json_path = None
+        if save_json and self.json_dets:
+            from ..utils.coco_json import detections_to_coco_json
+
+            self.json_path = detections_to_coco_json(self.json_dets, str(self.save_dir() / "predictions.json"))
+        if plots:
+            self.confusion_matrix.plot(str(self.save_dir() / "confusion_matrix.png"), self.model.names)
+            if self.metrics.result is not None:
+                plot_pr_curves(self.metrics.result, str(self.save_dir()), self.model.names)
         return out
+
+    def save_dir(self) -> Path:
+        """Where plots and predictions.json go: <project or runs/detect>/<name or val>."""
+        d = Path(self.args.project or "runs/detect") / (self.args.name or "val")
+        d.mkdir(parents=True, exist_ok=True)
+        return d
 
     def print_results(self, out: Dict[str, float]) -> None:
         """The reference's metrics table: the 'all' row, and a row per class

@@ -250,3 +250,28 @@ def device_augment(gen: torch.Generator, img: torch.Tensor, bboxes: torch.Tensor
     gains = (u(b, 3) * 2 - 1) * torch.stack([h["hsv_h"], h["hsv_s"], h["hsv_v"]]) + 1.0
     out = out._replace(img=hsv_device(out.img, gains))
     return flip_lr_device(out, u(b) < h["fliplr"])
+
+
+def scale_content(x: torch.Tensor, bboxes: torch.Tensor, mask: torch.Tensor, k: torch.Tensor):
+    """multi_scale of the JAX train step: the batch's content scaled by k
+    about the centre inside the fixed canvas, x (B, C, H, W) float32 resampled
+    as jax.image.scale_and_translate(scale k, translation (1 - k) H / 2,
+    method="linear", antialias=False) resamples (zero outside the input);
+    boxes (B, G, 4) normalised xywh scaled about the centre and clipped to the
+    canvas, masked (and zeroed) where the centre leaves it or a side falls to
+    1e-3 or under. Returns (x, bboxes, mask)."""
+    b, _, h, w = x.shape
+    kk = k.reshape(1).float()
+    t = (1 - kk) * h / 2
+    y0, y1, wy0, wy1 = _axis_weights(h, h, kk, t)
+    x0, x1, wx0, wx1 = _axis_weights(w, w, kk, t)
+    rows = x[:, :, y0[0]] * wy0[0][:, None] + x[:, :, y1[0]] * wy1[0][:, None]
+    out = rows[..., x0[0]] * wx0[0] + rows[..., x1[0]] * wx1[0]
+    ctr = (bboxes[..., :2] - 0.5) * k + 0.5
+    wh = bboxes[..., 2:4] * k
+    lt = (ctr - wh / 2).clamp(0.0, 1.0)
+    rb = (ctr + wh / 2).clamp(0.0, 1.0)
+    ctr, wh = (lt + rb) / 2, rb - lt
+    inside = ((ctr > 0.0) & (ctr < 1.0)).all(-1) & (wh > 1e-3).all(-1)
+    mask = mask * inside.to(mask.dtype)
+    return out, torch.cat([ctr, wh], -1) * mask[..., None], mask

@@ -1,8 +1,12 @@
 """Callback event bus of the port: a copy of the JAX package's utils/callbacks.py.
 
 Its 25 events (the reference's vocabulary); a callback is a plain callable
-that receives the object firing the event. Of these the port fires only
-the predictor's five (PREDICT_EVENTS) and the exporter's two (EXPORT_EVENTS)."""
+that receives the object firing the event. The port fires the events the
+JAX package fires, at the same points: the trainer's (pretrain routine start
+and end, train start, train epoch start, train batch end, model save, fit
+epoch end, train end, val start and end), the validator's val batch start
+and end, the predictor's five and the exporter's two. Neither package fires
+the six of NEVER_FIRED."""
 
 from __future__ import annotations
 
@@ -40,9 +44,8 @@ EVENTS = [
     "on_export_start",
     "on_export_end",
 ]
-# the events the port fires: its predictor's and its exporter's
-PREDICT_EVENTS = [e for e in EVENTS if e.startswith("on_predict")]
-EXPORT_EVENTS = [e for e in EVENTS if e.startswith("on_export")]
+NEVER_FIRED = ["on_train_batch_start", "optimizer_step", "on_before_zero_grad", "on_train_epoch_end",
+               "on_params_update", "teardown"]
 
 
 def default_callbacks() -> Dict[str, List[Callable]]:

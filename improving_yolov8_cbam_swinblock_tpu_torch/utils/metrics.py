@@ -1,12 +1,15 @@
 """Detection metrics: IoU matching over 10 thresholds, per-class AP (101-point
-interpolation), DetMetrics, Metric and ValMetrics (a copy of the JAX
-package's utils/metrics.py:16-156, 275-375, 459-547 and 703; numpy on the
-host, as there). Plots, the confusion matrix and the segment, pose and OBB
+interpolation), DetMetrics, Metric and ValMetrics, the confusion matrix and
+the PR, P, R and F1 curves (a copy of the JAX package's
+utils/metrics.py:16-275, 375-460, 459-547 and 703; numpy on the host, as
+there). matplotlib is imported where a figure is drawn, and a plot returns
+None (plot_pr_curves an empty list) without it. The segment, pose and OBB
 metrics are not in the port.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -107,6 +110,177 @@ def smooth(y: np.ndarray, f: float = 0.05) -> np.ndarray:
     p = np.ones(nf // 2)
     yp = np.concatenate((p * y[0], y, p * y[-1]), 0)
     return np.convolve(yp, np.ones(nf) / nf, mode="valid")
+
+
+class ConfusionMatrix:
+    """Detection confusion matrix (JAX utils/metrics.py:159): (nc + 1, nc + 1)
+    counts, rows the predicted class, columns the true one, the last row and
+    column the background (missed GT, unmatched detections)."""
+
+    def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45):
+        self.nc = nc
+        self.conf = conf
+        self.iou_thres = iou_thres
+        self.matrix = np.zeros((nc + 1, nc + 1), dtype=np.int64)
+
+    def process_batch(self, detections: np.ndarray, gt_bboxes: np.ndarray, gt_cls: np.ndarray):
+        """detections (n, 6) xyxy, conf, cls; gt_bboxes (m, 4) xyxy; gt_cls (m,)."""
+        gt_cls = np.asarray(gt_cls, int)
+        if detections is None or len(detections) == 0:
+            for gc in gt_cls:
+                self.matrix[self.nc, gc] += 1
+            return
+        detections = detections[detections[:, 4] > self.conf]
+        det_cls = detections[:, 5].astype(int)
+        if len(gt_cls) == 0:
+            for dc in det_cls:
+                self.matrix[dc, self.nc] += 1
+            return
+        iou = box_iou_np(gt_bboxes, detections[:, :4])
+        x = np.argwhere(iou > self.iou_thres)
+        if x.shape[0]:
+            matches = np.concatenate((x, iou[x[:, 0], x[:, 1]][:, None]), 1)
+            if x.shape[0] > 1:
+                matches = matches[matches[:, 2].argsort()[::-1]]
+                matches = matches[np.unique(matches[:, 1], return_index=True)[1]]
+                matches = matches[matches[:, 2].argsort()[::-1]]
+                matches = matches[np.unique(matches[:, 0], return_index=True)[1]]
+        else:
+            matches = np.zeros((0, 3))
+        n = matches.shape[0] > 0
+        m0, m1, _ = matches.transpose().astype(int)
+        for i, gc in enumerate(gt_cls):
+            j = m0 == i
+            if n and j.sum() == 1:
+                self.matrix[det_cls[m1[j]][0], gc] += 1  # matched: right or confused class
+            else:
+                self.matrix[self.nc, gc] += 1  # missed
+        for i, dc in enumerate(det_cls):
+            if not (n and (m1 == i).any()):
+                self.matrix[dc, self.nc] += 1  # unmatched detection
+
+    def plot(self, save_path: str, names: Dict[int, str] | None = None, normalize: bool = True):
+        """The matrix as an image (columns normalised with `normalize`); None without matplotlib."""
+        plt = _pyplot()
+        if plt is None:
+            return None
+        m = self.matrix.astype(np.float64)
+        if normalize:
+            m = m / np.maximum(m.sum(0, keepdims=True), 1e-9)
+        fig, ax = plt.subplots(figsize=(7, 6))
+        im = ax.imshow(m, cmap="Blues")
+        labels = [str((names or {}).get(i, i)) for i in range(self.nc)] + ["background"]
+        ax.set_xticks(range(self.nc + 1), labels, rotation=90, fontsize=7)
+        ax.set_yticks(range(self.nc + 1), labels, fontsize=7)
+        ax.set_xlabel("True")
+        ax.set_ylabel("Predicted")
+        fig.colorbar(im)
+        fig.tight_layout()
+        fig.savefig(save_path, dpi=120)
+        plt.close(fig)
+        return save_path
+
+
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend, or None where matplotlib does not import."""
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def plot_pr_curves(res: Dict, save_dir: str, names: Dict[int, str] | None = None) -> List[str]:
+    """PR_curve.png, P_curve.png, R_curve.png and F1_curve.png from
+    ap_per_class's curves (JAX utils/metrics.py:230); [] without matplotlib."""
+    plt = _pyplot()
+    if plt is None:
+        return []
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    x = np.linspace(0, 1, 1000)
+    out = []
+    curves = [
+        ("PR_curve.png", res["r_curve_x"], res["p_curve"], "Recall", "Precision"),
+        ("P_curve.png", x, res["p_conf_curve"], "Confidence", "Precision"),
+        ("R_curve.png", x, res["r_conf_curve"], "Confidence", "Recall"),
+        ("F1_curve.png", x, res["f1_curve"], "Confidence", "F1"),
+    ]
+    for fname, xs, ys, xl, yl in curves:
+        fig, ax = plt.subplots(figsize=(6, 4))
+        for ci, c in enumerate(res["unique_classes"]):
+            label = str((names or {}).get(int(c), int(c)))
+            ax.plot(xs if np.ndim(xs) == 1 else xs[ci], ys[ci], linewidth=1, label=label)
+        ax.plot(xs if np.ndim(xs) == 1 else np.asarray(xs).mean(0), np.asarray(ys).mean(0), "b-", linewidth=2,
+                label="all classes")
+        ax.set_xlabel(xl)
+        ax.set_ylabel(yl)
+        ax.set_xlim(0, 1)
+        ax.set_ylim(0, 1.02)
+        if len(res["unique_classes"]) <= 20:
+            ax.legend(fontsize=7)
+        fig.tight_layout()
+        p = save_dir / fname
+        fig.savefig(p, dpi=120)
+        plt.close(fig)
+        out.append(str(p))
+    return out
+
+
+def plot_pr_curve(px, py, ap, save_dir="pr_curve.png", names=None, on_plot=None):
+    """One PR figure, a line per class (JAX utils/metrics.py:405); None without matplotlib."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    names = names or {}
+    fig, ax = plt.subplots(1, 1, figsize=(9, 6), tight_layout=True)
+    py = np.stack(py, axis=1) if isinstance(py, list) else np.asarray(py)
+    if 0 < len(names) < 21:
+        for i, y in enumerate(py.T):
+            ax.plot(px, y, linewidth=1, label=f"{names.get(i, i)} {ap[i, 0]:.3f}")
+    else:
+        ax.plot(px, py, linewidth=1, color="grey")
+    ax.plot(px, py.mean(1), linewidth=3, color="blue", label=f"all classes {ap[:, 0].mean():.3f} mAP@0.5")
+    ax.set_xlabel("Recall")
+    ax.set_ylabel("Precision")
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
+    ax.legend(bbox_to_anchor=(1.04, 1), loc="upper left")
+    fig.savefig(save_dir, dpi=250)
+    plt.close(fig)
+    if on_plot:
+        on_plot(save_dir)
+    return save_dir
+
+
+def plot_mc_curve(px, py, save_dir="mc_curve.png", names=None, xlabel="Confidence", ylabel="Metric", on_plot=None):
+    """A metric against confidence (JAX utils/metrics.py:431); None without matplotlib."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    names = names or {}
+    fig, ax = plt.subplots(1, 1, figsize=(9, 6), tight_layout=True)
+    py = np.asarray(py)
+    if 0 < len(names) < 21:
+        for i, y in enumerate(py):
+            ax.plot(px, y, linewidth=1, label=f"{names.get(i, i)}")
+    else:
+        ax.plot(px, py.T, linewidth=1, color="grey")
+    y = smooth(py.mean(0), 0.05)
+    ax.plot(px, y, linewidth=3, color="blue", label=f"all classes {y.max():.2f} at {px[y.argmax()]:.3f}")
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
+    ax.legend(bbox_to_anchor=(1.04, 1), loc="upper left")
+    fig.savefig(save_dir, dpi=250)
+    plt.close(fig)
+    if on_plot:
+        on_plot(save_dir)
+    return save_dir
 
 
 class DetMetrics:

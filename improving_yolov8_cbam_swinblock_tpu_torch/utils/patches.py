@@ -176,12 +176,48 @@ def decode_png(buf: bytes) -> np.ndarray:
     return np.ascontiguousarray(rgb[..., ::-1])
 
 
+def _tiff_size(fh, head: bytes, path) -> Tuple[int, int, str]:
+    """Tags 256 (width) and 257 (height) of a TIFF's first image file directory."""
+    end = "<" if head[:2] == b"II" else ">"
+    fh.seek(struct.unpack(end + "I", head[4:8])[0])
+    (n,) = struct.unpack(end + "H", fh.read(2))
+    size = {}
+    for _ in range(n):
+        entry = fh.read(12)
+        if len(entry) < 12:
+            break
+        tag, kind = struct.unpack(end + "HH", entry[:4])
+        if tag in (256, 257):
+            size[tag] = struct.unpack(end + ("H" if kind == 3 else "I"), entry[8:10] if kind == 3 else entry[8:12])[0]
+    if len(size) < 2:
+        raise ValueError(f"TIFF without a width and a height: {path}")
+    return int(size[256]), int(size[257]), "tiff"
+
+
+def _webp_size(head: bytes, path) -> Tuple[int, int, str]:
+    """The canvas of a WebP's first chunk: VP8 (lossy), VP8L (lossless) or VP8X (extended)."""
+    kind = head[12:16]
+    if kind == b"VP8 " and head[23:26] == b"\x9d\x01\x2a":
+        w, h = struct.unpack("<HH", head[26:30])
+        return w & 0x3FFF, h & 0x3FFF, "webp"
+    if kind == b"VP8L" and head[20] == 0x2F:
+        (b,) = struct.unpack("<I", head[21:25])
+        return (b & 0x3FFF) + 1, ((b >> 14) & 0x3FFF) + 1, "webp"
+    if kind == b"VP8X":
+        return int.from_bytes(head[24:27], "little") + 1, int.from_bytes(head[27:30], "little") + 1, "webp"
+    raise ValueError(f"WebP without a VP8, VP8L or VP8X header: {path}")
+
+
 def image_size(path) -> Tuple[int, int, str]:
-    """(w, h, format) from the header of a PNG, JPEG or BMP file, without
-    decoding it; format is 'png', 'jpeg' or 'bmp'. Raises ValueError for
-    another format or a header that does not parse."""
+    """(w, h, format) from the header of a PNG, JPEG, BMP, TIFF or WebP file,
+    without decoding it; format is 'png', 'jpeg', 'bmp', 'tiff' or 'webp'.
+    Raises ValueError for another format or a header that does not parse."""
     with open(path, "rb") as fh:
         head = fh.read(32)
+        if head[:4] in (b"II*\x00", b"MM\x00*"):
+            return _tiff_size(fh, head, path)
+        if head[:4] == b"RIFF" and head[8:12] == b"WEBP" and len(head) >= 30:
+            return _webp_size(head, path)
         if head.startswith(PNG_SIGNATURE):
             if head[12:16] != b"IHDR":
                 raise ValueError(f"PNG without IHDR: {path}")
@@ -215,4 +251,4 @@ def image_size(path) -> Tuple[int, int, str]:
                     return int(w), int(h), "jpeg"
                 fh.seek(n - 2, 1)
             raise ValueError(f"JPEG without a frame header: {path}")
-    raise ValueError(f"not a PNG, JPEG or BMP file: {path}")
+    raise ValueError(f"not a PNG, JPEG, BMP, TIFF or WebP file: {path}")

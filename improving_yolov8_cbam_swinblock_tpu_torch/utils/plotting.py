@@ -1,7 +1,9 @@
-"""Drawing helpers of the predict path: the port's copy of the detection
-part of the JAX package's utils/plotting.py (Colors, the cv2 Annotator,
-save_one_box, feature_visualization). Drawing needs cv2, imported where it
-draws, so the package imports without it."""
+"""Drawing helpers: the port's copy of the detection part of the JAX
+package's utils/plotting.py (Colors, the cv2 Annotator, save_one_box,
+feature_visualization, plot_images, plot_labels, plot_results,
+output_to_target). cv2 is imported where an image is drawn and matplotlib
+where a figure is, so the package imports without either; plot_images,
+plot_labels and plot_results return None where theirs does not import."""
 
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ class Colors:
 
 
 colors = Colors()
+
+
+def color_for(idx: int):
+    return _PALETTE[int(idx) % len(_PALETTE)]
 
 
 class Annotator:
@@ -137,3 +143,107 @@ def feature_visualization(features, module_name: str, save_dir: str = ".", n: in
     out = str(Path(save_dir) / f"{module_name}_features.png")
     cv2.imwrite(out, (grid * 255).astype(np.uint8))
     return out
+
+
+def plot_images(images: np.ndarray, cls: np.ndarray, bboxes: np.ndarray, mask: np.ndarray,
+                fname: str = "train_batch.jpg", names: Optional[Dict] = None, max_images: int = 16) -> Optional[str]:
+    """A batch as a grid of its images with their boxes (JAX utils/plotting.py:215):
+    images (B, H, W, 3) uint8 RGB, cls (B, G), bboxes (B, G, 4) normalised
+    xywh, mask (B, G). None without cv2."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    b = min(len(images), max_images)
+    ns = int(np.ceil(b**0.5))
+    h, w = images.shape[1:3]
+    grid = np.full((ns * h, ns * w, 3), 255, np.uint8)
+    for i in range(b):
+        r, c = divmod(i, ns)
+        ann = Annotator(images[i][..., ::-1].copy(), names=names)  # RGB -> BGR for cv2
+        for j in range(bboxes.shape[1]):
+            if mask[i, j] > 0:
+                cx, cy, bw, bh = bboxes[i, j]
+                box = [(cx - bw / 2) * w, (cy - bh / 2) * h, (cx + bw / 2) * w, (cy + bh / 2) * h]
+                k = int(cls[i, j])
+                ann.box_label(box, (names or {}).get(k, str(k)), color_for(k))
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = ann.result()
+    cv2.imwrite(fname, grid)
+    return fname
+
+
+def plot_labels(cls: np.ndarray, boxes: np.ndarray, names: Optional[Dict] = None, save_dir: str = ".") -> Optional[str]:
+    """labels.jpg, the dataset's label statistics (JAX utils/plotting.py:244):
+    instances per class, box centres, box sizes. cls (N,), boxes (N, 4)
+    normalised xywh of every instance. None without matplotlib."""
+    from .metrics import _pyplot
+
+    plt = _pyplot()
+    if plt is None:
+        return None
+    cls = np.asarray(cls).astype(int).reshape(-1)
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+    fig, axes = plt.subplots(2, 2, figsize=(10, 8))
+    nc = int(cls.max()) + 1 if len(cls) else 1
+    axes[0, 0].hist(cls, bins=np.arange(nc + 1) - 0.5, rwidth=0.8)
+    axes[0, 0].set_title("instances per class")
+    if names:
+        axes[0, 0].set_xticks(range(nc))
+        axes[0, 0].set_xticklabels([str(names.get(i, i)) for i in range(nc)], rotation=90, fontsize=7)
+    axes[0, 1].hist2d(boxes[:, 0], 1 - boxes[:, 1], bins=50, range=[[0, 1], [0, 1]], cmap="Blues")
+    axes[0, 1].set_title("box centers (x, y)")
+    axes[1, 0].hist2d(boxes[:, 2], boxes[:, 3], bins=50, range=[[0, 1], [0, 1]], cmap="Blues")
+    axes[1, 0].set_title("box sizes (w, h)")
+    axes[1, 1].scatter(boxes[:, 2], boxes[:, 3], s=2, alpha=0.3)
+    axes[1, 1].set_title("w vs h")
+    fig.tight_layout()
+    out = str(Path(save_dir) / "labels.jpg")
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    return out
+
+
+def plot_results(csv_path: str, out: Optional[str] = None) -> Optional[str]:
+    """results.png, a curve per column of results.csv (JAX utils/plotting.py:304). None without matplotlib."""
+    import csv
+
+    from .metrics import _pyplot
+
+    plt = _pyplot()
+    if plt is None:
+        return None
+    with open(csv_path) as fh:
+        rows = list(csv.DictReader(fh))
+    if not rows:
+        return None
+    keys = [k for k in rows[0] if k not in ("epoch", "time_s")]
+    epochs = [int(float(r["epoch"])) for r in rows]
+    ncols = min(4, len(keys))
+    nrows = int(np.ceil(len(keys) / ncols))
+    fig, axes = plt.subplots(nrows, ncols, figsize=(4 * ncols, 3 * nrows), squeeze=False)
+    for i, k in enumerate(keys):
+        ax = axes[i // ncols][i % ncols]
+        ax.plot(epochs, [float(r[k]) if r[k] else float("nan") for r in rows], marker=".")
+        ax.set_title(k, fontsize=9)
+    fig.tight_layout()
+    out = out or str(Path(csv_path).with_name("results.png"))
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    return out
+
+
+def output_to_target(output, max_det: int = 300):
+    """NMS output (B, n, 6) xyxy, conf, cls -> (batch index, class, xywh, conf)
+    arrays of the kept detections (JAX utils/plotting.py:390)."""
+    bids, clss, boxes, confs = [], [], [], []
+    for i, o in enumerate(np.asarray(output)):
+        o = o[:max_det]
+        o = o[o[:, 4] > 0]
+        xyxy = o[:, :4]
+        bids.append(np.full(len(o), i))
+        clss.append(o[:, 5])
+        boxes.append(np.concatenate([(xyxy[:, :2] + xyxy[:, 2:4]) / 2, xyxy[:, 2:4] - xyxy[:, :2]], 1))
+        confs.append(o[:, 4])
+    if not bids:
+        return np.zeros(0), np.zeros(0), np.zeros((0, 4)), np.zeros(0)
+    return np.concatenate(bids), np.concatenate(clss), np.concatenate(boxes), np.concatenate(confs)

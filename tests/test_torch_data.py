@@ -130,7 +130,7 @@ def test_image_size_matches_pil(tmp_path):
         with Image.open(tmp_path / f) as im:
             assert image_size(tmp_path / f) == (*im.size, fmt)
     (tmp_path / "f.txt").write_text("not an image")
-    with pytest.raises(ValueError, match="not a PNG, JPEG or BMP"):
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF or WebP"):
         image_size(tmp_path / "f.txt")
 
 
@@ -204,7 +204,12 @@ def test_label_cache_matches_jax_and_reads_its_file(tmp_path, monkeypatch):
     assert payload["version"] == PU.CACHE_VERSION == JU.CACHE_VERSION
 
 
-def test_check_det_dataset_matches_jax(tmp_path):
+def test_check_det_dataset_matches_jax(tmp_path, monkeypatch):
+    from improving_yolov8_cbam_swinblock_tpu.utils.settings import SETTINGS as JAX_SETTINGS
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.settings import SETTINGS
+
+    for s in (JAX_SETTINGS, SETTINGS):  # each package's settings file holds its own datasets_dir
+        monkeypatch.setitem(s, "datasets_dir", str(tmp_path / "datasets"))
     (tmp_path / "cfg").mkdir()
     y = tmp_path / "cfg" / "data.yaml"
     y.write_text(yaml.safe_dump({"path": "..", "train": "images/train", "val": "images/val",
@@ -212,8 +217,8 @@ def test_check_det_dataset_matches_jax(tmp_path):
     assert PD.check_det_dataset(str(y)) == JD.check_det_dataset(str(y))
     d = {"path": str(tmp_path), "train": "images/train", "nc": 2}
     assert PD.check_det_dataset(d) == JD.check_det_dataset(d)
-    with pytest.raises(NotImplementedError, match="packaged dataset descriptors"):
-        PD.check_det_dataset("coco8.yaml")
+    got, ref = PD.check_det_dataset("coco8.yaml"), JD.check_det_dataset("coco8.yaml")
+    assert {k: v for k, v in got.items() if k != "yaml_file"} == {k: v for k, v in ref.items() if k != "yaml_file"}
 
 
 # ---------------------------------------------------------------------------
@@ -290,20 +295,11 @@ def test_loader_matches_jax(datasets, kind, mode):
     print(f"{kind} {mode}: {differ} of {total} pixel values differ ({differ / total:.2%})")
 
 
-def test_loader_raises_on_what_the_port_does_not_have(datasets):
-    img_dir = str(datasets["exact"] / "images" / "train")
-    ds = PD.YOLODataset(img_dir, imgsz=64, max_gt=8, nc=3)
-    with pytest.raises(NotImplementedError, match="host augmentation"):
-        PD.DataLoader(ds, 2, train=True, device_augment=False)
-    with pytest.raises(NotImplementedError, match="image cache"):
-        PD.YOLODataset(img_dir, imgsz=64, max_gt=8, nc=3, cache="ram")
-    assert HYP_KEYS == JAX_HYP_KEYS
-
-
 def test_port_loads_without_cv2_and_pil(tmp_path):
     """In a process where cv2 and PIL cannot be imported: the package
-    imports, the loader yields a train and a val batch from PNGs (the port's
-    own decoder), and a JPEG raises naming the file."""
+    imports, the loader yields a train batch (device path and host
+    augmentation stack) and a val batch from PNGs (the port's own decoder),
+    and a JPEG raises naming the file."""
     data = make_valparity_dataset(tmp_path / "d", nc=1, n=4, imgsz=64)
     cv2.imwrite(str(tmp_path / "photo.jpg"), np.zeros((16, 16, 3), np.uint8))
     code = f"""
@@ -316,16 +312,18 @@ from improving_yolov8_cbam_swinblock_tpu_torch.utils.patches import _decoder, im
 info = check_det_dataset({str(data)!r})
 ds = YOLODataset(info["val"], imgsz=64, max_gt=8, nc=1)
 tb = next(iter(DataLoader(ds, 2, train=True, workers=2)))
+hyp = {{"mixup": 1.0, "mosaic9": 0.5, "degrees": 10.0, "perspective": 1e-3, "pixel_augment": 1.0}}
+hb = next(iter(DataLoader(ds, 2, train=True, workers=2, device_augment=False, hyp=hyp)))
 vb = next(iter(DataLoader(ds, 2, train=False, workers=2)))
 try:
     imread({str(tmp_path / "photo.jpg")!r})
     raised = ""
 except RuntimeError as e:
     raised = str(e)
-print(_decoder(), tb["img"].shape, vb["img"].shape, int(vb["mask"].sum()) > 0, "photo.jpg" in raised,
-      sys.modules["cv2"], sys.modules["PIL"])
+print(_decoder(), tb["img"].shape, hb["img"].shape, "aug" in hb, vb["img"].shape, int(vb["mask"].sum()) > 0,
+      "photo.jpg" in raised, sys.modules["cv2"], sys.modules["PIL"])
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["png", "(2,", "64,", "64,", "3)", "(2,", "64,", "64,", "3)", "True", "True",
-                                  "None", "None"], out.stdout
+    assert out.stdout.split() == ["png", "(2,", "64,", "64,", "3)", "(2,", "64,", "64,", "3)", "False", "(2,", "64,",
+                                  "64,", "3)", "True", "True", "None", "None"], out.stdout

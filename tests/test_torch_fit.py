@@ -6,8 +6,9 @@ step per epoch), SGD, close_mosaic 1, validation every epoch. Checked: the
 run's files and results.csv, mosaic on in epoch 1 and off in epoch 2, a
 fresh trainer restoring epoch 1's checkpoint bit for bit and then training
 epoch 2 alone to the same weights bit for bit, YOLO(best.pt).val equal to
-the metrics recorded for that epoch, the warm start's matched and skipped
-counts with another nc, and the settings the port does not honour raising.
+the metrics recorded for that epoch, and the warm start's matched and
+skipped counts with another nc. TensorBoard is switched off in the port's
+settings here, as in test_torch_fit_host.py (its import costs seconds).
 The train step itself is held to JAX by test_torch_train.py.
 """
 
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionTrainer
+from improving_yolov8_cbam_swinblock_tpu_torch.utils import settings as PS
 from tests.synth_data import make_synth_dataset
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -45,6 +47,14 @@ def assert_same_bits(a, b, where=""):
             assert_same_bits(x, y, f"{where}/{i}")
     else:
         assert a == b, where
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_tensorboard():
+    old = PS.SETTINGS["tensorboard"]
+    PS.SETTINGS["tensorboard"] = False
+    yield
+    PS.SETTINGS["tensorboard"] = old
 
 
 @pytest.fixture(scope="module")
@@ -131,21 +141,6 @@ def test_warm_start_with_another_nc(fit, capsys):
     assert st["matched"] + st["skipped"] == n and st["skipped"] == 6  # the 3 levels' class conv weight and bias
     assert f"Transferred {st['matched']}/{n}" in capsys.readouterr().out
     assert y.model.nc == 3 and not (y.trainer.wdir / "best.pt").exists()  # no val: the final EMA is adopted
-
-
-@pytest.mark.parametrize("kw,match", [({"device_augment": False}, "host augmentation"),
-                                      ({"cache": "ram"}, "image cache"),
-                                      ({"plots": True}, "plots=True"),
-                                      ({"degrees": 10.0}, "device augmentation applies")])
-def test_settings_the_port_does_not_honour_raise(fit, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        YOLO(CFG, device="cpu").train(data=fit["data"], project=str(fit["root"] / "runs"), name="bad",
-                                      **{**FIT, **kw})
-
-
-def test_packaged_dataset_names_raise():
-    with pytest.raises(NotImplementedError, match="packaged dataset descriptors"):
-        YOLO(CFG, device="cpu").val(data="coco8.yaml")
 
 
 def test_val_runs_a_quantized_model(fit):

@@ -479,10 +479,11 @@ def test_predict_dir_from_ckpt_matches_jax(jax_files, source_dir, tmp_path):
         y.add_callback("on_nothing", print)
 
 
-@pytest.mark.parametrize("event", ["on_train_epoch_end", "on_val_end", "on_model_save"])
+@pytest.mark.parametrize("event", ["on_train_batch_start", "optimizer_step", "on_before_zero_grad",
+                                   "on_train_epoch_end", "on_params_update", "teardown"])
 def test_add_callback_refuses_events_never_fired(event):
-    """Only the predictor and the exporter fire events in the port: a trainer
-    or validator hook raises rather than being accepted and ignored."""
+    """Neither the port nor the JAX package fires these six events: a hook on
+    one raises rather than being accepted and ignored."""
     y = YOLO(CFG, device="cpu")
     with pytest.raises(NotImplementedError, match=event):
         y.add_callback(event, print)
