@@ -119,6 +119,24 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           train img/s with the loader per epoch; YOLO(best.pt) BN-folded and quantized on two batches of the
           train images, its YOLO.val (K4 2 launches per val batch) beside the
           float val of the same weights: both mAP50 and mAP50-95
+  families the other detect families: YOLO(name).predict of the slice
+          phase's frames at 640 px, bf16, BN-folded, seeded weights, for every
+          packaged graph that ends in Detect (yolov3, -spp, -tiny; yolov5n,
+          -p6; yolov6n; yolov8n, -p2, -p6, -ghost, -ghost-p2, -ghost-p6;
+          yolov9t, s, m, c, e; yolo12n): boxes inside the frames, no kernel
+          launched (these graphs hold no SwinBlock), and each raw Detect map
+          and decoded channel within 3e-2 of the fp32 unfused forward of the
+          same weights (TF32 off); yolov9c and yolo12s at full width: the
+          forward's ms at batch 32 (bf16, folded) with its device time by
+          kernel, 8 micro-steps as the train phase runs them (K2 once each)
+          and one micro-step with K2 vs the plain assigner in bf16 and fp32
+          (grads per graph row), micro-step ms; one micro-step each of
+          yolov8s-p2 and yolov8s-p6 (four anchor levels) with K2 and with
+          the plain assigner, and K2 alone at their grids (B=16, A=34,000
+          and 8,500, G=128, nc=1) against its plain version, timed, beside
+          its bound; YOLO("yolo12s.yaml").train for one epoch on the fit
+          phase's dataset (K2 per micro-step) and YOLO(best.pt).val, with
+          train and val img/s
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
           slice phase's frames in bf16 (K1 counted, 2 per batch) and its
@@ -160,7 +178,8 @@ and registers, K1 and K4 (whose wrappers now call PyTorch operators) with
 their device time (CUDA-graph replay) and host time per call, K3 with its
 workspace, K4 with its library's IMMA, HMMA and IDP4A counts, K2 with its
 device time, its candidate pairs, the dense
-bound beside its bound, and its registers, stack frame and spills), and last {"ok": true, "device": {...}}. Without CUDA
+bound beside its bound, its registers, stack frame and spills, and its rows at
+the families phase's four-level grids), and last {"ok": true, "device": {...}}. Without CUDA
 it prints no result and exits 2.
 
 --k2 PARENT_DIR times K2 alone at the train path's shape (B=16, A=8400,
@@ -326,6 +345,18 @@ INT8_PREDICT_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd": 0, "swin_block_in
 YOLO11_INT8_PROGRAM_BATCHES = (1, 8)
 # the profile_models phase: ProfileModels' rows (batch 1, 640 px) and the flagship's autobatch
 PROFILE_MODELS = ("yolov8s-cbam-swin.yaml", YOLO11)
+# the families phase: every packaged detect graph that ends in Detect, at scale n where the file has scales; the
+# two that run at full width (RepNCSPELAN4 and ADown; A2C2f's area attention); the P2 and P6 graphs, whose train
+# step hands K2 four anchor levels, and K2 alone at their grids (B=16, G=128, nc=1 at 640 px: A 34,000 and 8,500).
+# A graph without a SwinBlock launches no kernel to predict and K2 once per train micro-step.
+FAMILIES = ("yolov3.yaml", "yolov3-spp.yaml", "yolov3-tiny.yaml", "yolov5n.yaml", "yolov5n-p6.yaml", "yolov6n.yaml",
+            "yolov8n.yaml", "yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov8n-ghost.yaml", "yolov8n-ghost-p2.yaml",
+            "yolov8n-ghost-p6.yaml", "yolov9t.yaml", "yolov9s.yaml", "yolov9m.yaml", "yolov9c.yaml", "yolov9e.yaml",
+            "yolo12n.yaml")
+FAMILIES_FULL = ("yolov9c.yaml", "yolo12s.yaml")
+FAMILIES_LEVELS = (("yolov8s-p2.yaml", (4, 8, 16, 32)), ("yolov8s-p6.yaml", (8, 16, 32, 64)))
+FAMILY_PREDICT_LAUNCHES = dict.fromkeys(PREDICT_LAUNCHES, 0)
+FAMILY_STEP_LAUNCHES = {**FAMILY_PREDICT_LAUNCHES, "tal_assign": 1}
 
 
 def emit(obj) -> None:
@@ -525,15 +556,15 @@ def swin_params(c: int, rng, device, dtype):
     return p
 
 
-def tal_inputs(b, g, nc, imgsz, device, seed):
+def tal_inputs(b, g, nc, imgsz, device, seed, strides=(8, 16, 32)):
     """Assigner inputs at the shapes of the train path: sigmoid scores,
     predicted xyxy boxes and GTs in pixels over the anchors of an imgsz
-    image, 70 % of GT rows valid, plus a duplicated GT; and the anchor grid,
-    (h, w, stride) per level."""
+    image at the levels of `strides`, 70 % of GT rows valid, plus a
+    duplicated GT; and the anchor grid, (h, w, stride) per level."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.anchors import make_anchors
 
-    grid = [(imgsz // s, imgsz // s, s) for s in (8, 16, 32)]
-    anc, st = make_anchors([(h, w) for h, w, _ in grid], (8, 16, 32))
+    grid = [(imgsz // s, imgsz // s, s) for s in strides]
+    anc, st = make_anchors([(h, w) for h, w, _ in grid], strides)
     a = anc.shape[0]
     rng = np.random.default_rng(seed)
     scores = rng.random((b, a, nc)).astype(np.float32)
@@ -1359,9 +1390,10 @@ def micro_step(tr, step, batch, impl=None):
     and the assigner on `impl` (None: the kernels; "plain"), then the
     trainer put back as it was (parameters, BN statistics, step,
     augmentation draws). Returns the loss items and the Swin parameters'
-    grads."""
+    grads (every parameter's in a graph without a SwinBlock)."""
     assert (tr.step + 1) % tr.accumulate, "the micro-step would update the parameters"
     swins = swin_modules(tr.model)
+    layers = tuple(f"model.{m.i}." for m in swins) or ("model.",)
     snap = {k: v.clone() for k, v in tr.model.state_dict().items()}
     gen = tr.aug_gen.get_state()
     for m in swins:
@@ -1370,7 +1402,7 @@ def micro_step(tr, step, batch, impl=None):
     try:
         items = step(batch)
         grads = {n: p.grad.detach().float().clone() for n, p in tr.model.named_parameters()
-                 if n.startswith(tuple(f"model.{m.i}." for m in swins))}
+                 if n.startswith(layers) and p.grad is not None}
     finally:
         for m in swins:
             m.impl = None
@@ -1397,6 +1429,10 @@ def block_errs(got, ref) -> dict:
     return out
 
 
+def grads_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
 def compare_step(tr, step, batch, wrap):
     """(kernel run, plain run, whether the plain run launched no kernel)."""
     k = wrap(micro_step, tr, step, batch)
@@ -1412,13 +1448,15 @@ def phase_train(dev):
     return train_run(dev, {}, TRAIN_STEPS)
 
 
-def train_run(dev, overrides, steps):
+def train_run(dev, overrides, steps, expect=STEP_LAUNCHES):
     """train_run's checks on the trainer with TRAIN and `overrides` (the
     model; the flagship by default): `steps` micro-steps with the kernels'
-    launches counted per step (STEP_LAUNCHES each), the optimizer firing
+    launches counted per step (`expect` each), the optimizer firing
     every `accumulate` steps, finite losses; then one micro-step with the
     kernels vs with the plain versions, in bf16 and in fp32, from one state
-    and batch."""
+    and batch. A graph without a SwinBlock compares the grads of every
+    parameter, as one vector per graph row, its one kernel on the step
+    being K2."""
     from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
 
     tr = DetectionTrainer(overrides={**TRAIN, **overrides}).setup()
@@ -1437,7 +1475,7 @@ def train_run(dev, overrides, steps):
             fired.append(i + 1)
     seconds = time.perf_counter() - t0
     launches = counts()
-    ok = (acc == 4 and fired == list(range(acc, steps + 1, acc)) and all(d == STEP_LAUNCHES for d in per_step)
+    ok = (acc == 4 and fired == list(range(acc, steps + 1, acc)) and all(d == expect for d in per_step)
           and bool(np.isfinite(losses).all()) and tr.optimizer_name == "SGD")
 
     # the comparison: the bf16 trainer, and an fp32 one (amp off) in its state
@@ -1451,13 +1489,21 @@ def train_run(dev, overrides, steps):
     del tr32, step32
     fp32_grad, bf16_grad = block_errs(g32k, g32p), block_errs(g16k, g16p)
     bf16_vs_fp32 = {"kernel": block_errs(g16k, g32p), "plain": block_errs(g16p, g32p)}
+    n_swin = len(swin_modules(tr.model))
+    what = "swin" if n_swin else "row"  # grads held per SwinBlock, or per graph row in a graph without one
     cmp = {"fp32": {"loss_items_kernel": i32k.tolist(), "loss_items_plain": i32p.tolist(),
-                    "loss_items_rel_err": item_errs(i32k, i32p), "swin_grad_rel_l2": fp32_grad,
-                    "swin_grad_max_rel_err": {n: rel_err(g32k[n], g32p[n]) for n in g32p}},
+                    "loss_items_rel_err": item_errs(i32k, i32p), f"{what}_grad_rel_l2": fp32_grad,
+                    **({"swin_grad_max_rel_err": {n: rel_err(g32k[n], g32p[n]) for n in g32p}} if n_swin else {})},
            "bf16": {"loss_items_kernel": i16k.tolist(), "loss_items_plain": i16p.tolist(),
-                    "loss_items_rel_err": item_errs(i16k, i16p), "swin_grad_rel_l2": bf16_grad,
-                    "swin_grad_rel_l2_vs_fp32_plain": bf16_vs_fp32}}
-    cmp_ok = (quiet16 and quiet32 and len(g32p) == 24 and len(fp32_grad) == 2
+                    "loss_items_rel_err": item_errs(i16k, i16p), f"{what}_grad_rel_l2": bf16_grad,
+                    f"{what}_grad_rel_l2_vs_fp32_plain": bf16_vs_fp32}}
+    if not n_swin:  # the assigner is the step's one kernel: how far two plain bf16 runs differ, beside it
+        _, g16p2 = micro_step(tr, step, batches[-1], "plain")
+        cmp["bf16"].update(bitwise_equal_grads=grads_equal(g16k, g16p), plain_repeat_bitwise_equal=grads_equal(
+            g16p2, g16p), row_grad_rel_l2_plain_repeat=block_errs(g16p2, g16p))
+        cmp["fp32"]["bitwise_equal_grads"] = grads_equal(g32k, g32p)
+    n_grads = 12 * n_swin if n_swin else sum(1 for p in tr.model.parameters() if p.requires_grad)
+    cmp_ok = (quiet16 and quiet32 and len(g32p) == n_grads and (not n_swin or len(fp32_grad) == n_swin)
               and max(item_errs(i32k, i32p)) <= FP32_ITEM_RTOL and max(fp32_grad.values()) <= FP32_GRAD_RTOL
               and max(item_errs(i16k, i16p)) <= BF16_ITEM_RTOL
               and all(bf16_vs_fp32["kernel"][i] <= BF16_GRAD_SLACK * bf16_vs_fp32["plain"][i] for i in bf16_grad))
@@ -2093,6 +2139,162 @@ def phase_fit_host(dev, device_loader_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def family_predict(cfg, frames, dev):
+    """YOLO(cfg).predict of the slice phase's frames in bf16 (BN-folded, as
+    predict runs it), its launches counted; then its forward against the
+    fp32 unfused forward of the same seeded weights (TF32 off): each raw
+    Detect map and decoded channel within 3e-2 of the largest magnitude."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    fp32 = YOLO(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        out, maps = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
+        out32, maps32 = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
+    errs = {"detect_maps": [rel_err(a, b) for a, b in zip(maps, maps32)],
+            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(out.shape[1]))}
+    boxes_good = boxes_ok(results, 480, 640)
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and boxes_good and yolo.is_fused
+          and not fp32.is_fused and bool(torch.isfinite(out).all()) and len(maps) == len(yolo.model.strides)
+          and max(errs["detect_maps"] + [errs["decoded_channels_max"]]) <= 3e-2)
+    return ok, {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()),
+                "strides": list(yolo.model.strides), "launches": launches, "boxes_ok": bool(boxes_good),
+                "detections_per_frame": [len(r) for r in results], "predict_s_first_call": seconds,
+                "bf16_folded_vs_fp32_rel_err": errs, "ok": ok}, launches
+
+
+def k2_at(strides, dev):
+    """K2 alone at the train path's B=16, G=128, nc=1, 640 px, over the
+    anchor levels of `strides`: against the plain version, its time per
+    call by events and on the device alone (graph_ms), and its bound over
+    the candidate pairs."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
+
+    args, grid = tal_inputs(16, 4 * MAX_GT, 1, 640, dev, SEED + len(strides), strides)
+    before = tal_assign_cuda.launches
+    got = task_aligned_assign(*args, num_classes=1, grid=grid)
+    torch.cuda.synchronize()
+    one_launch = tal_assign_cuda.launches == before + 1
+    row = tal_compare(got, task_aligned_assign(*args, num_classes=1, impl="plain"))
+    bound_ms, bound_by = tal_bound(args, 1)
+    device_ms = graph_ms(lambda: task_aligned_assign(*args, num_classes=1, grid=grid))
+    return {"strides": list(strides), "b": 16, "a": args[0].shape[1], "g": 4 * MAX_GT, "nc": 1, **row,
+            "one_launch": one_launch, "ok": row["ok"] and one_launch, "fg_anchors": int(got.fg_mask.sum()),
+            "candidate_pairs": tal_candidate_pairs(args),
+            "ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1, grid=grid)), "device_ms": device_ms,
+            "plain_ms": cuda_ms(lambda: task_aligned_assign(*args, num_classes=1, impl="plain"), iters=5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "device_ms_over_bound": device_ms / bound_ms,
+            "dense_bound_ms": tal_bound(args, 1, dense=True)[0]}
+
+
+def levels_step(cfg, dev):
+    """A four-level graph (batch 16, 640 px, bf16 over fp32 masters): one
+    micro-step from the fresh state with K2 and with the plain assigner on
+    one batch (the loss items, the grads as one vector per graph row), then
+    one micro-step with its launches counted."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+
+    tr = DetectionTrainer(overrides={**TRAIN, "model": cfg}).setup()
+    step, _ = tr._make_train_step(nb=TRAIN_NB)
+    batch = train_batches(1, dev)[0]
+    (ik, gk), (ip, gp), quiet = compare_step(tr, step, batch, lambda f, *a: f(*a))
+    reset_counts()
+    items = step(batch)
+    torch.cuda.synchronize()
+    launches = counts()
+    grad = block_errs(gk, gp)
+    ok = (launches == FAMILY_STEP_LAUNCHES and bool(torch.isfinite(items).all()) and quiet
+          and max(item_errs(ik, ip)) <= BF16_ITEM_RTOL and len(tr.model.strides) == 4)
+    info = {"model": cfg, "strides": list(tr.model.strides), "launches": launches, "loss_items": items.tolist(),
+            "k2_vs_plain": {"loss_items_rel_err": item_errs(ik, ip), "row_grad_rel_l2_max": max(grad.values()),
+                            "bitwise_equal_grads": grads_equal(gk, gp)}, "ok": ok}
+    del tr, step
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def phase_families(dev):
+    """The other detect families (the module docstring's families phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    predict, path = [], []
+    for cfg in FAMILIES:
+        _, info, launches = family_predict(cfg, frames, dev)
+        predict.append(info)
+        path.append(launches)
+        torch.cuda.empty_cache()
+
+    full = {}
+    for cfg in FAMILIES_FULL:
+        yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+        xb = torch.rand(32, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+        xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+        profile = forward_profile(yolo.model, xb, fwd_ms, "flash", "fmha", "attention", key="attention_share")
+        del yolo, xb
+        train_ok, train_info, (tr, step), train_launches = train_run(dev, {"model": cfg}, TRAIN_STEPS,
+                                                                     FAMILY_STEP_LAUNCHES)
+        cycle = itertools.cycle(train_batches(4, dev))
+        step_ms = cuda_ms(lambda: step(next(cycle)), iters=8, warmup=4)
+        del tr, step
+        torch.cuda.empty_cache()
+        path.append(train_launches)
+        full[cfg] = {"ok": train_ok, "forward_ms_batch32": fwd_ms, "forward_img_per_s": 32e3 / fwd_ms,
+                     "forward_profile": profile, "train": train_info, "train_ms_per_step_batch16": step_ms,
+                     "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms}
+
+    levels, k2 = [], []
+    for cfg, strides in FAMILIES_LEVELS:
+        _, info, launches = levels_step(cfg, dev)
+        levels.append(info)
+        path.append(launches)
+        k2.append(k2_at(strides, dev))
+
+    # YOLO.train of yolo12s for one epoch on the fit phase's dataset, then YOLO(best.pt).val
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_families_"))
+    steps, vals = [], []
+    try:
+        data = write_fit_dataset(tmp / "data")
+        fy = YOLO("yolo12s.yaml", device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"), **{**FIT, "epochs": 1, "save_period": -1})
+            torch.cuda.synchronize()
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
+                          verbose=False)
+            val_s = time.perf_counter() - t0
+        e = fy.trainer.epoch_stats[0]
+        fit_ok = (len(steps) == 4 and all(st["launches"] == FAMILY_STEP_LAUNCHES for st in steps)
+                  and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals)
+                  and all(np.isfinite(list(metrics.values()))) and all(np.isfinite(list(vm.values()))))
+        fit = {"model": "yolo12s.yaml", "launches": fit_launches, "launches_per_step": steps,
+               "launches_per_val_batch": vals, "final_metrics": metrics, "val_best_pt": dict(vm),
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
+               "ok": fit_ok}
+        path.append(fit_launches)
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    ok = (all(r["ok"] for r in predict) and all(r["ok"] for r in full.values()) and all(r["ok"] for r in levels)
+          and all(r["ok"] for r in k2) and fit["ok"])
+    return ok, {"predict": predict, "full_width": full, "four_levels": levels, "k2_four_levels": k2, "fit": fit}, \
+        {"families": add_counts(*path)}, k2
+
+
 def phase_yolo11(dev):
     """The fork's YOLO11 graph at scale m (the module docstring's yolo11 phase)."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
@@ -2434,8 +2636,9 @@ def kernel_times(prof, steps):
     return total, top, share
 
 
-def forward_profile(model, x, forward_ms, swin_kernel):
-    """Device time by kernel over 3 forwards of model on x (torch.profiler)."""
+def forward_profile(model, x, forward_ms, *kernels, key="swin_share"):
+    """Device time by kernel over 3 forwards of model on x (torch.profiler),
+    with the share (under `key`) of the kernels whose names hold one of `kernels`."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -2449,7 +2652,7 @@ def forward_profile(model, x, forward_ms, swin_kernel):
     if total == 0:
         return None
     return {"kernel_us_per_forward": total, "device_busy_share": total / (1e3 * forward_ms),
-            "swin_share": share(swin_kernel),
+            key: share(*kernels),
             "top": [{"name": e.key[:90], "us_per_forward": e.device_time_total / 3, "calls": e.count // 3}
                     for e in top]}
 
@@ -2503,7 +2706,7 @@ def width_rows(rows):
             for r in rows]
 
 
-def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
+def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
     """Each kernel at the shapes its path hands it, vs its plain version,
     timed, beside its bound. No single PyTorch call computes any of the
     functions (the whole SwinBlock, its backward, its int8 form, the
@@ -2519,7 +2722,8 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
     paces once it takes longer than the card. K1, K3 and K4 also list their width cases from the
     kernel phase (`widths`: C 384 to 768), and their launches by path
     include the track phase's paths (track, embed, visualize) and the
-    YOLO11 and flagship-l phases, whose Swin blocks are 512 wide."""
+    YOLO11 and flagship-l phases, whose Swin blocks are 512 wide. K2 lists
+    its rows at the four-level grids of the families phase (`four_levels`)."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -2601,7 +2805,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "device_ms_over_bound": device_ms / bound_ms, "candidate_pairs": tal_candidate_pairs(args),
            "dense_bound_ms": tal_bound(args, 1, dense=True)[0],
-           "ptxas": build["ptxas"]["tal_assign"]}
+           "ptxas": build["ptxas"]["tal_assign"], "four_levels": list(k2_levels)}
     # K4: the int8 path at batch 8 hands it (8, 40, 40, 256) int8 in and out; K4v (sm16) runs on no path
     swin8 = swin_modules(int8_yolo.model)[0]
     p8, q = swin8.kernel_params(), {k: getattr(swin8, k) for k in swin8.QNAMES}
@@ -2883,6 +3087,7 @@ def main() -> int:
     (export_launches,) = run("export", phase_export, dev)
     fit_launches, fit_loader_ms = run("fit", phase_fit, dev)
     (fit_host_launches,) = run("fit_host", phase_fit_host, dev, fit_loader_ms)
+    families_launches, k2_levels = run("families", phase_families, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
@@ -2893,8 +3098,9 @@ def main() -> int:
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **yolo11_launches, **large_launches, **yolo11_int8_launches, **autobatch_launches},
-                           build, wide)
+                            **families_launches, **yolo11_launches, **large_launches, **yolo11_int8_launches,
+                            **autobatch_launches},
+                           build, wide, k2_levels)
     print(smi, flush=True)
     emit({"kernels": kernels})
     if failed:

@@ -96,7 +96,8 @@ class YOLO:
         self.model = DetectionModel(cfg, **self._build)
         if payload.get("fused"):
             self.model.fuse()
-            state = fused_state_from_jax({"params": payload["ema_params"], "fused": payload["fused"]})
+            state = fused_state_from_jax({"params": payload["ema_params"], "batch_stats": payload.get("ema_stats") or {},
+                                          "fused": payload["fused"]})
         else:
             state = ema_state(payload)
         self.model.load_state_dict(state, strict=True)

@@ -1,10 +1,13 @@
-"""Building blocks of the flagship and YOLO11 graphs as torch modules (NCHW, channels_last).
+"""Building blocks of the detect graphs as torch modules (NCHW, channels_last).
 
-Same math as the JAX package's nn/modules.py, with parameter names that
-follow the reference's torch state (`conv`/`bn`, `cv1`, `m.0`,
-`ca.shared_MLP.0`, `attn.in_proj_weight`, `mlp.0`, `cv2.0.2`, `attn.qkv`,
-`ffn.0`, `cv3.0.0.0`), so weights carry across by name. Input channels are explicit constructor arguments
-(the JAX modules infer them at init); parse_model supplies them.
+Same math as the JAX package's nn/modules.py and nn/modules_extra.py, with
+parameter names that follow the reference's torch state (`conv`/`bn`,
+`cv1`, `m.0`, `ca.shared_MLP.0`, `attn.in_proj_weight`, `mlp.0`,
+`cv2.0.2`, `attn.qkv`, `ffn.0`, `cv3.0.0.0`, `conv.0` of a ghost
+bottleneck, `conv1.bn` of a RepConv, `m.0.1.mlp.1` of an area-attention
+block), so weights carry across by name. Input channels are explicit
+constructor arguments (the JAX modules infer them at init); parse_model
+supplies them.
 
 Weights are cast to the activation's dtype where they are used, as flax
 casts its fp32 parameters to the module dtype: a model may hold fp32 master
@@ -67,11 +70,28 @@ def record_amax(calib: Dict[str, torch.Tensor], key: str, t: torch.Tensor) -> No
     calib[key] = torch.maximum(calib[key], amax) if key in calib else amax
 
 
+def autopad(k, p=None):
+    """'same' padding of a kernel k (int or (kh, kw)), unless p is given."""
+    if isinstance(k, (tuple, list)):
+        return tuple(autopad(x, p) for x in k)
+    return k // 2 if p is None else p
+
+
+def activate(y: torch.Tensor, act) -> torch.Tensor:
+    """SiLU for act=True, ReLU for "relu" (the YAML-level override of
+    yolov6), none for False: the JAX package's Conv activations."""
+    if act is True:
+        return F.silu(y)
+    return F.relu(y) if act == "relu" else y
+
+
 class Conv(nn.Module):
-    """Conv2d(bias=False, groups g) + BatchNorm(eps 1e-3) + SiLU (none with
+    """Conv2d(bias=False, groups g, padding p (default 'same'))
+    + BatchNorm(eps 1e-3) + SiLU (ReLU with act="relu", none with
     act=False). The BatchNorm runs in fp32 and its output is cast back to the
     compute dtype, as in the JAX package. After `fuse()` the BN is folded into
-    the conv's weight and bias.
+    the conv's weight and bias; a Conv with `folds` False (a RepConv branch,
+    which the JAX package's fuse_variables leaves unfolded) keeps it.
 
     Quantized (buffers w_int8 (O, I, kh, kw), w_scale (O,), x_scale ()), the
     eval forward of an ungrouped conv quantizes its input to x_scale, sums
@@ -83,11 +103,11 @@ class Conv(nn.Module):
     g == 1."""
 
     QNAMES = ("w_int8", "w_scale", "x_scale")
+    folds = True  # DetectionModel.fuse folds its BatchNorm
 
-    def __init__(self, c1: int, c2: int, k=1, s: int = 1, g: int = 1, act: bool = True):
+    def __init__(self, c1: int, c2: int, k=1, s: int = 1, g: int = 1, act=True, p=None):
         super().__init__()
-        pad = tuple(x // 2 for x in k) if isinstance(k, (tuple, list)) else k // 2  # k: int or (kh, kw)
-        self.conv = Conv2d(c1, c2, k, s, pad, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
         self.calib: Optional[Dict[str, torch.Tensor]] = None  # running input |max| during calibration
@@ -105,12 +125,16 @@ class Conv(nn.Module):
         if self.runs_int8 and not self.training:
             y = conv_int8(x, self.w_int8, self.w_scale, self.x_scale, self.conv.stride[0], self.conv.padding[0])
             y = self.bn(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
-            y = y.to(x.dtype)
-            return F.silu(y) if self.act else y
+            return activate(y.to(x.dtype), self.act)
         y = self.conv(x)
         if self.bn is not None:
-            y = (batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())).to(y.dtype)
-        return F.silu(y) if self.act else y
+            y = self.norm(y).to(y.dtype)
+        return activate(y, self.act)
+
+    def norm(self, y: torch.Tensor) -> torch.Tensor:
+        """The BatchNorm of the conv output y in fp32: batch statistics in
+        training (batch_norm_train), the running ones in eval."""
+        return batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())
 
     @torch.no_grad()
     def fuse(self):
@@ -130,8 +154,8 @@ class Conv(nn.Module):
 class DWConv(Conv):
     """Depth-wise Conv: groups gcd(c1, c2), which is c1 where c2 == c1."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
-        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2))
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
 
 
 class Bottleneck(nn.Module):
@@ -411,6 +435,329 @@ class C2PSA(nn.Module):
     def forward(self, x):
         a, b = self.cv1(x).split((self.c, self.c), 1)
         return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: k x k stride-1 max pools of one 1x1 branch,
+    each k on the same input (padding with -inf), concat, merge."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2)
+        self.k = tuple(k)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [F.max_pool2d(y, k, 1, k // 2) for k in self.k], 1))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (with its bias) that casts its weight and bias to
+    the input's dtype at use: yolov6's upsampling row. Its weight is laid out
+    (in, out, kh, kw) and flipped in space against the JAX package's
+    kernel (utils/jax_import.py)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: split, n bottlenecks on one half, concat
+    with the other, merge (yolov8-p6's head)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c)
+        self.cv2 = Conv(2 * self.c, c2)
+        self.m = nn.Sequential(*(Bottleneck(self.c, self.c, shortcut, e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, 1)
+        return self.cv2(torch.cat([self.m(a), b], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost conv: a primary Conv to half the channels, a 5x5 depth-wise
+    Conv of it, concatenated (both with SiLU, as the JAX package has it)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s)
+        self.cv2 = Conv(c_, c_, 5, 1, g=c_)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv to c2 / 2, a depth-wise k x k Conv
+    without activation at s=2, GhostConv to c2 (`conv.0` to `conv.2`), plus
+    the shortcut: the input at s=1 where c1 == c2, else a 1x1 Conv without
+    activation (`shortcut.1`) after, at s=2, a depth-wise one (`shortcut.0`).
+    The second GhostConv applies SiLU, as the JAX package's does."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(GhostConv(c1, c_, 1, 1),
+                                  DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+                                  GhostConv(c_, c2, 1, 1))
+        if s == 2 or c1 != c2:
+            self.shortcut = nn.Sequential(DWConv(c1, c1, k, s, act=False) if s == 2 else nn.Identity(),
+                                          Conv(c1, c2, 1, 1, act=False))
+        else:
+            self.shortcut = nn.Identity()
+
+    def forward(self, x):
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 whose n bottlenecks are GhostBottlenecks (their residual is their own)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut)
+        c_ = c2 // 2
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+class RepConv(nn.Module):
+    """The train-time RepVGG conv of YOLOv9: a k x k Conv (`conv1`) and a
+    1x1 Conv (`conv2`), both without activation, whose fp32 BatchNorm
+    outputs are summed, cast to the compute dtype, then SiLU. As the JAX
+    package's fuse_variables, DetectionModel.fuse leaves both branches
+    unfolded (`folds` False)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, g=g, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, g=g, act=False)
+        self.conv1.folds = self.conv2.folds = False
+        self.act = act
+
+    def forward(self, x):
+        y = self.conv1.norm(self.conv1.conv(x)) + self.conv2.norm(self.conv2.conv(x))
+        return activate(y.to(x.dtype), self.act)
+
+
+class RepBottleneck(Bottleneck):
+    """Bottleneck whose first conv is a RepConv."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, k=(3, 3), e: float = 0.5):
+        super().__init__(c1, c2, shortcut, k, e)
+        self.cv1 = RepConv(c1, int(c2 * e), k[0], 1)
+
+
+class RepCSP(C3):
+    """C3 whose n bottlenecks are RepBottlenecks: the RepNCSP of YOLOv9."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut)
+        c_ = c2 // 2
+        self.m = nn.Sequential(*(RepBottleneck(c_, c_, shortcut, e=1.0) for _ in range(n)))
+
+
+class RepNCSPELAN4(nn.Module):
+    """CSP-ELAN of YOLOv9: a 1x1 Conv to c3 split in two halves, then two
+    chained branches (RepCSP of n bottlenecks, 3x3 Conv; `cv2.0`, `cv2.1`
+    and `cv3.0`, `cv3.1`) on the second half, all four concatenated and merged."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c3)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), Conv(c4, c4, 3))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), Conv(c4, c4, 3))
+        self.cv4 = Conv(c3 + 2 * c4, c2)
+
+    def forward(self, x):
+        y = list(self.cv1(x).chunk(2, 1))
+        y.extend(m(y[-1]) for m in (self.cv2, self.cv3))
+        return self.cv4(torch.cat(y, 1))
+
+
+class ELAN1(nn.Module):
+    """The light ELAN of yolov9t: RepNCSPELAN4 with a 3x3 Conv for each branch."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c3)
+        self.cv2 = Conv(c3 // 2, c4, 3)
+        self.cv3 = Conv(c4, c4, 3)
+        self.cv4 = Conv(c3 + 2 * c4, c2)
+
+    def forward(self, x):
+        y = list(self.cv1(x).chunk(2, 1))
+        y.extend(m(y[-1]) for m in (self.cv2, self.cv3))
+        return self.cv4(torch.cat(y, 1))
+
+
+def avg_pool_same(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-1 mean with "SAME" padding, as the JAX package's
+    reduce_window: zeros past the bottom and right edges, every window / 4,
+    so the map keeps its size (the reference's avg_pool2d(x, 2, 1, 0) loses
+    a row and a column): two shifted sums of the padded map."""
+    xp = F.pad(x, (0, 1, 0, 1))
+    y = xp[..., :-1] + xp[..., 1:]
+    return (y[..., :-1, :] + y[..., 1:, :]) * 0.25
+
+
+class ADown(nn.Module):
+    """YOLOv9's downsample: the SAME-padded 2x2 mean, split in two halves; a
+    3x3 stride-2 Conv of one, a 3x3 stride-2 max pool then 1x1 Conv of the other."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        c = c2 // 2
+        self.cv1 = Conv(c1 // 2, c, 3, 2)
+        self.cv2 = Conv(c1 // 2, c, 1, 1)
+
+    def forward(self, x):
+        x1, x2 = avg_pool_same(x).chunk(2, 1)
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], 1)
+
+
+class AConv(nn.Module):
+    """YOLOv9's light downsample: the SAME-padded 2x2 mean, then a 3x3 stride-2 Conv."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2)
+
+    def forward(self, x):
+        return self.cv1(avg_pool_same(x))
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN of YOLOv9: a 1x1 Conv to c3, three chained k x k max pools, concat, merge (`cv5`)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.cv1 = Conv(c1, c3)
+        self.cv5 = Conv(4 * c3, c2)
+        self.k = k
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(F.max_pool2d(ys[-1], self.k, 1, self.k // 2))
+        return self.cv5(torch.cat(ys, 1))
+
+
+class CBLinear(nn.Module):
+    """A k x k conv with a bias whose output splits into the channel groups c2s (a tuple)."""
+
+    def __init__(self, c1: int, c2s: Sequence[int], k: int = 1, s: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = Conv2d(c1, sum(self.c2s), k, s, autopad(k), bias=True)
+
+    def forward(self, x):
+        return self.conv(x).split(self.c2s, 1)
+
+
+class CBFuse(nn.Module):
+    """The sum of the last input and, of each input before it, the group
+    idx[i] of a CBLinear's tuple resized to the last input's size as
+    jax.image.resize(method="nearest") resizes (half-pixel centres:
+    "nearest-exact"; the same as "nearest" where the size grows by an
+    integer factor)."""
+
+    def __init__(self, idx: Sequence[int]):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs):
+        out = xs[-1]
+        for i, x in enumerate(xs[:-1]):
+            sel = x[self.idx[i]]
+            if sel.shape[2:] != out.shape[2:]:
+                sel = F.interpolate(sel, size=out.shape[2:], mode="nearest-exact")
+            out = out + sel
+        return out
+
+
+class AAttn(nn.Module):
+    """Area attention of YOLO12: a 1x1 qkv Conv whose channels are per head
+    [q | k | v] (head dim hd = dim / heads); the flattened rows split into
+    `area` stripes of H*W / area tokens each attended on its own,
+    softmax(q k^T / sqrt(hd)) v with the scores and softmax in fp32
+    (scaled_dot_product_attention), plus a 7x7 depth-wise Conv of v; then
+    a 1x1 projection. No TPU kernel stands behind it: the JAX package leaves
+    it to XLA."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.area = area if area > 1 else 1
+        self.qkv = Conv(dim, 3 * dim, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        nh, hd = self.num_heads, c // self.num_heads
+        n = h * w
+        if n % self.area:
+            raise ValueError(f"area attention: {h}x{w} = {n} tokens do not split into {self.area} areas")
+        qkv = self.qkv(x).flatten(2).transpose(1, 2).reshape(b * self.area, n // self.area, nh, 3 * hd)
+        q, k, v = qkv.transpose(1, 2).split(hd, -1)  # (B * area, heads, tokens, hd) each
+        o = F.scaled_dot_product_attention(q, k, v)
+
+        def image(t):  # (B * area, heads, tokens, hd) -> (B, C, H, W), channels_last
+            return t.transpose(1, 2).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+        return self.proj(image(o) + self.pe(image(v)))
+
+
+class ABlock(nn.Module):
+    """Area attention and a 1x1 MLP (hidden dim * mlp_ratio, SiLU; then dim,
+    no activation; `mlp.0`, `mlp.1`), each with a residual."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1), Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's area-attention C2f: a 1x1 Conv to c_ = c2 * e, n stages, each
+    two ABlocks (heads of 32 channels; `m.i.0`, `m.i.1`) with a2, else a C3k
+    (`m.i`), all concatenated and merged. With a2 and residual, the output is
+    x + gamma * merged, gamma learnable (0.01 at init), computed in fp32
+    (the JAX package's fp32 gamma promotes it) and cast to the compute dtype."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, e: float = 0.5, shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_)
+        self.cv2 = Conv((1 + n) * c_, c2)
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+        nh = max(1, c_ // 32)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, nh, mlp_ratio, area) for _ in range(2))) if a2 else C3k(c_, c_, 2, shortcut)
+            for _ in range(n))
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.cv2(torch.cat(ys, 1))
+        if self.gamma is None:
+            return y
+        return (x.float() + self.gamma.view(1, -1, 1, 1) * y.float()).to(x.dtype)
 
 
 class Concat(nn.Module):

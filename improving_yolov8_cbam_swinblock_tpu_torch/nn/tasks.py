@@ -1,12 +1,19 @@
 """YAML graph compiler and the detection model of the PyTorch port.
 
 `yaml_model_load` resolves `yolov8s-cbam-swin.yaml` to the base file plus
-scale 's' (and `yolo11m-cbam-swin.yaml` to the YOLO11 graph at scale 'm');
-`parse_model` builds the rows of a detect graph into torch modules (each
+scale 's' (and `yolo11m-cbam-swin.yaml` to the YOLO11 graph at scale 'm',
+`yolov8n-ghost-p6.yaml` to the ghost P6 graph at 'n'); `parse_model` builds
+the rows of a detect graph that ends in `Detect` into torch modules (each
 with its row `.i`, its inputs `.f` and its YAML name `.type`) with the
-reference's channel bookkeeping (width and depth gains, make_divisible,
-pass-through channels for CBAM and SwinBlock) and derives each layer's
-stride from the graph instead of a probe forward. `DetectionModel` also
+reference's channel bookkeeping (width and depth gains or the legacy
+depth_multiple and width_multiple, make_divisible, pass-through channels
+for CBAM and SwinBlock), repeats a row of a module without its own depth as
+an nn.Sequential, applies a YAML-level ReLU `activation` to the Conv rows as
+the JAX package does, and derives each layer's stride from the graph
+instead of a probe forward. It builds the fork's graphs and YOLOv3, v5, v6,
+the v8 P2, P6 and ghost graphs, YOLOv9 and YOLO11/12; a row it does not know
+(YOLOv10's, the rows no packaged detect YAML uses) raises KeyError naming
+it. `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
 embeddings (`embed`) and every layer's feature maps (`features`), and
 `EnsembleModel` serves several detection models behind one NMS.
@@ -30,9 +37,43 @@ from . import modules as M
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
-# YAML module names this port builds with width-scaled output channels (plus
-# CBAM, SwinBlock, Concat, Upsample and Detect); any other name raises KeyError
-BASE_MODULES = ("Conv", "C2f", "C3k2", "SPPF", "C2PSA")
+def _arg(a: list, i: int, default):
+    return a[i] if len(a) > i else default
+
+
+def _conv_args(a: list) -> dict:
+    """A Conv row's [c2, k, s, p] (yolov5's stem gives p); the long form's g, d and act raise."""
+    if len(a) > 4:
+        raise KeyError(f"Conv rows with groups, dilation or an activation ({a}) are not built by the port")
+    kw = {"k": _arg(a, 1, 1), "s": _arg(a, 2, 1)}
+    return {**kw, "p": a[3]} if len(a) > 3 and a[3] is not None else kw
+
+
+# YAML rows whose output channels are width-scaled: name -> (module, its
+# keyword arguments past c1 and c2 from the row's args, whether the row's
+# repeat is the module's own depth n). A row of another module repeats as an
+# nn.Sequential. C3k2 and A2C2f, which also read the scale, have branches of
+# their own in parse_model; so do the routing, pooling and head rows. Any
+# other name raises KeyError.
+BASE_MODULES = {
+    "Conv": (M.Conv, _conv_args, False),
+    "Bottleneck": (M.Bottleneck, lambda a: {"shortcut": _arg(a, 1, True)}, False),
+    "C2f": (M.C2f, lambda a: {"shortcut": _arg(a, 1, False)}, True),
+    "C3": (M.C3, lambda a: {"shortcut": _arg(a, 1, True)}, True),
+    "C2": (M.C2, lambda a: {"shortcut": _arg(a, 1, True)}, True),
+    "C3Ghost": (M.C3Ghost, lambda a: {"shortcut": _arg(a, 1, True)}, True),
+    "C2PSA": (M.C2PSA, lambda a: {}, True),
+    "SPPF": (M.SPPF, lambda a: {"k": _arg(a, 1, 5)}, False),
+    "SPP": (M.SPP, lambda a: {"k": tuple(_arg(a, 1, (5, 9, 13)))}, False),
+    "GhostConv": (M.GhostConv, lambda a: {"k": _arg(a, 1, 1), "s": _arg(a, 2, 1)}, False),
+    "ELAN1": (M.ELAN1, lambda a: {"c3": a[1], "c4": a[2]}, False),
+    # its n is its args[3], not the row's repeat
+    "RepNCSPELAN4": (M.RepNCSPELAN4, lambda a: {"c3": a[1], "c4": a[2], "n": _arg(a, 3, 1)}, False),
+    "ADown": (M.ADown, lambda a: {}, False),
+    "AConv": (M.AConv, lambda a: {}, False),
+    "SPPELAN": (M.SPPELAN, lambda a: {"c3": a[1], "k": _arg(a, 2, 5)}, False),
+}
+DOWNSAMPLE_2 = ("ADown", "AConv")  # rows that halve the map without a stride argument
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -81,58 +122,95 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
         scale = scale or next(iter(scales))
         depth, width, max_channels = scales[scale]
 
-    chs, factors = [3], [1]  # per produced output: channels, spatial downsample
+    # a YAML-level activation (yolov6's `torch.nn.ReLU()`) covers the Conv rows only, as in the JAX package
+    act_str = str(d.get("activation") or "")
+    act_override = "relu" if "ReLU" in act_str and "SiLU" not in act_str else None
+
+    chs, factors = [3], [1]  # per produced output: channels (a tuple for CBLinear), spatial downsample
     layers, save = [], set()
-    legacy = True  # the Detect cls branch of YOLOv8; a C3k2 row makes it YOLO11's
+    legacy = True  # the Detect cls branch of YOLOv8; a C3k2 or A2C2f row makes it YOLO11's
     for i, (f, n, mname, args) in enumerate(list(d["backbone"]) + list(d["head"])):
         args = [nc if a == "nc" else _literal(a) for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
 
-        def in_ch(j):
-            return chs[j + 1] if j != -1 else chs[-1]
+        def in_ch(j):  # j: a row, or counted back from this one (yolov3's -2)
+            return chs[j % i + 1] if j != -1 else chs[-1]
 
         def in_factor(j):
-            return factors[j + 1] if j != -1 else factors[-1]
+            return factors[j % i + 1] if j != -1 else factors[-1]
 
         fac = in_factor(f if isinstance(f, int) else f[0])
-        if mname in BASE_MODULES:
-            c1, c2 = in_ch(f), args[0]
+        c1 = in_ch(f) if isinstance(f, int) else None
+        if mname in BASE_MODULES or mname in ("C3k2", "A2C2f"):
+            c2 = args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
-            if mname == "Conv":
-                k = args[1] if len(args) > 1 else 1
-                s = args[2] if len(args) > 2 else 1
-                fac *= s
-                m = M.Conv(c1, c2, k, s)
-            elif mname == "C2f":
-                m = M.C2f(c1, c2, n, shortcut=args[1] if len(args) > 1 else False)
-                n = 1
-            elif mname == "C3k2":  # [c2, c3k, e, shortcut]; scales m, l and x force c3k, as the reference
+            rep = 1  # a row of a module without its own depth repeats the module
+            if mname == "C3k2":  # [c2, c3k, e, shortcut]; scales m, l and x force c3k, as the reference
                 legacy = False
-                c3k = args[1] if len(args) > 1 else False
-                m = M.C3k2(c1, c2, n, c3k=True if scale in "mlx" else c3k, e=args[2] if len(args) > 2 else 0.5,
-                           shortcut=args[3] if len(args) > 3 else True)
-                n = 1
-            elif mname == "C2PSA":
-                m = M.C2PSA(c1, c2, n)
-                n = 1
+                cls, kw = M.C3k2, {"n": n, "c3k": True if scale in "mlx" else _arg(args, 1, False),
+                                   "e": _arg(args, 2, 0.5), "shortcut": _arg(args, 3, True)}
+            elif mname == "A2C2f":  # [c2, a2, area, residual, mlp_ratio]; scales l and x add the gamma residual
+                legacy = False
+                cls, kw = M.A2C2f, {"n": n, "a2": _arg(args, 1, True),
+                                    "area": args[2] if len(args) > 2 and args[2] is not None else 1}
+                if scale in "lx" and len(args) <= 3:
+                    kw.update(residual=True, mlp_ratio=1.2)
+                if len(args) > 3:
+                    kw["residual"] = args[3]
+                if len(args) > 4:
+                    kw["mlp_ratio"] = args[4]
             else:
-                m = M.SPPF(c1, c2, args[1] if len(args) > 1 else 5)
+                cls, kwargs_of, own_depth = BASE_MODULES[mname]
+                kw = kwargs_of(args)
+                if mname == "Conv" and act_override:
+                    kw["act"] = act_override
+                if own_depth:
+                    kw["n"] = n
+                else:
+                    rep = n
+                fac *= kw.get("s", 1) * (2 if mname in DOWNSAMPLE_2 else 1)
+            # repeats run in turn, the first taking c1 (the JAX package's model_<i>_<k> scopes)
+            m = cls(c1, c2, **kw) if rep == 1 else nn.Sequential(*(cls(c2 if k else c1, c2, **kw) for k in range(rep)))
+            n = 1
         elif mname == "CBAM":
-            c2 = in_ch(f)
+            c2 = c1
             m = M.CBAM(c2, channels=args[0] if args else None)
         elif mname == "SwinBlock":
-            c2 = in_ch(f)  # the YAML dim is advisory; the runtime channels rule
-            m = M.SwinBlock(c2, num_heads=args[1] if len(args) > 1 else 2,
-                            window_size=args[2] if len(args) > 2 else 7)
+            c2 = c1  # the YAML dim is advisory; the runtime channels rule
+            m = M.SwinBlock(c2, num_heads=_arg(args, 1, 2), window_size=_arg(args, 2, 7))
         elif mname == "Concat":
             c2 = sum(in_ch(j) for j in f)
             m = M.Concat()
         elif mname in ("nn.Upsample", "Upsample"):
-            c2 = in_ch(f)
-            scale_f = int(args[1]) if len(args) > 1 else 2
+            c2 = c1
+            scale_f = int(_arg(args, 1, 2))
             fac //= scale_f
             m = M.Upsample(scale_f)
+        elif mname == "nn.ConvTranspose2d":  # [c2, k, s, p]: a biased transposed conv, no BN, no activation
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            k, st = _arg(args, 1, 2), _arg(args, 2, 2)
+            fac //= st
+            m = M.ConvTranspose2d(c1, c2, k, st, _arg(args, 3, 0))
+        elif mname == "nn.MaxPool2d":  # [k, s, p]: torch pads with -inf, as the JAX package
+            c2 = c1
+            k, st = args[0], _arg(args, 1, args[0])
+            fac *= st
+            m = nn.MaxPool2d(k, st, _arg(args, 2, 0))
+        elif mname == "nn.ZeroPad2d":  # [[left, right, top, bottom]]
+            c2 = c1
+            m = nn.ZeroPad2d(tuple(args[0]))
+        elif mname == "nn.Identity":
+            c2 = c1
+            m = nn.Identity()
+        elif mname == "CBLinear":  # [[c2 of each group], k, s]: the groups are not width-scaled
+            c2 = tuple(args[0])
+            st = _arg(args, 2, 1)
+            fac *= st
+            m = M.CBLinear(c1, c2, _arg(args, 1, 1), st)
+        elif mname == "CBFuse":  # [[group of each input but the last]]
+            c2, fac = in_ch(f[-1]), in_factor(f[-1])
+            m = M.CBFuse(args[0])
         elif mname == "Detect":
             c2 = 0
             m = M.Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy)
@@ -163,14 +241,15 @@ def _literal(a):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init with the JAX package's schemes: conv kernels uniform with
-    variance 1/(3 fan_in), Swin attention projections xavier-uniform, Swin
-    MLP normal with variance 1/fan_in, zero biases, unit norms, and the
-    Detect bias priors."""
+    """Seeded init with the JAX package's schemes: conv and transposed-conv
+    kernels uniform with variance 1/(3 fan_in) (fan_in = in channels x kernel
+    area), Swin attention projections xavier-uniform, Swin MLP normal with
+    variance 1/fan_in, zero biases, unit norms, and the Detect bias priors."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            w = mod.weight
-            bound = math.sqrt(1.0 / (w[0].numel()))
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight  # (out, in / g, kh, kw), transposed (in, out / g, kh, kw)
+            fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else w.shape[0] * w[0, 0].numel()
+            bound = math.sqrt(1.0 / fan_in)
             w.uniform_(-bound, bound, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -196,11 +275,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 class DetectionModel(nn.Module):
     """A detect graph from its YAML, on `device` (None -> cuda), computing in `dtype`.
 
-    Conv and Swin weight matrices are held in `param_dtype` (default: `dtype`,
-    which is what inference wants); BatchNorm, LayerNorm and the Swin biases
-    stay fp32. Training holds fp32 masters (param_dtype=torch.float32) and
-    computes in `dtype`, every weight cast where it is used, as the JAX
-    package does. Activations are NCHW in channels_last memory. forward(x)
+    Conv (and transposed conv) and Swin weight matrices are held in
+    `param_dtype` (default: `dtype`, which is what inference wants);
+    BatchNorm, LayerNorm, the Swin biases and A2C2f's gamma stay fp32.
+    Training holds fp32 masters (param_dtype=torch.float32) and computes in
+    `dtype`, every weight cast where it is used, as the JAX package does. Activations are NCHW in channels_last memory. forward(x)
     takes (B, 3, H, W) in [0, 1] and returns the Detect head's ((B, 4 + nc,
     A), raw maps), or in training mode the raw maps. The model is built in
     eval mode."""
@@ -228,7 +307,7 @@ class DetectionModel(nn.Module):
 
     def _cast(self, dtype: torch.dtype) -> None:
         for mod in self.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
                 mod.to(dtype)
             elif isinstance(mod, M.SwinBlock):
                 for p in mod.parameters():
@@ -289,15 +368,17 @@ class DetectionModel(nn.Module):
                 if m.i in wanted and isinstance(out, torch.Tensor) and out.dim() == 4]
 
     def fuse(self) -> "DetectionModel":
-        """Fold every Conv's BatchNorm into its kernel for inference."""
+        """Fold every Conv's BatchNorm into its kernel for inference, as the
+        JAX package's fuse_variables folds its {conv, bn} pairs: a RepConv's
+        two branches keep theirs (Conv.folds)."""
         for mod in self.modules():
-            if isinstance(mod, M.Conv):
+            if isinstance(mod, M.Conv) and mod.folds:
                 mod.fuse()
         return self
 
     @property
     def is_fused(self) -> bool:
-        return not any(isinstance(m, M.Conv) and m.bn is not None for m in self.modules())
+        return not any(isinstance(m, M.Conv) and m.folds and m.bn is not None for m in self.modules())
 
     def predict_augment(self, x: torch.Tensor) -> torch.Tensor:
         """Three-scale and left-right flip test-time augmentation, as the JAX

@@ -21,6 +21,12 @@ records the inputs of its four products (`qkv_amax`, `out_amax`,
 `fc1_amax`, `fc2_amax`), its input (`xin_amax`) and its float output
 (`yout_amax`). Quantize a BN-folded model as the JAX package's bench and
 exporter do: fuse() first, since folding changes the weights afterwards.
+
+Only the rows of the fork's graphs and YOLO11 (QUANT_ROWS) are taken; a
+graph with any other row (YOLOv3 to v9, YOLO12) raises NotImplementedError
+naming it, before the calibration: the JAX package's int8 gate quantizes
+its Conv modules only, and RepConv, CBLinear and the transposed conv are
+raw convs there.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ import torch.nn.functional as F
 from .swin_int8 import QKEYS, QWEIGHTS, q8
 
 Calib = Dict[str, Dict[str, torch.Tensor]]
+# the YAML rows of the graphs quantize_model takes
+QUANT_ROWS = ("Conv", "C2f", "C3k2", "SPPF", "C2PSA", "CBAM", "SwinBlock", "Concat", "nn.Upsample", "Upsample",
+              "Detect")
 
 
 def int_mm(a: torch.Tensor, w: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
@@ -163,10 +172,15 @@ def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
     model in place; returns the model. YOLO.predict then serves it in int8.
     Both graphs are taken: YOLO11's grouped convs and Attention products
-    stay float (see the module docstring). Raises ValueError for a Conv
-    whose weights are not fp32, before it calibrates."""
+    stay float (see the module docstring). Raises NotImplementedError for a
+    row outside QUANT_ROWS and ValueError for a Conv whose weights are not
+    fp32, before it calibrates."""
     from ..nn.modules import Conv
 
+    for m in getattr(model, "model", ()):
+        if getattr(m, "type", None) not in QUANT_ROWS:
+            raise NotImplementedError(f"quantize_model: row {m.i} ({m.type}) is not quantized by the port yet; "
+                                      f"int8 takes the graphs built of {', '.join(QUANT_ROWS)}")
     for name, m in model.named_modules():
         if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
             _fp32_weight(f"{name}.conv.weight", m.conv.weight)

@@ -6,6 +6,8 @@ reference's torch state names it (the inverse of the JAX package's torch
 importer), with layout transforms:
 
   * conv kernels HWIO -> OIHW;
+  * transposed-conv kernels (kh, kw, in, out) -> (in, out, kh, kw), flipped
+    in space: flax's ConvTranspose does not flip its kernel, torch's does;
   * Dense kernels (in, out) -> Linear weights (out, in);
   * the SwinBlock packed in-projection (C, 3C) -> in_proj_weight (3C, C);
   * BatchNorm scale/bias and mean/var -> weight/bias and
@@ -14,7 +16,8 @@ importer), with layout transforms:
 A tree that holds a BN-folded `fused` collection is refused there;
 `fused_state_from_jax` maps such a tree (the JAX package's fuse_variables:
 folded kernels under `params`, their biases under `fused`, the unused BN
-leaves beside them) onto a fused port model without folding again.
+leaves beside them, and a RepConv's two branches unfolded, with their BN
+statistics) onto a fused port model without folding again.
 `jax_variables_from_state` is the way back: a port model's state as the
 JAX package's variables, which `.ckpt` files carry. `overlay_state` copies
 a source state onto a model by name and shape, as the JAX package's
@@ -37,24 +40,35 @@ from ..nn import modules as M
 from . import serialization
 
 
+# flax scopes named otherwise in the reference's state: CBAM's channel MLP,
+# a GhostBottleneck's branches, RepNCSPELAN4's two (RepCSP, Conv) branches
+# and a RepConv's two (conv, bn) branches, which the JAX package holds
+# without a scope of their own
+SCOPE_NAMES = {"fc1": "shared_MLP.0", "fc2": "shared_MLP.2",
+               "gc1": "conv.0", "dwmid": "conv.1", "gc2": "conv.2", "sc_dw": "shortcut.0", "sc_pw": "shortcut.1",
+               "cv2_csp": "cv2.0", "cv2_conv": "cv2.1", "cv3_csp": "cv3.0", "cv3_conv": "cv3.1",
+               "conv1_conv": "conv1.conv", "conv1_bn": "conv1.bn", "conv2_conv": "conv2.conv", "conv2_bn": "conv2.bn"}
+# flax scopes with no module of their own in the port: the JAX package's
+# DWConv wraps a Conv in `dw`, its C3k a C3 in `c3`, and its
+# nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`
+DROPPED_SCOPES = ("dw", "c3", "conv_transpose")
+
+
 def _module_tokens(mods: Tuple[str, ...]) -> list:
-    """flax module scopes -> the port's module path tokens. The JAX package's
-    DWConv wraps a Conv in a `dw` scope and its C3k a C3 in a `c3` scope;
-    the port's DWConv is a Conv and its C3k a C3, so both scopes drop."""
+    """flax module scopes -> the port's module path tokens."""
     toks = []
     for m in mods:
-        if m in ("dw", "c3"):
+        if m in DROPPED_SCOPES:
             continue
-        if m.startswith("model_"):
+        if m in SCOPE_NAMES:
+            toks.append(SCOPE_NAMES[m])
+        elif m.startswith("model_"):  # a row, or a repeat of it (model_10_3)
             toks.append("model." + ".".join(m.split("_")[1:]))
-        elif m.startswith(("cv2_", "cv3_", "m_", "ffn_")):  # Detect per-level stacks, C2f bottlenecks, PSA FFN
-            toks.append(".".join(m.split("_")))
         elif m.startswith("mlp_fc"):  # Swin MLP: fc1 -> mlp.0, fc2 -> mlp.2
             toks.append("mlp.0" if m.endswith("1") else "mlp.2")
-        elif m == "fc1":  # CBAM channel-attention MLP
-            toks.append("shared_MLP.0")
-        elif m == "fc2":
-            toks.append("shared_MLP.2")
+        elif m.startswith(("cv2_", "cv3_", "m_", "ffn_", "mlp_")):
+            # Detect per-level stacks, bottlenecks (m_0, RepCSP's m_0_cv1, A2C2f's m_0_1), PSA and ABlock MLPs
+            toks.append(".".join(m.split("_")))
         else:
             toks.append(m)
     return toks
@@ -71,15 +85,17 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
         return (f"{prefix}.in_proj_weight", "linear_t") if leaf == "kernel" else (f"{prefix}.in_proj_bias", "none")
     base = ".".join(toks)
     if leaf == "kernel":
-        return f"{base}.weight", "kernel"
+        return f"{base}.weight", "kernel_t" if mods[-1] == "conv_transpose" else "kernel"
     if leaf == "scale":
         return f"{base}.weight", "none"
-    if leaf == "bias":
-        return f"{base}.bias", "none"
+    if leaf in ("bias", "gamma"):  # gamma: A2C2f's residual scale
+        return f"{base}.{leaf}", "none"
     raise KeyError(f"unmapped flax leaf {'/'.join(path)} ({collection})")
 
 
 def _transform(arr: np.ndarray, tag: str) -> np.ndarray:
+    if tag == "kernel_t":
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)  # (kh, kw, in, out) flipped -> (in, out, kh, kw)
     if tag in ("kernel", "linear_t") and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if tag in ("kernel", "linear_t") and arr.ndim == 2:
@@ -134,12 +150,18 @@ def fused_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     if not fused:
         raise ValueError("variables hold no 'fused' collection: use state_dict_from_jax")
     folded = {path[:-1] for path, _ in _leaves(fused)}  # the scopes of the folded Conv blocks
+
+    def unfolded(path):  # a leaf of no folded Conv's BatchNorm (RepConv's branches keep theirs)
+        return not (len(path) > 2 and path[-2] == "bn" and path[:-2] in folded)
+
     state: Dict[str, torch.Tensor] = {}
-    for path, arr in _leaves(variables["params"]):
-        if len(path) > 2 and path[-2] == "bn" and path[:-2] in folded:
-            continue
-        name, tag = _torch_name(path, "params")
-        state[name] = _tensor(arr, tag)
+    for collection in ("params", "batch_stats"):
+        for path, arr in _leaves(variables.get(collection) or {}):
+            if unfolded(path):
+                name, tag = _torch_name(path, collection)
+                state[name] = _tensor(arr, tag)
+                if name.endswith(".running_mean"):
+                    state[name[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     for path, arr in _leaves(fused):
         if path[-1] != "bias":
             raise KeyError(f"unmapped leaf of the fused collection: {'/'.join(path)}")
@@ -149,30 +171,43 @@ def fused_state_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     """Each module path of a port model -> the flax scope of its JAX twin:
-    numbered containers join their indices to their name (cv2.0.1 ->
-    cv2_0_1, m.0 -> m_0, model.7 -> model_7), the Swin MLP's 0 and 2 are
-    mlp_fc1 and mlp_fc2, CBAM's shared_MLP.0 and .2 are fc1 and fc2, and a
-    DWConv and a C3k open the `dw` and `c3` scopes the JAX package wraps them in."""
+    numbered containers (and a RepBottleneck, and a RepConv's two Convs)
+    join their indices or names to their name (cv2.0.1 -> cv2_0_1, m.0 ->
+    m_0, model.7 -> model_7, a repeated row's model.10.3 -> model_10_3,
+    m.0.cv1 of a RepCSP -> m_0_cv1, conv1.bn -> conv1_bn), the children
+    renamed in SCOPE_NAMES and the Swin MLP's 0 and 2 (mlp_fc1, mlp_fc2)
+    take their JAX names, and a DWConv and a C3k open the `dw` and `c3`
+    scopes the JAX package wraps them in."""
     scopes: Dict[str, Tuple[str, ...]] = {"": ()}
-    renamed = {(M.SwinBlock, "mlp"): {"0": "mlp_fc1", "2": "mlp_fc2"},
-               (M.ChannelAttention, "shared_MLP"): {"0": "fc1", "2": "fc2"}}
+    inverse = {v: k for k, v in SCOPE_NAMES.items()}
+
+    def renamed(mod: nn.Module, name: str, child: nn.Module):
+        """{index: flax scope} for a container whose children the JAX package names otherwise."""
+        if isinstance(mod, M.SwinBlock) and name == "mlp":
+            return {"0": "mlp_fc1", "2": "mlp_fc2"}
+        if isinstance(child, nn.Sequential) and isinstance(mod, (M.ChannelAttention, M.GhostBottleneck,
+                                                                  M.RepNCSPELAN4)):
+            return {idx: inverse[f"{name}.{idx}"] for idx, _ in child.named_children() if f"{name}.{idx}" in inverse}
+        return None
+
+    def enter(child: nn.Module, cpath: str, cscope: Tuple[str, ...]):
+        cscope += (("dw",) if isinstance(child, M.DWConv) else ()) + (("c3",) if isinstance(child, M.C3k) else ())
+        scopes[cpath] = cscope
+        walk(child, cpath, cscope, None)
 
     def walk(mod: nn.Module, path: str, scope: Tuple[str, ...], group):
         for name, child in mod.named_children():
             cpath = f"{path}.{name}" if path else name
             token = f"{group}_{name}" if group else name
-            rename = next((v for (cls, attr), v in renamed.items() if isinstance(mod, cls) and attr == name), None)
+            rename = renamed(mod, name, child)
             if rename is not None:
                 for idx, sub in child.named_children():
                     if idx in rename:
-                        scopes[f"{cpath}.{idx}"] = scope + (rename[idx],)
-            elif type(child) in (nn.ModuleList, nn.Sequential):
+                        enter(sub, f"{cpath}.{idx}", scope + (rename[idx],))
+            elif type(child) in (nn.ModuleList, nn.Sequential, M.RepBottleneck) or isinstance(mod, M.RepConv):
                 walk(child, cpath, scope, token)
             else:
-                cscope = scope + (token,) + (("dw",) if isinstance(child, M.DWConv) else ()) + \
-                    (("c3",) if isinstance(child, M.C3k) else ())
-                scopes[cpath] = cscope
-                walk(child, cpath, cscope, None)
+                enter(child, cpath, scope + (token,))
 
     walk(model, "", (), None)
     return scopes
@@ -185,6 +220,10 @@ def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
         if attr == "bias" and isinstance(parent, M.Conv):
             return "fused", (), "bias"
         return "params", (), {"weight": "kernel", "bias": "bias"}[attr]
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "params", ("conv_transpose",), {"weight": "kernel", "bias": "bias"}[attr]
+    if isinstance(mod, M.A2C2f) and attr == "gamma":
+        return "params", (), "gamma"
     if isinstance(mod, nn.BatchNorm2d):
         return {"weight": ("params", (), "scale"), "bias": ("params", (), "bias"),
                 "running_mean": ("batch_stats", (), "mean"), "running_var": ("batch_stats", (), "var")}[attr]
@@ -223,7 +262,9 @@ def jax_variables_from_state(model: nn.Module) -> Dict[str, dict]:
             if back != name:
                 raise KeyError(f"{name} maps to {'/'.join(path)}, which maps back to {back}")
         arr = t.detach().float().cpu().numpy()
-        if tag in ("kernel", "linear_t"):
+        if tag == "kernel_t":
+            arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif tag in ("kernel", "linear_t"):
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = out.setdefault(coll, {})
         for key in path[:-1]:

@@ -161,18 +161,18 @@ def to_device(args, device):
     return tuple(torch.tensor(v, device=device) for v in args)
 
 
-def tal_grid(imgsz):
+def tal_grid(imgsz, strides=(8, 16, 32)):
     """The anchor points (A, 2) in pixels and the grid (h, w, stride) per level."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.anchors import make_anchors
 
     h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
-    grid = [(h // s, w // s, s) for s in (8, 16, 32)]
-    anc, st = make_anchors([(gh, gw) for gh, gw, _ in grid], (8, 16, 32))
+    grid = [(h // s, w // s, s) for s in strides]
+    anc, st = make_anchors([(gh, gw) for gh, gw, _ in grid], strides)
     return (anc * st).numpy(), grid
 
 
-def tal_numpy(b, g, nc, imgsz, seed):
-    anc, grid = tal_grid(imgsz)
+def tal_numpy(b, g, nc, imgsz, seed, strides=(8, 16, 32)):
+    anc, grid = tal_grid(imgsz, strides)
     h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
     size = np.array([w, h], np.float64)
     a = anc.shape[0]
@@ -253,9 +253,11 @@ def tal_edge_case(name):
 
 
 TAL_CASES = [
-    # (b, g, nc, imgsz, topk): the train path, G = 4 * max_gt after mosaic
+    # (b, g, nc, imgsz, topk[, strides]): the train path, G = 4 * max_gt after mosaic
     (16, 128, 1, 640, 10), (4, 32, 80, 640, 10), (3, 12, 3, 128, 10), (2, 1200, 1, 320, 10),
     (2, 1, 1, 128, 10), (3, 12, 3, 128, 1), (3, 40, 80, 256, 16), (2, 16, 2, (480, 640), 10),
+    # the four-level grids of the P2 graphs (A = 34,000 at 640 px) and the P6 graphs (A = 8,500)
+    (16, 128, 1, 640, 10, (4, 8, 16, 32)), (16, 128, 1, 640, 10, (8, 16, 32, 64)),
     "edges", "image", "degenerate", "zero_fill", "zero_multi",
 ]
 
@@ -265,8 +267,8 @@ def tal_case(case):
     if isinstance(case, str):
         args, grid, topk = tal_edge_case(case)
         return args, grid, args[0].shape[2], topk
-    b, g, nc, imgsz, topk = case
-    args, grid = tal_numpy(b, g, nc, imgsz, seed=g)
+    b, g, nc, imgsz, topk, *levels = case
+    args, grid = tal_numpy(b, g, nc, imgsz, seed=g, strides=levels[0] if levels else (8, 16, 32))
     return args, grid, nc, topk
 
 
