@@ -16,7 +16,8 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           padded (4, 20, 20, 256); both also at (2, 21, 21, 64) with heads of
           32 and (4, 20, 20, 128) with 4 heads, which exercise the padded
           tensor-core tiles; K2 tal_assign at B=16, A=8400 with G=128,
-          nc=1 and with G=32, nc=80, one launch a call, timed by events
+          nc=1 and with G=32, nc=80, and at topk 1 (G=128, nc=1: YOLOv10's
+          one-to-one loss) with its launch config, one launch a call, timed by events
           (host work included) and on the device alone (a CUDA graph); K4 swin_block_int8 at (8, 40, 40, 256)
           and (32, 40, 40, 256), bf16, with int8 I/O (in8, out8), with bf16
           I/O and with the bf16 softmax (sm16, K4v); each K1, K3 and K4 case
@@ -137,6 +138,19 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           its bound; YOLO("yolo12s.yaml").train for one epoch on the fit
           phase's dataset (K2 per micro-step) and YOLO(best.pt).val, with
           train and val img/s
+  v10     YOLOv10: YOLO(name).predict of the slice phase's frames at 640
+          px, bf16, BN-folded, seeded weights, for yolov10n, s, m, b, l and
+          x: no kernel launched, the (8, 300, 6) NMS-free detections' boxes
+          inside the frames, each raw map of both branches, the one-to-one
+          decode's channels and the sorted scores within 3e-2 of the fp32
+          unfused forward; yolov10s at full width: the forward's ms at batch
+          32 with its device time by kernel, a .pt2 program asked for with
+          nms=True (dropped: the sidecar says end2end) served by Backend
+          bit for bit with the live model, 8 micro-steps as the train phase
+          runs them with K2 launched twice each (topk 10 and 1) and one
+          micro-step against the plain assigner in bf16 and fp32, micro-step
+          ms; YOLO("yolov10s.yaml").train for one epoch on the fit phase's
+          dataset (K2 twice per micro-step) and YOLO(best.pt).val
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
           slice phase's frames in bf16 (K1 counted, 2 per batch) and its
@@ -178,8 +192,8 @@ and registers, K1 and K4 (whose wrappers now call PyTorch operators) with
 their device time (CUDA-graph replay) and host time per call, K3 with its
 workspace, K4 with its library's IMMA, HMMA and IDP4A counts, K2 with its
 device time, its candidate pairs, the dense
-bound beside its bound, its registers, stack frame and spills, and its rows at
-the families phase's four-level grids), and last {"ok": true, "device": {...}}. Without CUDA
+bound beside its bound, its registers, stack frame and spills, its rows at
+the families phase's four-level grids and at topk 1), and last {"ok": true, "device": {...}}. Without CUDA
 it prints no result and exits 2.
 
 --k2 PARENT_DIR times K2 alone at the train path's shape (B=16, A=8400,
@@ -357,6 +371,10 @@ FAMILIES_FULL = ("yolov9c.yaml", "yolo12s.yaml")
 FAMILIES_LEVELS = (("yolov8s-p2.yaml", (4, 8, 16, 32)), ("yolov8s-p6.yaml", (8, 16, 32, 64)))
 FAMILY_PREDICT_LAUNCHES = dict.fromkeys(PREDICT_LAUNCHES, 0)
 FAMILY_STEP_LAUNCHES = {**FAMILY_PREDICT_LAUNCHES, "tal_assign": 1}
+V10 = ("yolov10n.yaml", "yolov10s.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolov10l.yaml", "yolov10x.yaml")
+V10_FULL = "yolov10s.yaml"
+V10_STEP_LAUNCHES = {**FAMILY_PREDICT_LAUNCHES, "tal_assign": 2}  # one-to-many at topk 10, one-to-one at topk 1
+V10_RTOL = 3e-2  # bf16 folded against fp32 unfused, of the largest magnitude (the families phase's)
 
 
 def emit(obj) -> None:
@@ -794,31 +812,32 @@ def tal_compare(got, ref) -> dict:
 
 
 def tal_cases(dev):
-    """K2 vs the plain assigner at the train path's shapes (640 px: A=8400),
-    in one launch per call: its time per call by events over back-to-back
+    """K2 vs the plain assigner at the train path's shapes (640 px: A=8400;
+    topk 10, and topk 1 as YOLOv10's one-to-one loss hands it), in one
+    launch per call: its time per call by events over back-to-back
     calls (host work included) and on the device alone (graph_ms), beside
     the bound over the candidate pairs and the dense bound."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import launch_config, tal_assign_cuda
     from improving_yolov8_cbam_swinblock_tpu_torch.utils.tal import task_aligned_assign
 
     rows, ok = [], True
-    for b, g, nc in ((16, 4 * MAX_GT, 1), (16, MAX_GT, 80)):
+    for b, g, nc, k in ((16, 4 * MAX_GT, 1, 10), (16, MAX_GT, 80, 10), (16, 4 * MAX_GT, 1, 1)):
         args, grid = tal_inputs(b, g, nc, 640, dev, SEED + g)
         before = tal_assign_cuda.launches
-        got = task_aligned_assign(*args, topk=10, num_classes=nc, grid=grid)
+        got = task_aligned_assign(*args, topk=k, num_classes=nc, grid=grid)
         torch.cuda.synchronize()
         one_launch = tal_assign_cuda.launches == before + 1
-        row = tal_compare(got, task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain"))
+        row = tal_compare(got, task_aligned_assign(*args, topk=k, num_classes=nc, impl="plain"))
         ok &= row["ok"] and one_launch
-        cs, smem, held = launch_config(b, args[0].shape[1], g)
+        cs, smem, held = launch_config(b, args[0].shape[1], g, k)
         rows.append({
-            "b": b, "g": g, "a": args[0].shape[1], "nc": nc, **row, "one_launch": one_launch,
+            "b": b, "g": g, "a": args[0].shape[1], "nc": nc, "topk": k, **row, "one_launch": one_launch,
             "fg_anchors": int(got.fg_mask.sum()), "candidate_pairs": tal_candidate_pairs(args),
             "blocks_per_image": cs, "smem_bytes": smem, "clusters_held_at_once": held,
-            "kernel_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc, grid=grid)),
-            "kernel_device_us": 1e3 * graph_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc,
+            "kernel_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=k, num_classes=nc, grid=grid)),
+            "kernel_device_us": 1e3 * graph_ms(lambda: task_aligned_assign(*args, topk=k, num_classes=nc,
                                                                            grid=grid)),
-            "plain_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=10, num_classes=nc, impl="plain"),
+            "plain_us": 1e3 * cuda_ms(lambda: task_aligned_assign(*args, topk=k, num_classes=nc, impl="plain"),
                                       iters=5),
             "bound_us": 1e3 * tal_bound(args, nc)[0], "dense_bound_us": 1e3 * tal_bound(args, nc, dense=True)[0],
         })
@@ -2219,6 +2238,45 @@ def levels_step(cfg, dev):
     return ok, info, launches
 
 
+def one_epoch_fit(cfg, step_launches):
+    """YOLO(cfg).train for one epoch on the fit phase's dataset (4
+    micro-steps, 2 val batches), then YOLO(best.pt).val (2 more): each
+    micro-step's launches must be `step_launches`, each val batch's none (a
+    graph without a SwinBlock), the metrics finite. Returns (its row, its
+    launches)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit1_"))
+    steps, vals = [], []
+    try:
+        data = write_fit_dataset(tmp / "data")
+        fy = YOLO(cfg, device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"), **{**FIT, "epochs": 1, "save_period": -1})
+            torch.cuda.synchronize()
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
+                          verbose=False)
+            val_s = time.perf_counter() - t0
+        e = fy.trainer.epoch_stats[0]
+        fit_ok = (len(steps) == 4 and all(st["launches"] == step_launches for st in steps)
+                  and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals)
+                  and all(np.isfinite(list(metrics.values()))) and all(np.isfinite(list(vm.values()))))
+        fit = {"model": cfg, "launches": fit_launches, "launches_per_step": steps,
+               "launches_per_val_batch": vals, "final_metrics": metrics, "val_best_pt": dict(vm),
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
+               "ok": fit_ok}
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fit, fit_launches
+
+
 def phase_families(dev):
     """The other detect families (the module docstring's families phase)."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
@@ -2258,41 +2316,117 @@ def phase_families(dev):
         path.append(launches)
         k2.append(k2_at(strides, dev))
 
-    # YOLO.train of yolo12s for one epoch on the fit phase's dataset, then YOLO(best.pt).val
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_families_"))
-    steps, vals = [], []
-    try:
-        data = write_fit_dataset(tmp / "data")
-        fy = YOLO("yolo12s.yaml", device="cuda", seed=SEED)
-        reset_counts()
-        with counted_fit(steps, vals):
-            metrics = fy.train(data=str(data), project=str(tmp / "runs"), **{**FIT, "epochs": 1, "save_period": -1})
-            torch.cuda.synchronize()
-            fit_launches = counts()
-            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
-            t0 = time.perf_counter()
-            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
-                          verbose=False)
-            val_s = time.perf_counter() - t0
-        e = fy.trainer.epoch_stats[0]
-        fit_ok = (len(steps) == 4 and all(st["launches"] == FAMILY_STEP_LAUNCHES for st in steps)
-                  and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals)
-                  and all(np.isfinite(list(metrics.values()))) and all(np.isfinite(list(vm.values()))))
-        fit = {"model": "yolo12s.yaml", "launches": fit_launches, "launches_per_step": steps,
-               "launches_per_val_batch": vals, "final_metrics": metrics, "val_best_pt": dict(vm),
-               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
-               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
-               "ok": fit_ok}
-        path.append(fit_launches)
-        del fy, best
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
+    fit, fit_launches = one_epoch_fit("yolo12s.yaml", FAMILY_STEP_LAUNCHES)
+    path.append(fit_launches)
 
     ok = (all(r["ok"] for r in predict) and all(r["ok"] for r in full.values()) and all(r["ok"] for r in levels)
           and all(r["ok"] for r in k2) and fit["ok"])
     return ok, {"predict": predict, "full_width": full, "four_levels": levels, "k2_four_levels": k2, "fit": fit}, \
         {"families": add_counts(*path)}, k2
+
+
+def v10_predict(cfg, frames, dev):
+    """YOLO(cfg).predict of the slice phase's frames in bf16 (BN-folded, as
+    predict runs it), its launches counted; then its forward against the
+    fp32 unfused forward of the same seeded weights (TF32 off): each raw map
+    of both branches and each channel of the one-to-one decode (xyxy)
+    within V10_RTOL of the largest magnitude, and the (8, 300, 6)
+    detections' scores, sorted, within V10_RTOL."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    fp32 = YOLO(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        dets, maps = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
+        dets32, maps32 = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
+        head = yolo.model.model[-1]
+        dec, dec32 = head.decode(maps["one2one"], xywh=False), head.decode(maps32["one2one"], xywh=False)
+    errs = {k: [rel_err(a, b) for a, b in zip(maps[k], maps32[k])] for k in ("one2many", "one2one")}
+    errs["one2one_decoded_channels_max"] = max(rel_err(dec[:, i], dec32[:, i]) for i in range(dec.shape[1]))
+    errs["sorted_scores_max_abs_err"] = (dets[..., 4].sort(-1)[0] - dets32[..., 4].sort(-1)[0]).abs().max().item()
+    boxes_good = boxes_ok(results, 480, 640)
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and boxes_good and yolo.is_fused
+          and not fp32.is_fused and yolo.model.end2end and tuple(dets.shape) == (8, 300, 6)
+          and bool(torch.isfinite(dets).all()) and max(max(errs["one2many"] + errs["one2one"]),
+                                                       errs["one2one_decoded_channels_max"],
+                                                       errs["sorted_scores_max_abs_err"]) <= V10_RTOL)
+    return ok, {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()), "launches": launches,
+                "boxes_ok": bool(boxes_good), "detections_per_frame": [len(r) for r in results],
+                "predict_s_first_call": seconds, "bf16_folded_vs_fp32_rel_err": errs, "ok": ok}, launches
+
+
+def v10_program(yolo, dev):
+    """yolov10s (bf16, BN-folded) exported asking for nms=True at batch 8:
+    the option dropped with a warning (the head's detections are NMS-free
+    already), the sidecar end2end; the program loaded by Backend and held
+    bit for bit to the live model on the slice phase's frames (TF32 off)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.exporter import ExportForward
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+
+    x8 = served_frames(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_v10_") as tmp:
+        t0 = time.perf_counter()
+        path = yolo.export(format="pt2", imgsz=640, batch=8, nms=True, project=tmp)
+        export_s = time.perf_counter() - t0
+        be = Backend(path)
+        reset_counts()
+        out = torch.from_numpy(no_tf32(be, x8))
+        launches = counts()
+        meta = dict(be.metadata)
+    with torch.inference_mode():
+        ref = no_tf32(ExportForward(yolo.model), x8).float().cpu()
+    exact = out.shape == ref.shape and torch.equal(out, ref)
+    ok = (exact and tuple(out.shape) == (8, 300, 6) and be.end2end and meta.get("end2end") is True
+          and meta.get("nms") is False and Path(path).name == "model_640.pt2" and launches == FAMILY_PREDICT_LAUNCHES)
+    return ok, {"path": Path(path).name, "export_s": export_s, "shape": list(out.shape), "bit_for_bit": bool(exact),
+                "max_abs_err": (out - ref).abs().max().item() if out.shape == ref.shape else None,
+                "sidecar": {k: meta.get(k) for k in ("end2end", "nms", "max_det", "layout")}, "launches": launches,
+                "ok": ok}
+
+
+def phase_v10(dev):
+    """YOLOv10 (the module docstring's v10 phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    predict, path = [], []
+    for cfg in V10:
+        _, info, launches = v10_predict(cfg, frames, dev)
+        predict.append(info)
+        path.append(launches)
+        torch.cuda.empty_cache()
+
+    yolo = YOLO(V10_FULL, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(32, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "sort", "Sort", "gather", key="topk_share")
+    del xb
+    program_ok, program = v10_program(yolo, dev)
+    del yolo
+    torch.cuda.empty_cache()
+
+    train_ok, train_info, (tr, step), train_launches = train_run(dev, {"model": V10_FULL}, TRAIN_STEPS,
+                                                                 V10_STEP_LAUNCHES)
+    cycle = itertools.cycle(train_batches(4, dev))
+    step_ms = cuda_ms(lambda: step(next(cycle)), iters=8, warmup=4)
+    del tr, step
+    torch.cuda.empty_cache()
+    path.append(train_launches)
+
+    fit, fit_launches = one_epoch_fit(V10_FULL, V10_STEP_LAUNCHES)
+    path.append(fit_launches)
+    full = {"ok": train_ok and program_ok, "forward_ms_batch32": fwd_ms, "forward_img_per_s": 32e3 / fwd_ms,
+            "forward_profile": profile, "program": program, "train": train_info,
+            "train_ms_per_step_batch16": step_ms, "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms}
+    ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
+    return ok, {"predict": predict, "full_width": {V10_FULL: full}, "fit": fit}, {"v10": add_counts(*path)}
 
 
 def phase_yolo11(dev):
@@ -2723,7 +2857,9 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
     kernel phase (`widths`: C 384 to 768), and their launches by path
     include the track phase's paths (track, embed, visualize) and the
     YOLO11 and flagship-l phases, whose Swin blocks are 512 wide. K2 lists
-    its rows at the four-level grids of the families phase (`four_levels`)."""
+    its rows at the four-level grids of the families phase (`four_levels`)
+    and its row at topk=1 (`topk1`, YOLOv10's one-to-one assignment, on the
+    same inputs); its launches by path include the v10 phase's."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -2806,6 +2942,16 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
            "device_ms_over_bound": device_ms / bound_ms, "candidate_pairs": tal_candidate_pairs(args),
            "dense_bound_ms": tal_bound(args, 1, dense=True)[0],
            "ptxas": build["ptxas"]["tal_assign"], "four_levels": list(k2_levels)}
+    # K2 at topk=1 on the same inputs: YOLOv10's one-to-one assignment
+    got1 = task_aligned_assign(*args, topk=1, num_classes=1, grid=grid)
+    device_ms1 = graph_ms(lambda: task_aligned_assign(*args, topk=1, num_classes=1, grid=grid))
+    tal["topk1"] = {**tal_compare(got1, task_aligned_assign(*args, topk=1, num_classes=1, impl="plain")),
+                    "ms": cuda_ms(lambda: task_aligned_assign(*args, topk=1, num_classes=1, grid=grid)),
+                    "device_ms": device_ms1,
+                    "plain_ms": cuda_ms(lambda: task_aligned_assign(*args, topk=1, num_classes=1, impl="plain"),
+                                        iters=5),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "device_ms_over_bound": device_ms1 / bound_ms,
+                    "fg_anchors": int(got1.fg_mask.sum())}
     # K4: the int8 path at batch 8 hands it (8, 40, 40, 256) int8 in and out; K4v (sm16) runs on no path
     swin8 = swin_modules(int8_yolo.model)[0]
     p8, q = swin8.kernel_params(), {k: getattr(swin8, k) for k in swin8.QNAMES}
@@ -3088,6 +3234,7 @@ def main() -> int:
     fit_launches, fit_loader_ms = run("fit", phase_fit, dev)
     (fit_host_launches,) = run("fit_host", phase_fit_host, dev, fit_loader_ms)
     families_launches, k2_levels = run("families", phase_families, dev)
+    (v10_launches,) = run("v10", phase_v10, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
@@ -3098,8 +3245,8 @@ def main() -> int:
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **families_launches, **yolo11_launches, **large_launches, **yolo11_int8_launches,
-                            **autobatch_launches},
+                            **families_launches, **v10_launches, **yolo11_launches, **large_launches,
+                            **yolo11_int8_launches, **autobatch_launches},
                            build, wide, k2_levels)
     print(smi, flush=True)
     emit({"kernels": kernels})

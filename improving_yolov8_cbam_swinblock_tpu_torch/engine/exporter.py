@@ -6,7 +6,11 @@ SavedModel, a frozen pb and TFLite; the port writes one format, `pt2`: a
 `torch.export` program of ExportForward, saved with `torch.export.save`.
 The program takes (B, H, W, 3) uint8 NHWC frames and returns float32
 (B, 4 + nc, A), the Detect layout (xywh pixels, then class sigmoids), or
-with `nms` the (B, max_det, 6) of ops/nms.py e2e_postprocess. The SwinBlocks
+with `nms` the (B, max_det, 6) of ops/nms.py e2e_postprocess. A YOLOv10
+model's program returns its head's (B, 300, 6) detections (xyxy pixels,
+score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
+warns and is dropped (the JAX exporter would run e2e_postprocess on those
+detections as if they were (B, 4 + nc, A)). The SwinBlocks
 stay in the graph as the port's operators (`yolov8_cbam_swin::swin_block_fwd`,
 `yolov8_cbam_swin::swin_block_int8`, ops/swin.py and ops/swin_int8.py), so
 the loaded program launches K1, or K4 when int8, on the card. Load it with
@@ -23,7 +27,8 @@ Options, resolved as the JAX exporter resolves them (:61-93):
               batches of 8 at imgsz), which also stand in, with a warning,
               where `data` cannot be read; needs fp32 weights; takes a
               static batch or dynamic
-  nms         the program ends in e2e_postprocess with max_det
+  nms         the program ends in e2e_postprocess with max_det (dropped,
+              with a warning, for a YOLOv10 model)
 half with int8 turns half off, with a warning; keras=True raises; the
 torch-ecosystem keys (optimize, simplify, opset, workspace, dnn) warn when
 changed from their defaults. The caller's model is never altered: the
@@ -56,9 +61,10 @@ TORCH_ONLY_KEYS = (("simplify", True), ("opset", None), ("optimize", False), ("w
 
 
 class ExportForward(nn.Module):
-    """uint8 (B, H, W, 3) RGB frames -> the model's float32 (B, 4 + nc, A), or
-    with nms e2e_postprocess's (B, max_det, 6): the frames cast to the
-    model's dtype, then divided by 255, as the JAX exporter's forward does."""
+    """uint8 (B, H, W, 3) RGB frames -> the model's float32 (B, 4 + nc, A)
+    (a YOLOv10 model's (B, 300, 6) detections), or with nms
+    e2e_postprocess's (B, max_det, 6): the frames cast to the model's dtype,
+    then divided by 255, as the JAX exporter's forward does."""
 
     def __init__(self, model: nn.Module, nms: bool = False, max_det: int = 300):
         super().__init__()
@@ -91,6 +97,10 @@ class Exporter:
         if opts["half"] and opts["int8"]:
             print("WARNING: half=True and int8=True are mutually exclusive, setting half=False")
             opts["half"] = False
+        if opts["nms"] and self.model.end2end:
+            print("WARNING: nms=True on a YOLOv10 (end2end) model: its head gives the NMS-free detections "
+                  "already, setting nms=False")
+            opts["nms"] = False
         return opts
 
     def _calib_batches(self) -> List[np.ndarray]:
@@ -145,11 +155,15 @@ class Exporter:
             "half": opts["half"],
             "int8": quantized,
             "nms": opts["nms"],
-            "layout": ("NHWC uint8 in, (B, max_det, 6) out (xywh pixels, conf, cls: the NMS-free top-k of "
+            "layout": ("NHWC uint8 in, (B, max_det, 6) out (xyxy pixels, conf, cls: the YOLOv10 head's NMS-free "
+                       "top-k)" if self.model.end2end
+                       else "NHWC uint8 in, (B, max_det, 6) out (xywh pixels, conf, cls: the NMS-free top-k of "
                        "e2e_postprocess)" if opts["nms"]
                        else "NHWC uint8 in, (B, 4+nc, A) out (xywh pixels + cls sigmoid)"),
         }
-        if opts["nms"]:
+        if self.model.end2end:  # a key the JAX package's sidecar lacks, written where it is true only
+            md.update(end2end=True, max_det=int(self.model.model[-1].max_det))
+        elif opts["nms"]:
             md["max_det"] = int(self.args.max_det)
         return md
 

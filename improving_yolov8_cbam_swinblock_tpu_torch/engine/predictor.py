@@ -11,6 +11,9 @@ zero frames to the same shape. Options, from the configuration:
 predict_augment: three scales, one flipped), `vid_stride`,
 `stream_buffer`, `verbose` (one line per image), `visualize` (a
 per-channel grid of every rank-4 layer output per image, written as PNGs).
+A YOLOv10 model (`end2end`) gives its head's top-k detections with the rows
+at or below `conf` zeroed, as the JAX predictor does: no NMS, and
+`augment`, `iou`, `max_det` and `agnostic_nms` do not apply.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -80,9 +83,14 @@ class DetectionPredictor:
         x = self.preprocess(frames, imgsz, bs)
         n = len(frames)
         t1 = time.perf_counter()
-        pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
-        dets = non_max_suppression(pred, conf_thres=0.25 if a.conf is None else float(a.conf), iou_thres=float(a.iou),
-                                   max_det=int(a.max_det), nc=self.model.nc, agnostic=bool(a.agnostic_nms))
+        conf = 0.25 if a.conf is None else float(a.conf)
+        if self.model.end2end:  # YOLOv10: the head's top-k detections, gated by conf; no TTA, no NMS
+            dets = self.model(x)[0]
+            dets = dets * (dets[..., 4:5] > conf)
+        else:
+            pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
+            dets = non_max_suppression(pred, conf_thres=conf, iou_thres=float(a.iou), max_det=int(a.max_det),
+                                       nc=self.model.nc, agnostic=bool(a.agnostic_nms))
         dets = dets[:n].cpu().numpy()
         t2 = time.perf_counter()
         if a.visualize:

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's engine/validator.py (_iter_val_batches and
 DetectionValidator, without sharding): letterboxed batches -> forward (eval
 mode) -> greedy NMS at conf 0.001, iou 0.7, `max_det`, multi-label when
-nc > 1 -> boxes clipped to each image's content region (ratio_pad) -> TP
-matching against the GT in letterboxed pixels over 10 IoU thresholds ->
+nc > 1 (a YOLOv10 model's head detections gated at conf 0.001 instead) ->
+boxes clipped to each image's content region (ratio_pad) -> TP matching
+against the GT in letterboxed pixels over 10 IoU thresholds ->
 ap_per_class. on_val_batch_start and on_val_batch_end fire around each
 batch on `callbacks`. With `plots`, the confusion matrix and the PR, P, R
 and F1 curves, and with `save_json` the kept detections (letterboxed
@@ -55,6 +56,8 @@ class DetectionValidator:
         m = self.model
         x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
         pred, _ = m(x)
+        if m.end2end:  # YOLOv10: the head's detections, gated by the val conf only
+            return (pred * (pred[..., 4:5] > self.conf)).cpu().numpy()
         dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=int(self.args.max_det),
                                    nc=m.nc, multi_label=m.nc > 1)
         return dets.cpu().numpy()

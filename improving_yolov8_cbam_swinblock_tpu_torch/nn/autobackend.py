@@ -15,9 +15,10 @@ Counterpart of the JAX package's nn/autobackend.py. It serves:
 
 Input: (B, H, W, 3) uint8 NHWC frames, numpy or a tensor. Output: numpy
 float32, the Detect layout, or (B, max_det, 6) for a program exported with
-nms (`end2end`). A checkpoint or model runs as it is, unfused, in the dtype
-it was built with (fp32 for a JAX checkpoint), as the JAX Backend runs its
-checkpoints. A program runs on the device it was exported on.
+nms and for a YOLOv10 model or program (`end2end`). A checkpoint or model
+runs as it is, unfused, in the dtype it was built with (fp32 for a JAX
+checkpoint), as the JAX Backend runs its checkpoints. A program runs on the
+device it was exported on.
 """
 
 from __future__ import annotations
@@ -87,8 +88,10 @@ class Backend:
 
     @property
     def end2end(self) -> bool:
-        """True for a program exported with nms=True: it returns (B, max_det, 6)."""
-        return bool(self.metadata.get("nms", False))
+        """True where the output is (B, max_det, 6) detections: a program
+        exported with nms=True, and a YOLOv10 model or program (its sidecar's
+        `end2end`; the JAX Backend reads `nms` only)."""
+        return bool(self.metadata.get("nms", False) or self.metadata.get("end2end", False))
 
     # -- per-format initializers ------------------------------------------
     def _adopt(self, model: nn.Module) -> None:
@@ -97,6 +100,7 @@ class Backend:
         self.metadata.setdefault("stride", int(max(model.strides)))
         self.metadata.setdefault("nc", int(model.nc))
         self.metadata.setdefault("task", "detect")
+        self.metadata.setdefault("end2end", bool(model.end2end))
 
     def _init_live(self, model: nn.Module, imgsz: Optional[int], device) -> None:
         self.format = "torch"

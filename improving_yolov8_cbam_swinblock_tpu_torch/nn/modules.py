@@ -23,6 +23,7 @@ then, so absent from the state) they run those products in int8 in eval mode.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -31,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
+from ..ops.nms import e2e_postprocess
 from ..ops.quant import conv_int8
 from ..ops.swin import swin_block, swin_block_train
 from ..ops.swin_int8 import QNAMES as SWIN_QNAMES
@@ -437,6 +439,23 @@ class C2PSA(nn.Module):
         return self.cv2(torch.cat([a, self.m(b)], 1))
 
 
+class PSA(PSABlock):
+    """YOLOv10's position-sensitive attention: a PSABlock (`attn`, `ffn`;
+    heads of 64 channels) on one half of the channels, c = c2 e, between a
+    1x1 split (`cv1`) and a 1x1 merge (`cv2`)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        c = int(c2 * e)
+        super().__init__(c, num_heads=c // 64)
+        self.c = c
+        self.cv1 = Conv(c1, 2 * c)
+        self.cv2 = Conv(2 * c, c2)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        return self.cv2(torch.cat([a, super().forward(b)], 1))
+
+
 class SPP(nn.Module):
     """Spatial pyramid pooling: k x k stride-1 max pools of one 1x1 branch,
     each k on the same input (padding with -inf), concat, merge."""
@@ -683,6 +702,63 @@ class CBFuse(nn.Module):
         return out
 
 
+class SCDown(nn.Module):
+    """YOLOv10's separable downsample: a 1x1 Conv to c2, then a depth-wise
+    k x k stride-s Conv without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Depth-wise 7x7 and 3x3 Convs (each with its BatchNorm, no activation)
+    summed, then SiLU. fuse() folds each branch's BatchNorm and keeps the two
+    branches, as the JAX package's fuse_variables does. Its row takes
+    c1 == c2."""
+
+    def __init__(self, c1: int, c2: Optional[int] = None):
+        super().__init__()
+        if c2 is not None and c2 != c1:
+            raise ValueError(f"RepVGGDW keeps its channels: c1={c1}, c2={c2}")
+        self.conv = Conv(c1, c1, 7, 1, g=c1, act=False, p=3)
+        self.conv1 = Conv(c1, c1, 3, 1, g=c1, act=False, p=1)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """YOLOv10's compact inverted block: depth-wise 3x3, 1x1 to 2 c2 e,
+    depth-wise 3x3 (RepVGGDW with lk), 1x1 to c2, depth-wise 3x3 (`cv1.0`
+    to `cv1.4`), with a residual where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1),
+                                 RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+                                 Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """A C2f whose n blocks are CIB(c, c, shortcut, e=1.0, lk)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False):
+        super().__init__(c1, c2, n, shortcut)
+        c = c2 // 2
+        self.m = nn.ModuleList(CIB(c, c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+
 class AAttn(nn.Module):
     """Area attention of YOLO12: a 1x1 qkv Conv whose channels are per head
     [q | k | v] (head dim hd = dim / heads); the flattened rows split into
@@ -802,25 +878,78 @@ class Detect(nn.Module):
             self.cv3 = nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, nc, 1)) for x in ch)
         else:
             self.cv3 = nn.ModuleList(
-                nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
-                              nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)), Conv2d(c3, nc, 1)) for x in ch
+                nn.Sequential(nn.Sequential(self._dw(x), Conv(x, c3, 1)),
+                              nn.Sequential(self._dw(c3), Conv(c3, c3, 1)), Conv2d(c3, nc, 1)) for x in ch
             )
+
+    @staticmethod
+    def _dw(c: int) -> Conv:
+        """The depth-wise 3x3 of the light cls branch."""
+        return DWConv(c, c, 3)
+
+    def branches(self):
+        """The (box, cls) branch pairs whose last convs take the bias priors."""
+        return [(self.cv2, self.cv3)]
 
     def bias_init(self):
         """Box logits start at 1, class logits at the prior of 5 objects per 640 px image."""
         with torch.no_grad():
-            for a, b, s in zip(self.cv2, self.cv3, self.strides):
-                a[-1].bias.fill_(1.0)
-                b[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+            for cv2, cv3 in self.branches():
+                for a, b, s in zip(cv2, cv3, self.strides):
+                    a[-1].bias.fill_(1.0)
+                    b[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
-    def forward(self, xs: List[torch.Tensor]):
-        feats = [torch.cat([a(x), b(x)], 1) for x, a, b in zip(xs, self.cv2, self.cv3)]
-        if self.training:
-            return feats
+    @staticmethod
+    def maps(xs: List[torch.Tensor], cv2, cv3) -> List[torch.Tensor]:
+        """The per-level raw maps of one (box, cls) branch pair."""
+        return [torch.cat([a(x), b(x)], 1) for x, a, b in zip(xs, cv2, cv3)]
+
+    def decode(self, feats: List[torch.Tensor], xywh: bool = True) -> torch.Tensor:
+        """(B, 4 + nc, A) in fp32: the boxes in input pixels (xywh, or xyxy)
+        followed by the class sigmoids."""
         bsz = feats[0].shape[0]
         no = 4 * self.reg_max + self.nc
         x_cat = torch.cat([f.reshape(bsz, no, -1) for f in feats], 2).float()  # (B, no, A)
         box, cls = x_cat.split((4 * self.reg_max, self.nc), 1)
         anchors, strides = make_anchors([f.shape[2:] for f in feats], self.strides, device=x_cat.device)
-        dbox = dist2bbox(dfl_decode(box, self.reg_max), anchors.t()[None]) * strides.t()[None]
-        return torch.cat([dbox, cls.sigmoid()], 1), feats
+        dbox = dist2bbox(dfl_decode(box, self.reg_max), anchors.t()[None], xywh) * strides.t()[None]
+        return torch.cat([dbox, cls.sigmoid()], 1)
+
+    def forward(self, xs: List[torch.Tensor]):
+        feats = self.maps(xs, self.cv2, self.cv3)
+        if self.training:
+            return feats
+        return self.decode(feats), feats
+
+
+class v10Detect(Detect):
+    """YOLOv10's NMS-free head: YOLO11's Detect (its light cls branch with
+    plain depth-wise Convs, as the JAX package names them) and a one-to-one
+    twin of both branches (`one2one_cv2`, `one2one_cv3`) that runs on the
+    detached inputs, so its loss reaches no layer before the head.
+
+    Training returns {"one2many": maps, "one2one": maps}. Eval decodes the
+    one-to-one maps to xyxy boxes and keeps the top max_det (anchor, class)
+    pairs by score (ops/nms.py e2e_postprocess): ((B, max_det, 6) rows of
+    x1, y1, x2, y2, score, class, both map dicts). No NMS follows."""
+
+    max_det = 300
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32)):
+        super().__init__(nc, ch, strides, legacy=False)
+        self.one2one_cv2 = copy.deepcopy(self.cv2)
+        self.one2one_cv3 = copy.deepcopy(self.cv3)
+
+    @staticmethod
+    def _dw(c: int) -> Conv:
+        return Conv(c, c, 3, g=c)
+
+    def branches(self):
+        return [(self.cv2, self.cv3), (self.one2one_cv2, self.one2one_cv3)]
+
+    def forward(self, xs: List[torch.Tensor]):
+        maps = {"one2many": self.maps(xs, self.cv2, self.cv3),
+                "one2one": self.maps([x.detach() for x in xs], self.one2one_cv2, self.one2one_cv3)}
+        if self.training:
+            return maps
+        return e2e_postprocess(self.decode(maps["one2one"], xywh=False), self.max_det, self.nc), maps

@@ -11,9 +11,10 @@ for CBAM and SwinBlock), repeats a row of a module without its own depth as
 an nn.Sequential, applies a YAML-level ReLU `activation` to the Conv rows as
 the JAX package does, and derives each layer's stride from the graph
 instead of a probe forward. It builds the fork's graphs and YOLOv3, v5, v6,
-the v8 P2, P6 and ghost graphs, YOLOv9 and YOLO11/12; a row it does not know
-(YOLOv10's, the rows no packaged detect YAML uses) raises KeyError naming
-it. `DetectionModel` also
+the v8 P2, P6 and ghost graphs, YOLOv9, YOLOv10 (its NMS-free `v10Detect`
+head: `DetectionModel.end2end`) and YOLO11/12; a row it does not know (the
+rows no packaged detect YAML uses) raises KeyError naming it.
+`DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
 embeddings (`embed`) and every layer's feature maps (`features`), and
 `EnsembleModel` serves several detection models behind one NMS.
@@ -72,6 +73,11 @@ BASE_MODULES = {
     "ADown": (M.ADown, lambda a: {}, False),
     "AConv": (M.AConv, lambda a: {}, False),
     "SPPELAN": (M.SPPELAN, lambda a: {"c3": a[1], "k": _arg(a, 2, 5)}, False),
+    "SCDown": (M.SCDown, lambda a: {"k": _arg(a, 1, 3), "s": _arg(a, 2, 2)}, False),
+    "RepVGGDW": (M.RepVGGDW, lambda a: {}, False),
+    "CIB": (M.CIB, lambda a: {"shortcut": _arg(a, 1, True), "e": _arg(a, 2, 0.5), "lk": _arg(a, 3, False)}, False),
+    "C2fCIB": (M.C2fCIB, lambda a: {"shortcut": _arg(a, 1, False), "lk": _arg(a, 2, False)}, True),
+    "PSA": (M.PSA, lambda a: {}, False),
 }
 DOWNSAMPLE_2 = ("ADown", "AConv")  # rows that halve the map without a stride argument
 
@@ -214,6 +220,9 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
         elif mname == "Detect":
             c2 = 0
             m = M.Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy)
+        elif mname == "v10Detect":
+            c2 = 0
+            m = M.v10Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
         else:
             raise KeyError(f"Unknown module in YAML: {mname!r} (row {i})")
         if n > 1:
@@ -281,8 +290,10 @@ class DetectionModel(nn.Module):
     Training holds fp32 masters (param_dtype=torch.float32) and computes in
     `dtype`, every weight cast where it is used, as the JAX package does. Activations are NCHW in channels_last memory. forward(x)
     takes (B, 3, H, W) in [0, 1] and returns the Detect head's ((B, 4 + nc,
-    A), raw maps), or in training mode the raw maps. The model is built in
-    eval mode."""
+    A), raw maps), or in training mode the raw maps; a YOLOv10 graph
+    (`end2end`) its v10Detect's ((B, 300, 6) detections, {"one2many",
+    "one2one"} raw maps), in training the dict. The model is built in eval
+    mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -293,6 +304,7 @@ class DetectionModel(nn.Module):
         head = self.model[-1]
         self.nc = head.nc
         self.strides = head.strides
+        self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
         self.param_dtype = param_dtype or dtype
@@ -347,7 +359,7 @@ class DetectionModel(nn.Module):
         wanted = {int(i) % n for i in layers}
         for i in wanted:
             if isinstance(self.model[i], M.Detect):
-                raise ValueError(f"embed: layer {i} is Detect, whose output is no feature map; "
+                raise ValueError(f"embed: layer {i} is {self.model[i].type}, whose output is no feature map; "
                                  f"take a layer before it (0 to {i - 1})")
         pooled = []
         for m, out in self._outputs(x):
@@ -453,8 +465,9 @@ class EnsembleModel(nn.Module):
     """Detection models served as one, as the JAX package's EnsembleModel:
     every member runs on the same input, their (B, 4 + nc, A) predictions
     concatenate along the anchors, and the predictor's one NMS keeps the
-    best boxes of all. Inference only: the members must share nc, and the
-    input is padded to the coarsest member stride."""
+    best boxes of all. Inference only: the members must share nc and end in
+    Detect (an NMS-free YOLOv10 member is refused, as in the JAX package),
+    and the input is padded to the coarsest member stride."""
 
     def __init__(self, models):
         super().__init__()
@@ -463,9 +476,12 @@ class EnsembleModel(nn.Module):
         ncs = sorted({m.nc for m in models})
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
+        if any(m.end2end for m in models):
+            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end) member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype
+        self.end2end = False
         self.strides = tuple(max(s) for s in zip(*(tuple(m.strides) for m in models)))
         self.eval()
 

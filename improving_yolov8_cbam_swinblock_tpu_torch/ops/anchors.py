@@ -25,12 +25,12 @@ def make_anchors(feat_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
     return torch.cat(points), torch.cat(stride_list)
 
 
-def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
-    """(B, 4, A) ltrb distances -> (B, 4, A) xywh boxes around (1, 2, A) anchor points."""
+def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = True) -> torch.Tensor:
+    """(B, 4, A) ltrb distances -> (B, 4, A) xywh (or xyxy) boxes around (1, 2, A) anchor points."""
     lt, rb = distance.chunk(2, 1)
     x1y1 = anchor_points - lt
     x2y2 = anchor_points + rb
-    return torch.cat(((x1y1 + x2y2) / 2, x2y2 - x1y1), 1)
+    return torch.cat(((x1y1 + x2y2) / 2, x2y2 - x1y1) if xywh else (x1y1, x2y2), 1)
 
 
 def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:

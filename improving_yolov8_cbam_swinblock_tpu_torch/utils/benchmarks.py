@@ -44,8 +44,9 @@ def _time_backend(be, img: np.ndarray, iters: int) -> Dict[str, float]:
 
 def _eval_backend_map(be, loader, names, max_det: int) -> Dict[str, float]:
     """mAP of a Backend's (B, 4+nc, A) outputs over a val loader: NMS at conf
-    0.001, iou 0.7, multi-label when nc > 1, then the validator's matching
-    and metrics (engine/validator.py)."""
+    0.001, iou 0.7, multi-label when nc > 1 (an end2end Backend's detections
+    gated at conf 0.001 instead), then the validator's matching and metrics
+    (engine/validator.py)."""
     from ..engine.validator import DetectionValidator
     from ..ops.nms import non_max_suppression
 
@@ -53,8 +54,11 @@ def _eval_backend_map(be, loader, names, max_det: int) -> Dict[str, float]:
     nc = len(names)
     for batch in loader:
         pred = torch.from_numpy(be(batch["img"]))
-        dets = non_max_suppression(pred, conf_thres=v.conf, iou_thres=v.iou, max_det=max_det, nc=nc,
-                                   multi_label=nc > 1)
+        if be.end2end:
+            dets = pred * (pred[..., 4:5] > v.conf)
+        else:
+            dets = non_max_suppression(pred, conf_thres=v.conf, iou_thres=v.iou, max_det=max_det, nc=nc,
+                                       multi_label=nc > 1)
         v.update_metrics(dets.numpy(), batch)
     return v.metrics.compute()
 

@@ -66,8 +66,11 @@ def _module_tokens(mods: Tuple[str, ...]) -> list:
             toks.append("model." + ".".join(m.split("_")[1:]))
         elif m.startswith("mlp_fc"):  # Swin MLP: fc1 -> mlp.0, fc2 -> mlp.2
             toks.append("mlp.0" if m.endswith("1") else "mlp.2")
-        elif m.startswith(("cv2_", "cv3_", "m_", "ffn_", "mlp_")):
-            # Detect per-level stacks, bottlenecks (m_0, RepCSP's m_0_cv1, A2C2f's m_0_1), PSA and ABlock MLPs
+        elif m.startswith("one2one_"):  # v10Detect's one-to-one twin: one2one_cv3_0_1_0 -> one2one_cv3.0.1.0
+            toks.append("one2one_" + ".".join(m[len("one2one_"):].split("_")))
+        elif m.startswith(("cv1_", "cv2_", "cv3_", "m_", "ffn_", "mlp_")):
+            # Detect per-level stacks, CIB's cv1_0 to cv1_4, bottlenecks (m_0, RepCSP's m_0_cv1, A2C2f's m_0_1),
+            # PSA and ABlock MLPs
             toks.append(".".join(m.split("_")))
         else:
             toks.append(m)

@@ -4,7 +4,8 @@ Counterpart of the JAX package's utils/loss.py `detection_loss`: targets
 arrive padded, (B, G) classes, (B, G, 4) normalised xywh and a (B, G)
 validity mask; the task-aligned assigner (utils/tal.py: the CUDA kernel on
 the card) runs without gradient; the gains are 7.5 / 0.5 / 1.5 and the
-total is multiplied by the batch size.
+total is multiplied by the batch size. A YOLOv10 head's two branches add
+their losses (topk 10 and 1), as the JAX trainer adds them.
 """
 
 from __future__ import annotations
@@ -49,7 +50,17 @@ def detection_loss(feats: Sequence[torch.Tensor], gt_cls: torch.Tensor, gt_xywhn
                    tal_impl: Optional[str] = None):
     """feats: per-level raw maps (B, 4*reg_max + nc, H, W). Returns (total
     loss times B, LossMetrics of the three gained items, detached).
-    `tal_impl` is passed to the assigner ("plain" forces its plain version)."""
+    `tal_impl` is passed to the assigner ("plain" forces its plain version).
+
+    A YOLOv10 head's {"one2many": maps, "one2one": maps} gives the sum of
+    the one-to-many loss at topk 10 and the one-to-one loss at topk 1 (two
+    assignments), with the one-to-many items, as the JAX trainer does."""
+    if isinstance(feats, dict):
+        kw = dict(gt_cls=gt_cls, gt_xywhn=gt_xywhn, gt_mask=gt_mask, nc=nc, reg_max=reg_max, strides=strides,
+                  box_gain=box_gain, cls_gain=cls_gain, dfl_gain=dfl_gain, tal_impl=tal_impl)
+        many, items = detection_loss(feats["one2many"], tal_topk=10, **kw)
+        one, _ = detection_loss(feats["one2one"], tal_topk=1, **kw)
+        return many + one, items
     b = feats[0].shape[0]
     dev = feats[0].device
     shapes = [tuple(f.shape[2:]) for f in feats]

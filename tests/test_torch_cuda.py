@@ -256,6 +256,8 @@ TAL_CASES = [
     # (b, g, nc, imgsz, topk[, strides]): the train path, G = 4 * max_gt after mosaic
     (16, 128, 1, 640, 10), (4, 32, 80, 640, 10), (3, 12, 3, 128, 10), (2, 1200, 1, 320, 10),
     (2, 1, 1, 128, 10), (3, 12, 3, 128, 1), (3, 40, 80, 256, 16), (2, 16, 2, (480, 640), 10),
+    # YOLOv10's one-to-one assignment at the train path's shape
+    (16, 128, 1, 640, 1),
     # the four-level grids of the P2 graphs (A = 34,000 at 640 px) and the P6 graphs (A = 8,500)
     (16, 128, 1, 640, 10, (4, 8, 16, 32)), (16, 128, 1, 640, 10, (8, 16, 32, 64)),
     "edges", "image", "degenerate", "zero_fill", "zero_multi",
@@ -605,3 +607,42 @@ def test_track_gives_seven_column_boxes_on_the_card(cuda):
     for r in res:
         if len(r.track_ids):
             assert r.boxes.data.shape[1] == 7 and np.array_equal(r.boxes.id.astype(int), r.track_ids)
+
+
+@pytest.mark.cuda
+def test_yolov10_micro_step_launches_k2_twice_and_equals_plain(cuda):
+    """One micro-step of yolov10n (batch 4, 320 px, bf16 over fp32 masters)
+    launches K2 twice (one-to-many at topk 10, one-to-one at topk 1), and
+    the same micro-step from the same state and batch with the plain
+    assigner gives the same loss items and grads: K2 is exact."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+
+    tr = DetectionTrainer(overrides={"model": "yolov10n.yaml", "batch": 4, "nbs": 64, "imgsz": 320,
+                                     "device_augment": False, "seed": 0}).setup()
+    step, acc = tr._make_train_step(nb=100)
+    rng = np.random.default_rng(0)
+    xy, wh = rng.uniform(0.2, 0.8, (4, 8, 2)), rng.uniform(0.05, 0.4, (4, 8, 2))
+    batch = {"img": torch.tensor(rng.integers(0, 256, (4, 320, 320, 3), dtype=np.uint8), device=cuda),
+             "cls": torch.zeros(4, 8, dtype=torch.int32, device=cuda),
+             "bboxes": torch.tensor(np.concatenate([xy, wh], -1).astype(np.float32), device=cuda),
+             "mask": torch.tensor((rng.random((4, 8)) < 0.6).astype(np.float32), device=cuda)}
+    state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    runs = []
+    for impl in (None, "plain"):
+        tr.model.load_state_dict(state)
+        tr.step, tr.tal_impl = 0, impl
+        before = tal_assign_cuda.launches
+        items = step(batch)
+        torch.cuda.synchronize()
+        runs.append((tal_assign_cuda.launches - before, items.clone(),
+                     {n: p.grad.clone() for n, p in tr.model.named_parameters() if p.grad is not None}))
+        for p in tr.model.parameters():
+            p.grad = None
+    (k_launches, k_items, k_grads), (p_launches, p_items, p_grads) = runs
+    assert acc > 1 and (k_launches, p_launches) == (2, 0)
+    assert torch.isfinite(k_items).all()
+    torch.testing.assert_close(k_items, p_items, rtol=1e-5, atol=0.0)
+    assert k_grads.keys() == p_grads.keys() and any(n.startswith("model.23.one2one_") for n in k_grads)
+    for n, g in k_grads.items():
+        torch.testing.assert_close(g, p_grads[n], rtol=1e-3, atol=1e-6 * max(1.0, p_grads[n].abs().max().item()))

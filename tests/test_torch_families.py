@@ -13,7 +13,7 @@ unfused and BN-folded, within 2e-3 as the flagship's test holds them.
 Every graph of the slice has JAX's parameter count, loads JAX's variables
 strictly and writes them back the same. The loss on four anchor levels, a
 JAX BN-folded yolov9t tree and its checkpoints, and what still raises
-(int8 of these graphs, a YOLOv10 row). Each JAX module and graph runs under
+(int8 of these graphs). YOLOv10 has tests/test_torch_v10.py. Each JAX module and graph runs under
 one jax.jit, eval and train mode in the same one.
 """
 
@@ -45,7 +45,6 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 jax.config.update("jax_platforms", "cpu")
 MOD_TOL = 1e-5
 GRAPH_TOL = 2e-3
-JAX_MODELS = "improving_yolov8_cbam_swinblock_tpu/cfg/models"
 
 # name: (JAX module, port module, NHWC input shape)
 MODULES = {
@@ -381,14 +380,10 @@ def test_quantize_model_refuses_the_new_rows():
     assert not any(getattr(c, "calib", None) for c in m.modules())
 
 
-def test_yolov10_still_raises_on_its_first_missing_row():
-    with pytest.raises(KeyError, match=r"'SCDown' \(row 5\)"):
-        DetectionModel(f"{JAX_MODELS}/v10/yolov10n.yaml", device="cpu")
-
-
 @pytest.mark.parametrize("name,path", [("yolov8n-ghost-p6.yaml", "v8/yolov8-ghost-p6.yaml"),
                                        ("yolov6n.yaml", "v6/yolov6.yaml"), ("yolo12s.yaml", "12/yolo12.yaml"),
-                                       ("yolov9c.yaml", "v9/yolov9c.yaml"), ("yolov3-tiny.yaml", "v3/yolov3-tiny.yaml")])
+                                       ("yolov9c.yaml", "v9/yolov9c.yaml"), ("yolov3-tiny.yaml", "v3/yolov3-tiny.yaml"),
+                                       ("yolov10n.yaml", "v10/yolov10n.yaml")])
 def test_yaml_names_resolve_to_the_port_copies(name, path):
     from improving_yolov8_cbam_swinblock_tpu.nn.tasks import yaml_model_load as jax_yaml_model_load
     from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import CFG_DIR, yaml_model_load
