@@ -94,7 +94,8 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           384x512 and 300x700, 1-5 boxes each, nc=1), then
           YOLO("yolov8s-cbam-swin.yaml").train(data=...) for 2 epochs at batch
           16, 640 px, nbs 64, SGD, max_gt 32, close_mosaic 1, 8 loader
-          threads, validating each epoch: K1 / K3 / K2 launches per
+          threads, from the seeded weights with the class priors zeroed
+          (start_without_class_priors), validating each epoch: K1 / K3 / K2 launches per
           micro-step and K1 launches per val batch, the mosaic value per
           epoch, finite losses, last.pt, best.pt, results.csv; a fresh
           trainer loading epoch 1's checkpoint (bit for bit) and resuming
@@ -151,6 +152,24 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           micro-step against the plain assigner in bf16 and fp32, micro-step
           ms; YOLO("yolov10s.yaml").train for one epoch on the fit phase's
           dataset (K2 twice per micro-step) and YOLO(best.pt).val
+  segment instance segmentation: YOLO(name).predict of the slice phase's
+          frames at 640 px, bf16, BN-folded, seeded weights with the class
+          priors zeroed (conf 0.25), for yolov8n-seg, -seg-p6, yolo11n-seg,
+          yolo12n-seg, yolov9c-seg and yolov9e-seg: no kernel launched,
+          masks (n, 480, 640) bool, each raw map, the mask coefficients and
+          the prototypes within 3e-2 of the fp32 unfused forward (the
+          decoded channels reported); yolov8s-seg at full width: the forward's
+          ms at batch 32 with its device time by kernel, predict img/s at
+          batch 32 with and without retina_masks (every mask inside its box
+          by one pixel, or one prototype cell), the predictor's device masks
+          against the same post-processing in fp32 on the CPU and one
+          frame's masks' ms, 4 micro-steps at batch 16 on overlap maps (K2
+          once each), the step's ms and the card's peak memory, one
+          micro-step against the plain assigner (loss items, bf16 grads);
+          YOLO("yolov8s-seg.yaml").train for one epoch on a seeded PNG
+          dataset with polygon labels (the loader's instance-aware host
+          stack; K2 once per micro-step) and YOLO(best.pt).val against the
+          trainer's box and mask metrics
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
           slice phase's frames in bf16 (K1 counted, 2 per batch) and its
@@ -342,8 +361,9 @@ TTA_K1_SHAPES = ((32, 34, 34, 256), (32, 28, 28, 256))
 PREDICT_LAUNCHES = {"swin_block_fwd": 2, "swin_block_fwd_exact": 0, "swin_block_bwd": 0, "tal_assign": 0,
                     "swin_block_int8": 0, "swin_block_int8_sm16": 0}
 STEP_LAUNCHES = {**PREDICT_LAUNCHES, "swin_block_fwd_exact": 2, "swin_block_bwd": 2, "tal_assign": 1}
-# the track phase: YOLO.track's detections above TRACK_CONF (the seeded weights score their boxes about 0.5,
-# so every frame has up to max_det, all above the trackers' thresholds), both packaged trackers; embed at a batch
+# the track phase: YOLO.track's detections above TRACK_CONF (with the class-logit biases zeroed for the phase
+# (zero_class_priors), the seeded weights score their boxes about 0.5, so every frame has up to max_det, all
+# above the trackers' thresholds), both packaged trackers; embed at a batch
 # of EMBED_BATCH frames, from the layer before Detect (25: (B, 512) at scale s)
 TRACK_CONF, TRACKERS = 0.1, ("bytetrack.yaml", "botsort.yaml")
 EMBED_BATCH, EMBED_LAYER = 32, 25
@@ -375,6 +395,16 @@ V10 = ("yolov10n.yaml", "yolov10s.yaml", "yolov10m.yaml", "yolov10b.yaml", "yolo
 V10_FULL = "yolov10s.yaml"
 V10_STEP_LAUNCHES = {**FAMILY_PREDICT_LAUNCHES, "tal_assign": 2}  # one-to-many at topk 10, one-to-one at topk 1
 V10_RTOL = 3e-2  # bf16 folded against fp32 unfused, of the largest magnitude (the families phase's)
+# the segment phase: the six packaged seg YAMLs at their smallest scale, yolov8s-seg at full width; bf16 folded
+# against fp32 unfused within SEG_RTOL of the largest magnitude (the families phase's); the predictor's device
+# masks against the same post-processing in fp32 on the CPU on at most SEG_MASK_SHARE of the pixels; a micro-step's
+# four loss items with K2 against the plain assigner within SEG_ITEM_RTOL, its bf16 grads bit for bit or within
+# SEG_GRAD_RTOL per graph row; a mask outside its box by at most one pixel (retina_masks) or one prototype cell
+SEG = ("yolov8n-seg.yaml", "yolov8n-seg-p6.yaml", "yolo11n-seg.yaml", "yolo12n-seg.yaml", "yolov9c-seg.yaml",
+       "yolov9e-seg.yaml")
+SEG_FULL = "yolov8s-seg.yaml"
+SEG_RTOL, SEG_MASK_SHARE, SEG_ITEM_RTOL, SEG_GRAD_RTOL = 3e-2, 1e-3, 1e-5, 1e-3
+SEG_BATCH, SEG_STEPS, SEG_MASKS = 32, 4, 256  # predict's batch; micro-steps counted; the loss's masks per image
 
 
 def emit(obj) -> None:
@@ -1258,7 +1288,53 @@ def add_counts(*cs) -> dict:
     return {k: sum(c[k] for c in cs) for k in PREDICT_LAUNCHES}
 
 
+def class_biases(model) -> list:
+    """(name, tensor) of the last class conv's bias of every Detect-family head of `model`."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Detect
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [(names[id(seq[-1].bias)], seq[-1].bias) for head in model.modules() if isinstance(head, Detect)
+            for _, cv3 in head.branches() for seq in cv3]
+
+
+@contextlib.contextmanager
+def zero_class_priors(model):
+    """While open, the last class conv's bias of every Detect-family head of
+    `model` is 0: a seeded model's class scores then sit near 0.5, not at
+    the prior of 5 objects per image (about 1e-4), so a phase measures what
+    consumes the detections at full load. The biases are put back after."""
+    biases = [b for _, b in class_biases(model)]
+    kept = [b.detach().clone() for b in biases]
+    with torch.no_grad():
+        for b in biases:
+            b.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, k in zip(biases, kept):
+                b.copy_(k)
+
+
+def start_without_class_priors(trainer) -> None:
+    """An on_pretrain_routine_end callback: the trainer's seeded model and its
+    EMA start with the class-logit biases at 0 (zero_class_priors' state), so
+    that the fit phase trains and validates at full load: its K1-against-plain
+    val compares metrics over the same crowded detections as before the
+    priors were repaired, not over near ties at the prior."""
+    with torch.no_grad():
+        for name, b in class_biases(trainer.model):
+            b.zero_()
+            trainer.ema[name].zero_()
+
+
 def phase_track(yolo, dev):
+    """phase_track_full with the model's class priors zeroed (zero_class_priors)."""
+    with zero_class_priors(yolo.model):
+        return phase_track_full(yolo, dev)
+
+
+def phase_track_full(yolo, dev):
     """The last predict-side verbs on the slice phase's model (the flagship s,
     bf16, BN-folded, seeded weights) at 640 px. Track: YOLO.track over the
     serve phase's 16-frame MJPG video at batch 16 with each packaged
@@ -1852,9 +1928,9 @@ def counted_fit(steps, vals):
     and whether the batch's boxes are finite and inside [0, 1] under their
     mask, and each validation batch appends its launches to `vals`."""
     from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
-    from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator, SegmentationValidator
 
-    mk, fwd = DetectionTrainer._make_train_step, DetectionValidator.forward_nms
+    mk, fwd, seg_fwd = DetectionTrainer._make_train_step, DetectionValidator.forward_nms, SegmentationValidator.forward_nms
 
     def delta(before):
         return {k: v - before[k] for k, v in counts().items()}
@@ -1873,17 +1949,21 @@ def counted_fit(steps, vals):
             return out
         return run, acc
 
-    def counted_val(self, img):
-        before = counts()
-        out = fwd(self, img)
-        vals.append(delta(before))
-        return out
+    def counted_val(f):
+        def run(self, img):
+            before = counts()
+            out = f(self, img)
+            vals.append(delta(before))
+            return out
+        return run
 
-    DetectionTrainer._make_train_step, DetectionValidator.forward_nms = counted_step, counted_val
+    DetectionTrainer._make_train_step = counted_step
+    DetectionValidator.forward_nms, SegmentationValidator.forward_nms = counted_val(fwd), counted_val(seg_fwd)
     try:
         yield
     finally:
-        DetectionTrainer._make_train_step, DetectionValidator.forward_nms = mk, fwd
+        DetectionTrainer._make_train_step = mk
+        DetectionValidator.forward_nms, SegmentationValidator.forward_nms = fwd, seg_fwd
 
 
 def phase_fit(dev):
@@ -1908,6 +1988,7 @@ def phase_fit(dev):
             data = write_fit_dataset(tmp / "data")
             write_s = time.perf_counter() - t0
             yolo = YOLO("yolov8s-cbam-swin.yaml", device="cuda", seed=SEED)
+            yolo.add_callback("on_pretrain_routine_end", start_without_class_priors)
             reset_counts()
             t0 = time.perf_counter()
             metrics = yolo.train(data=str(data), project=str(tmp / "runs"), **FIT)
@@ -2176,7 +2257,7 @@ def family_predict(cfg, frames, dev):
         out, maps = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
         out32, maps32 = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
     errs = {"detect_maps": [rel_err(a, b) for a, b in zip(maps, maps32)],
-            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(out.shape[1]))}
+            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(4 + yolo.model.nc))}
     boxes_good = boxes_ok(results, 480, 640)
     ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and boxes_good and yolo.is_fused
           and not fp32.is_fused and bool(torch.isfinite(out).all()) and len(maps) == len(yolo.model.strides)
@@ -2427,6 +2508,285 @@ def phase_v10(dev):
             "train_ms_per_step_batch16": step_ms, "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms}
     ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
     return ok, {"predict": predict, "full_width": {V10_FULL: full}, "fit": fit}, {"v10": add_counts(*path)}
+
+
+def write_seg_dataset(root: Path) -> Path:
+    """The segment phase's seeded YOLO segmentation dataset, written with the
+    stdlib as the fit phase writes its own (FIT_TRAIN and FIT_VAL images,
+    most 480x640, every 8th 384x512 and every 8th after the 4th 300x700,
+    nc=1): 1 to 4 filled ellipses per image on a low-frequency background,
+    each labelled with the 16-vertex polygon on its outline."""
+    rng = np.random.default_rng(SEED + 4)
+    colors = np.array([(255, 64, 64), (64, 255, 64), (64, 64, 255), (255, 255, 64)], np.uint8)
+    t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    for split, n in (("train", FIT_TRAIN), ("val", FIT_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = {3: (384, 512), 7: (300, 700)}.get(i % 8, (480, 640))
+            low = torch.tensor(rng.integers(0, 120, (1, 3, 8, 8)), dtype=torch.float32)
+            img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear", align_corners=False)
+            img = img[0].permute(1, 2, 0).round().to(torch.uint8).numpy().copy()
+            yy, xx = np.mgrid[0:h, 0:w]
+            lines = []
+            for _ in range(int(rng.integers(1, 5))):
+                a, b = rng.uniform(0.05, 0.22, 2)
+                cx, cy = rng.uniform(a, 1 - a), rng.uniform(b, 1 - b)
+                inside = ((xx + 0.5) / w - cx) ** 2 / a ** 2 + ((yy + 0.5) / h - cy) ** 2 / b ** 2 <= 1
+                img[inside] = colors[rng.integers(0, len(colors))]
+                poly = np.stack([cx + a * np.cos(t), cy + b * np.sin(t)], 1).clip(0, 1)
+                lines.append("0 " + " ".join(f"{v:.6f}" for v in poly.reshape(-1)))
+            (root / "images" / split / f"{split}_{i:04d}.png").write_bytes(png_bytes(img))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    data = root / "data.yaml"  # JSON is YAML
+    data.write_text(json.dumps({"path": str(root), "train": "images/train", "val": "images/val", "nc": 1,
+                                "names": {"0": "object"}}))
+    return data
+
+
+def seg_predict(cfg, frames, dev):
+    """YOLO(cfg).predict of the slice phase's frames in bf16 (BN-folded, as
+    predict runs it) at conf 0.25 with its class priors zeroed
+    (zero_class_priors), its launches counted, each result's masks (n,
+    480, 640) bool; then its forward against the fp32 unfused forward of the
+    same seeded weights (TF32 off): each raw map, the mask coefficients and
+    the prototypes within SEG_RTOL of the largest magnitude. The decoded
+    channels' largest gap is reported, not held (yolo12n-seg's and
+    yolov9e-seg's read 3.1 to 3.3 %)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    with zero_class_priors(yolo.model):
+        reset_counts()
+        t0 = time.perf_counter()
+        results = yolo.predict(frames, imgsz=640, conf=0.25, batch=8, verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    fp32 = YOLO(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        out, (maps, mc, proto) = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
+        out32, (maps32, mc32, proto32) = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
+    errs = {"detect_maps": [rel_err(a, b) for a, b in zip(maps, maps32)], "coefficients": rel_err(mc, mc32),
+            "prototypes": rel_err(proto, proto32),
+            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(out.shape[1]))}
+    masks_ok = all(r.masks is not None and r.masks.data.dtype == bool and r.masks.shape == (len(r), 480, 640)
+                   for r in results)
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and boxes_ok(results, 480, 640) and masks_ok
+          and yolo.is_fused and yolo.task == "segment" and tuple(proto.shape[1:]) == (32, 160, 160)
+          and bool(torch.isfinite(out).all())
+          and max(errs["detect_maps"] + [errs["coefficients"], errs["prototypes"]]) <= SEG_RTOL)
+    return ok, {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()), "launches": launches,
+                "masks_ok": bool(masks_ok), "detections_per_frame": [len(r) for r in results],
+                "predict_s_first_call": seconds, "bf16_folded_vs_fp32_rel_err": errs, "ok": ok}, launches
+
+
+def masks_in_boxes(results, slack) -> bool:
+    """Every mask of `results` inside its box widened by `slack` pixels."""
+    for r in results:
+        for m, (x1, y1, x2, y2) in zip(r.masks.data, r.boxes.xyxy):
+            ys, xs = np.nonzero(m.any(1))[0], np.nonzero(m.any(0))[0]
+            if len(xs) and (xs[0] < x1 - slack or xs[-1] > x2 + slack or ys[0] < y1 - slack or ys[-1] > y2 + slack):
+                return False
+    return True
+
+
+def seg_mask_paths(yolo, frames, dev) -> dict:
+    """The predictor's mask post-processing on the card against the same
+    function on the same prototypes and kept rows in fp32 on the CPU
+    (native_masks), for the first two frames, with and without retina_masks:
+    the share of pixels that differ; and one frame's masks on the card
+    alone (CUDA events) and with their copy to the host (host clock)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.data.augment import letterbox_geometry
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import native_masks
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.boxes import scale_boxes
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import non_max_suppression
+
+    out = {}
+    _, _, (padw, _, padh, _) = letterbox_geometry((480, 640), 640)
+    pad = (padw, padh)
+    with torch.inference_mode():
+        pred, (_, _, proto) = yolo.model(letterboxed(frames[:2], 640, dev, yolo.model.dtype))
+        dets = non_max_suppression(pred, conf_thres=0.25, iou_thres=0.7, max_det=300, nc=yolo.model.nc)
+        for retina in (False, True):
+            diff = total = 0
+            for i in range(2):
+                rows = dets[i][dets[i][:, 4] > 0]
+                boxes0 = scale_boxes((640, 640), rows[:, :4].cpu(), (480, 640))
+                got = native_masks(proto[i], rows, 640, pad, (480, 640), boxes0, retina).cpu()
+                ref = native_masks(proto[i].float().cpu(), rows.float().cpu(), 640, pad, (480, 640), boxes0, retina)
+                diff += int((got != ref).sum())
+                total += ref.numel()
+
+            def frame():  # the first frame's masks, as the predictor makes them
+                return native_masks(proto[0], rows0, 640, pad, (480, 640), boxes00, retina)
+
+            rows0 = dets[0][dets[0][:, 4] > 0]
+            boxes00 = scale_boxes((640, 640), rows0[:, :4].cpu(), (480, 640))
+            out["retina" if retina else "proto"] = {
+                "pixels": total, "share_off": diff / max(total, 1),
+                "masks": int(sum((dets[i][:, 4] > 0).sum() for i in range(2))),
+                "frame_device_ms": cuda_ms(frame, iters=5, warmup=1),
+                "frame_with_copy_to_host_ms": host_ms(lambda: frame().cpu().numpy(), iters=5)}
+    return out
+
+
+def seg_batches(n, dev):
+    """train_batches (without `aug`: the segment step runs no device
+    augmentation) with each image's overlap map at 160 x 160: each valid
+    box filled with its row index + 1, the larger boxes first."""
+    out = []
+    for batch in train_batches(n, dev, aug=False):
+        xywh, mask = batch["bboxes"].cpu().numpy(), batch["mask"].cpu().numpy()
+        seg = np.zeros((xywh.shape[0], 160, 160), np.int32)
+        for b in range(xywh.shape[0]):
+            for j in np.argsort(-xywh[b, :, 2] * xywh[b, :, 3]):
+                if mask[b, j]:
+                    x1, y1 = ((xywh[b, j, :2] - xywh[b, j, 2:] / 2) * 160).astype(int)
+                    x2, y2 = ((xywh[b, j, :2] + xywh[b, j, 2:] / 2) * 160).astype(int)
+                    seg[b, max(y1, 0):y2, max(x1, 0):x2] = j + 1
+        out.append({**batch, "seg_map": torch.tensor(seg, device=dev)})
+    return out
+
+
+def seg_train(dev):
+    """yolov8s-seg's train micro-step at batch 16, 640 px, bf16 over fp32
+    masters: SEG_STEPS micro-steps with the launches counted per step (K2
+    once each), the step's time (CUDA events) and the card's peak memory
+    over one step beside the (B, SEG_MASKS, 160, 160) fp32 mask tensors;
+    then one micro-step from one state and batch with K2 and with the plain
+    assigner (the four loss items, the grads as one vector per graph row)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+
+    tr = DetectionTrainer(overrides={**TRAIN, "model": SEG_FULL}).setup()
+    step, acc = tr._make_train_step(nb=TRAIN_NB)
+    batches = seg_batches(SEG_STEPS + 1, dev)
+    per_step, losses = [], []
+    reset_counts()
+    for i in range(SEG_STEPS):
+        before = counts()
+        items = step(batches[i])
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        losses.append(items.tolist())
+    launches = counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (ik, gk), (ip, gp), quiet = compare_step(tr, step, batches[-1], lambda f, *a: f(*a))
+    peak = torch.cuda.max_memory_allocated()
+    grad = block_errs(gk, gp)
+    cycle = itertools.cycle(batches[:SEG_STEPS])
+    step_ms = cuda_ms(lambda: step(next(cycle)), iters=8, warmup=4)
+    ok = (all(d == FAMILY_STEP_LAUNCHES for d in per_step) and bool(np.isfinite(losses).all()) and quiet
+          and len(losses[0]) == 4 and max(item_errs(ik, ip)) <= SEG_ITEM_RTOL
+          and (grads_equal(gk, gp) or max(grad.values()) <= SEG_GRAD_RTOL))
+    mask_tensor = TRAIN["batch"] * SEG_MASKS * 160 * 160 * 4
+    info = {"model": SEG_FULL, "accumulate": acc, "launches_per_step": per_step, "loss_items": losses,
+            "loss_names": ["box", "seg", "cls", "dfl"], "step_ms_batch16": step_ms,
+            "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms,
+            "k2_vs_plain": {"loss_items_kernel": ik.tolist(), "loss_items_plain": ip.tolist(),
+                            "loss_items_rel_err": item_errs(ik, ip), "loss_items_equal": bool(torch.equal(ik, ip)),
+                            "bitwise_equal_grads": grads_equal(gk, gp), "row_grad_rel_l2_max": max(grad.values())},
+            "memory": {"peak_gib_over_two_micro_steps": peak / 2**30, "held_before_gib": base / 2**30,
+                       "mask_tensor_gib": mask_tensor / 2**30}, "ok": ok}
+    del tr, step, batches
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def seg_fit(dev):
+    """YOLO(yolov8s-seg).train for one epoch on write_seg_dataset (4
+    micro-steps on the loader's instance-aware host stack, 2 val batches),
+    then YOLO(best.pt).val (2 more): K2 once per micro-step, no kernel per val
+    batch, the box and mask metrics finite and equal to the trainer's
+    record within FIT_RECORD_ATOL."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_seg_"))
+    steps, vals = [], []
+    try:
+        data = write_seg_dataset(tmp / "data")
+        fy = YOLO(SEG_FULL, device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"), **{**FIT, "epochs": 1, "save_period": -1})
+            torch.cuda.synchronize()
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
+                          verbose=False)
+            val_s = time.perf_counter() - t0
+        e = fy.trainer.epoch_stats[0]
+        record_err = max(abs(vm[k] - metrics[k]) for k in metrics)
+        csv_head = (fy.trainer.save_dir / "results.csv").read_text().splitlines()[0]
+        ok = (len(steps) == 4 and all(st["launches"] == FAMILY_STEP_LAUNCHES and st["boxes_ok"] for st in steps)
+              and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals) and record_err <= FIT_RECORD_ATOL
+              and all(np.isfinite(list(metrics.values()))) and "train/seg_loss" in csv_head
+              and vm.seg is not None and fy.trainer.train_loader.device_augment is False)
+        fit = {"model": SEG_FULL, "launches": fit_launches, "launches_per_step": steps, "launches_per_val_batch": vals,
+               "final_metrics": metrics, "val_best_pt": dict(vm), "record_max_abs_err": record_err,
+               "loader_wait_s": e["loader_wait_s"], "train_s": e["train_s"],
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
+               "ok": ok}
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fit, fit_launches
+
+
+def phase_segment(dev):
+    """Instance segmentation (the module docstring's segment phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    predict, path = [], []
+    for cfg in SEG:
+        _, info, launches = seg_predict(cfg, frames, dev)
+        predict.append(info)
+        path.append(launches)
+        torch.cuda.empty_cache()
+
+    yolo = YOLO(SEG_FULL, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(SEG_BATCH, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "dgrad", "deconv", "ConvTranspose", key="transposed_conv_share")
+    del xb
+    frames32 = frames * (SEG_BATCH // len(frames))
+    served = {}
+    with zero_class_priors(yolo.model):  # the predictor at full load: seeded scores near 0.5, up to 300 masks a frame
+        for retina in (False, True):
+            kw = dict(imgsz=640, conf=0.25, batch=SEG_BATCH, retina_masks=retina, verbose=False)
+            yolo.predict(frames32, **kw)  # warm-up
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = yolo.predict(frames32, **kw)
+            dt = time.perf_counter() - t0
+            path.append(counts())
+            slack = 1 if retina else 4  # one prototype cell: 4 input pixels at gain 1
+            served["retina" if retina else "proto"] = {
+                "img_per_s": SEG_BATCH / dt, "masks_per_frame": [len(r) for r in res[:8]],
+                "shapes_ok": all(r.masks.data.dtype == bool and r.masks.shape == (len(r), 480, 640) for r in res),
+                "inside_boxes": masks_in_boxes(res[:8], slack), "slack_px": slack}
+        mask_paths = seg_mask_paths(yolo, frames, dev)
+    del yolo
+    torch.cuda.empty_cache()
+    serve_ok = (all(v["shapes_ok"] and v["inside_boxes"] and sum(v["masks_per_frame"]) > 0 for v in served.values())
+                and all(v["share_off"] <= SEG_MASK_SHARE and v["masks"] > 0 for v in mask_paths.values()))
+
+    train_ok, train_info, train_launches = seg_train(dev)
+    path.append(train_launches)
+    fit, fit_launches = seg_fit(dev)
+    path.append(fit_launches)
+    full = {"ok": serve_ok and train_ok, "forward_ms_batch32": fwd_ms, "forward_img_per_s": SEG_BATCH * 1e3 / fwd_ms,
+            "forward_profile": profile, "predict_batch32": served, "device_vs_cpu_masks": mask_paths,
+            "train": train_info}
+    ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
+    return ok, {"predict": predict, "full_width": {SEG_FULL: full}, "fit": fit}, {"segment": add_counts(*path)}
 
 
 def phase_yolo11(dev):
@@ -2859,7 +3219,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
     YOLO11 and flagship-l phases, whose Swin blocks are 512 wide. K2 lists
     its rows at the four-level grids of the families phase (`four_levels`)
     and its row at topk=1 (`topk1`, YOLOv10's one-to-one assignment, on the
-    same inputs); its launches by path include the v10 phase's."""
+    same inputs); its launches by path include the v10 and segment phases'."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -3235,6 +3595,7 @@ def main() -> int:
     (fit_host_launches,) = run("fit_host", phase_fit_host, dev, fit_loader_ms)
     families_launches, k2_levels = run("families", phase_families, dev)
     (v10_launches,) = run("v10", phase_v10, dev)
+    (segment_launches,) = run("segment", phase_segment, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
@@ -3245,7 +3606,8 @@ def main() -> int:
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **families_launches, **v10_launches, **yolo11_launches, **large_launches,
+                            **families_launches, **v10_launches, **segment_launches, **yolo11_launches,
+                            **large_launches,
                             **yolo11_int8_launches, **autobatch_launches},
                            build, wide, k2_levels)
     print(smi, flush=True)

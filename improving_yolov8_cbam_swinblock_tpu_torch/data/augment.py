@@ -2,7 +2,9 @@
 data/augment.py): the letterbox, format_sample, the transforms of the
 device-augmented and val paths, and the host augmentation stack of
 device_augment=False (mosaic 2x2, 3x3 and 1x3, random_perspective, mixup,
-pixel_augment, HSV and flips, train_transform).
+pixel_augment, HSV and flips, train_transform), and the segment task's
+instance-aware stack (the polygons through the same mosaic, warp, mixup and
+flips; segment_transform's overlap map or bit planes of the instances).
 
 Letterbox: PyTorch's bilinear interpolation with half-pixel centres
 (align_corners=False), the rule cv2.INTER_LINEAR follows; cv2 rounds its
@@ -36,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.patches import fill_poly
+
 
 def _resize(t: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
     x = t.permute(2, 0, 1)[None].float()
@@ -62,6 +66,19 @@ def area_resize(t: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
     return y.round_().clamp_(0, 255).to(torch.uint8)
 
 
+def letterbox_geometry(shape: Tuple[int, int], new_shape: Union[int, Tuple[int, int]], scaleup: bool = True):
+    """(gain, (new_w, new_h) of the resized content, (left, right, top,
+    bottom) pad) of letterboxing an (h, w) frame into new_shape."""
+    if isinstance(new_shape, int):
+        new_shape = (new_shape, new_shape)
+    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:
+        r = min(r, 1.0)
+    new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # (w, h)
+    dw, dh = (new_shape[1] - new_unpad[0]) / 2, (new_shape[0] - new_unpad[1]) / 2
+    return r, new_unpad, (int(round(dw - 0.1)), int(round(dw + 0.1)), int(round(dh - 0.1)), int(round(dh + 0.1)))
+
+
 def letterbox(img: Union[np.ndarray, torch.Tensor], new_shape: Union[int, Tuple[int, int]], device=None,
               scaleup: bool = True) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
     """Min-ratio resize and pad (grey 114) of an (H, W, 3) uint8 image, the
@@ -70,17 +87,9 @@ def letterbox(img: Union[np.ndarray, torch.Tensor], new_shape: Union[int, Tuple[
     top-left pad)."""
     t = torch.as_tensor(img, device=device)
     shape = tuple(t.shape[:2])
-    if isinstance(new_shape, int):
-        new_shape = (new_shape, new_shape)
-    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
-    if not scaleup:
-        r = min(r, 1.0)
-    new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # (w, h)
-    dw, dh = (new_shape[1] - new_unpad[0]) / 2, (new_shape[0] - new_unpad[1]) / 2
+    r, new_unpad, (left, right, top, bottom) = letterbox_geometry(shape, new_shape, scaleup)
     if shape[::-1] != new_unpad:
         t = _resize(t, (new_unpad[1], new_unpad[0]))
-    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
-    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     t = F.pad(t.permute(2, 0, 1), (left, right, top, bottom), value=114).permute(1, 2, 0)
     return t, r, (left, top)
 
@@ -330,19 +339,7 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
     cls4, boxes4 = [], []
     for i, sample in enumerate(samples):
         img = sample["img"]
-        h, w = img.shape[:2]
-        if i == 0:  # top left
-            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
-            x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
-        elif i == 1:  # top right
-            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
-            x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
-        elif i == 2:  # bottom left
-            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
-            x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
-        else:  # bottom right
-            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
-            x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+        x1a, y1a, x2a, y2a, x1b, y1b, x2b, y2b = _mosaic4_rects(i, *img.shape[:2], xc, yc, s)
         img4[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
         if len(sample["bboxes"]):
             b = sample["bboxes"].copy()
@@ -351,6 +348,22 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             boxes4.append(b)
             cls4.append(sample["cls"])
     return _mosaic_out(img4, boxes4, cls4, s, border)
+
+
+def _mosaic4_rects(i: int, h: int, w: int, xc: int, yc: int, s: int):
+    """Where the i-th (h, w) image of a 2x2 mosaic about (xc, yc) goes on the
+    2s x 2s canvas (x1a, y1a, x2a, y2a) and which part of it (x1b .. y2b)."""
+    if i == 0:  # top left
+        x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+        return x1a, y1a, x2a, y2a, w - (x2a - x1a), h - (y2a - y1a), w, h
+    if i == 1:  # top right
+        x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+        return x1a, y1a, x2a, y2a, 0, h - (y2a - y1a), min(w, x2a - x1a), h
+    if i == 2:  # bottom left
+        x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+        return x1a, y1a, x2a, y2a, w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+    x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)  # bottom right
+    return x1a, y1a, x2a, y2a, 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
 
 
 def _mosaic_out(img, boxes, cls, s, border) -> Dict:
@@ -655,3 +668,212 @@ def train_transform(samples: List[Dict], imgsz: int, max_gt: int, rng: np.random
     m = random_flip_ud(m, rng, hyp.get("flipud", 0.0))
     m = random_flip_lr(m, rng, hyp.get("fliplr", 0.5))
     return format_sample(m, imgsz, max_gt)
+
+
+# ---------------------------------------------------------------------------
+# The instance-aware host stack of the segment task (JAX data/augment.py:465-545, :611-884): the
+# polygons ride the same mosaic, warp, mixup and flips as the boxes; the targets add an overlap
+# map (or bit planes) of the instances at imgsz / mask_ratio, filled with cv2.fillPoly's rule
+# (utils/patches.py fill_poly). An instance is a polygon in pixels, or None for a box-only label.
+
+
+def _inst_px(sample: Dict) -> Dict:
+    """A loader sample with its polygons in pixels, beside its xyxy pixel boxes."""
+    h, w = sample["img"].shape[:2]
+    n = len(sample["cls"])
+    polys = list(sample.get("segments") or [None] * n)
+    polys = [None if j >= len(polys) or polys[j] is None else polys[j] * np.array([w, h], np.float32)
+             for j in range(n)]
+    return {"img": sample["img"], "bboxes": sample["bboxes"].astype(np.float32), "cls": sample["cls"], "polys": polys}
+
+
+def _shift_inst(s: Dict, dx: float, dy: float) -> Dict:
+    b = s["bboxes"].copy()
+    if len(b):
+        b[:, [0, 2]] += dx
+        b[:, [1, 3]] += dy
+    return {**s, "bboxes": b,
+            "polys": [None if p is None else p + np.array([dx, dy], np.float32) for p in s["polys"]]}
+
+
+def _scale_inst(s: Dict, r: float, padw: int, padh: int) -> Dict:
+    """Boxes and polygons scaled by the letterbox gain r, then shifted by its pad."""
+    return _shift_inst({**s, "bboxes": s["bboxes"] * r, "polys": [None if p is None else p * r for p in s["polys"]]},
+                       padw, padh)
+
+
+def mosaic4_inst(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
+    """mosaic4 of instance samples: the same draws and canvas, the polygons shifted with their boxes."""
+    s = imgsz
+    border = (-s // 2, -s // 2)
+    yc = int(rng.uniform(-border[0], 2 * s + border[0]))
+    xc = int(rng.uniform(-border[1], 2 * s + border[1]))
+    img4 = np.full((s * 2, s * 2, 3), BORDER, dtype=np.uint8)
+    parts = []
+    for i, sample in enumerate(samples):
+        x1a, y1a, x2a, y2a, x1b, y1b, x2b, y2b = _mosaic4_rects(i, *sample["img"].shape[:2], xc, yc, s)
+        img4[y1a:y2a, x1a:x2a] = sample["img"][y1b:y2b, x1b:x2b]
+        parts.append(_shift_inst(sample, x1a - x1b, y1a - y1b))
+    return {"img": img4, "bboxes": np.clip(np.concatenate([p["bboxes"] for p in parts], 0), 0, 2 * s),
+            "cls": np.concatenate([p["cls"] for p in parts], 0), "polys": sum((p["polys"] for p in parts), []),
+            "mosaic_border": border}
+
+
+def random_perspective_inst(sample: Dict, rng: np.random.Generator, degrees=0.0, translate=0.1, scale=0.5,
+                            shear=0.0, perspective=0.0, border=(0, 0)) -> Dict:
+    """random_perspective of an instance sample: its draws and warp; each
+    polygon goes through the matrix and its box becomes the clipped
+    polygon's extent (a box-only instance: its warped corners' extent), and
+    box_candidates keeps instances with an area threshold of 0.01 where the
+    sample has a polygon, else 0.10."""
+    img = sample["img"]
+    h = img.shape[0] + border[0] * 2
+    w = img.shape[1] + border[1] * 2
+    C = np.eye(3)
+    C[0, 2] = -img.shape[1] / 2
+    C[1, 2] = -img.shape[0] / 2
+    P = np.eye(3)
+    P[2, 0] = rng.uniform(-perspective, perspective)
+    P[2, 1] = rng.uniform(-perspective, perspective)
+    R = np.eye(3)
+    a = rng.uniform(-degrees, degrees)
+    sc = rng.uniform(1 - scale, 1 + scale)
+    R[:2] = rotation_matrix(a, sc)
+    S = np.eye(3)
+    S[0, 1] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-shear, shear) * math.pi / 180)
+    T = np.eye(3)
+    T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * w
+    T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * h
+    M = T @ S @ R @ P @ C
+    if (border[0] != 0) or (border[1] != 0) or (M != np.eye(3)).any():
+        img = warp_perspective(img, M, (w, h)) if perspective else warp_affine(img, M, (w, h))
+
+    def warp_pts(pts):  # (K, 2) -> (K, 2)
+        xy = np.ones((len(pts), 3))
+        xy[:, :2] = pts
+        xy = xy @ M.T
+        return (xy[:, :2] / xy[:, 2:3]) if perspective else xy[:, :2]
+
+    n = len(sample["cls"])
+    new_boxes = np.zeros((n, 4), np.float32)
+    new_polys = []
+    for j in range(n):
+        poly = sample["polys"][j]
+        if poly is not None:
+            pts = warp_pts(poly).astype(np.float32)
+            new_polys.append(pts)
+        else:
+            b = sample["bboxes"][j]
+            pts = warp_pts(np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]]]))
+            new_polys.append(None)
+        cp = np.clip(pts, [0, 0], [w, h])
+        new_boxes[j] = [cp[:, 0].min(), cp[:, 1].min(), cp[:, 0].max(), cp[:, 1].max()]
+    keep = box_candidates(sample["bboxes"].T * sc, new_boxes.T,
+                          area_thr=0.01 if any(p is not None for p in sample["polys"]) else 0.10)
+    return {"img": img, "bboxes": new_boxes[keep], "cls": sample["cls"][keep],
+            "polys": [p for p, k in zip(new_polys, keep) if k]}
+
+
+def flip_inst(s: Dict, rng: np.random.Generator, flipud=0.0, fliplr=0.5) -> Dict:
+    """Up-down (probability flipud) then left-right (fliplr) flips of an
+    instance sample; a generator draw only for a flip whose probability is not 0."""
+    h, w = s["img"].shape[:2]
+    out = dict(s)
+    if flipud and rng.random() < flipud:
+        b = out["bboxes"].copy()
+        b[:, [1, 3]] = h - b[:, [3, 1]]
+        out.update(img=np.ascontiguousarray(out["img"][::-1]), bboxes=b,
+                   polys=[None if p is None else np.stack([p[:, 0], h - p[:, 1]], 1) for p in out["polys"]])
+    if fliplr and rng.random() < fliplr:
+        b = out["bboxes"].copy()
+        b[:, [0, 2]] = w - b[:, [2, 0]]
+        out.update(img=np.ascontiguousarray(out["img"][:, ::-1]), bboxes=b,
+                   polys=[None if p is None else np.stack([w - p[:, 0], p[:, 1]], 1) for p in out["polys"]])
+    return out
+
+
+def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Generator, hyp: Dict) -> Dict:
+    """The instance tasks' train pipeline for one output image (JAX
+    data/augment.py:727): a 2x2 mosaic (or the letterbox), random_perspective,
+    mixup with a second mosaic of samples 4 to 7, pixel_augment, HSV, flips.
+    Returns a pixel-space instance sample. copy_paste above 0 raises: it is
+    not in the port yet."""
+    if hyp.get("copy_paste", 0.0) > 0:
+        raise NotImplementedError("copy_paste > 0 is not in the port yet (ROADMAP.md Queue 1: copy_paste in both modes)")
+    insts = [_inst_px(s) for s in samples]
+    warp = {k: hyp.get(k, d) for k, d in (("degrees", 0.0), ("translate", 0.1), ("scale", 0.5), ("shear", 0.0),
+                                          ("perspective", 0.0))}
+    use_mosaic = rng.random() < hyp.get("mosaic", 1.0)
+    if use_mosaic and len(insts) >= 4:
+        m = mosaic4_inst(insts[:4], imgsz, rng)
+        border = m.pop("mosaic_border")
+    else:
+        img, r, (padw, padh) = letterbox(insts[0]["img"], imgsz)
+        m = {**_scale_inst(insts[0], r, padw, padh), "img": img.numpy()}
+        border = (0, 0)
+    m = random_perspective_inst(m, rng, border=border, **warp)
+    if use_mosaic and len(insts) >= 8 and rng.random() < hyp.get("mixup", 0.0):
+        m2 = mosaic4_inst(insts[4:8], imgsz, rng)
+        m2 = random_perspective_inst(m2, rng, border=m2.pop("mosaic_border"), **warp)
+        r = rng.beta(32.0, 32.0)
+        m = {"img": (m["img"].astype(np.float32) * r + m2["img"].astype(np.float32) * (1 - r)).astype(np.uint8),
+             "bboxes": np.concatenate([m["bboxes"], m2["bboxes"]], 0), "cls": np.concatenate([m["cls"], m2["cls"]], 0),
+             "polys": m["polys"] + m2["polys"]}
+    m["img"] = pixel_augment(m["img"], rng, hyp.get("pixel_augment", 1.0))
+    m["img"] = random_hsv(m["img"], rng, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7), hyp.get("hsv_v", 0.4))
+    return flip_inst(m, rng, hyp.get("flipud", 0.0), hyp.get("fliplr", 0.5))
+
+
+def _val_inst(sample: Dict, imgsz: int) -> Dict:
+    """The val letterbox (never up) of an instance sample, with ratio_pad."""
+    img, r, (padw, padh) = letterbox(sample["img"], imgsz, scaleup=False)
+    m = {**_scale_inst(_inst_px(sample), r, padw, padh), "img": img.numpy()}
+    m["ratio_pad"] = np.array([r, padw, padh], np.float32)
+    return m
+
+
+def _fill_instance(target: np.ndarray, poly, box, ratio: int, value: int) -> None:
+    """Fill one instance into target at 1 / ratio of the image: its polygon
+    (vertices rounded, cv2.fillPoly's rule), or a box-only label's box."""
+    if poly is None:
+        x1, y1, x2, y2 = (box / ratio).astype(int)
+        target[max(y1, 0):y2, max(x1, 0):x2] = value
+    else:
+        fill_poly(target, np.round(poly / ratio).astype(np.int32), value)
+
+
+def segment_transform(sample, imgsz: int, max_gt: int, train: bool, rng, hyp: Dict) -> Dict[str, np.ndarray]:
+    """The segment task's sample (JAX data/augment.py:816): train runs
+    geometric_train_transform on the main sample and its donors, val the
+    letterbox. Beside format_sample's keys and ratio_pad, `seg_map`: the
+    overlap map (imgsz / ratio)^2 int32, each pixel the index + 1 of the
+    smallest instance over it (the instances filled largest box first), at
+    ratio = mask_ratio in train and 4 in val; or, in train with
+    overlap_mask false, (ceil(max_gt / 32), s, s) int32 bit planes,
+    instance j in plane j // 32, bit j % 32, each instance whole."""
+    if train:
+        m = geometric_train_transform(sample if isinstance(sample, list) else [sample], imgsz, rng, hyp)
+        rp = np.array([1.0, 0.0, 0.0], np.float32)
+    else:
+        m = _val_inst(sample[0] if isinstance(sample, list) else sample, imgsz)
+        rp = m["ratio_pad"]
+    out = format_sample({k: m[k] for k in ("img", "bboxes", "cls")}, imgsz, max_gt)
+    ratio = int(hyp.get("mask_ratio", 4) or 4) if train else 4
+    ms = imgsz // ratio
+    n = min(len(m["bboxes"]), max_gt)
+    polys = [m["polys"][j] if j < len(m["polys"]) else None for j in range(n)]
+    if train and not bool(hyp.get("overlap_mask", True)):
+        seg = np.zeros(((max_gt + 31) // 32, ms, ms), np.int32)
+        for j in range(n):
+            one = np.zeros((ms, ms), np.uint8)
+            _fill_instance(one, polys[j], m["bboxes"][j], ratio, 1)
+            seg[j // 32] |= one.astype(np.int32) << (j % 32)
+    else:
+        seg = np.zeros((ms, ms), np.int32)
+        order = np.argsort([-(bb[2] - bb[0]) * (bb[3] - bb[1]) for bb in m["bboxes"][:n]]) if n else []
+        for j in order:  # largest first: a smaller instance overwrites
+            _fill_instance(seg, polys[j], m["bboxes"][j], ratio, int(j + 1))
+    out["seg_map"] = seg
+    out["ratio_pad"] = rp
+    return out

@@ -37,10 +37,10 @@ def build_yolo_dataset(cfg, img_path, data: Dict, mode: str = "train") -> YOLODa
 
 def build_dataloader(dataset: YOLODataset, batch: int, workers: int = 8, train: bool = True,
                      hyp: Optional[Dict] = None, seed: int = 0, device_augment: bool = True,
-                     rect_shape=None) -> DataLoader:
-    """The fixed-shape prefetch loader."""
+                     rect_shape=None, task: str = "detect") -> DataLoader:
+    """The fixed-shape prefetch loader; task "segment" adds the instances' targets."""
     return DataLoader(dataset, batch, train=train, hyp=hyp, seed=seed, workers=workers,
-                      device_augment=device_augment, rect_shape=rect_shape)
+                      device_augment=device_augment, rect_shape=rect_shape, task=task)
 
 
 @dataclass

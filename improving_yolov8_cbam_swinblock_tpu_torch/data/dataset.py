@@ -9,7 +9,9 @@ JAX package's data/dataset.py: check_det_dataset, YOLODataset, DataLoader).
   * the loader decodes and transforms in a thread pool and yields
     fixed-shape numpy batches: img (B, H, W, 3) uint8 RGB, cls (B, G),
     bboxes (B, G, 4) normalised xywh, mask (B, G), plus ratio_pad and
-    orig_shape on the val path. The train path either letterboxes only and
+    orig_shape on the val path (the segment task: `seg_map`, the instances'
+    overlap map or bit planes, and ratio_pad, from data/augment.py
+    segment_transform on both paths). The train path either letterboxes only and
     adds `aug` (the 7 device-augmentation hyperparameters in AUG_KEYS
     order; device_augment=True, the default) or runs the host augmentation
     stack (data/augment.py train_transform; device_augment=False), each
@@ -37,7 +39,7 @@ import yaml
 
 from ..cfg import AUG_KEYS
 from ..utils.patches import image_size, imread
-from .augment import raw_train_transform, train_transform, val_transform
+from .augment import raw_train_transform, segment_transform, train_transform, val_transform
 from .utils import load_or_build_cache
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
@@ -150,7 +152,8 @@ class YOLODataset:
         return img
 
     def load_sample(self, idx: int) -> Dict:
-        """Raw sample: BGR image and pixel xyxy boxes."""
+        """Raw sample: BGR image, pixel xyxy boxes, classes and each label's
+        normalised polygon (None for a box row)."""
         img = self._read_image(idx)
         h, w = img.shape[:2]
         lab = self.labels[idx]
@@ -160,7 +163,7 @@ class YOLODataset:
             bboxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], axis=1).astype(np.float32)
         else:
             bboxes = np.zeros((0, 4), np.float32)
-        return {"img": img, "bboxes": bboxes, "cls": lab["cls"].copy()}
+        return {"img": img, "bboxes": bboxes, "cls": lab["cls"].copy(), "segments": lab.get("segments", [])}
 
 
 class DataLoader:
@@ -168,12 +171,14 @@ class DataLoader:
 
     def __init__(self, dataset: YOLODataset, batch_size: int, train: bool = True, hyp: Optional[Dict] = None,
                  seed: int = 0, workers: int = 8, device_augment: bool = True,
-                 rect_shape=None):
+                 rect_shape=None, task: str = "detect"):
         self.ds = dataset
         self.bs = batch_size
         self.train = train
-        self.device_augment = device_augment and train
-        self.rect_shape = tuple(rect_shape) if rect_shape else None  # val only: (h, w)
+        self.task = task
+        # the segment task runs its own host stack, never the device augmentation nor rect, as in the JAX package
+        self.device_augment = device_augment and train and task == "detect"
+        self.rect_shape = tuple(rect_shape) if rect_shape and task == "detect" else None  # val only: (h, w)
         self.hyp = dict(hyp or {})
         self.seed = seed
         self.epoch = 0
@@ -195,6 +200,13 @@ class DataLoader:
     def _make_sample(self, epoch: int, pos: int, i: int) -> Dict[str, np.ndarray]:
         """Image i at position pos of the epoch. The host path's generator and
         donor draws are the JAX package's (its DataLoader._make_sample)."""
+        if self.task == "segment":
+            rng = np.random.default_rng((self.seed * 1_000_003 + epoch) * 1_000_003 + i * 7 + pos)
+            group = self.ds.load_sample(i)
+            if self.train:  # the main sample, the 2x2 mosaic's donors and, with mixup, a second mosaic's
+                extra = rng.integers(0, len(self.ds), 7 if self.hyp.get("mixup", 0.0) > 0 else 3)
+                group = [group] + [self.ds.load_sample(int(j)) for j in extra]
+            return segment_transform(group, self.ds.imgsz, self.ds.max_gt, self.train, rng, self.hyp)
         if self.device_augment:
             return raw_train_transform(self.ds.load_sample(i), self.ds.imgsz, self.ds.max_gt)
         if self.train:

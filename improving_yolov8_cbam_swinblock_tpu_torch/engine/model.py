@@ -12,7 +12,9 @@ memory. For int8 serving, build with fp32 weights
 with `ops.quant.quantize_model(yolo.model, batches)`; `predict` and `val`
 then run it. `train(data=...)` trains on the model's device (a model loaded
 from a file warm-starts the trainer) and adopts best.pt's EMA weights;
-`val(data=...)` returns ValMetrics. `track` runs predict with ByteTrack or
+`val(data=...)` returns ValMetrics. A segmentation graph (task "segment")
+predicts masks, validates box and mask mAP and trains with the seg loss
+through the same verbs. `track` runs predict with ByteTrack or
 BoT-SORT on its events (trackers/), `embed` returns pooled layer
 embeddings, and predict's visualize writes feature maps.
 """
@@ -42,7 +44,7 @@ from ..utils.metrics import ValMetrics
 from .predictor import DetectionPredictor
 from .results import Results
 from .trainer import DetectionTrainer, checkpoint_state
-from .validator import DetectionValidator
+from .validator import TASK_VALIDATORS
 
 JAX_SUFFIXES = (".ckpt", ".msgpack")
 
@@ -72,6 +74,7 @@ class YOLO:
             self._load_ckpt(str(model))
         else:
             self.model = DetectionModel(model, **self._build)
+        self.task = self.model.task  # "detect" or "segment", from the graph's head
 
     def _load_pt(self, path: str) -> None:
         payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -339,7 +342,10 @@ class YOLO:
         """Detection metrics of this model (float or quantized, as it is) on
         the `split` (default val) of `data`, with `batch`, `imgsz`, `rect`,
         `max_det`, `workers`, `verbose`, `plots` and `save_json` from kwargs;
-        fires the val batch events of this YOLO's callbacks."""
+        fires the val batch events of this YOLO's callbacks. A segmentation
+        model (task "segment") returns its box and mask metrics ("(B)" and
+        "(M)" keys, `.box` and `.seg`; fitness the sum of both; `mAP50-95`
+        the mask's), without rect, plots or JSON."""
         self._single("validating")
         args = get_cfg({**self.overrides, **kwargs})
         stride = max(self.model.strides)
@@ -347,10 +353,16 @@ class YOLO:
         info = check_det_dataset(data or args.data)
         split = args.split if info.get(args.split) else "val"
         ds = build_yolo_dataset(args, info[split], info, mode="val")
-        rect_shape = ds.rect_shape(stride=int(stride)) if args.rect else None
-        loader = build_dataloader(ds, int(args.batch), workers=args.workers, train=False, rect_shape=rect_shape)
-        self.validator = DetectionValidator(self.model, loader, args, callbacks=self.callbacks)
+        rect_shape = ds.rect_shape(stride=int(stride)) if args.rect and self.task == "detect" else None
+        loader = build_dataloader(ds, int(args.batch), workers=args.workers, train=False, rect_shape=rect_shape,
+                                  task=self.task)
+        self.validator = TASK_VALIDATORS[self.task](self.model, loader, args, callbacks=self.callbacks)
         out = ValMetrics(self.validator())
+        if self.task == "segment":  # the box and mask keys, each also as metrics/<key>
+            for k in [k for k in out if k.endswith(("(B)", "(M)"))]:
+                out[f"metrics/{k}"] = out[k]
+            out.box, out.seg = self.validator.box_m.box, self.validator.mask_m.box
+            return out
         for k in ("precision", "recall", "mAP50", "mAP50-95"):
             out[f"metrics/{k}(B)"] = out[k]
         out.box = self.validator.metrics.box
@@ -364,6 +376,9 @@ class YOLO:
         from .exporter import Exporter
 
         self._single("exporting")
+        if self.task != "detect":
+            raise NotImplementedError(f"export of a {self.task} model is not in the port yet "
+                                      "(ROADMAP.md Queue 1: int8 and export of the seg graphs)")
         return Exporter(self.model, get_cfg({**self.overrides, **kwargs}), callbacks=self.callbacks)()
 
     def benchmark(self, **kwargs):

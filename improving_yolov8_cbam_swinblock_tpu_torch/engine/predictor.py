@@ -13,7 +13,12 @@ predict_augment: three scales, one flipped), `vid_stride`,
 per-channel grid of every rank-4 layer output per image, written as PNGs).
 A YOLOv10 model (`end2end`) gives its head's top-k detections with the rows
 at or below `conf` zeroed, as the JAX predictor does: no NMS, and
-`augment`, `iou`, `max_det` and `agnostic_nms` do not apply.
+`augment`, `iou`, `max_det` and `agnostic_nms` do not apply. A segmentation
+model's NMS carries each kept anchor's mask coefficients, and each image's
+masks (`Results.masks`, (n, H0, W0) bool) are made on the model's device
+(`native_masks`); `retina_masks` crops them by the boxes at the original
+resolution instead of at the prototypes'; `augment` does not apply, as in
+the JAX predictor.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -28,13 +33,52 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.augment import letterbox
+from ..data.augment import letterbox, letterbox_geometry
 from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
-from ..ops.boxes import scale_boxes
+from ..ops.boxes import process_mask, scale_boxes
 from ..ops.nms import non_max_suppression
+from ..ops.segments import resize_bilinear
 from ..utils.callbacks import default_callbacks, run_callbacks
 from .results import Results
+
+
+def native_masks(proto: torch.Tensor, det: torch.Tensor, imgsz: int, pad: Tuple[int, int], orig_shape,
+                 boxes0: torch.Tensor, retina: bool = False) -> torch.Tensor:
+    """One image's (n, H0, W0) bool masks, on proto's device, as the JAX
+    predictor makes them on the host with cv2: proto (nm, h, w); det (n,
+    6 + nm) kept NMS rows in letterboxed pixels (the coefficients after the
+    class); pad the letterbox's (padw, padh); boxes0 (n, 4) the rows' boxes
+    in original pixels. The soft masks (process_mask's, cropped by the
+    boxes at the prototypes' resolution; with `retina`, the uncropped
+    sigmoids) are resized to imgsz x imgsz, the pad is cut (JAX's rows
+    padh to imgsz - padh, where there is a pad), they are resized to the
+    original (h, w) and thresholded at 0.5; with `retina` each is then
+    cropped by its box at the original resolution (columns int(x1) to
+    ceil(x2), rows likewise). Both resizes are bilinear with half-pixel
+    centres (segments.resize_bilinear)."""
+    padw, padh = pad
+    coeffs = det[:, 6:]
+    if retina:
+        nm, h, w = proto.shape
+        soft = torch.sigmoid(coeffs.float() @ proto.float().reshape(nm, -1)).reshape(-1, h, w)
+    else:
+        soft = process_mask(proto, coeffs, det[:, :4], (imgsz, imgsz))
+    up = resize_bilinear(soft, (imgsz, imgsz))
+    y0, x0 = int(round(padh)), int(round(padw))
+    y1 = imgsz - y0 if padh > 0 else imgsz
+    x1 = imgsz - x0 if padw > 0 else imgsz
+    masks = resize_bilinear(up[:, y0:y1, x0:x1], orig_shape[:2]) > 0.5
+    if retina:
+        b = boxes0.to(masks.device)
+        h0, w0 = orig_shape[:2]
+        rows = torch.arange(h0, device=masks.device)[None, :, None]
+        cols = torch.arange(w0, device=masks.device)[None, None, :]
+        bx1, by1 = b[:, 0].floor().clamp(min=0), b[:, 1].floor().clamp(min=0)  # int() of a box clipped at 0
+        bx2, by2 = b[:, 2].ceil(), b[:, 3].ceil()
+        masks &= ((cols >= bx1[:, None, None]) & (cols < bx2[:, None, None]) & (rows >= by1[:, None, None])
+                  & (rows < by2[:, None, None]))
+    return masks
 
 
 class DetectionPredictor:
@@ -84,23 +128,35 @@ class DetectionPredictor:
         n = len(frames)
         t1 = time.perf_counter()
         conf = 0.25 if a.conf is None else float(a.conf)
+        segment = self.model.task == "segment"
+        proto = None
         if self.model.end2end:  # YOLOv10: the head's top-k detections, gated by conf; no TTA, no NMS
             dets = self.model(x)[0]
             dets = dets * (dets[..., 4:5] > conf)
         else:
-            pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
+            if segment:  # (B, 4 + nc + nm, A) and the prototypes; no TTA
+                pred, (_, _, proto) = self.model(x)
+            else:
+                pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
             dets = non_max_suppression(pred, conf_thres=conf, iou_thres=float(a.iou), max_det=int(a.max_det),
                                        nc=self.model.nc, agnostic=bool(a.agnostic_nms))
-        dets = dets[:n].cpu().numpy()
+        dets_dev = dets[:n]
+        dets = dets_dev[..., :6].cpu().numpy()
         t2 = time.perf_counter()
         if a.visualize:
             self.save_feature_maps(x[:n], [path for _, path in frames])
         out = []
-        for det, (img0, path) in zip(dets, frames):
-            det = det[det[:, 4] > 0].copy()
+        for i, (det, (img0, path)) in enumerate(zip(dets, frames)):
+            keep = det[:, 4] > 0
+            det = det[keep].copy()
             if len(det):
                 det[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(det[:, :4]), img0.shape[:2]).numpy()
             res = Results(img0, path, self.model.names, det)
+            if segment and len(det):
+                _, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
+                rows = dets_dev[i][torch.from_numpy(keep).to(dets_dev.device)]
+                res.update(masks=native_masks(proto[i], rows, imgsz, (padw, padh), img0.shape[:2],
+                                              torch.from_numpy(det[:, :4]), bool(a.retina_masks)).cpu().numpy())
             res.speed = {"preprocess": (t1 - t0) * 1000 / n, "inference": (t2 - t1) * 1000 / n,
                          "postprocess": 0.0}
             out.append(res)

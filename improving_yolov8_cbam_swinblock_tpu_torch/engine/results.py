@@ -1,5 +1,6 @@
 """Inference results of the predict path: numpy-backed, like the JAX
-package's engine/results.py (its detection part).
+package's engine/results.py (its detection part, and the masks of a
+segmentation model).
 
 `Results` holds one image's detections and writes them out: a log string
 (`verbose`), dicts and JSON (`summary`, `to_json`), a sqlite table
@@ -65,8 +66,35 @@ class Boxes:
         return len(self.data)
 
 
+class Masks:
+    """Instance masks: (n, H, W) bool at the original image's resolution,
+    array-like (len, iteration, indexing and __array__), as the JAX
+    package's engine/results.py Masks. Their polygons (xy, xyn) are not in
+    the port yet."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data)
+        self.orig_shape = tuple(orig_shape)
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    def __array__(self, dtype=None, copy=None):
+        return self.data.astype(dtype) if dtype is not None else self.data
+
+    def __iter__(self):
+        return iter(self.data)
+
+    def __getitem__(self, idx):
+        return self.data[idx]
+
+    def __len__(self):
+        return len(self.data)
+
+
 class Results:
-    """One image's detections."""
+    """One image's detections, and a segmentation model's masks (`masks`, None otherwise)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None):
         self.orig_img = orig_img
@@ -74,15 +102,19 @@ class Results:
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes if boxes is not None else np.zeros((0, 6)), self.orig_shape)
+        self.masks: Optional[Masks] = None
         self.speed = {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
         return len(self.boxes)
 
     def __getitem__(self, idx):
-        """A new Results over the selected detections."""
+        """A new Results over the selected detections (and their masks)."""
         r = self.new()
         r.boxes = self.boxes[idx]
+        if self.masks is not None:
+            m = self.masks.data[idx]
+            r.masks = Masks(m[None] if m.ndim == 2 else m, self.orig_shape)
         return r
 
     def new(self):
@@ -91,10 +123,12 @@ class Results:
         r.speed = dict(self.speed)
         return r
 
-    def update(self, boxes=None):
-        """Replace the detections in place."""
+    def update(self, boxes=None, masks=None):
+        """Replace the detections (and the masks) in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
         return self
 
     def verbose(self) -> str:

@@ -51,7 +51,15 @@ train() starts; `plots=True` draws labels.jpg at setup, the first three
 train batches of the first epoch and results.png at the end, as the JAX
 trainer does.
 
-Not in the port yet: multi-host sharding and the other tasks' losses.
+A segmentation model (task "segment", a graph that ends in Segment)
+trains as the JAX trainer trains it: the loader's instance-aware host stack
+(data/augment.py segment_transform: no device augmentation, no
+multi_scale, no rect val), the seg loss (utils/seg_loss.py: the detect
+terms, with K2, and the masks' BCE) with four loss items box, seg, cls,
+dfl (the progress line and results.csv carry train/seg_loss), and
+SegmentationValidator's box and mask metrics.
+
+Not in the port yet: multi-host sharding and the pose, OBB and classify losses.
 """
 
 from __future__ import annotations
@@ -76,11 +84,13 @@ from ..utils.device import select_device
 from ..utils.files import get_save_dir
 from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
 from ..utils.loss import detection_loss
-from .validator import DetectionValidator
+from ..utils.seg_loss import segmentation_loss
+from .validator import TASK_VALIDATORS, DetectionValidator
 
 OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
+LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl")}  # a step's items, per task
 def checkpoint_state(path) -> Dict[str, torch.Tensor]:
     """The unfused weights a checkpoint file hands to an overlay: the EMA of
     a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
@@ -154,7 +164,8 @@ class DetectionTrainer:
     """Trains a DetectionModel on batches in the loader's format:
     img (B, s, s, 3) uint8 RGB, cls (B, G), bboxes (B, G, 4) normalised xywh,
     mask (B, G) and, optionally, aug (7,) = mosaic, scale, translate,
-    fliplr, hsv_h, hsv_s, hsv_v for the device augmentation.
+    fliplr, hsv_h, hsv_s, hsv_v for the device augmentation; a segmentation
+    model's batches also carry seg_map (B, h, w) or (B, P, h, w) int32.
 
     The trainer runs on the card unless `device="cpu"` is passed."""
 
@@ -232,15 +243,17 @@ class DetectionTrainer:
     def _build_datasets(self) -> None:
         a = self.args
         hyp = {k: getattr(a, k) for k in HYP_KEYS}
+        task = self.model.task
         train_ds = build_yolo_dataset(a, self.data["train"], self.data, mode="train")
         self.train_loader = build_dataloader(train_ds, int(a.batch), workers=a.workers, train=True, hyp=hyp,
-                                             seed=a.seed, device_augment=bool(a.device_augment))
+                                             seed=a.seed, device_augment=bool(a.device_augment), task=task)
         self.val_loader = None
         if a.val and self.data.get("val"):
             val_ds = build_yolo_dataset(a, self.data["val"], self.data, mode="val")
-            rect_shape = val_ds.rect_shape(stride=int(max(self.model.strides))) if a.rect else None
+            rect = a.rect and task == "detect"
+            rect_shape = val_ds.rect_shape(stride=int(max(self.model.strides))) if rect else None
             self.val_loader = build_dataloader(val_ds, int(a.batch), workers=a.workers, train=False, seed=a.seed,
-                                               rect_shape=rect_shape)
+                                               rect_shape=rect_shape, task=task)
 
     def _warm_start(self) -> None:
         """Overlay pretrained weights onto the fresh init: each parameter and
@@ -274,7 +287,8 @@ class DetectionTrainer:
 
     def _make_train_step(self, nb: int):
         """Build the optimizer and return (step, accumulate): step(batch) runs
-        one micro-step and returns the (3,) loss items box, cls, dfl."""
+        one micro-step and returns the loss items (LOSS_NAMES: box, cls, dfl;
+        a segmentation model's box, seg, cls, dfl)."""
         a = self.args
         model = self.model
         epochs = int(a.epochs)
@@ -306,7 +320,8 @@ class DetectionTrainer:
             frac = min(max(ni / nw, 0.0), 1.0)
             return frac * base, bias_lr0 + frac * (base - bias_lr0), mom_w + frac * (mom_f - mom_w)
 
-        device_aug, multi_scale = bool(a.device_augment), bool(a.multi_scale)
+        segment = model.task == "segment"  # the loader's host stack only, as in the JAX trainer
+        device_aug, multi_scale = bool(a.device_augment) and not segment, bool(a.multi_scale) and not segment
         nc, strides = model.nc, model.strides
         dev = self.device
 
@@ -325,8 +340,12 @@ class DetectionTrainer:
                 xs, bboxes, mask = scale_content(x.float(), bboxes, mask, k)
                 x = xs.to(model.dtype).clamp(0.0, 1.0)
             feats = model(x)
-            total, items = detection_loss(feats, cls, bboxes, mask, nc=nc, strides=strides, box_gain=a.box,
-                                          cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
+            gains = dict(nc=nc, strides=strides, box_gain=a.box, cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
+            if segment:
+                total, items = segmentation_loss(*feats, cls, bboxes, mask, torch.as_tensor(batch["seg_map"], device=dev),
+                                                 **gains)
+            else:
+                total, items = detection_loss(feats, cls, bboxes, mask, **gains)
             total.backward()  # grads add up in .grad across micro-steps
             if (self.step + 1) % accumulate == 0:
                 self._apply_update(opt, params, *schedules(self.step))
@@ -406,10 +425,10 @@ class DetectionTrainer:
                 run_callbacks(self.callbacks, "on_train_batch_end", self)
             mean_loss = torch.stack(losses).float().mean(0).cpu().numpy()  # waits for the epoch's last step
             dt = time.perf_counter() - t0
-            print(("%11s" + "%11.4g" * 3 + "%11s   %.1f img/s") % (
+            print(("%11s" + "%11.4g" * len(mean_loss) + "%11s   %.1f img/s") % (
                 f"{epoch + 1}/{epochs}", *mean_loss, a.imgsz, nb * int(a.batch) / max(dt, 1e-9)))
-            row = {"epoch": epoch, "train/box_loss": float(mean_loss[0]), "train/cls_loss": float(mean_loss[1]),
-                   "train/dfl_loss": float(mean_loss[2]), "time_s": round(dt, 2)}
+            row = {"epoch": epoch, **{f"train/{k}_loss": float(v) for k, v in zip(LOSS_NAMES[self.model.task],
+                                                                                  mean_loss)}, "time_s": round(dt, 2)}
             stats = {"epoch": epoch, "batches": nb, "train_s": dt, "loader_wait_s": wait}
             if self.val_loader is not None:
                 tv = time.perf_counter()
@@ -476,7 +495,8 @@ class DetectionTrainer:
         run_callbacks(self.callbacks, "on_val_start", self)
         ev = self.eval_model()
         if self.validator is None:
-            self.validator = DetectionValidator(ev, self.val_loader, self.args, callbacks=self.callbacks, owner=self)
+            self.validator = TASK_VALIDATORS[ev.task](ev, self.val_loader, self.args, callbacks=self.callbacks,
+                                                      owner=self)
             self.validator.standalone = False
         out = self.validator()
         run_callbacks(self.callbacks, "on_val_end", self)

@@ -15,6 +15,14 @@ pixels, one running image id per image) as predictions.json, go to
 `times` holds the seconds of the last call: waiting for the loader, the
 device part (forward, NMS and the copy of the detections to the host) and
 the host part (matching and AP).
+
+SegmentationValidator (the JAX package's, engine/validator.py:262-331)
+adds the masks: each kept detection's mask at the prototypes' resolution
+(process_mask, > 0.5) is matched by mask IoU against the loader's overlap
+map (`seg_map`, imgsz / 4), and its metrics are the box and the mask mAP:
+fitness is their sum, and `mAP50-95` is the mask's. It draws no plots and
+writes no JSON, as in the JAX package. TASK_VALIDATORS picks the validator
+of a model's task.
 """
 
 from __future__ import annotations
@@ -25,15 +33,18 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.boxes import xywh2xyxy
-from ..ops.nms import non_max_suppression
 from pathlib import Path
 
+from ..ops.boxes import process_mask, xywh2xyxy
+from ..ops.nms import non_max_suppression
 from ..utils.callbacks import run_callbacks
-from ..utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions, plot_pr_curves
+from ..utils.metrics import (ConfusionMatrix, DetMetrics, box_iou_np, mask_iou_np, match_predictions,
+                             plot_pr_curves)
 
 
 class DetectionValidator:
+    writes_files = True  # plots and predictions.json, where the args ask for them
+
     def __init__(self, model, loader, args, callbacks: Optional[Dict] = None, owner=None):
         self.model = model
         self.loader = loader
@@ -91,11 +102,17 @@ class DetectionValidator:
             tp = match_predictions(det[:, 5].astype(int), gt_cls, box_iou_np(gt_xyxy, det[:, :4]))
             self.metrics.update(tp, det[:, 4], det[:, 5].astype(int), gt_cls)
 
+    def init_metrics(self) -> None:
+        self.metrics = DetMetrics(self.model.names)
+
+    def compute(self) -> Dict[str, float]:
+        return self.metrics.compute()
+
     def __call__(self) -> Dict[str, float]:
         self.model.eval()
-        self.metrics = DetMetrics(self.model.names)
+        self.init_metrics()
         self.seen = 0
-        plots, save_json = bool(self.args.plots), bool(self.args.save_json)
+        plots, save_json = (bool(self.args.plots), bool(self.args.save_json)) if self.writes_files else (False, False)
         self.confusion_matrix = ConfusionMatrix(self.model.nc) if plots else None
         self.json_dets = [] if save_json else None
         self.image_id = 0
@@ -120,7 +137,7 @@ class DetectionValidator:
             if self.callbacks is not None:
                 run_callbacks(self.callbacks, "on_val_batch_end", owner)
         t0 = time.perf_counter()
-        out = self.metrics.compute()
+        out = self.compute()
         times["host"] += time.perf_counter() - t0
         self.times = times
         self.print_results(out)
@@ -154,3 +171,77 @@ class DetectionValidator:
         if self.standalone and len(self.metrics.per_class) > 1:
             for name, v in self.metrics.per_class.items():
                 print(pf % (name, self.seen, v["n"], *(v[k] for k in keys)))
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box and mask mAP of a segmentation model (the module docstring)."""
+
+    writes_files = False
+
+    def init_metrics(self) -> None:
+        self.box_m, self.mask_m = DetMetrics(self.model.names), DetMetrics(self.model.names)
+        self.metrics = self.box_m
+
+    @torch.inference_mode()
+    def forward_nms(self, img: np.ndarray):
+        """(B, H, W, 3) uint8 RGB -> ((B, max_det, 6) detections, each image's
+        (n, H / 4, W / 4) bool masks of its n kept rows), on the host."""
+        m = self.model
+        x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
+        pred, (_, _, proto) = m(x)
+        dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=int(self.args.max_det),
+                                   nc=m.nc, multi_label=m.nc > 1)
+        hw = tuple(x.shape[2:])
+        masks = []
+        for d, p in zip(dets, proto):
+            d = d[d[:, 4] > 0]
+            masks.append((process_mask(p, d[:, 6:], d[:, :4], hw) > 0.5).cpu().numpy())
+        return dets[..., :6].cpu().numpy(), masks
+
+    def update_metrics(self, out, batch: Dict[str, np.ndarray]) -> None:
+        """Match one batch's detections by box IoU and by mask IoU against the
+        overlap map, as the JAX package's SegmentationValidator does (no
+        clip to the content region; GT boxes scaled by imgsz)."""
+        dets, pmasks = out
+        imgsz = int(self.args.imgsz)
+        for i in range(dets.shape[0]):
+            det = dets[i][dets[i][:, 4] > 0]
+            pm = pmasks[i]
+            gt_sel = batch["mask"][i] > 0
+            gt_cls = batch["cls"][i][gt_sel].astype(int)
+            if len(det) == 0:
+                if len(gt_cls):
+                    z = np.zeros((0, 10), bool)
+                    self.box_m.update(z, np.zeros(0), np.zeros(0), gt_cls)
+                    self.mask_m.update(z, np.zeros(0), np.zeros(0), gt_cls)
+                continue
+            gt_xyxy = xywh2xyxy(torch.from_numpy(batch["bboxes"][i][gt_sel])).numpy() * imgsz
+            pred_cls = det[:, 5].astype(int)
+            tp_b = match_predictions(pred_cls, gt_cls, box_iou_np(gt_xyxy, det[:, :4]))
+            gids = np.nonzero(gt_sel)[0]
+            gm = batch["seg_map"][i][None] == (gids[:, None, None] + 1)  # (G, h4, w4)
+            hw = gm.shape[1] * gm.shape[2]  # explicit: JAX's reshape(G, -1) fails on an image without GT
+            tp_m = match_predictions(pred_cls, gt_cls, mask_iou_np(gm.reshape(len(gids), hw), pm.reshape(len(det), hw)))
+            self.box_m.update(tp_b, det[:, 4], pred_cls, gt_cls)
+            self.mask_m.update(tp_m, det[:, 4], pred_cls, gt_cls)
+
+    def compute(self) -> Dict[str, float]:
+        b, m = self.box_m.compute(), self.mask_m.compute()
+        out = {f"{k}(B)": v for k, v in b.items() if k != "fitness"}
+        out.update({f"{k}(M)": v for k, v in m.items() if k != "fitness"})
+        out["fitness"] = b["fitness"] + m["fitness"]
+        out["mAP50-95"] = m["mAP50-95"]  # the headline: the mask mAP
+        return out
+
+    def print_results(self, out: Dict[str, float]) -> None:
+        if not getattr(self.args, "verbose", True):
+            return
+        pf = "%22s" + "%11i" * 2 + "%11.3g" * 8
+        print(("%22s" + "%11s" * 10) % ("Class", "Images", "Instances", "Box(P", "R", "mAP50", "mAP50-95)",
+                                        "Mask(P", "R", "mAP50", "mAP50-95)"))
+        nt = sum(len(st[3]) for st in self.box_m.stats)
+        print(pf % ("all", self.seen, nt, *(out[f"{k}({t})"] for t in "BM"
+                                              for k in ("precision", "recall", "mAP50", "mAP50-95"))))
+
+
+TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator}

@@ -922,6 +922,50 @@ class Detect(nn.Module):
         return self.decode(feats), feats
 
 
+class Proto(nn.Module):
+    """Mask prototypes at twice the input's resolution: a 3x3 Conv, a 2x2
+    stride-2 transposed conv with its bias (`upsample`), a 3x3 Conv, then a
+    1x1 Conv to c2 prototypes (the JAX package's nn/heads.py Proto)."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+class Segment(Detect):
+    """Detect with nm mask coefficients per anchor and nm prototypes (the
+    JAX package's nn/heads.py Segment): `proto` runs on the first level,
+    and `cv4.i` (two 3x3 Convs of c4 = max(ch[0] // 4, nm) channels, then a
+    1x1 conv to nm) gives each level's coefficients.
+
+    Training returns (raw maps, coefficients (B, A, nm), prototypes
+    (B, nm, 2 H0, 2 W0)); eval returns ((B, 4 + nc + nm, A) in fp32: the
+    Detect layout followed by the coefficients, (raw maps, coefficients,
+    prototypes))."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32), legacy: bool = True,
+                 nm: int = 32, npr: int = 256):
+        super().__init__(nc, ch, strides, legacy)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, nm, 1)) for x in ch)
+
+    def forward(self, xs: List[torch.Tensor]):
+        proto = self.proto(xs[0])
+        mc = torch.cat([m(x).flatten(2) for x, m in zip(xs, self.cv4)], 2)  # (B, nm, A)
+        feats = self.maps(xs, self.cv2, self.cv3)
+        if self.training:
+            return feats, mc.transpose(1, 2), proto
+        return torch.cat([self.decode(feats), mc.float()], 1), (feats, mc.transpose(1, 2), proto)
+
+
 class v10Detect(Detect):
     """YOLOv10's NMS-free head: YOLO11's Detect (its light cls branch with
     plain depth-wise Convs, as the JAX package names them) and a one-to-one

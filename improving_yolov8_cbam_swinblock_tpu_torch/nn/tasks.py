@@ -12,8 +12,9 @@ an nn.Sequential, applies a YAML-level ReLU `activation` to the Conv rows as
 the JAX package does, and derives each layer's stride from the graph
 instead of a probe forward. It builds the fork's graphs and YOLOv3, v5, v6,
 the v8 P2, P6 and ghost graphs, YOLOv9, YOLOv10 (its NMS-free `v10Detect`
-head: `DetectionModel.end2end`) and YOLO11/12; a row it does not know (the
-rows no packaged detect YAML uses) raises KeyError naming it.
+head: `DetectionModel.end2end`) and YOLO11/12, and the segmentation graphs
+that end in `Segment` (`DetectionModel.task` "segment"); a row it does not
+know (the rows no packaged YAML of these uses) raises KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
 embeddings (`embed`) and every layer's feature maps (`features`), and
@@ -220,6 +221,11 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
         elif mname == "Detect":
             c2 = 0
             m = M.Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy)
+        elif mname == "Segment":  # [nc, nm, npr]: the prototypes' width is scaled, as in the JAX package
+            c2 = 0
+            npr = make_divisible(min(_arg(args, 2, 256), max_channels) * width, 8)
+            m = M.Segment(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy,
+                          nm=_arg(args, 1, 32), npr=npr)
         elif mname == "v10Detect":
             c2 = 0
             m = M.v10Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
@@ -277,7 +283,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 lin.bias.zero_()
             mod.attn.in_proj_bias.zero_()
             mod.attn.out_proj.bias.zero_()
-        elif isinstance(mod, M.Detect):
+    # after the loop: modules() visits a head before its convs, whose bias.zero_() would undo the priors
+    for mod in model.modules():
+        if isinstance(mod, M.Detect):
             mod.bias_init()
 
 
@@ -292,8 +300,10 @@ class DetectionModel(nn.Module):
     takes (B, 3, H, W) in [0, 1] and returns the Detect head's ((B, 4 + nc,
     A), raw maps), or in training mode the raw maps; a YOLOv10 graph
     (`end2end`) its v10Detect's ((B, 300, 6) detections, {"one2many",
-    "one2one"} raw maps), in training the dict. The model is built in eval
-    mode."""
+    "one2one"} raw maps), in training the dict; a segmentation graph (task
+    "segment") its Segment head's ((B, 4 + nc + nm, A), (raw maps, mask
+    coefficients, prototypes)), in training (raw maps, coefficients,
+    prototypes). The model is built in eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -305,6 +315,7 @@ class DetectionModel(nn.Module):
         self.nc = head.nc
         self.strides = head.strides
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
+        self.task = "segment" if isinstance(head, M.Segment) else "detect"
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
         self.param_dtype = param_dtype or dtype
@@ -402,7 +413,11 @@ class DetectionModel(nn.Module):
         go back to the input's scale (xywh / scale; the flipped run's x centre
         becomes W - x), the first run drops the anchors of its coarsest level
         (large objects) and the last those of its finest (small objects), and
-        the three concatenate along the anchors: (B, 4 + nc, A') in fp32."""
+        the three concatenate along the anchors: (B, 4 + nc, A') in fp32. A
+        segmentation model returns its plain forward's prediction, as in the
+        JAX package."""
+        if self.task != "detect":
+            return self(x)[0].float()
         w0 = x.shape[3]
         outs = []
         for (si, flip), xi in zip(TTA_RUNS, tta_inputs(x, int(max(self.strides)))):
@@ -467,7 +482,8 @@ class EnsembleModel(nn.Module):
     concatenate along the anchors, and the predictor's one NMS keeps the
     best boxes of all. Inference only: the members must share nc and end in
     Detect (an NMS-free YOLOv10 member is refused, as in the JAX package),
-    and the input is padded to the coarsest member stride."""
+    and the input is padded to the coarsest member stride. A segmentation
+    member is refused, as in the JAX package."""
 
     def __init__(self, models):
         super().__init__()
@@ -476,12 +492,14 @@ class EnsembleModel(nn.Module):
         ncs = sorted({m.nc for m in models})
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
-        if any(m.end2end for m in models):
-            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end) member is not")
+        if any(m.end2end or m.task != "detect" for m in models):
+            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end) or a "
+                             "segmentation member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype
         self.end2end = False
+        self.task = "detect"
         self.strides = tuple(max(s) for s in zip(*(tuple(m.strides) for m in models)))
         self.eval()
 

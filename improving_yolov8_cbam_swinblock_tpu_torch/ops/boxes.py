@@ -1,11 +1,12 @@
-"""Box geometry for the predict and train paths (counterparts of the JAX package's ops/boxes.py)."""
+"""Box and mask geometry for the predict, val and train paths (counterparts of the JAX package's ops/boxes.py)."""
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 CIOU_EPS = 1e-7
 CIOU_V = 4.0 / math.pi**2
@@ -63,3 +64,50 @@ def scale_boxes(img1_shape: Tuple[int, int], boxes: torch.Tensor, img0_shape: Tu
     pad_h = round((img1_shape[0] - img0_shape[0] * gain) / 2 - 0.1)
     boxes = boxes - torch.tensor([pad_w, pad_h, pad_w, pad_h], dtype=boxes.dtype, device=boxes.device)
     return clip_boxes(boxes / gain, img0_shape)
+
+
+def crop_mask(masks: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """masks (n, h, w) with every pixel outside its xyxy box (n, 4, in mask
+    pixels) zeroed: a pixel (row, col) is inside where x1 <= col < x2 and
+    y1 <= row < y2."""
+    _, h, w = masks.shape
+    rows = torch.arange(h, device=masks.device, dtype=boxes.dtype)[None, :, None]
+    cols = torch.arange(w, device=masks.device, dtype=boxes.dtype)[None, None, :]
+    x1, y1, x2, y2 = (boxes[:, i, None, None] for i in range(4))
+    return masks * ((cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2))
+
+
+def process_mask(protos: torch.Tensor, coeffs: torch.Tensor, boxes: torch.Tensor,
+                 img_shape: Tuple[int, int]) -> torch.Tensor:
+    """Each detection's soft mask at the prototypes' resolution, in fp32:
+    sigmoid(coeffs @ protos) cropped to its box. protos (nm, h, w), coeffs
+    (n, nm), boxes (n, 4) xyxy in network-input pixels of img_shape (H, W).
+    The JAX package's ops/boxes.py process_mask (its protos are (h, w, nm))."""
+    nm, h, w = protos.shape
+    masks = torch.sigmoid(coeffs.float() @ protos.float().reshape(nm, -1)).reshape(-1, h, w)
+    scale = torch.tensor([w / img_shape[1], h / img_shape[0], w / img_shape[1], h / img_shape[0]],
+                         dtype=torch.float32, device=boxes.device)
+    return crop_mask(masks, boxes.float() * scale)
+
+
+def process_mask_native(protos: torch.Tensor, coeffs: torch.Tensor, boxes: torch.Tensor,
+                        img_shape: Tuple[int, int], input_shape: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Boolean masks at the original image's resolution: the logits at the
+    prototypes' resolution without the letterbox pad (JAX's int(round(pad
+    -+ 0.1)) crops), resized to img_shape (H, W) as jax.image.resize
+    "bilinear" resizes (half-pixel centres, antialiased when it shrinks),
+    cropped to the boxes (n, 4, xyxy in original pixels), then logit > 0.
+    input_shape is the network input's (H, W), by default 4 x the
+    prototypes'. The JAX package's ops/boxes.py process_mask_native."""
+    nm, h, w = protos.shape
+    if input_shape is None:
+        input_shape = (h * 4, w * 4)
+    logits = (coeffs.float() @ protos.float().reshape(nm, -1)).reshape(-1, h, w)
+    gain = min(input_shape[0] / img_shape[0], input_shape[1] / img_shape[1])
+    pad_h = (input_shape[0] - img_shape[0] * gain) / 2 * (h / input_shape[0])
+    pad_w = (input_shape[1] - img_shape[1] * gain) / 2 * (w / input_shape[1])
+    top, left = int(round(pad_h - 0.1)), int(round(pad_w - 0.1))
+    bottom, right = h - int(round(pad_h + 0.1)), w - int(round(pad_w + 0.1))
+    logits = logits[:, top:bottom, left:right]
+    up = F.interpolate(logits[None], size=tuple(img_shape), mode="bilinear", align_corners=False, antialias=True)[0]
+    return crop_mask(up, boxes.float()) > 0.0

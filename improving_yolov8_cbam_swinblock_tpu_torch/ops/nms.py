@@ -8,8 +8,10 @@ first among equal scores), then exact greedy suppression truncated at
 `max_det` picks, one image per row of the batch, classes kept apart by a
 coordinate offset (class-aware) or not (`agnostic`: one box of any class
 suppresses the others).
-Output (B, max_det, 6) rows x1, y1, x2, y2, conf, cls; rows with conf 0
-are padding.
+Output (B, max_det, 6 + ne) rows x1, y1, x2, y2, conf, cls, then the ne
+columns the prediction carries after its class scores (a Segment head's
+mask coefficients), taken from each kept anchor; rows with conf 0 are
+padding.
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ MAX_NMS = 4096  # candidates per image that enter suppression
 def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
                         max_det: int = 300, nc: int = 80, multi_label: bool = False,
                         agnostic: bool = False) -> torch.Tensor:
-    """prediction (B, 4 + nc, A): xywh boxes then class scores."""
-    pred = prediction.transpose(1, 2).float()  # (B, A, 4+nc)
+    """prediction (B, 4 + nc + ne, A): xywh boxes, class scores, then ne extra columns."""
+    pred = prediction.transpose(1, 2).float()  # (B, A, 4+nc+ne)
     boxes = xywh2xyxy(pred[..., :4])
     b, a = pred.shape[:2]
+    ne = pred.shape[2] - 4 - nc
     if multi_label and nc > 1:  # every (anchor, class) pair is a candidate
         k = min(MAX_NMS, a * nc)
         top, flat = torch.sort(pred[..., 4:4 + nc].reshape(b, a * nc), dim=1, descending=True, stable=True)
@@ -41,13 +44,14 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_
         top, idx = top[:, :k], idx[:, :k]
         cls_k = cls.gather(1, idx).float()
     cand = boxes.gather(1, idx[..., None].expand(b, k, 4))
+    cand_extra = pred[..., 4 + nc:].gather(1, idx[..., None].expand(b, k, ne))
     live = torch.where(top > conf_thres, top, torch.full_like(top, -1.0))
     ob = cand + (cls_k * (0.0 if agnostic else MAX_WH))[..., None]
     x1, y1, x2, y2 = ob.unbind(-1)
     areas = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
     rows = torch.arange(b, device=pred.device)
     cols = torch.arange(k, device=pred.device)
-    out = torch.zeros(b, max_det, 6, device=pred.device)
+    out = torch.zeros(b, max_det, 6 + ne, device=pred.device)
     for i in range(max_det):
         best = live.argmax(1)  # first index among ties
         best_score = live[rows, best]
@@ -56,7 +60,7 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25, iou_
         inter = (torch.minimum(x2, bx2) - torch.maximum(x1, bx1)).clamp(min=0) * (
             torch.minimum(y2, by2) - torch.maximum(y1, by1)).clamp(min=0)
         iou = inter / (areas + areas[rows, best, None] - inter + 1e-7)
-        row = torch.cat([cand[rows, best], best_score[:, None], cls_k[rows, best, None]], -1)
+        row = torch.cat([cand[rows, best], best_score[:, None], cls_k[rows, best, None], cand_extra[rows, best]], -1)
         out[:, i] = torch.where(valid[:, None], row, torch.zeros_like(row))
         done = (iou > iou_thres) | (cols == best[:, None]) | ~valid[:, None]
         live = live.masked_fill(done, -1.0)

@@ -49,9 +49,14 @@ SCOPE_NAMES = {"fc1": "shared_MLP.0", "fc2": "shared_MLP.2",
                "cv2_csp": "cv2.0", "cv2_conv": "cv2.1", "cv3_csp": "cv3.0", "cv3_conv": "cv3.1",
                "conv1_conv": "conv1.conv", "conv1_bn": "conv1.bn", "conv2_conv": "conv2.conv", "conv2_bn": "conv2.bn"}
 # flax scopes with no module of their own in the port: the JAX package's
-# DWConv wraps a Conv in `dw`, its C3k a C3 in `c3`, and its
-# nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`
-DROPPED_SCOPES = ("dw", "c3", "conv_transpose")
+# DWConv wraps a Conv in `dw`, its C3k a C3 in `c3`, its
+# nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`, and its
+# Segment head the detect branches in `detect` (the reference names them at
+# the head's own level)
+DROPPED_SCOPES = ("dw", "c3", "conv_transpose", "detect")
+# the flax scopes whose kernel is a transposed conv's: the nn.ConvTranspose2d
+# row's, and Proto's `upsample`
+TRANSPOSED_SCOPES = ("conv_transpose", "upsample")
 
 
 def _module_tokens(mods: Tuple[str, ...]) -> list:
@@ -68,9 +73,9 @@ def _module_tokens(mods: Tuple[str, ...]) -> list:
             toks.append("mlp.0" if m.endswith("1") else "mlp.2")
         elif m.startswith("one2one_"):  # v10Detect's one-to-one twin: one2one_cv3_0_1_0 -> one2one_cv3.0.1.0
             toks.append("one2one_" + ".".join(m[len("one2one_"):].split("_")))
-        elif m.startswith(("cv1_", "cv2_", "cv3_", "m_", "ffn_", "mlp_")):
-            # Detect per-level stacks, CIB's cv1_0 to cv1_4, bottlenecks (m_0, RepCSP's m_0_cv1, A2C2f's m_0_1),
-            # PSA and ABlock MLPs
+        elif m.startswith(("cv1_", "cv2_", "cv3_", "cv4_", "m_", "ffn_", "mlp_")):
+            # Detect per-level stacks (Segment's cv4_0_0 too), CIB's cv1_0 to cv1_4, bottlenecks (m_0, RepCSP's
+            # m_0_cv1, A2C2f's m_0_1), PSA and ABlock MLPs
             toks.append(".".join(m.split("_")))
         else:
             toks.append(m)
@@ -88,7 +93,7 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
         return (f"{prefix}.in_proj_weight", "linear_t") if leaf == "kernel" else (f"{prefix}.in_proj_bias", "none")
     base = ".".join(toks)
     if leaf == "kernel":
-        return f"{base}.weight", "kernel_t" if mods[-1] == "conv_transpose" else "kernel"
+        return f"{base}.weight", "kernel_t" if mods[-1] in TRANSPOSED_SCOPES else "kernel"
     if leaf == "scale":
         return f"{base}.weight", "none"
     if leaf in ("bias", "gamma"):  # gamma: A2C2f's residual scale
@@ -179,8 +184,9 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     m_0, model.7 -> model_7, a repeated row's model.10.3 -> model_10_3,
     m.0.cv1 of a RepCSP -> m_0_cv1, conv1.bn -> conv1_bn), the children
     renamed in SCOPE_NAMES and the Swin MLP's 0 and 2 (mlp_fc1, mlp_fc2)
-    take their JAX names, and a DWConv and a C3k open the `dw` and `c3`
-    scopes the JAX package wraps them in."""
+    take their JAX names, a DWConv and a C3k open the `dw` and `c3`
+    scopes the JAX package wraps them in, and a Segment head's detect
+    branches (cv2, cv3) its `detect` scope."""
     scopes: Dict[str, Tuple[str, ...]] = {"": ()}
     inverse = {v: k for k, v in SCOPE_NAMES.items()}
 
@@ -202,6 +208,9 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         for name, child in mod.named_children():
             cpath = f"{path}.{name}" if path else name
             token = f"{group}_{name}" if group else name
+            if isinstance(mod, M.Segment) and name in ("cv2", "cv3"):
+                walk(child, cpath, scope + ("detect",), token)
+                continue
             rename = renamed(mod, name, child)
             if rename is not None:
                 for idx, sub in child.named_children():
@@ -223,8 +232,9 @@ def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
         if attr == "bias" and isinstance(parent, M.Conv):
             return "fused", (), "bias"
         return "params", (), {"weight": "kernel", "bias": "bias"}[attr]
-    if isinstance(mod, nn.ConvTranspose2d):
-        return "params", ("conv_transpose",), {"weight": "kernel", "bias": "bias"}[attr]
+    if isinstance(mod, nn.ConvTranspose2d):  # Proto's upsample is a flax ConvTranspose of its own name
+        sub = () if isinstance(parent, M.Proto) else ("conv_transpose",)
+        return "params", sub, {"weight": "kernel", "bias": "bias"}[attr]
     if isinstance(mod, M.A2C2f) and attr == "gamma":
         return "params", (), "gamma"
     if isinstance(mod, nn.BatchNorm2d):

@@ -61,6 +61,24 @@ def detection_loss(feats: Sequence[torch.Tensor], gt_cls: torch.Tensor, gt_xywhn
         many, items = detection_loss(feats["one2many"], tal_topk=10, **kw)
         one, _ = detection_loss(feats["one2one"], tal_topk=1, **kw)
         return many + one, items
+    t = detect_terms(feats, gt_cls, gt_xywhn, gt_mask, nc, reg_max, strides, tal_topk, tal_impl)
+    loss = torch.stack([t.loss_box * box_gain, t.loss_cls * cls_gain, t.loss_dfl * dfl_gain])
+    return loss.sum() * feats[0].shape[0], LossMetrics(*loss.detach())
+
+
+class DetectTerms(NamedTuple):
+    """The three detect terms (before their gains) and what the seg loss reads of the assignment."""
+    loss_box: torch.Tensor
+    loss_cls: torch.Tensor
+    loss_dfl: torch.Tensor
+    assigned: object  # utils/tal.py's assignment
+    weight: torch.Tensor  # (B, A) target score sum of each foreground anchor, 0 elsewhere
+    imgsz: tuple  # the input's (h, w) in pixels
+
+
+def detect_terms(feats: Sequence[torch.Tensor], gt_cls: torch.Tensor, gt_xywhn: torch.Tensor, gt_mask: torch.Tensor,
+                 nc: int, reg_max: int, strides, tal_topk: int, tal_impl: Optional[str]) -> DetectTerms:
+    """The assignment and the box, cls and DFL terms of detection_loss (feats: per-level raw maps)."""
     b = feats[0].shape[0]
     dev = feats[0].device
     shapes = [tuple(f.shape[2:]) for f in feats]
@@ -101,5 +119,4 @@ def detection_loss(feats: Sequence[torch.Tensor], gt_cls: torch.Tensor, gt_xywhn
     target_ltrb = bbox2dist(anchor_points, target_bboxes_g, reg_max - 1)
     loss_dfl = (df_loss(pd_logp, target_ltrb) * weight * fg).sum() / target_scores_sum
 
-    loss = torch.stack([loss_box * box_gain, loss_cls * cls_gain, loss_dfl * dfl_gain])
-    return loss.sum() * b, LossMetrics(*loss.detach())
+    return DetectTerms(loss_box, loss_cls, loss_dfl, assigned, weight, (imgsz_h, imgsz_w))

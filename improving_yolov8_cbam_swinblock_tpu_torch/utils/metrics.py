@@ -3,8 +3,9 @@ interpolation), DetMetrics, Metric and ValMetrics, the confusion matrix and
 the PR, P, R and F1 curves (a copy of the JAX package's
 utils/metrics.py:16-275, 375-460, 459-547 and 703; numpy on the host, as
 there). matplotlib is imported where a figure is drawn, and a plot returns
-None (plot_pr_curves an empty list) without it. The segment, pose and OBB
-metrics are not in the port.
+None (plot_pr_curves an empty list) without it. The segment task's
+mask_iou_np and SegmentMetrics are here too; the pose and OBB metrics are
+not in the port.
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndar
     a1 = np.prod(box1[:, 2:] - box1[:, :2], axis=1)
     a2 = np.prod(box2[:, 2:] - box2[:, :2], axis=1)
     return inter / (a1[:, None] + a2[None] - inter + eps)
+
+
+def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """(N, HW) and (M, HW) binary masks -> (N, M) IoU, the intersections as an fp32 product."""
+    inter = mask1.astype(np.float32) @ mask2.astype(np.float32).T
+    union = mask1.sum(1)[:, None] + mask2.sum(1)[None] - inter
+    return inter / (union + eps)
 
 
 IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)
@@ -455,12 +463,59 @@ class Metric:
 
 
 
+class SegmentMetrics:
+    """The box and mask Metric pair of the segment task (the JAX package's
+    utils/metrics.py SegmentMetrics): fitness is the sum of both fitnesses."""
+
+    def __init__(self, save_dir=".", plot=False, names=()):
+        self.save_dir = save_dir
+        self.plot = plot
+        self.names = dict(names) if not isinstance(names, dict) else names
+        self.box = Metric()
+        self.seg = Metric()
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
+
+    def process(self, tp, tp_m, conf, pred_cls, target_cls, on_plot=None):
+        nc = max(len(self.names), int(np.max(target_cls, initial=0)) + 1)
+        self.seg.from_res(ap_per_class(np.asarray(tp_m), conf, pred_cls, target_cls), nc)
+        self.box.from_res(ap_per_class(np.asarray(tp), conf, pred_cls, target_cls), nc)
+
+    @property
+    def keys(self):
+        return ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                "metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"]
+
+    def mean_results(self):
+        return self.box.mean_results() + self.seg.mean_results()
+
+    def class_result(self, i):
+        return self.box.class_result(i) + self.seg.class_result(i)
+
+    @property
+    def maps(self):
+        return self.box.maps + self.seg.maps
+
+    @property
+    def fitness(self):
+        return self.seg.fitness() + self.box.fitness()
+
+    @property
+    def ap_class_index(self):
+        return self.box.ap_class_index
+
+    @property
+    def results_dict(self):
+        return dict(zip(self.keys + ["fitness"], self.mean_results() + [self.fitness]))
+
+
 class ValMetrics(dict):
     """What YOLO.val() returns: the metrics dict (plain keys and their
-    `metrics/...(B)` aliases) with the reference's attribute surface:
-    `metrics.box.map50`, `metrics.fitness`, `metrics.results_dict`."""
+    `metrics/...(B)` aliases, or for a segmentation model the `(B)` and
+    `(M)` keys) with the reference's attribute surface: `metrics.box.map50`,
+    `metrics.seg.map` (segment), `metrics.fitness`, `metrics.results_dict`."""
 
     box: "Metric" = None
+    seg: "Metric" = None
 
     def __getattr__(self, name):
         if name in self:
@@ -472,7 +527,7 @@ class ValMetrics(dict):
         return {k: v for k, v in self.items() if k.startswith("metrics/") or k == "fitness"}
 
     def mean_results(self):
-        return self.box.mean_results() if self.box is not None else []
+        return [v for m in (self.box, self.seg) if m is not None for v in m.mean_results()]
 
     @property
     def maps(self):

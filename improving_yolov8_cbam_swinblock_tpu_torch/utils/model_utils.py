@@ -128,9 +128,11 @@ class Profile:
 def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
     """Peak bytes the card holds over one train micro-step of a copy of
     `model` at `batch` images of imgsz: forward in train mode on zero frames,
-    the detection loss against one box per image (the TAL assigner, K2),
+    the detection loss against one box per image (the TAL assigner, K2;
+    a segmentation model's seg loss, the box's mask its overlap map),
     backward. torch.cuda.max_memory_allocated after a reset."""
     from .loss import detection_loss
+    from .seg_loss import segmentation_loss
 
     dev = model.device
     m = copy.deepcopy(model).train()
@@ -140,7 +142,13 @@ def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
         x = torch.zeros(batch, 3, imgsz, imgsz, device=dev, dtype=m.dtype)
         cls = torch.zeros(batch, 1, device=dev)
         boxes = torch.tensor([0.5, 0.5, 0.25, 0.25], device=dev).repeat(batch, 1, 1)
-        total, _ = detection_loss(m(x), cls, boxes, torch.ones(batch, 1, device=dev), nc=m.nc, strides=m.strides)
+        out, ones = m(x), torch.ones(batch, 1, device=dev)
+        if m.task == "segment":
+            seg_map = torch.zeros(batch, imgsz // 4, imgsz // 4, dtype=torch.int32, device=dev)
+            seg_map[:, imgsz * 3 // 32:imgsz * 5 // 32, imgsz * 3 // 32:imgsz * 5 // 32] = 1
+            total, _ = segmentation_loss(*out, cls, boxes, ones, seg_map, nc=m.nc, strides=m.strides)
+        else:
+            total, _ = detection_loss(out, cls, boxes, ones, nc=m.nc, strides=m.strides)
         total.backward()
         torch.cuda.synchronize(dev)
         return torch.cuda.max_memory_allocated(dev)

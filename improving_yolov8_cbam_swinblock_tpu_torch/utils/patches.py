@@ -252,3 +252,134 @@ def image_size(path) -> Tuple[int, int, str]:
                 fh.seek(n - 2, 1)
             raise ValueError(f"JPEG without a frame header: {path}")
     raise ValueError(f"not a PNG, JPEG, BMP, TIFF or WebP file: {path}")
+
+
+# ---------------------------------------------------------------------------
+# fill_poly: cv2.fillPoly(img, [pts], color) (lineType LINE_8, shift 0) of the OpenCV 5 build
+# the JAX package runs with, in numpy, bit for bit, for the segment targets. cv2 draws each
+# edge's 8-connected line (its LineIterator, the line clipped to the image first), then fills
+# each scanline between the sorted 16.16 fixed-point x's of the edges that cross it, the pixels
+# from ceil(x) of one edge to floor(x) of the next (CollectPolyEdges and FillEdgeCollection of
+# OpenCV's drawing.cpp; rules found against cv2.fillPoly itself, tests/test_torch_segment.py).
+
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (truncation toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def clip_line(w: int, h: int, p1, p2):
+    """cv2.clipLine on an image of w x h: (inside, p1, p2), the points moved
+    onto the image's edges as cv2 moves them (in doubles, truncated), also
+    where it returns False."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+    if w <= 0 or h <= 0:
+        return False, (x1, y1), (x2, y2)
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def line_pixels(w: int, h: int, p1, p2) -> Tuple[np.ndarray, np.ndarray]:
+    """(x, y) of the pixels cv2.line(LINE_8) sets from p1 to p2 on a w x h
+    image: the line clipped to the image, then Bresenham from its left end,
+    the secondary axis stepping where the error term is negative."""
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        inside, p1, p2 = clip_line(w, h, p1, p2)
+        if not inside:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    (x1, y1), (x2, y2) = p1, p2
+    if x2 < x1:  # left to right
+        (x1, y1), (x2, y2) = (x2, y2), (x1, y1)
+    dx, dy = x2 - x1, y2 - y1
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    # minor steps before pixel k: the j < k whose error dx - 2dy - 2dy j + 2dx m_j is negative
+    m = (2 * minor * k + major - 1) // (2 * major) if major else np.zeros_like(k)
+    if vert:
+        return x1 + m, y1 + sy * k
+    return x1 + k, y1 + sy * m
+
+
+def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
+    """cv2.fillPoly(img, [pts], color) in place for one polygon of integer
+    vertices (n, 2) on a single-channel image: returns img."""
+    h, w = img.shape[:2]
+    pts = np.asarray(pts, np.int64).reshape(-1, 2)
+    edges = []  # (y0, y1, x at y0 in 16.16, dx per row in 16.16)
+    n = len(pts)
+    for i in range(n):
+        (x0, y0), (x1, y1) = (int(v) for v in pts[i - 1]), (int(v) for v in pts[i])
+        xs, ys = line_pixels(w, h, (x0, y0), (x1, y1))
+        img[ys, xs] = color
+        c0y, c1y = y0, y1
+        if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
+            # an edge that leaves the image runs through its clipped endpoints' x, and their y
+            # unless the clip made it horizontal (then through the vertices' y)
+            _, (x0, t0y), (x1, t1y) = clip_line(w, h, (x0, y0), (x1, y1))
+            if t0y != t1y:
+                c0y, c1y = t0y, t1y
+        c0x, c1x = x0 << XY_SHIFT, x1 << XY_SHIFT
+        if y0 == y1:
+            continue
+        dx = _tdiv(c1x - c0x, c1y - c0y)
+        if y0 < y1:
+            edges.append((y0, y1, c0x + (y0 - c0y) * dx, dx))
+        else:
+            edges.append((y1, y0, c1x + (y1 - c1y) * dx, dx))
+    if len(edges) < 2:
+        return img
+    e = np.array(edges, np.int64)
+    ey0, ey1, ex, edx = e.T
+    xend = ex + (ey1 - ey0) * edx
+    if ey1.max() < 0 or ey0.min() >= h or max(ex.max(), xend.max()) < 0 or min(ex.min(), xend.min()) >= (w << XY_SHIFT):
+        return img
+    # each row y in [0, min(max y1, h)) pairs the sorted x's of the edges with y0 <= y < y1 (an even count)
+    y = np.arange(max(int(ey0.min()), 0), min(int(ey1.max()), h), dtype=np.int64)[:, None]
+    active = (ey0 <= y) & (y < ey1)
+    big = np.iinfo(np.int64).max
+    xs = np.sort(np.where(active, ex + (y - ey0) * edx, big), axis=1)
+    if xs.shape[1] % 2:
+        xs = np.concatenate([xs, np.full((len(xs), 1), big)], 1)
+    xa, xb = xs[:, 0::2], xs[:, 1::2]
+    valid = xb != big
+    x1 = (np.where(valid, xa, 0) + XY_ONE - 1) >> XY_SHIFT  # the pixels whose x lies in [xa, xb]
+    x2 = np.where(valid, xb, 0) >> XY_SHIFT
+    draw = valid & (x1 < w) & (x2 >= 0)
+    rows = np.broadcast_to(y, x1.shape)[draw]
+    x1, x2 = np.clip(x1[draw], 0, None), np.clip(x2[draw], None, w - 1)
+    span = np.zeros((h, w + 1), np.int32)
+    np.add.at(span, (rows, x1), 1)
+    np.add.at(span, (rows, x2 + 1), -1)
+    img[np.cumsum(span, 1)[:, :w] > 0] = color
+    return img

@@ -599,6 +599,9 @@ def test_track_gives_seven_column_boxes_on_the_card(cuda):
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
 
     y = YOLO("yolov8n-cbam-swin.yaml", device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():  # the class biases at 0, not the priors: the tracker at full load, scores near 0.5
+        for seq in y.model.model[-1].cv3:
+            seq[-1].bias.zero_()
     frames = list(np.random.default_rng(5).integers(0, 256, (4, 96, 128, 3), dtype=np.uint8))
     before = S.swin_block_cuda.launches
     res = y.track(frames, tracker="bytetrack.yaml", imgsz=128, conf=0.1, batch=4, verbose=False)
@@ -646,3 +649,50 @@ def test_yolov10_micro_step_launches_k2_twice_and_equals_plain(cuda):
     assert k_grads.keys() == p_grads.keys() and any(n.startswith("model.23.one2one_") for n in k_grads)
     for n, g in k_grads.items():
         torch.testing.assert_close(g, p_grads[n], rtol=1e-3, atol=1e-6 * max(1.0, p_grads[n].abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_seg_micro_step_launches_k2_once_and_equals_the_plain_assigner(cuda):
+    """A seg graph's train micro-step (yolov8n-seg, nc 2, 160 px, batch 2,
+    fp32 with TF32 off, the seg loss over a loader-format batch with an
+    overlap map) launches K2 once; with the plain assigner instead, the four
+    loss items agree within 1e-5 and every gradient within 1e-4 of its
+    tensor's norm."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+
+    cfg = yaml_model_load("yolov8n-seg.yaml")
+    cfg["nc"] = 2
+    rng = np.random.default_rng(4)
+    xy, wh = rng.uniform(0.2, 0.8, (2, 8, 2)), rng.uniform(0.1, 0.3, (2, 8, 2))
+    seg = np.zeros((2, 40, 40), np.int32)
+    for b in range(2):
+        for j in range(8):
+            x1, y1 = ((xy[b, j] - wh[b, j] / 2) * 40).astype(int)
+            x2, y2 = ((xy[b, j] + wh[b, j] / 2) * 40).astype(int)
+            seg[b, max(y1, 0):y2, max(x1, 0):x2] = j + 1
+    batch = {"img": rng.integers(0, 256, (2, 160, 160, 3), dtype=np.uint8),
+             "cls": rng.integers(0, 2, (2, 8)).astype(np.float32),
+             "bboxes": np.concatenate([xy, wh], -1).astype(np.float32), "mask": np.ones((2, 8), np.float32),
+             "seg_map": seg}
+    out = {}
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for impl in (None, "plain"):
+            tr = DetectionTrainer(overrides={"model": cfg, "batch": 2, "nbs": 4, "imgsz": 160, "amp": False}).setup()
+            tr.tal_impl = impl
+            step, _ = tr._make_train_step(nb=10)
+            before = tal_assign_cuda.launches
+            items = step(batch)
+            torch.cuda.synchronize()
+            out[impl] = (items, {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()},
+                         tal_assign_cuda.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    (ik, gk, nk), (ip, gp, npl) = out[None], out["plain"]
+    assert nk == 1 and npl == 0 and ik.shape == (4,)
+    torch.testing.assert_close(ik, ip, rtol=1e-5, atol=0)
+    for n in gp:
+        assert (gk[n] - gp[n]).norm() <= 1e-4 * gp[n].norm().clamp(min=1e-12), n

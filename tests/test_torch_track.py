@@ -31,6 +31,7 @@ from improving_yolov8_cbam_swinblock_tpu_torch.trackers.bot_sort import GMC
 from improving_yolov8_cbam_swinblock_tpu_torch.trackers.kalman_filter import KalmanFilterXYAH, KalmanFilterXYWH
 from improving_yolov8_cbam_swinblock_tpu_torch.trackers.track import (on_predict_postprocess_end, on_predict_start,
                                                                      register_tracker)
+from tests.seeded_scores import zero_class_priors
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = "yolov8n-cbam-swin.yaml"
@@ -187,7 +188,9 @@ def test_stream_sources_keep_one_tracker_per_stream():
 
 @pytest.fixture(scope="module")
 def model():
-    return YOLO(CFG, device="cpu")
+    y = YOLO(CFG, device="cpu")
+    zero_class_priors(y.model)  # the trackers at full load: every seeded score near 0.5
+    return y
 
 
 @pytest.fixture(scope="module")

@@ -217,9 +217,8 @@ def test_v10detect_matches_jax(train):
 def test_v10detect_names_and_bias_priors():
     """The one-to-one twin's names (`one2one_cv2.i.j`, `one2one_cv3.i.j.k`),
     plain depth-wise Convs in the light cls branch (the JAX package's
-    `cv3_i_0_0`, no `dw` scope), and bias_init's priors on both branches."""
-    head = copy.deepcopy(graph()[2].model[-1])
-    head.bias_init()
+    `cv3_i_0_0`, no `dw` scope), and the bias priors of a seeded model on both branches."""
+    head = DetectionModel(CFG, device="cpu").model[-1]
     names = set(head.state_dict())
     assert {"one2one_cv2.0.2.bias", "one2one_cv3.2.0.0.conv.weight", "cv3.1.1.1.bn.running_var"} <= names
     assert type(head.cv3[0][0][0]) is M.Conv and head.cv3[0][0][0].conv.groups == 64
