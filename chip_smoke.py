@@ -169,7 +169,27 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           YOLO("yolov8s-seg.yaml").train for one epoch on a seeded PNG
           dataset with polygon labels (the loader's instance-aware host
           stack; K2 once per micro-step) and YOLO(best.pt).val against the
-          trainer's box and mask metrics
+          trainer's box and mask metrics; Masks.xy of one served frame's
+          masks (up to 300) with its host ms; one epoch (no val) with
+          copy_paste 0.5 in each mode, flip and mixup, K2 once per micro-step
+  int8_graphs  int8 of the graphs added since the fork's: yolov9c, yolov10s
+          and yolov8s-seg at full width, quantized (bf16 compute over fp32
+          weights, BN-folded) on the int8 phase's two seeded batches of 8:
+          the int8 forward's ms at batch 32 beside the bf16 model's (CUDA
+          events), an int8 predict of the slice phase's frames (no kernel),
+          and the same graph quantized in fp32 compute held on the card
+          (TF32 off) to its copy on the CPU at batch 2 (INT8_CPU_MAX,
+          INT8_CPU_MEAN; the share of values moved); every other packaged
+          detect, v10 and seg graph at its smallest scale quantized on one
+          batch of 8 and run once at batch 8: finite outputs
+  programs  a second process started after the kernel phase and joined
+          after the profile phase (--programs): dynamic .pt2 programs of
+          yolov9t, yolo12n and yolov3-tiny (bf16), the int8 programs of
+          yolov10s and yolov8s-seg and the bf16 program of yolov8s-seg,
+          exported on the card at 640 px with the class priors zeroed, each
+          loaded with YOLO(path) and its predict held bit for bit (boxes,
+          and masks for seg) to the live model's at batches 1 and 3, with
+          each export's and load's seconds
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
           slice phase's frames in bf16 (K1 counted, 2 per batch) and its
@@ -226,6 +246,8 @@ other pair, one process each: the img/s of 8 calls on in-memory frames
 after a warm-up, and, for this checkout, of 8 calls on the same frames
 read from PNG files (predict_run).
 
+--programs DIR runs the programs phase's process alone, writing
+DIR/programs.json (programs_run).
 --fit PARENT_DIR times YOLO.train on the device augmentation path (the fit
 phase's seeded PNG dataset and settings, 4 epochs, mosaic closed for the
 last 2, after a warm-up epoch) with the port of PARENT_DIR and of this
@@ -405,6 +427,24 @@ SEG = ("yolov8n-seg.yaml", "yolov8n-seg-p6.yaml", "yolo11n-seg.yaml", "yolo12n-s
 SEG_FULL = "yolov8s-seg.yaml"
 SEG_RTOL, SEG_MASK_SHARE, SEG_ITEM_RTOL, SEG_GRAD_RTOL = 3e-2, 1e-3, 1e-5, 1e-3
 SEG_BATCH, SEG_STEPS, SEG_MASKS = 32, 4, 256  # predict's batch; micro-steps counted; the loss's masks per image
+SEG_COPY_PASTE = 0.5  # the segment phase's copy_paste epochs, one in each mode
+# the int8_graphs phase: three graphs quantized at full width (yolov9c: RepNCSPELAN4 with RepConv's branches
+# float; yolov10s: SCDown, PSA and v10Detect; yolov8s-seg: Proto and Segment), their int8 forward timed at
+# INT8_GRAPH_BATCH beside the bf16 one; every other packaged detect, v10 and seg graph quantized at its smallest
+# scale and run once at batch 8. The card's int8 graph in fp32 compute (TF32 off) against the same quantized
+# model on the CPU at batch 2: the int8 sums are exact on both, but the float layers (BN-folded biases, grouped
+# and transposed convs, attention) sum in another order, which can move a value across the next conv's
+# quantization boundary, a level that the layers after it carry: each output within INT8_CPU_MAX of its
+# largest magnitude and INT8_CPU_MEAN on average, and the share of its values that moved reported
+INT8_FULL = ("yolov9c.yaml", "yolov10s.yaml", "yolov8s-seg.yaml")
+INT8_SWEEP = tuple(c for c in FAMILIES + V10 + SEG if c not in INT8_FULL)
+INT8_GRAPH_BATCH = 32
+INT8_CPU_MAX, INT8_CPU_MEAN = 5e-2, 5e-3
+# the programs process (--programs): dynamic .pt2 programs exported on the card, each loaded with YOLO(path) and
+# held bit for bit to its live model at PROGRAM_BATCHES (boxes, and masks for seg), class priors zeroed
+FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml")
+INT8_PROGRAMS = ("yolov10s.yaml", "yolov8s-seg.yaml")
+PROGRAM_BATCHES = (1, 3)
 
 
 def emit(obj) -> None:
@@ -2723,17 +2763,76 @@ def seg_fit(dev):
               and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals) and record_err <= FIT_RECORD_ATOL
               and all(np.isfinite(list(metrics.values()))) and "train/seg_loss" in csv_head
               and vm.seg is not None and fy.trainer.train_loader.device_augment is False)
+        del fy, best
+        copy_paste = {}
+        for mode in ("flip", "mixup"):
+            copy_paste[mode], cp_launches = seg_copy_paste_epoch(data, tmp / f"cp_{mode}", mode)
+            fit_launches = add_counts(fit_launches, cp_launches)
+        ok = ok and all(v["ok"] for v in copy_paste.values())
         fit = {"model": SEG_FULL, "launches": fit_launches, "launches_per_step": steps, "launches_per_val_batch": vals,
                "final_metrics": metrics, "val_best_pt": dict(vm), "record_max_abs_err": record_err,
                "loader_wait_s": e["loader_wait_s"], "train_s": e["train_s"],
                "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
                "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
-               "ok": ok}
-        del fy, best
+               "copy_paste": copy_paste, "ok": ok}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return fit, fit_launches
+
+
+def masks_xy(res) -> dict:
+    """Masks.xy (utils/patches.py find_contours on the host, numpy) of one
+    served frame's masks, and of as many seeded filled ellipses on a frame
+    of the same size (a seeded model's masks may hold few pixels): each
+    one's ms (host clock, 3 calls), the polygons' count against the masks',
+    the empty ones (a mask without pixels) and the points kept."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.results import Masks
+
+    h, w = res.masks.shape[1:]
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:h, 0:w]
+    n = len(res.masks)
+    c, a = rng.uniform(0.1, 0.9, (n, 2)) * (w, h), rng.uniform(0.01, 0.15, (n, 2)) * (w, h)
+    blobs = np.stack([((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1 for (cx, cy), (ax, ay) in zip(c, a)])
+    out, ok = {}, n > 0
+    for name, masks in (("served", res.masks), ("ellipses", Masks(blobs, (h, w)))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            polys = masks.xy
+        empty = int(sum(not m.any() for m in masks.data))
+        out[name] = {"masks": len(masks), "frame": [h, w], "host_ms": (time.perf_counter() - t0) / 3 * 1e3,
+                     "points": int(sum(len(p) for p in polys)), "empty_masks": empty}
+        ok &= len(polys) == len(masks) and sum(len(p) == 0 for p in polys) == empty
+    ok &= out["ellipses"]["empty_masks"] == 0
+    return {"ok": bool(ok), **out}
+
+
+def seg_copy_paste_epoch(data: Path, project: Path, mode: str) -> tuple:
+    """YOLO(yolov8s-seg).train for one epoch (no val) on the segment dataset
+    with copy_paste SEG_COPY_PASTE in `mode` (mixup mode: four more donors
+    a sample, its donor mosaic after its own affine): K2 once per micro-step,
+    finite losses; the epoch's train img/s with the loader."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    steps, vals = [], []
+    y = YOLO(SEG_FULL, device="cuda", seed=SEED)
+    reset_counts()
+    with counted_fit(steps, vals):
+        y.train(data=str(data), project=str(project), **{**FIT, "epochs": 1, "save_period": -1, "val": False,
+                                                          "copy_paste": SEG_COPY_PASTE, "copy_paste_mode": mode})
+        torch.cuda.synchronize()
+    launches = counts()
+    e = y.trainer.epoch_stats[0]
+    losses = [v for k, v in y.trainer.metrics_rows[0].items() if k.startswith("train/")]
+    ok = (len(steps) == FIT_TRAIN // FIT["batch"] and not vals and y.trainer.train_loader.hyp["copy_paste"] > 0
+          and all(st["launches"] == FAMILY_STEP_LAUNCHES and st["boxes_ok"] for st in steps)
+          and len(losses) == 4 and bool(np.isfinite(losses).all()))
+    del y
+    torch.cuda.empty_cache()
+    return {"ok": bool(ok), "mode": mode, "copy_paste": SEG_COPY_PASTE, "launches_per_step": steps,
+            "train_s": e["train_s"], "loader_wait_s": e["loader_wait_s"],
+            "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"]}, launches
 
 
 def phase_segment(dev):
@@ -2756,7 +2855,7 @@ def phase_segment(dev):
     profile = forward_profile(yolo.model, xb, fwd_ms, "dgrad", "deconv", "ConvTranspose", key="transposed_conv_share")
     del xb
     frames32 = frames * (SEG_BATCH // len(frames))
-    served = {}
+    served, polygons = {}, {}
     with zero_class_priors(yolo.model):  # the predictor at full load: seeded scores near 0.5, up to 300 masks a frame
         for retina in (False, True):
             kw = dict(imgsz=640, conf=0.25, batch=SEG_BATCH, retina_masks=retina, verbose=False)
@@ -2772,21 +2871,242 @@ def phase_segment(dev):
                 "img_per_s": SEG_BATCH / dt, "masks_per_frame": [len(r) for r in res[:8]],
                 "shapes_ok": all(r.masks.data.dtype == bool and r.masks.shape == (len(r), 480, 640) for r in res),
                 "inside_boxes": masks_in_boxes(res[:8], slack), "slack_px": slack}
+            if not retina:
+                polygons = masks_xy(res[0])
         mask_paths = seg_mask_paths(yolo, frames, dev)
     del yolo
     torch.cuda.empty_cache()
     serve_ok = (all(v["shapes_ok"] and v["inside_boxes"] and sum(v["masks_per_frame"]) > 0 for v in served.values())
-                and all(v["share_off"] <= SEG_MASK_SHARE and v["masks"] > 0 for v in mask_paths.values()))
+                and all(v["share_off"] <= SEG_MASK_SHARE and v["masks"] > 0 for v in mask_paths.values())
+                and polygons["ok"])
 
     train_ok, train_info, train_launches = seg_train(dev)
     path.append(train_launches)
     fit, fit_launches = seg_fit(dev)
     path.append(fit_launches)
     full = {"ok": serve_ok and train_ok, "forward_ms_batch32": fwd_ms, "forward_img_per_s": SEG_BATCH * 1e3 / fwd_ms,
-            "forward_profile": profile, "predict_batch32": served, "device_vs_cpu_masks": mask_paths,
+            "forward_profile": profile, "predict_batch32": served, "masks_xy": polygons,
+            "device_vs_cpu_masks": mask_paths,
             "train": train_info}
     ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
     return ok, {"predict": predict, "full_width": {SEG_FULL: full}, "fit": fit}, {"segment": add_counts(*path)}
+
+
+def int8_outputs(model, out) -> list:
+    """The outputs a check holds: a YOLOv10 head's raw maps of both branches
+    (its top-k orders near-equal scores by a rounding), a seg head's
+    prediction and prototypes, else the decoded prediction."""
+    if model.end2end:
+        return list(out[1]["one2many"]) + list(out[1]["one2one"])
+    if model.task == "segment":
+        return [out[0], out[1][2]]
+    return [out[0]]
+
+
+def int8_card_vs_cpu(cfg, calib, frames, dev) -> dict:
+    """cfg with fp32 weights and compute, BN-folded, quantized on the card on
+    `calib`, then copied to the CPU: its outputs (int8_outputs) on the first
+    two frames on the card (TF32 off) and on the CPU, each within
+    INT8_CPU_MAX / INT8_CPU_MEAN of its largest magnitude, with the share of
+    values that moved beyond fp32 rounding (1e-6 of the largest)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+
+    q = YOLO(cfg, device="cuda", dtype=torch.float32, param_dtype=torch.float32, seed=SEED).fuse()
+    quantize_model(q.model, calib)
+    cpu = copy.deepcopy(q.model).to("cpu")
+    x = letterboxed(frames[:2], 640, dev, torch.float32)
+    with torch.inference_mode():
+        got = [t.float().cpu() for t in int8_outputs(q.model, no_tf32(q.model, x))]
+        t0 = time.perf_counter()
+        ref = [t.float() for t in int8_outputs(cpu, cpu(x.cpu()))]
+        cpu_s = time.perf_counter() - t0
+    rows = []
+    for g, r in zip(got, ref):
+        d, top = (g - r).abs(), r.abs().max().clamp(min=1e-12)
+        rows.append({"shape": list(r.shape), "max_rel": float(d.max() / top), "mean_rel": float(d.mean() / top),
+                     "share_moved": float((d > 1e-6 * top).float().mean())})
+    ok = all(torch.isfinite(g).all() for g in got) and all(
+        r["max_rel"] <= INT8_CPU_MAX and r["mean_rel"] <= INT8_CPU_MEAN for r in rows)
+    del q, cpu
+    torch.cuda.empty_cache()
+    return {"ok": bool(ok), "batch": 2, "outputs": rows, "cpu_forward_s": cpu_s, "max_rtol": INT8_CPU_MAX,
+            "mean_rtol": INT8_CPU_MEAN}
+
+
+def int8_full(cfg, calib, frames, dev) -> tuple:
+    """One of INT8_FULL at 640 px: quantized (bf16 compute over fp32
+    weights) on `calib` with the calibration's launches; its int8 forward's
+    ms at INT8_GRAPH_BATCH beside the bf16 model's (bf16 weights,
+    BN-folded: the families, v10 and segment phases' forward), CUDA events;
+    the int8 forward's device time by kernel (torch.profiler); the int8
+    predict of the 8 frames with its launches (no kernel: these graphs hold
+    no SwinBlock); the card against the CPU (int8_card_vs_cpu)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Conv
+
+    yolo, float_model, calib_launches, calib_s = quantized(cfg, calib)
+    del float_model
+    convs = [m for m in yolo.model.modules() if isinstance(m, Conv)]
+    results, launches = counted(lambda: yolo.predict(frames, imgsz=640, conf=0.001, batch=8, verbose=False))
+    bf = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(INT8_GRAPH_BATCH, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        int8_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+        bf16_ms = cuda_ms(lambda: bf.model(xb), iters=10)
+        int8_again = cuda_ms(lambda: yolo.model(xb), iters=10)
+    by_kernel = forward_profile(yolo.model, xb, min(int8_ms, int8_again), "s8", "i8", "imma", key="int8_gemm_share")
+    del bf, xb
+    torch.cuda.empty_cache()
+    cpu = int8_card_vs_cpu(cfg, calib, frames, dev)
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and calib_launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8
+          and boxes_ok(results, 480, 640) and cpu["ok"])
+    info = {"model": cfg, "ok": bool(ok), "int8_convs": sum(m.runs_int8 for m in convs),
+            "float_convs": sum(m.w_int8 is None or not m.runs_int8 for m in convs), "calibrate_s": calib_s,
+            "calibration_launches": calib_launches, "predict_launches": launches,
+            "detections_per_frame": [len(r) for r in results], "batch": INT8_GRAPH_BATCH,
+            "int8_forward_ms": [int8_ms, int8_again], "bf16_forward_ms": bf16_ms,
+            "int8_over_bf16": min(int8_ms, int8_again) / bf16_ms, "int8_forward_by_kernel": by_kernel,
+            "card_vs_cpu": cpu}
+    del yolo
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def int8_sweep(cfg, calib, frames) -> tuple:
+    """cfg at its smallest scale quantized on one calibration batch, then one
+    int8 forward at batch 8 of the letterboxed frames: finite outputs."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+
+    y = YOLO(cfg, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32, seed=SEED).fuse()
+    reset_counts()
+    quantize_model(y.model, calib[:1])
+    x = letterboxed(frames, 640, y.model.device, torch.bfloat16)
+    with torch.inference_mode():
+        out = int8_outputs(y.model, y.model(x))
+        torch.cuda.synchronize()
+    launches = counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    ok = finite and launches == FAMILY_PREDICT_LAUNCHES
+    info = {"model": cfg, "ok": bool(ok), "finite": finite, "shapes": [list(t.shape) for t in out],
+            "int8_convs": sum(bool(getattr(m, "runs_int8", False)) for m in y.model.modules())}
+    del y
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def phase_int8_graphs(dev):
+    """int8 of the graphs added since the fork's (the module docstring's int8_graphs phase)."""
+    rng = np.random.default_rng(SEED)  # the int8 phase's calibration frames, and the exporter's synthetic ones
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    frames = slice_frames()
+    full, sweep, path = {}, [], []
+    for cfg in INT8_FULL:
+        _, info, launches = int8_full(cfg, calib, frames, dev)
+        full[cfg] = info
+        path.append(launches)
+    for cfg in INT8_SWEEP:
+        _, info, launches = int8_sweep(cfg, calib, frames)
+        sweep.append(info)
+        path.append(launches)
+    ok = all(v["ok"] for v in full.values()) and all(r["ok"] for r in sweep)
+    return ok, {"full_width": full, "smallest_scale": sweep}, {"int8_graphs": add_counts(*path)}
+
+
+def program_check(live, path: str, frames, seg: bool) -> dict:
+    """YOLO(path) (the program, on the card) against the live YOLO: predict
+    of the frames at conf 0.25 at each of PROGRAM_BATCHES, boxes (and masks)
+    bit for bit, and the launches of the program's predict."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    t0 = time.perf_counter()
+    served = YOLO(path)
+    row = {"load_s": time.perf_counter() - t0, "task": served.task, "by_batch": {}}
+    ok = served.task == ("segment" if seg else "detect")
+    for b in PROGRAM_BATCHES:
+        got, launches = counted(lambda: served.predict(frames, conf=0.25, batch=b, verbose=False))
+        ref = live.predict(frames, imgsz=640, conf=0.25, batch=b, verbose=False)
+        same = len(got) == len(ref) and all(
+            np.array_equal(g.boxes.data, r.boxes.data)
+            and (not seg or (g.masks is None) == (r.masks is None) and (g.masks is None
+                                                                           or np.array_equal(g.masks.data, r.masks.data)))
+            for g, r in zip(got, ref))
+        row["by_batch"][b] = {"bit_for_bit": bool(same), "detections": [len(r) for r in ref], "launches": launches}
+        ok &= same and sum(len(r) for r in ref) > 0 and launches == FAMILY_PREDICT_LAUNCHES
+    row["ok"] = bool(ok)
+    return row
+
+
+def programs_run(out: Path) -> int:
+    """The programs process (--programs DIR, started by main beside the
+    other phases): the dynamic programs of FLOAT_PROGRAMS (bf16, BN-folded),
+    of INT8_PROGRAMS (int8: the exporter's calibration on its synthetic
+    frames, the int8 phase's) and of yolov8s-seg in bf16, exported on the
+    card at 640 px with the class priors zeroed; each held to its live model
+    (program_check) on the slice phase's first three frames. Writes
+    DIR/programs.json."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    torch.set_num_threads(1)  # beside the main process: tracing is host work on one core
+    rng = np.random.default_rng(SEED)
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    frames = slice_frames()[:3]
+    rows = {}
+    specs = ([(cfg, "bf16") for cfg in FLOAT_PROGRAMS] + [(cfg, "int8") for cfg in INT8_PROGRAMS]
+             + [("yolov8s-seg.yaml", "bf16")])
+    for cfg, kind in specs:
+        t0 = time.perf_counter()
+        try:
+            if kind == "int8":
+                src = YOLO(cfg, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32, seed=SEED)
+                live = quantized(cfg, calib)[0]
+            else:
+                src = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+                live = src
+            with zero_class_priors(src.model), zero_class_priors(live.model):
+                path = src.export(format="pt2", imgsz=640, dynamic=True, int8=kind == "int8", half=kind == "bf16",
+                                  project=str(out / f"{Path(cfg).stem}_{kind}"))
+                export_s = time.perf_counter() - t0
+                row = program_check(live, path, frames, live.task == "segment")
+            row.update(export_s=export_s, path=Path(path).name)
+        except Exception as e:  # noqa: BLE001  a failed program is a failed row, and the others still run
+            row = {"ok": False, "error": f"{type(e).__name__}: {e}"[:400]}
+        row["seconds"] = time.perf_counter() - t0
+        rows[f"{Path(cfg).stem}_{kind}"] = row
+        torch.cuda.empty_cache()
+    (out / "programs.json").write_text(json.dumps(rows, default=str))
+    return 0 if all(r["ok"] for r in rows.values()) else 1
+
+
+def start_programs() -> tuple:
+    """Start the programs process (programs_run) on the card: (process, its directory)."""
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_programs_"))
+    log = open(d / "log.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--programs", str(d)], stdout=log,
+                            stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent))
+    log.close()
+    return proc, d
+
+
+def phase_programs(proc, d: Path, timeout: float):
+    """Wait for the programs process and read its rows (killed at the timeout)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    try:
+        rows = json.loads((d / "programs.json").read_text())
+    except (OSError, ValueError):
+        rows = {}
+    tail = (d / "log.txt").read_text()[-1500:] if (d / "log.txt").exists() else ""
+    shutil.rmtree(d, ignore_errors=True)
+    ok = rc == 0 and len(rows) == len(FLOAT_PROGRAMS) + len(INT8_PROGRAMS) + 1 and all(r["ok"] for r in rows.values())
+    info = {"rc": rc, "programs": rows}
+    if not ok:
+        info["log_tail"] = tail
+    return ok, info
 
 
 def phase_yolo11(dev):
@@ -3567,6 +3887,8 @@ def main() -> int:
         return predict_compare(Path(sys.argv[2]).resolve())
     if len(sys.argv) == 3 and sys.argv[1] == "--fit":
         return fit_compare(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 3 and sys.argv[1] == "--programs":
+        return programs_run(Path(sys.argv[2]).resolve())
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3585,6 +3907,17 @@ def main() -> int:
     build = phase_build()
     emit({"phase": "build", "ok": True, "card": smi, **build})
     (wide,) = run("kernel", phase_kernel, dev)
+    programs = start_programs()  # beside the phases below (the kernels timed alone before); joined before the end
+    try:
+        return run_phases(dev, name, smi, build, wide, programs, failed, run)
+    finally:
+        if programs[0].poll() is None:
+            programs[0].kill()
+            programs[0].wait()
+
+
+def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
+    """The phases after the kernel phase, the kernels line and the last line (main)."""
     yolo, predict_launches = run("slice", phase_slice, dev)
     (serve_launches,) = run("serve", phase_serve, dev)
     (track_launches,) = run("track", phase_track, yolo, dev)
@@ -3596,17 +3929,20 @@ def main() -> int:
     families_launches, k2_levels = run("families", phase_families, dev)
     (v10_launches,) = run("v10", phase_v10, dev)
     (segment_launches,) = run("segment", phase_segment, dev)
+    (int8_graphs_launches,) = run("int8_graphs", phase_int8_graphs, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
     (yolo11_int8_launches,) = run("yolo11_int8", phase_yolo11_int8, dev)
     (autobatch_launches,) = run("profile_models", phase_profile_models, dev)
     (forward_ms,) = run("speed", phase_speed, yolo, train, dev)
     run("profile", phase_profile, yolo, train, dev, forward_ms, int8_yolo, int8_ms)
+    run("programs", phase_programs, *programs, 600.0)
     kernels = kernels_line(yolo, train[0], int8_yolo, dev,
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **families_launches, **v10_launches, **segment_launches, **yolo11_launches,
+                            **families_launches, **v10_launches, **segment_launches, **int8_graphs_launches,
+                            **yolo11_launches,
                             **large_launches,
                             **yolo11_int8_launches, **autobatch_launches},
                            build, wide, k2_levels)

@@ -22,10 +22,13 @@ def _defaults() -> Dict:
 
 def get_cfg(overrides: Optional[Dict] = None) -> SimpleNamespace:
     """The defaults with `overrides` on top. A key that the defaults do not
-    have raises KeyError."""
+    have raises KeyError; a copy_paste_mode other than flip or mixup
+    ValueError, as the JAX package's get_cfg does."""
     d = copy.deepcopy(_defaults())
     unknown = sorted(k for k in (overrides or {}) if k not in d)
     if unknown:
         raise KeyError(f"not a train setting of the port: {unknown}")
     d.update(overrides or {})
+    if d.get("copy_paste_mode") not in (None, "flip", "mixup"):
+        raise ValueError(f"copy_paste_mode={d['copy_paste_mode']!r} must be 'flip' or 'mixup'")
     return SimpleNamespace(**d)

@@ -793,17 +793,67 @@ def flip_inst(s: Dict, rng: np.random.Generator, flipud=0.0, fliplr=0.5) -> Dict
     return out
 
 
+def copy_paste_inst(s: Dict, rng: np.random.Generator, p: float = 0.5, donor: Optional[Dict] = None) -> Dict:
+    """Copy-paste of instances (JAX data/augment.py:546): the candidates are
+    `donor`'s instances (mixup mode), or this sample's own mirrored left to
+    right (flip mode, donor None). Those with a polygon whose box covers
+    under 30 % (IoA) of every existing box, ordered by their largest IoA
+    (np.argsort's order, as JAX's), the first round(p * n) of them, are
+    filled (utils/patches.py fill_poly, cv2.fillPoly's rule) into one paste
+    mask under which the candidates' pixels replace this sample's, and are
+    appended to its instances. No generator draw; `rng` is JAX's signature."""
+    n = len(s["cls"])
+    if p <= 0 or n == 0:
+        return s
+    h, w = s["img"].shape[:2]
+    if donor is None:
+        if all(q is None for q in s["polys"]):
+            return s
+        src_img = np.ascontiguousarray(s["img"][:, ::-1])
+        cand_boxes = s["bboxes"].copy()
+        cand_boxes[:, [0, 2]] = w - s["bboxes"][:, [2, 0]]
+        cand_cls = s["cls"]
+        cand_polys = [None if q is None else np.stack([w - q[:, 0], q[:, 1]], 1) for q in s["polys"]]
+    else:
+        if len(donor["cls"]) == 0 or all(q is None for q in donor["polys"]):
+            return s
+        src_img, cand_boxes, cand_cls, cand_polys = donor["img"], donor["bboxes"], donor["cls"], donor["polys"]
+    lt = np.maximum(cand_boxes[:, None, :2], s["bboxes"][None, :, :2])
+    rb = np.minimum(cand_boxes[:, None, 2:], s["bboxes"][None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)  # (candidates, existing)
+    area = np.maximum((cand_boxes[:, 2] - cand_boxes[:, 0]) * (cand_boxes[:, 3] - cand_boxes[:, 1]), 1e-9)
+    ioa = inter / area[:, None]
+    ok = np.nonzero(((ioa < 0.30).all(1)) & np.array([q is not None for q in cand_polys]))[0]
+    if len(ok) == 0:
+        return s
+    ok = ok[np.argsort(ioa[ok].max(1))][: round(p * len(ok))]
+    if len(ok) == 0 or src_img.shape[:2] != (h, w):
+        return s
+    paste = np.zeros((h, w), np.uint8)
+    for j in ok:
+        fill_poly(paste, np.round(cand_polys[j]).astype(np.int32), 1)
+    img = s["img"].copy()
+    sel = paste == 1
+    img[sel] = src_img[sel]
+    return {**s, "img": img, "bboxes": np.concatenate([s["bboxes"], cand_boxes[ok]], 0),
+            "cls": np.concatenate([s["cls"], np.asarray([cand_cls[j] for j in ok], s["cls"].dtype)], 0),
+            "polys": s["polys"] + [cand_polys[j] for j in ok]}
+
+
 def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Generator, hyp: Dict) -> Dict:
     """The instance tasks' train pipeline for one output image (JAX
-    data/augment.py:727): a 2x2 mosaic (or the letterbox), random_perspective,
-    mixup with a second mosaic of samples 4 to 7, pixel_augment, HSV, flips.
-    Returns a pixel-space instance sample. copy_paste above 0 raises: it is
-    not in the port yet."""
-    if hyp.get("copy_paste", 0.0) > 0:
-        raise NotImplementedError("copy_paste > 0 is not in the port yet (ROADMAP.md Queue 1: copy_paste in both modes)")
+    data/augment.py:727): a 2x2 mosaic (or the letterbox), copy_paste in
+    flip mode, random_perspective, copy_paste in mixup mode (with copy_paste
+    above 0 and 8 samples or more: a donor mosaic of the last four samples
+    after its own random_perspective), mixup with a second mosaic of samples
+    4 to 7, pixel_augment, HSV, flips. The generator's draws are JAX's,
+    among them mixup's rng.random() wherever 8 samples or more come (in
+    mixup mode with mixup 0 too). Returns a pixel-space instance sample."""
     insts = [_inst_px(s) for s in samples]
     warp = {k: hyp.get(k, d) for k, d in (("degrees", 0.0), ("translate", 0.1), ("scale", 0.5), ("shear", 0.0),
                                           ("perspective", 0.0))}
+    copy_paste = hyp.get("copy_paste", 0.0)
+    cp_mode = str(hyp.get("copy_paste_mode", "flip") or "flip")
     use_mosaic = rng.random() < hyp.get("mosaic", 1.0)
     if use_mosaic and len(insts) >= 4:
         m = mosaic4_inst(insts[:4], imgsz, rng)
@@ -812,7 +862,13 @@ def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Ge
         img, r, (padw, padh) = letterbox(insts[0]["img"], imgsz)
         m = {**_scale_inst(insts[0], r, padw, padh), "img": img.numpy()}
         border = (0, 0)
+    if cp_mode == "flip":
+        m = copy_paste_inst(m, rng, copy_paste)
     m = random_perspective_inst(m, rng, border=border, **warp)
+    if cp_mode == "mixup" and copy_paste > 0 and len(insts) >= 8:
+        d = mosaic4_inst(insts[-4:], imgsz, rng)
+        d = random_perspective_inst(d, rng, border=d.pop("mosaic_border"), **warp)
+        m = copy_paste_inst(m, rng, copy_paste, donor=d)
     if use_mosaic and len(insts) >= 8 and rng.random() < hyp.get("mixup", 0.0):
         m2 = mosaic4_inst(insts[4:8], imgsz, rng)
         m2 = random_perspective_inst(m2, rng, border=m2.pop("mosaic_border"), **warp)

@@ -203,8 +203,12 @@ class DataLoader:
         if self.task == "segment":
             rng = np.random.default_rng((self.seed * 1_000_003 + epoch) * 1_000_003 + i * 7 + pos)
             group = self.ds.load_sample(i)
-            if self.train:  # the main sample, the 2x2 mosaic's donors and, with mixup, a second mosaic's
-                extra = rng.integers(0, len(self.ds), 7 if self.hyp.get("mixup", 0.0) > 0 else 3)
+            if self.train:  # the main sample, the 2x2 mosaic's donors, with mixup a second mosaic's, and in
+                # copy_paste's mixup mode four more for its donor mosaic, in one draw as the JAX loader makes it
+                n = 7 if self.hyp.get("mixup", 0.0) > 0 else 3
+                if str(self.hyp.get("copy_paste_mode", "flip")) == "mixup" and self.hyp.get("copy_paste", 0.0) > 0:
+                    n += 4
+                extra = rng.integers(0, len(self.ds), n)
                 group = [group] + [self.ds.load_sample(int(j)) for j in extra]
             return segment_transform(group, self.ds.imgsz, self.ds.max_gt, self.train, rng, self.hyp)
         if self.device_augment:

@@ -6,7 +6,12 @@ SavedModel, a frozen pb and TFLite; the port writes one format, `pt2`: a
 `torch.export` program of ExportForward, saved with `torch.export.save`.
 The program takes (B, H, W, 3) uint8 NHWC frames and returns float32
 (B, 4 + nc, A), the Detect layout (xywh pixels, then class sigmoids), or
-with `nms` the (B, max_det, 6) of ops/nms.py e2e_postprocess. A YOLOv10
+with `nms` the (B, max_det, 6) of ops/nms.py e2e_postprocess. A
+segmentation model's program returns two float32 outputs: the
+(B, 4 + nc + nm, A) prediction (the Detect layout, then the mask
+coefficients) and the prototypes (B, nm, H/4, W/4), so that masks can be
+made from it (the JAX exporter's seg program returns the prediction only);
+`nms=True` on it raises ValueError, as in the JAX exporter. A YOLOv10
 model's program returns its head's (B, 300, 6) detections (xyxy pixels,
 score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
 warns and is dropped (the JAX exporter would run e2e_postprocess on those
@@ -62,9 +67,10 @@ TORCH_ONLY_KEYS = (("simplify", True), ("opset", None), ("optimize", False), ("w
 
 class ExportForward(nn.Module):
     """uint8 (B, H, W, 3) RGB frames -> the model's float32 (B, 4 + nc, A)
-    (a YOLOv10 model's (B, 300, 6) detections), or with nms
-    e2e_postprocess's (B, max_det, 6): the frames cast to the model's dtype,
-    then divided by 255, as the JAX exporter's forward does."""
+    (a YOLOv10 model's (B, 300, 6) detections; a segmentation model's
+    (B, 4 + nc + nm, A) and its float32 prototypes (B, nm, H/4, W/4)), or
+    with nms e2e_postprocess's (B, max_det, 6): the frames cast to the
+    model's dtype, then divided by 255, as the JAX exporter's forward does."""
 
     def __init__(self, model: nn.Module, nms: bool = False, max_det: int = 300):
         super().__init__()
@@ -74,8 +80,11 @@ class ExportForward(nn.Module):
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0
-        pred = self.model(x)[0].float()
-        return e2e_postprocess(pred, self.max_det, self.model.nc) if self.nms else pred
+        out = self.model(x)
+        pred = out[0].float()
+        if self.nms:
+            return e2e_postprocess(pred, self.max_det, self.model.nc)
+        return (pred, out[1][2].float()) if self.model.task == "segment" else pred
 
 
 class Exporter:
@@ -97,6 +106,8 @@ class Exporter:
         if opts["half"] and opts["int8"]:
             print("WARNING: half=True and int8=True are mutually exclusive, setting half=False")
             opts["half"] = False
+        if opts["nms"] and self.model.task != "detect":
+            raise ValueError(f"nms=True export requires a detect-task model, not a {self.model.task} model")
         if opts["nms"] and self.model.end2end:
             print("WARNING: nms=True on a YOLOv10 (end2end) model: its head gives the NMS-free detections "
                   "already, setting nms=False")
@@ -147,7 +158,7 @@ class Exporter:
         md = {
             "description": "improving_yolov8_cbam_swinblock_tpu_torch export (torch.export program)",
             "stride": int(max(self.model.strides)),
-            "task": "detect",
+            "task": self.model.task,
             "batch": -1 if opts["dynamic"] else opts["batch"],
             "imgsz": [imgsz, imgsz],
             "names": {int(k): str(v) for k, v in self.model.names.items()},
@@ -159,6 +170,8 @@ class Exporter:
                        "top-k)" if self.model.end2end
                        else "NHWC uint8 in, (B, max_det, 6) out (xywh pixels, conf, cls: the NMS-free top-k of "
                        "e2e_postprocess)" if opts["nms"]
+                       else "NHWC uint8 in, (B, 4+nc+nm, A) out (xywh pixels + cls sigmoid + mask coefficients) "
+                       "and (B, nm, H/4, W/4) out (mask prototypes)" if self.model.task == "segment"
                        else "NHWC uint8 in, (B, 4+nc, A) out (xywh pixels + cls sigmoid)"),
         }
         if self.model.end2end:  # a key the JAX package's sidecar lacks, written where it is true only

@@ -13,10 +13,14 @@ with `ops.quant.quantize_model(yolo.model, batches)`; `predict` and `val`
 then run it. `train(data=...)` trains on the model's device (a model loaded
 from a file warm-starts the trainer) and adopts best.pt's EMA weights;
 `val(data=...)` returns ValMetrics. A segmentation graph (task "segment")
-predicts masks, validates box and mask mAP and trains with the seg loss
-through the same verbs. `track` runs predict with ByteTrack or
-BoT-SORT on its events (trackers/), `embed` returns pooled layer
-embeddings, and predict's visualize writes feature maps.
+predicts masks, validates box and mask mAP, trains with the seg loss and
+exports (a program with the prototypes beside the prediction) through the
+same verbs. `YOLO("model.pt2")` serves a program that `export` wrote
+(nn/autobackend.py ProgramModel): predict and track, with the masks of a
+segmentation program; the other verbs need the model itself. `track` runs
+predict with ByteTrack or BoT-SORT on its events (trackers/), `embed`
+returns pooled layer embeddings, and predict's visualize writes feature
+maps.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..cfg import get_cfg
 from ..data.build import build_dataloader, build_yolo_dataset
 from ..data.dataset import check_det_dataset
 from ..data.loaders import VID_EXTS
+from ..nn.autobackend import ProgramModel
 from ..nn.tasks import DetectionModel, EnsembleModel
 from ..ops.quant import is_quantized
 from ..trackers.track import on_predict_postprocess_end, on_predict_start
@@ -72,6 +77,11 @@ class YOLO:
             self._load_pt(str(model))
         elif str(model).endswith(JAX_SUFFIXES):
             self._load_ckpt(str(model))
+        elif str(model).endswith(".pt2"):
+            self.model = ProgramModel(str(model), device=device)
+            self.ckpt_path = str(model)
+            if self.model.backend.imgsz:
+                self.overrides = {"imgsz": int(self.model.backend.imgsz[0])}
         else:
             self.model = DetectionModel(model, **self._build)
         self.task = self.model.task  # "detect" or "segment", from the graph's head
@@ -127,9 +137,13 @@ class YOLO:
         return {"params": sum(p.numel() for p in self.model.parameters()), "strides": tuple(self.model.strides),
                 "nc": self.model.nc, "task": self.task, "fused": self.is_fused}
 
-    def _single(self, what: str) -> None:
+    def _single(self, what: str, program: bool = False) -> None:
+        """Refuse `what` on an ensemble, and on a program unless `program`."""
         if isinstance(self.model, EnsembleModel):
             raise NotImplementedError(f"{what} an ensemble is not supported: use one member")
+        if isinstance(self.model, ProgramModel) and not program:
+            raise NotImplementedError(f"{what} a .pt2 program is not supported: a program predicts and tracks; "
+                                      "use the model it was exported from")
 
     def load_jax_variables(self, variables) -> "YOLO":
         """Load the JAX package's {"params", "batch_stats"} (numpy leaves) into an unfused model."""
@@ -242,7 +256,7 @@ class YOLO:
         is shared and reset by every new tracker, as in the JAX package);
         persist=True keeps this YOLO's trackers from the last call, so
         their ids go on."""
-        self._single("tracking")
+        self._single("tracking", program=True)
         tracker = tracker or get_cfg(self.overrides).tracker
         if not persist:
             self._trackers = None
@@ -376,9 +390,6 @@ class YOLO:
         from .exporter import Exporter
 
         self._single("exporting")
-        if self.task != "detect":
-            raise NotImplementedError(f"export of a {self.task} model is not in the port yet "
-                                      "(ROADMAP.md Queue 1: int8 and export of the seg graphs)")
         return Exporter(self.model, get_cfg({**self.overrides, **kwargs}), callbacks=self.callbacks)()
 
     def benchmark(self, **kwargs):

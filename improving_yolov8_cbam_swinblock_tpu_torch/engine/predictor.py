@@ -18,7 +18,9 @@ model's NMS carries each kept anchor's mask coefficients, and each image's
 masks (`Results.masks`, (n, H0, W0) bool) are made on the model's device
 (`native_masks`); `retina_masks` crops them by the boxes at the original
 resolution instead of at the prototypes'; `augment` does not apply, as in
-the JAX predictor.
+the JAX predictor. A `.pt2` program (YOLO("model.pt2"),
+nn/autobackend.py ProgramModel) gives the same outputs: a segmentation
+program's prototypes are its second output.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.

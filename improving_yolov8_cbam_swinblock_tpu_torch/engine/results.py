@@ -3,10 +3,11 @@ package's engine/results.py (its detection part, and the masks of a
 segmentation model).
 
 `Results` holds one image's detections and writes them out: a log string
-(`verbose`), dicts and JSON (`summary`, `to_json`), a sqlite table
-(`to_sql`), an annotated copy of the image (`plot`, `save`, `show`), YOLO
-label lines (`save_txt`) and crops (`save_crop`). Drawing and image files
-need cv2, as in the JAX package.
+(`verbose`), dicts and JSON (`summary`, `to_json`, with each mask's polygon
+as `segments`), a sqlite table (`to_sql`), an annotated copy of the image
+with the masks blended in (`plot`, `save`, `show`), YOLO label lines
+(`save_txt`) and crops (`save_crop`). Drawing and image files need cv2, as
+in the JAX package; the polygons (`Masks.xy`) do not.
 """
 
 from __future__ import annotations
@@ -69,12 +70,32 @@ class Boxes:
 class Masks:
     """Instance masks: (n, H, W) bool at the original image's resolution,
     array-like (len, iteration, indexing and __array__), as the JAX
-    package's engine/results.py Masks. Their polygons (xy, xyn) are not in
-    the port yet."""
+    package's engine/results.py Masks."""
 
     def __init__(self, data: np.ndarray, orig_shape):
         self.data = np.asarray(data)
         self.orig_shape = tuple(orig_shape)
+
+    @property
+    def xy(self):
+        """Each mask's largest outer contour (utils/patches.py find_contours,
+        the first of equal areas) as a (k, 2) float32 polygon in original
+        pixels, scaled from the mask's resolution where it differs; (0, 2)
+        for an empty mask."""
+        from ..ops.segments import masks2segments
+
+        out = []
+        for m, c in zip(self.data, masks2segments(self.data, "largest")):
+            if len(c):
+                c *= np.array([self.orig_shape[1] / m.shape[1], self.orig_shape[0] / m.shape[0]], np.float32)
+            out.append(c)
+        return out
+
+    @property
+    def xyn(self):
+        """xy normalised by the original image's width and height."""
+        h, w = self.orig_shape
+        return [p / np.array([w, h], np.float32) for p in self.xy]
 
     @property
     def shape(self):
@@ -91,6 +112,11 @@ class Masks:
 
     def __len__(self):
         return len(self.data)
+
+
+def _class_color(cls: int) -> tuple:
+    """The JAX package's Results.plot colour of a class (BGR)."""
+    return tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
 
 
 class Results:
@@ -144,9 +170,11 @@ class Results:
 
     def summary(self):
         """One dict per detection: name, class, confidence (5 decimals), box,
-        and track_id for tracked boxes."""
+        track_id for tracked boxes, and `segments` ({"x": [...], "y": [...]},
+        Masks.xyn) where there is a mask for every box."""
         out = []
         b = self.boxes
+        polys = self.masks.xyn if self.masks is not None and len(self.masks) == len(b) else None
         for i in range(len(b)):
             cls, conf = int(b.cls[i]), float(b.conf[i])
             x1, y1, x2, y2 = (float(v) for v in b.xyxy[i])
@@ -154,6 +182,8 @@ class Results:
                    "box": {"x1": x1, "y1": y1, "x2": x2, "y2": y2}}
             if b.id is not None:
                 row["track_id"] = int(b.id[i])
+            if polys is not None:
+                row["segments"] = {"x": polys[i][:, 0].tolist(), "y": polys[i][:, 1].tolist()}
             out.append(row)
         return out
 
@@ -185,17 +215,28 @@ class Results:
         return db_path
 
     def plot(self, line_width: Optional[int] = None):
-        """An annotated copy of the original image (BGR): each box and its
-        'name conf' label (with 'id:n' for tracked boxes), coloured by class."""
+        """An annotated copy of the original image (BGR): the masks blended
+        in (each resized to the image by cv2.resize's default linear rule
+        where it differs, kept where > 0, then 0.6 of the pixel plus 0.4 of
+        its class colour, truncated, as the JAX package draws them), then
+        each box and its 'name conf' label (with 'id:n' for tracked boxes),
+        coloured by class."""
         import cv2
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
         b = self.boxes
+        if self.masks is not None and len(self.masks):
+            masks = np.asarray(self.masks)
+            if masks.shape[1:] != img.shape[:2]:
+                masks = np.stack([cv2.resize(m.astype(np.uint8), (img.shape[1], img.shape[0])) for m in masks]) > 0
+            for i, m in enumerate(masks):
+                color = _class_color(int(b.cls[i]) if i < len(b) else i)
+                img[m] = (img[m] * 0.6 + np.array(color) * 0.4).astype(img.dtype)
         for i in range(len(b)):
             x1, y1, x2, y2 = (int(v) for v in b.xyxy[i])
             cls, conf = int(b.cls[i]), float(b.conf[i])
-            color = tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
+            color = _class_color(cls)
             cv2.rectangle(img, (x1, y1), (x2, y2), color, lw)
             label = f"{self.names.get(cls, cls)} {conf:.2f}"
             if b.id is not None:
@@ -222,7 +263,9 @@ class Results:
         return filename
 
     def save_txt(self, txt_file: str, save_conf: bool = False):
-        """YOLO label lines, 'cls x y w h' normalised (and conf with save_conf), '%.6g'."""
+        """YOLO label lines, 'cls x y w h' normalised (and conf with save_conf),
+        '%.6g'; a segmentation model's too (no polygon), as the JAX package
+        writes them."""
         lines = []
         for i in range(len(self.boxes)):
             cls, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])

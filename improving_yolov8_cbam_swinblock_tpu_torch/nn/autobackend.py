@@ -15,10 +15,16 @@ Counterpart of the JAX package's nn/autobackend.py. It serves:
 
 Input: (B, H, W, 3) uint8 NHWC frames, numpy or a tensor. Output: numpy
 float32, the Detect layout, or (B, max_det, 6) for a program exported with
-nms and for a YOLOv10 model or program (`end2end`). A checkpoint or model
+nms and for a YOLOv10 model or program (`end2end`); for a segmentation
+model or program (`task` "segment") two arrays, the (B, 4+nc+nm, A)
+prediction and the (B, nm, H/4, W/4) prototypes. A checkpoint or model
 runs as it is, unfused, in the dtype it was built with (fp32 for a JAX
 checkpoint), as the JAX Backend runs its checkpoints. A program runs on the
 device it was exported on.
+
+ProgramModel puts a program behind the interface the predictor drives, so
+that `YOLO("model.pt2")` predicts and tracks with it: boxes, and masks from
+a segmentation program's prototypes.
 """
 
 from __future__ import annotations
@@ -99,7 +105,7 @@ class Backend:
         self.metadata.setdefault("names", {int(k): str(v) for k, v in model.names.items()})
         self.metadata.setdefault("stride", int(max(model.strides)))
         self.metadata.setdefault("nc", int(model.nc))
-        self.metadata.setdefault("task", "detect")
+        self.metadata.setdefault("task", model.task)
         self.metadata.setdefault("end2end", bool(model.end2end))
 
     def _init_live(self, model: nn.Module, imgsz: Optional[int], device) -> None:
@@ -130,10 +136,14 @@ class Backend:
             self.metadata.setdefault("imgsz", [int(y.overrides["imgsz"])] * 2)
 
     # -- uniform inference --------------------------------------------------
-    def __call__(self, im) -> np.ndarray:
+    def __call__(self, im):
+        """numpy float32 output(s) of uint8 frames: one array, or the
+        (prediction, prototypes) pair of a segmentation model or program."""
         x = torch.as_tensor(np.asarray(im) if not isinstance(im, torch.Tensor) else im)
         with torch.inference_mode():
             out = self._fn(x.to(device=self.device, dtype=torch.uint8))
+        if isinstance(out, (tuple, list)):
+            return tuple(t.float().cpu().numpy() for t in out)
         return out.float().cpu().numpy()
 
     def warmup(self, imgsz=(1, 640, 640, 3)) -> "Backend":
@@ -142,6 +152,66 @@ class Backend:
             imgsz = (max(int(self.metadata.get("batch", 1)), 1), int(self.imgsz[0]), int(self.imgsz[1]), 3)
         self(np.zeros(imgsz, np.uint8))
         return self
+
+
+class ProgramModel(nn.Module):
+    """A `.pt2` program (Backend) as the model the predictor drives:
+    forward takes the predictor's (B, 3, H, W) float32 frames in [0, 1]
+    (NHWC memory), turns them back into the uint8 frames they were made from
+    (x * 255, rounded: exact in fp32), runs the program (a static program
+    in chunks of its batch, the last padded with zero frames) and returns
+    the live model's eval layout: (prediction, None), a YOLOv10 program's
+    (detections, None), or a segmentation program's (prediction, (None,
+    None, prototypes)). Program outputs are float32, as the live forward's
+    decoded ones are, so the predictor's NMS and masks are the live
+    model's. A program exported with nms=True (xywh top-k without NMS) is
+    refused: serve it with Backend."""
+
+    def __init__(self, path, device=None):
+        super().__init__()
+        self.backend = Backend(path, device=device)
+        md = self.backend.metadata
+        if md.get("nms") and not md.get("end2end"):
+            raise ValueError(f"{path} was exported with nms=True (the NMS-free top-k in xywh): serve it with "
+                             "Backend, not YOLO")
+        self.program = self.backend._fn
+        self.names = self.backend.names
+        self.nc = self.backend.nc
+        self.task = self.backend.task
+        self.end2end = bool(md.get("end2end", False))
+        self.strides = (self.backend.stride,)
+        self.batch = int(md.get("batch", -1))
+        self.dtype = torch.float32
+
+    @property
+    def device(self) -> torch.device:
+        return self.backend.device
+
+    @property
+    def is_fused(self) -> bool:
+        """A program runs as it was exported: the predictor never folds it."""
+        return True
+
+    def fuse(self) -> "ProgramModel":
+        return self
+
+    def forward(self, x: torch.Tensor):
+        img = (x.float().permute(0, 2, 3, 1) * 255.0).round().to(torch.uint8)
+        n = img.shape[0]
+        if self.batch > 0:
+            chunks = [img[i:i + self.batch] for i in range(0, n, self.batch)]
+            chunks[-1] = torch.cat([chunks[-1], chunks[-1].new_zeros((self.batch - len(chunks[-1]), *img.shape[1:]))])
+            outs = [self.program(c) for c in chunks]
+            out = (tuple(torch.cat(t)[:n] for t in zip(*outs)) if isinstance(outs[0], (tuple, list))
+                   else torch.cat(outs)[:n])
+        else:
+            out = self.program(img)
+        if self.task == "segment":
+            return out[0], (None, None, out[1])
+        return out, None
+
+    def predict_augment(self, x):
+        raise NotImplementedError("augment=True needs the live model: a program holds one scale")
 
 
 def check_class_names(names, nc: Optional[int] = None) -> Dict[int, str]:

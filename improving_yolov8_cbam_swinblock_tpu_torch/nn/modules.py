@@ -126,7 +126,7 @@ class Conv(nn.Module):
             record_amax(self.calib, "x_amax", x)
         if self.runs_int8 and not self.training:
             y = conv_int8(x, self.w_int8, self.w_scale, self.x_scale, self.conv.stride[0], self.conv.padding[0])
-            y = self.bn(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
+            y = self.norm(y) if self.bn is not None else y + self.conv.bias.float().view(1, -1, 1, 1)
             return activate(y.to(x.dtype), self.act)
         y = self.conv(x)
         if self.bn is not None:
@@ -135,8 +135,20 @@ class Conv(nn.Module):
 
     def norm(self, y: torch.Tensor) -> torch.Tensor:
         """The BatchNorm of the conv output y in fp32: batch statistics in
-        training (batch_norm_train), the running ones in eval."""
-        return batch_norm_train(self.bn, y.float()) if self.training else self.bn(y.float())
+        training (batch_norm_train), the running ones in eval. Eval runs on
+        the (B*H*W, C) view of the NHWC memory: a 4-D input would let cuDNN
+        take it, whose check of the batch against its limit a torch.export
+        program with a dynamic batch cannot keep (RepConv's branches keep
+        their BatchNorms in a BN-folded model), and the 2-D kernel is the
+        one the program runs, so a live model and its program agree bit for
+        bit."""
+        if self.training:
+            return batch_norm_train(self.bn, y.float())
+        bn = self.bn
+        b, c, h, w = y.shape
+        y2 = y.float().permute(0, 2, 3, 1).reshape(-1, c)
+        out = F.batch_norm(y2, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
+        return out.view(b, h, w, c).permute(0, 3, 1, 2)
 
     @torch.no_grad()
     def fuse(self):

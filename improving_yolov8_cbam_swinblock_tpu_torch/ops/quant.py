@@ -12,21 +12,27 @@ scales from the running |max| of a calibration sweep, amax / 127.
   load_quant_state(model, state)      set those buffers on the modules
   quantize_model(model, batches)      all three
 
-Every `Conv` records its input (`x_amax`) and gets int8 weights, grouped
-ones included, as in the JAX package; a grouped conv (YOLO11's depth-wise
-convs) keeps its float path (Conv.runs_int8), and so do YOLO11 Attention's
-products, whose qkv and proj Convs go int8. CBAM's convs and the Detect
-head's last 1x1 convs stay float, as in the JAX package. Every SwinBlock
-records the inputs of its four products (`qkv_amax`, `out_amax`,
-`fc1_amax`, `fc2_amax`), its input (`xin_amax`) and its float output
-(`yout_amax`). Quantize a BN-folded model as the JAX package's bench and
-exporter do: fuse() first, since folding changes the weights afterwards.
+The JAX package's int8 gate: every module that is a `Conv` in the JAX
+package records its input (`x_amax`) and gets int8 weights, grouped ones
+included, and runs its product in int8 where it is ungrouped
+(Conv.runs_int8, JAX's g == 1): the rows of every graph the port builds
+(the fork's, YOLO11, YOLOv3 to v9, YOLOv10, YOLO12, the seg graphs). A
+grouped conv (DWConv, SCDown's and RepVGGDW's depth-wise convs, CIB's,
+v10Detect's light class branch, GhostConv's cheap op, the `pe` of
+Attention and AAttn) keeps its float path; so do YOLO11 Attention's and
+AAttn's products, whose qkv and proj Convs go int8. What is a raw conv in
+the JAX package stays float and uncalibrated: RepConv's two branches (port
+Convs whose BatchNorm RepConv applies itself), CBLinear, the transposed
+convs of yolov6 and Proto, the last 1x1 convs of Detect, v10Detect's two
+branch sets and Segment's cv4, and CBAM's convs. Every SwinBlock records
+the inputs of its four products (`qkv_amax`, `out_amax`, `fc1_amax`,
+`fc2_amax`), its input (`xin_amax`) and its float output (`yout_amax`).
+Quantize a BN-folded model as the JAX package's bench and exporter do:
+fuse() first, since folding changes the weights afterwards.
 
-Only the rows of the fork's graphs and YOLO11 (QUANT_ROWS) are taken; a
-graph with any other row (YOLOv3 to v9, YOLO12) raises NotImplementedError
-naming it, before the calibration: the JAX package's int8 gate quantizes
-its Conv modules only, and RepConv, CBLinear and the transposed conv are
-raw convs there.
+conv_int8 takes one stride and one padding for both axes, with no
+dilation: quantize_model refuses an ungrouped Conv that has other ones
+(no packaged graph does) rather than compute another convolution.
 """
 
 from __future__ import annotations
@@ -40,25 +46,27 @@ import torch.nn.functional as F
 from .swin_int8 import QKEYS, QWEIGHTS, q8
 
 Calib = Dict[str, Dict[str, torch.Tensor]]
-# the YAML rows of the graphs quantize_model takes
-QUANT_ROWS = ("Conv", "C2f", "C3k2", "SPPF", "C2PSA", "CBAM", "SwinBlock", "Concat", "nn.Upsample", "Upsample",
-              "Detect")
 
 
 def int_mm(a: torch.Tensor, w: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
     """(M, K) int8 @ (N, K)^T int8 -> (M, N) int32, exact (torch._int_mm).
-    K is zero-padded to a multiple of 8, which the card's int8 product
-    needs; it also needs more than 16 rows, so where `min_rows`, the fewest
-    rows `a` can have (one image's rows, for conv_int8), is 16 or fewer, 16
-    zero rows are appended. The pad depends on that bound only, never on the
-    batch, so one torch.export program keeps it at every batch. min_rows=0:
-    M itself is the bound."""
+    K and N are zero-padded to multiples of 8 (the extra output columns are
+    cut), which the card's int8 product needs (a ghost conv's 4 output
+    channels at scale n); it also needs more than 16 rows, so where
+    `min_rows`, the fewest rows `a` can have (one image's rows, for
+    conv_int8), is 16 or fewer, 16 zero rows are appended. The pad depends
+    on that bound only, never on the batch, so one torch.export program
+    keeps it at every batch. min_rows=0: M itself is the bound."""
     m, k = a.shape
+    n = w.shape[0]
     if k % 8:
         a, w = F.pad(a, (0, -k % 8)), F.pad(w, (0, -k % 8))
+    if n % 8:
+        w = F.pad(w, (0, 0, 0, -n % 8))
     if (min_rows or m) <= 16:
         a = F.pad(a, (0, 0, 0, 16))
-    return torch._int_mm(a.contiguous(), w.contiguous().t())[:m]
+    out = torch._int_mm(a.contiguous(), w.contiguous().t())[:m]
+    return out[:, :n] if n % 8 else out
 
 
 def conv_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor, x_scale: torch.Tensor, stride: int,
@@ -87,9 +95,21 @@ def conv_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor, x_sc
 
 
 def _quantizable(model: nn.Module) -> Dict[str, nn.Module]:
-    from ..nn.modules import Conv, SwinBlock
+    """The Convs and SwinBlocks that the JAX package calibrates: all but
+    RepConv's branches, raw convs there."""
+    from ..nn.modules import Conv, RepConv, SwinBlock
 
-    return {n: m for n, m in model.named_modules() if isinstance(m, (Conv, SwinBlock))}
+    raw = {id(c) for m in model.modules() if isinstance(m, RepConv) for c in (m.conv1, m.conv2)}
+    return {n: m for n, m in model.named_modules() if isinstance(m, (Conv, SwinBlock)) and id(m) not in raw}
+
+
+def _check_int8_geometry(name: str, conv: nn.Conv2d) -> None:
+    """conv_int8 runs one stride and one padding on both axes, no dilation."""
+    if conv.groups == 1 and (conv.stride[0] != conv.stride[1] or conv.padding[0] != conv.padding[1]
+                             or tuple(conv.dilation) != (1, 1)):
+        raise ValueError(f"quantize_model: {name} has stride {tuple(conv.stride)}, padding "
+                         f"{tuple(conv.padding)} and dilation {tuple(conv.dilation)}; its int8 path "
+                         "(conv_int8) takes one stride and one padding for both axes and no dilation")
 
 
 def calibrate(model: nn.Module, batches: Iterable) -> Calib:
@@ -170,20 +190,18 @@ def load_quant_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Mod
 
 def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
-    model in place; returns the model. YOLO.predict then serves it in int8.
-    Both graphs are taken: YOLO11's grouped convs and Attention products
-    stay float (see the module docstring). Raises NotImplementedError for a
-    row outside QUANT_ROWS and ValueError for a Conv whose weights are not
-    fp32, before it calibrates."""
+    model that the JAX package quantizes, in place; returns the model.
+    YOLO.predict then serves it in int8. Every graph the port builds is
+    taken; grouped convs, Attention's products and the raw convs stay float
+    (see the module docstring). Raises ValueError, before it calibrates,
+    for a Conv whose weights are not fp32 or whose stride, padding or
+    dilation conv_int8 does not take."""
     from ..nn.modules import Conv
 
-    for m in getattr(model, "model", ()):
-        if getattr(m, "type", None) not in QUANT_ROWS:
-            raise NotImplementedError(f"quantize_model: row {m.i} ({m.type}) is not quantized by the port yet; "
-                                      f"int8 takes the graphs built of {', '.join(QUANT_ROWS)}")
-    for name, m in model.named_modules():
+    for name, m in _quantizable(model).items():
         if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
             _fp32_weight(f"{name}.conv.weight", m.conv.weight)
+            _check_int8_geometry(name, m.conv)
     return load_quant_state(model, build_quant_state(model, calibrate(model, batches)))
 
 

@@ -1,6 +1,8 @@
 """Polygon and mask helpers (counterparts of the JAX package's ops/segments.py).
 
-The polygon helpers are numpy, for the label pipeline. The mask resizes
+The polygon helpers are numpy, for the label pipeline and for the
+polygons of predicted masks (masks2segments, with utils/patches.py
+find_contours in cv2.findContours' place). The mask resizes
 that the JAX package runs on the host with cv2.resize(INTER_LINEAR) run
 here on the masks' own device (resize_bilinear, which the predictor's
 native_masks uses): F.interpolate(mode="bilinear", align_corners=False,
@@ -57,3 +59,24 @@ def resize_bilinear(t: torch.Tensor, size) -> torch.Tensor:
     """(n, h, w) float -> (n, *size): cv2.resize(INTER_LINEAR)'s geometry, in float."""
     return F.interpolate(t[None].float(), size=tuple(size), mode="bilinear", align_corners=False,
                          antialias=False)[0]
+
+
+def masks2segments(masks: np.ndarray, strategy: str = "all") -> List[np.ndarray]:
+    """(n, h, w) binary masks -> one (k, 2) float32 polygon each, in mask
+    pixels: every outer contour (find_contours, in cv2's order)
+    concatenated, or with 'largest' the one of largest area (contour_area; the
+    first of equal areas); (0, 2) for an empty mask. The JAX package's
+    ops/segments.py masks2segments."""
+    from ..utils.patches import contour_area, find_contours
+
+    out = []
+    for m in np.asarray(masks):
+        cnts = find_contours(m)
+        if not cnts:
+            c = np.zeros((0, 2), np.float32)
+        elif strategy == "largest":
+            c = cnts[int(np.argmax([contour_area(x) for x in cnts]))]
+        else:
+            c = np.concatenate(cnts)
+        out.append(c.astype(np.float32))
+    return out

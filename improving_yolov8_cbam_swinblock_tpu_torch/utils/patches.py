@@ -383,3 +383,123 @@ def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
     np.add.at(span, (rows, x2 + 1), -1)
     img[np.cumsum(span, 1)[:, :w] > 0] = color
     return img
+
+
+# ---------------------------------------------------------------------------
+# find_contours: cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE) of the OpenCV 5 build,
+# in numpy, bit for bit: Suzuki and Abe's border following on the mask padded by one zero pixel.
+# A raster scan meets each border start (a nonzero pixel whose left neighbour is 0, not yet
+# marked) and follows the outer border from it unless the last marked pixel before it on its
+# row (LNBD) is marked positive, i.e. the start lies inside a component already followed; the
+# following marks each border pixel 2, or 3 where it searched its right neighbour and found 0
+# (OpenCV's nbd and nbd | -128). Directions are OpenCV's chain codes (0 right, then
+# counter-clockwise on the screen: 2 up, 4 left, 6 down). CHAIN_APPROX_SIMPLE keeps the pixels
+# where the direction changes. cv2 lists the contours last found first. Rules held against
+# cv2.findContours itself (tests/test_torch_masks.py).
+
+_CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))  # (dx, dy) of each code
+
+
+def _follow_tables():
+    """START[code]: the first direction searched clockwise from 3 (down to 5)
+    that holds a nonzero neighbour, or 8 for an isolated pixel; NEXT[code * 8
+    + back]: the next direction searched counter-clockwise after `back` (the
+    direction to the pixel it came from), plus 8 where the search passed the
+    right neighbour (direction 0) and found it 0. `code` has bit k set where
+    the neighbour in direction k is nonzero."""
+    start, nxt = bytearray(256), bytearray(256 * 8)
+    for code in range(256):
+        start[code] = next((s for s in (3, 2, 1, 0, 7, 6, 5) if code >> s & 1), 8)
+        for back in range(8):
+            raw = next((s for s in range(back + 1, back + 9) if code >> (s & 7) & 1), back + 8)
+            nxt[code * 8 + back] = (raw & 7) | (8 if raw > 8 else 0)
+    return bytes(start), bytes(nxt)
+
+
+_START, _NEXT = _follow_tables()
+
+
+def _follow(buf: bytearray, codes: bytes, step: int, p0: int) -> Tuple[list, list]:
+    """Follow the outer border from the flat index p0 of the padded image
+    (row stride `step`), marking buf: (flat indices of the pixels kept by
+    CHAIN_APPROX_SIMPLE, flat indices marked)."""
+    d = [dx + dy * step for dx, dy in _CHAIN]
+    s = _START[codes[p0]]
+    if s == 8:  # a single pixel
+        buf[p0] = 3
+        return [p0], [p0]
+    p1 = p0 + d[s]  # the last pixel of the border, before p0
+    prev_s, back, p, pts, marked = s ^ 4, s, p0, [], []
+    while True:
+        v = _NEXT[codes[p] * 8 + back]
+        s = v & 7
+        if v & 8:
+            buf[p] = 3
+            marked.append(p)
+        elif buf[p] == 1:
+            buf[p] = 2
+            marked.append(p)
+        if s != prev_s:
+            pts.append(p)
+            prev_s = s
+        q = p + d[s]
+        if q == p0 and p == p1:
+            return pts, marked
+        p, back = q, (s + 4) & 7
+
+
+def find_contours(mask: np.ndarray) -> list:
+    """cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)[0]
+    as a list of (k, 2) int32 (x, y) arrays: the outer border of each
+    8-connected component of the nonzero pixels of a 2-D mask that lies
+    in no hole of another, each from its first pixel in raster order, in
+    cv2's direction and order. The start points come from a vectorised scan
+    over the mask's bounding box; only the border walk loops in Python."""
+    m = np.asarray(mask) != 0
+    if m.ndim != 2 or not m.any():
+        return []
+    rows, cols = np.flatnonzero(m.any(1)), np.flatnonzero(m.any(0))
+    y0, x0 = int(rows[0]), int(cols[0])
+    sub = m[y0:rows[-1] + 1, x0:cols[-1] + 1]
+    h, w = sub.shape
+    step = w + 2
+    pad = np.zeros((h + 2, step), np.uint8)
+    pad[1:-1, 1:-1] = sub
+    code = np.zeros_like(pad)
+    for k, (dx, dy) in enumerate(_CHAIN):  # bit k: the neighbour in direction k is nonzero
+        code[1:-1, 1:-1] |= pad[1 + dy:h + 1 + dy, 1 + dx:w + 1 + dx] << k
+    buf = bytearray(pad.tobytes())
+    flat = np.frombuffer(buf, np.uint8)  # a view: the walk's marks show in it
+    codes = code.tobytes()
+    starts = np.flatnonzero((flat[1:] == 1) & (flat[:-1] == 0)) + 1  # raster order
+    marks = np.zeros(0, np.int64)
+    found, at = [], 0
+    while at < len(starts):
+        cand = starts[at:]
+        cand = cand[flat[cand] == 1]  # not marked by a border followed since
+        if not len(cand):
+            break
+        j = np.searchsorted(marks, cand) - 1  # LNBD: the last marked pixel before each, on its row
+        last = marks[np.maximum(j, 0)] if len(marks) else cand
+        inside = (j >= 0) & (last // step == cand // step) & (flat[last] == 2)
+        k = int(np.argmin(inside))
+        if inside[k]:
+            break
+        pts, marked = _follow(buf, codes, step, int(cand[k]))
+        marks = np.union1d(marks, marked)
+        at = int(np.searchsorted(starts, cand[k])) + 1
+        idx = np.asarray(pts, np.int64)
+        found.append(np.stack([idx % step - 1 + x0, idx // step - 1 + y0], 1).astype(np.int32))
+    return found[::-1]
+
+
+def contour_area(contour: np.ndarray) -> float:
+    """cv2.contourArea(contour): the shoelace area of the closed polygon,
+    unsigned; 0 for no point. The vertices are taken as float32 and the
+    terms summed in float64 in cv2's order (a running sum from the edge that
+    closes the polygon), so float polygons give cv2's bits too."""
+    c = np.asarray(contour, np.float32).reshape(-1, 2).astype(np.float64)
+    if not len(c):
+        return 0.0
+    prev = np.roll(c, 1, 0)
+    return float(abs(np.cumsum(prev[:, 0] * c[:, 1] - prev[:, 1] * c[:, 0])[-1] * 0.5))

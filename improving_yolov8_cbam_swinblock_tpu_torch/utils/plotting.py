@@ -41,6 +41,18 @@ def color_for(idx: int):
     return _PALETTE[int(idx) % len(_PALETTE)]
 
 
+def resize_nearest(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST) for size (h,
+    w): destination pixel (y, x) takes source (min(floor(y * sh / h), sh - 1),
+    min(floor(x * sw / w), sw - 1)), the scales taken in doubles as
+    1 / (h / sh), as OpenCV's resizeNN takes them."""
+    sh, sw = img.shape[:2]
+    h, w = size
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64), sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64), sw - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
 class Annotator:
     """Boxes and text drawn in place on a copy of a BGR image (`.img`, also `.im`)."""
 
@@ -86,6 +98,19 @@ class Annotator:
             cv2.rectangle(self.img, (org[0] - 2, org[1] - h - 3), (org[0] + w + 2, org[1] + 3), txt_color, -1)
             txt_color = self.get_txt_color(txt_color)
         cv2.putText(self.img, text, org, 0, self.sf, txt_color, self.tf, cv2.LINE_AA)
+
+    def masks(self, masks: np.ndarray, colors_: Sequence, alpha: float = 0.5):
+        """Blend instance masks (n, h, w) (bool or 0/1, at any resolution) in
+        place: each resized to the image by nearest neighbour (resize_nearest,
+        cv2.INTER_NEAREST's rule), then where it is nonzero the pixel becomes
+        pixel * (1 - alpha) + colour * alpha in float32, truncated, as the JAX
+        package's Annotator.masks does."""
+        h, w = self.img.shape[:2]
+        for m, c in zip(np.asarray(masks), colors_):
+            if m.shape != (h, w):
+                m = resize_nearest(m.astype(np.uint8), (h, w))
+            sel = m.astype(bool)
+            self.img[sel] = (self.img[sel] * (1 - alpha) + np.array(c, np.float32) * alpha).astype(self.img.dtype)
 
     def result(self) -> np.ndarray:
         return self.img

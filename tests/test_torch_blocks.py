@@ -41,6 +41,11 @@ def randomize(variables, rng):
     return walk(variables)
 
 
+def japply(jm, v, x):
+    """The flax block's eval forward under one jax.jit (op by op, each primitive compiles on its own)."""
+    return jax.jit(jm.apply)(v, x)
+
+
 def nchw(x):
     return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
@@ -50,9 +55,9 @@ def nhwc(t):
 
 
 def carry(jmod, tmod, *args, seed=0):
-    """Init the flax block on args, carry its weights into tmod; returns the variables."""
+    """Init the flax block on args (one jax.jit), carry its weights into tmod; returns the variables."""
     rng = np.random.default_rng(seed)
-    v = jmod.init(jax.random.PRNGKey(seed), *args)
+    v = jax.jit(jmod.init)(jax.random.PRNGKey(seed), *args)
     v = randomize(v, rng)
     tmod.load_state_dict(state_dict_from_jax(v), strict=True)
     tmod.eval()
@@ -64,7 +69,7 @@ def test_conv(c1, c2, k, s):
     x = np.random.default_rng(1).normal(0, 1, (2, 12, 12, c1)).astype(np.float32)
     jm, tm = JM.Conv(c2, k, s), TM.Conv(c1, c2, k, s)
     v = carry(jm, tm, jnp.asarray(x))
-    ref = np.asarray(jm.apply(v, jnp.asarray(x)))
+    ref = np.asarray(japply(jm, v, jnp.asarray(x)))
     with torch.no_grad():
         np.testing.assert_allclose(nhwc(tm(nchw(x))), ref, rtol=TOL, atol=TOL)
         tm.fuse()
@@ -77,7 +82,7 @@ def test_c2f(n, shortcut):
     jm, tm = JM.C2f(32, n, shortcut), TM.C2f(16, 32, n, shortcut)
     v = carry(jm, tm, jnp.asarray(x))
     with torch.no_grad():
-        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(jm.apply(v, jnp.asarray(x))), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(japply(jm, v, jnp.asarray(x))), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("k", [5, 7])
@@ -86,7 +91,7 @@ def test_sppf(k):
     jm, tm = JM.SPPF(32, k), TM.SPPF(32, 32, k)
     v = carry(jm, tm, jnp.asarray(x))
     with torch.no_grad():
-        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(jm.apply(v, jnp.asarray(x))), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(japply(jm, v, jnp.asarray(x))), rtol=TOL, atol=TOL)
 
 
 def test_cbam():
@@ -95,7 +100,7 @@ def test_cbam():
     assert tm.ca.shared_MLP[0].out_channels == 64 // 16
     v = carry(jm, tm, jnp.asarray(x))
     with torch.no_grad():
-        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(jm.apply(v, jnp.asarray(x))), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(japply(jm, v, jnp.asarray(x))), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("hw,c,heads", [((14, 14), 64, 2), ((12, 12), 64, 2), ((6, 10), 128, 4)])
@@ -105,7 +110,7 @@ def test_swin_block(hw, c, heads):
     jm, tm = JM.SwinBlock(num_heads=heads), TM.SwinBlock(c, heads)
     v = carry(jm, tm, jnp.asarray(x))
     with torch.no_grad():
-        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(jm.apply(v, jnp.asarray(x))), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(nhwc(tm(nchw(x))), np.asarray(japply(jm, v, jnp.asarray(x))), rtol=TOL, atol=TOL)
 
 
 def test_swin_block_refuses_training():
@@ -138,7 +143,7 @@ def test_detect(nc):
     xs = [rng.normal(0, 1, (2, 8 // (2 ** i), 8 // (2 ** i), c)).astype(np.float32) for i, c in enumerate(ch)]
     jm, tm = JM.Detect(nc=nc, ch=ch, strides=strides), TM.Detect(nc, ch, strides)
     v = carry(jm, tm, [jnp.asarray(x) for x in xs])
-    ref, ref_feats = jm.apply(v, [jnp.asarray(x) for x in xs])
+    ref, ref_feats = japply(jm, v, [jnp.asarray(x) for x in xs])
     with torch.no_grad():
         out, feats = tm([nchw(x) for x in xs])
     assert out.shape == (2, 4 + nc, 64 + 16 + 4)

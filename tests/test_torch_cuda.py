@@ -696,3 +696,61 @@ def test_seg_micro_step_launches_k2_once_and_equals_the_plain_assigner(cuda):
     torch.testing.assert_close(ik, ip, rtol=1e-5, atol=0)
     for n in gp:
         assert (gk[n] - gp[n]).norm() <= 1e-4 * gp[n].norm().clamp(min=1e-12), n
+
+
+# the card's int8 graph against the same quantized model on the CPU: the int8 sums are exact on both, the
+# float layers (BN-folded biases, grouped and transposed convs, attention) sum in another order, which can move
+# a value across the next conv's quantization boundary, a level that the layers after it carry
+INT8_CPU_MAX, INT8_CPU_MEAN = 5e-2, 5e-3
+
+
+@pytest.mark.cuda
+def test_quantized_graph_on_the_card_equals_its_cpu_run(cuda):
+    """yolov9t (RepConv branches float), fp32 compute, quantized on the card
+    on seeded frames at 128 px, then copied to the CPU: the decoded output
+    of both within INT8_CPU_MAX of the largest magnitude (INT8_CPU_MEAN on
+    average), TF32 off on the card."""
+    import copy
+
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+
+    y = YOLO("yolov9t.yaml", device="cuda", param_dtype=torch.float32).fuse()
+    frames = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    quantize_model(y.model, [frames])
+    cpu = copy.deepcopy(y.model).to("cpu")
+    x = torch.from_numpy(frames).permute(0, 3, 1, 2).float() / 255
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            got = y.model(x.to(cuda).contiguous(memory_format=torch.channels_last))[0].cpu()
+            ref = cpu(x.contiguous(memory_format=torch.channels_last))[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    d, top = (got - ref).abs(), ref.abs().max()
+    assert got.shape == ref.shape == (2, 84, 336) and torch.isfinite(got).all()
+    assert d.max() <= INT8_CPU_MAX * top and d.mean() <= INT8_CPU_MEAN * top
+
+
+@pytest.mark.cuda
+def test_seg_program_serves_masks_on_the_card(cuda, tmp_path):
+    """yolov8n-seg exported on the card (bf16, dynamic batch), loaded by
+    YOLO(path): the boxes and masks of its predict equal the live model's
+    bit for bit at batches 1 and 3."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-seg.yaml", device="cuda", dtype=torch.bfloat16).fuse()
+    with torch.no_grad():
+        for head in [y.model.model[-1]]:
+            for seq in head.cv3:
+                seq[-1].bias.zero_()  # seeded class priors at 0: scores near 0.5, so that boxes come
+    path = y.export(imgsz=320, dynamic=True, half=True, project=str(tmp_path))
+    served = YOLO(path)
+    assert served.task == "segment"
+    frames = [np.random.default_rng(i).integers(0, 256, (240, 320, 3), dtype=np.uint8) for i in range(3)]
+    for b in (1, 3):
+        got = served.predict(frames, conf=0.25, batch=b, verbose=False)
+        ref = y.predict(frames, imgsz=320, conf=0.25, batch=b, verbose=False)
+        assert sum(len(r) for r in ref) > 0
+        for g, r in zip(got, ref):
+            assert np.array_equal(g.boxes.data, r.boxes.data) and np.array_equal(g.masks.data, r.masks.data)

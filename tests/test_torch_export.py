@@ -15,6 +15,10 @@ batches 1 and 3. Calibration and the class names fall back as the JAX
 package's do where a data YAML cannot be read. The two SwinBlock operators pass
 torch.library.opcheck on CPU tensors. The JAX side compiles the stablehlo
 artifact at batches 1 and 3 and its Backend's checkpoint forward at batch 3.
+A segmentation program returns the prediction and the prototypes, equal to
+the live model's bit for bit, and YOLO(path).predict gives the live
+model's boxes and masks; a YOLOv10 int8 program keeps the head's
+(B, min(300, A), 6) detections, bit for bit with the live quantized model.
 """
 
 import copy
@@ -278,3 +282,73 @@ def test_benchmark_rows_agree_on_map(both, tmp_path):
     assert all(r["ms/batch"] > 0 and r["img/s"] > 0 for r in rows)
     rows = both.y.benchmark(formats=["stablehlo"], imgsz=64, batch=2, iters=1)
     assert rows[0]["status"].startswith("error")
+
+
+def test_seg_program_equals_the_live_model(tmp_path):
+    """yolov8n-seg (BN-folded, class priors zeroed so that boxes come)
+    exported with a dynamic batch: its two outputs equal the live forward's
+    bit for bit at batches 1 and 3; YOLO(path) serves it (task segment) and
+    its predict gives the live model's boxes and masks at batches 1 and 3."""
+    from tests.seeded_scores import zero_class_priors
+
+    y = YOLO("yolov8n-seg.yaml", device="cpu").fuse()
+    zero_class_priors(y.model)
+    path = y.export(imgsz=64, dynamic=True, project=str(tmp_path))
+    md = yaml.safe_load(open(f"{path}.yaml"))
+    assert md["task"] == "segment" and md["batch"] == -1 and "prototypes" in md["layout"]
+    served = YOLO(path, device="cpu")
+    assert served.task == "segment" and served.overrides["imgsz"] == 64
+    be, live = served.model.backend, Backend(y.model)
+    for b in (1, 3):
+        img = frames(b, seed=b)
+        (pred, proto), (rpred, rproto) = be(img), live(img)
+        assert pred.shape == (b, 4 + 80 + 32, 84) and proto.shape == (b, 32, 16, 16)
+        np.testing.assert_array_equal(pred, rpred)
+        np.testing.assert_array_equal(proto, rproto)
+    with pytest.raises(ValueError, match="detect-task"):
+        y.export(imgsz=64, nms=True, project=str(tmp_path))
+    src = [np.random.default_rng(i).integers(0, 256, (48, 80, 3), dtype=np.uint8) for i in range(3)]
+    for b in (1, 3):
+        got = served.predict(src, conf=0.25, batch=b, verbose=False)
+        ref = y.predict(src, imgsz=64, conf=0.25, batch=b, verbose=False)
+        assert sum(len(r) for r in ref) > 0
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.boxes.data, r.boxes.data)
+            np.testing.assert_array_equal(g.masks.data, r.masks.data)
+    with pytest.raises(NotImplementedError, match="program"):
+        served.export(imgsz=64)
+
+
+# a small YOLOv10 graph for the int8 program: SCDown rows to strides 8, 16 and 32, and the v10Detect head
+V10_INT8_CFG = {"nc": 2, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+                                      [-1, 1, "SCDown", [32, 3, 2]], [-1, 1, "SCDown", [64, 3, 2]],
+                                      [-1, 1, "SCDown", [64, 3, 2]]],
+                "head": [[[2, 3, 4], 1, "v10Detect", ["nc"]]]}
+
+
+def test_v10_int8_program_keeps_the_head_layout(tmp_path, capsys):
+    """A YOLOv10 int8 program (dynamic batch, nms asked for and dropped):
+    the sidecar says end2end and int8, the program returns the head's
+    (B, 84, 6) xyxy detections (min(300, A) at 64 px), bit for bit with the
+    live model quantized on the exporter's synthetic frames, at batches 1
+    and 3, and YOLO(path).predict gives the live model's detections."""
+    y = YOLO(V10_INT8_CFG, device="cpu", param_dtype=torch.float32)
+    path = y.export(imgsz=64, int8=True, dynamic=True, nms=True, project=str(tmp_path))
+    assert "nms=True on a YOLOv10" in capsys.readouterr().out and path.endswith("model_64_int8.pt2")
+    md = yaml.safe_load(open(f"{path}.yaml"))
+    assert md["end2end"] and md["int8"] and not md["nms"] and md["max_det"] == 300 and "xyxy" in md["layout"]
+    rng = np.random.default_rng(0)  # the exporter's synthetic calibration frames
+    live = YOLO(V10_INT8_CFG, device="cpu", param_dtype=torch.float32).fuse()
+    quantize_model(live.model, [rng.integers(0, 255, (8, 64, 64, 3), np.uint8) for _ in range(2)])
+    served = YOLO(path, device="cpu")
+    for b in (1, 3):
+        img = frames(b, seed=b)
+        out = served.model.backend(img)
+        assert out.shape == (b, 84, 6)
+        np.testing.assert_array_equal(out, Backend(live.model)(img))
+    src = [np.random.default_rng(i).integers(0, 256, (48, 80, 3), dtype=np.uint8) for i in range(3)]
+    got = served.predict(src, conf=0.001, batch=3, verbose=False)
+    ref = live.predict(src, imgsz=64, conf=0.001, batch=3, verbose=False)
+    assert sum(len(r) for r in ref) > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.boxes.data, r.boxes.data)

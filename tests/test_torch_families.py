@@ -12,8 +12,14 @@ yolov9t, yolo12n, yolov6n, yolov3-tiny and yolov8n-ghost-p6 at 64 px,
 unfused and BN-folded, within 2e-3 as the flagship's test holds them.
 Every graph of the slice has JAX's parameter count, loads JAX's variables
 strictly and writes them back the same. The loss on four anchor levels, a
-JAX BN-folded yolov9t tree and its checkpoints, and what still raises
-(int8 of these graphs). YOLOv10 has tests/test_torch_v10.py. Each JAX module and graph runs under
+JAX BN-folded yolov9t tree and its checkpoints. int8 (tests/int8_parity.py):
+yolov9t calibrated and quantized by both packages on the same batch (its
+RepConv branches float in both), the calibration, the quant state and the
+int8 graph held to JAX's; for yolov6n, yolov8n-ghost-p6 and yolo12n the
+set of calibrated convs equal to JAX's (from an abstract trace of its
+calibration pass: no compile) and a finite int8 forward; every graph of the
+slice's ungrouped convs take conv_int8's square geometry (the bridge test),
+and quantize_model refuses one that does not. YOLOv10 has tests/test_torch_v10.py. Each JAX module and graph runs under
 one jax.jit, eval and train mode in the same one.
 """
 
@@ -34,10 +40,13 @@ from improving_yolov8_cbam_swinblock_tpu.utils.fuse import fuse_variables
 from improving_yolov8_cbam_swinblock_tpu.utils.loss import detection_loss as jax_detection_loss
 from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, quantize_model
 from improving_yolov8_cbam_swinblock_tpu_torch.nn import modules as M
+from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import (fused_state_from_jax,
                                                                          jax_variables_from_state,
                                                                          state_dict_from_jax)
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.loss import detection_loss
+from tests.int8_parity import (assert_calibration_close, assert_int8_geometry, assert_out_close,
+                               assert_quant_state_close, int8_with_jax_state, jax_int8, port_int8, to_port_calib)
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_yolo11 import close, nhwc, seeded_module, to_torch
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -260,10 +269,12 @@ def test_every_graph_bridges_both_ways(cfg):
     """JAX's parameter count; every leaf of JAX's variables names one port
     tensor of its shape and the port has no other (strict load, into a
     model built on the meta device); the port's state written back as JAX
-    variables is the same tree, bit for bit."""
+    variables is the same tree, bit for bit; every ungrouped conv takes
+    conv_int8's geometry (int8_parity.assert_int8_geometry)."""
     v = slice_variables(cfg)
     with torch.device("meta"):
         pm = DetectionModel(cfg, device="meta")
+    assert_int8_geometry(pm)
     assert sum(p.numel() for p in pm.parameters()) == sum(int(np.prod(np.shape(a))) for a in
                                                          jax.tree.leaves(v["params"]))
     pm.load_state_dict(state_dict_from_jax(v), strict=True, assign=True)
@@ -374,10 +385,81 @@ def test_bf16_model_holds_no_fp32_conv_weight():
 
 
 def test_quantize_model_refuses_the_new_rows():
+    """quantize_model takes yolov9t now (its rows were refused until the JAX
+    gate was ported): every Conv quantized but RepConv's two branches, raw
+    convs in JAX; what it refuses, before the calibration sweep, is an
+    ungrouped conv whose stride or padding differ between the axes, which
+    conv_int8 cannot run."""
+    frames = [np.zeros((1, 64, 64, 3), np.uint8)]
     m = DetectionModel("yolov9t.yaml", device="cpu", param_dtype=torch.float32).fuse()
-    with pytest.raises(NotImplementedError, match=r"row 2 \(ELAN1\)"):
-        quantize_model(m, [np.zeros((1, 64, 64, 3), np.uint8)])
-    assert not any(getattr(c, "calib", None) for c in m.modules())
+    quantize_model(m, frames)
+    reps = [r for r in m.modules() if isinstance(r, M.RepConv)]
+    branches = {id(c) for r in reps for c in (r.conv1, r.conv2)}
+    convs = [c for c in m.modules() if isinstance(c, M.Conv)]
+    assert len(reps) == 42 and all(c.w_int8 is None for c in convs if id(c) in branches)
+    assert all(c.runs_int8 for c in convs if id(c) not in branches)
+    bad = DetectionModel("yolov9t.yaml", device="cpu", param_dtype=torch.float32).fuse()
+    bad.model[1].conv.stride = (2, 1)
+    with pytest.raises(ValueError, match=r"model\.1 has stride \(2, 1\)"):
+        quantize_model(bad, frames)
+    assert not any(getattr(c, "calib", None) for c in bad.modules()) and not Q.is_quantized(bad)
+
+
+INT8_FRAMES = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+
+
+@functools.cache
+def int8_run(cfg):
+    """(port, JAX) int8 paths of a graph's seeded weights on INT8_FRAMES (one batch), JAX's forward on GRAPH_X."""
+    jm, v, pm, _ = graph(cfg)
+    return port_int8(pm, INT8_FRAMES), jax_int8(jm, v, INT8_FRAMES, GRAPH_X)
+
+
+def test_int8_calibration_matches_jax():
+    assert_calibration_close(*int8_run("yolov9t.yaml"))
+
+
+def test_int8_quant_state_matches_jax():
+    assert_quant_state_close(*int8_run("yolov9t.yaml"))
+
+
+def test_int8_graph_matches_jax():
+    """yolov9t's int8 graph with JAX's quant state carried in against JAX's
+    int8 graph: the decoded boxes, the class scores and each raw map within
+    OUT_TOL (tests/int8_parity.py)."""
+    port, ref = int8_run("yolov9t.yaml")
+    m = int8_with_jax_state(port, ref)
+    assert sum(c.runs_int8 for c in m.modules() if isinstance(c, M.Conv)) == 137
+    with torch.no_grad():
+        out, feats = m(to_torch(GRAPH_X))
+    rout, rfeats = ref["out"]
+    assert_out_close(out[:, :4].numpy(), rout[:, :4])
+    assert_out_close(out[:, 4:].numpy(), rout[:, 4:])
+    for f, rf in zip(feats, rfeats):
+        assert_out_close(nhwc(f), rf)
+
+
+@pytest.mark.parametrize("cfg", ["yolov6n.yaml", "yolov8n-ghost-p6.yaml", "yolo12n.yaml"])
+def test_int8_gate_matches_jax(cfg):
+    """The convs quantize_model calibrates are the ones JAX's calibration
+    pass records (jax.eval_shape of it: no compile): yolov6n's transposed
+    convs, GhostConv's cheap op and AAttn's pe as JAX has them; the int8
+    forward runs, finite, with its grouped convs and transposed convs float."""
+    jm, v, pm, _ = graph(cfg)
+    fv = fuse_variables(v)
+    shapes = jax.eval_shape(lambda vv, x: jm.apply(vv, x, train=False, mutable=["calib"])[1]["calib"], fv,
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    want = to_port_calib(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
+    m = copy.deepcopy(pm).fuse()
+    got = Q.calibrate(m, [INT8_FRAMES])
+    assert got.keys() == want.keys() and all(got[k].keys() == want[k].keys() for k in want)
+    quantize_model(m, [INT8_FRAMES])
+    convs = [c for c in m.modules() if isinstance(c, M.Conv)]
+    assert all(c.w_int8 is not None for c in convs) and all(c.runs_int8 == (c.conv.groups == 1) for c in convs)
+    assert any(c.conv.groups > 1 for c in convs) == (cfg != "yolov6n.yaml")
+    with torch.no_grad():
+        out = m(to_torch(GRAPH_X))[0]
+    assert out.shape == jax_graph_out(cfg)[0].shape and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name,path", [("yolov8n-ghost-p6.yaml", "v8/yolov8-ghost-p6.yaml"),

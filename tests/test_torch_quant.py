@@ -41,13 +41,13 @@ from improving_yolov8_cbam_swinblock_tpu.nn.tasks import yaml_model_load as jax_
 from improving_yolov8_cbam_swinblock_tpu.ops import quant as JQ
 from improving_yolov8_cbam_swinblock_tpu.ops.pallas.swin_kernel import fused_swin_block_int8
 from improving_yolov8_cbam_swinblock_tpu.ops.pallas.swin_kernel import swin_gemm_absmax as jax_swin_gemm_absmax
-from improving_yolov8_cbam_swinblock_tpu.utils.fuse import fuse_variables
 from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel, quantize_model
 from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Conv, SwinBlock
 from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import quant_state_from_jax, state_dict_from_jax
+from tests.int8_parity import jax_int8
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_swin import jax_params, torch_params
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -316,6 +316,19 @@ def test_conv_int8_sums_are_exact(k, s):
     assert out.is_contiguous(memory_format=torch.channels_last)
 
 
+@pytest.mark.parametrize("m,k,n,min_rows", [(20, 19, 4, 0), (9, 24, 12, 9), (40, 8, 8, 4)])
+def test_int_mm_pads_depth_columns_and_rows(m, k, n, min_rows):
+    """int_mm's pads (K and N to multiples of 8, 16 rows where the row bound
+    is 16 or fewer), which the card's torch._int_mm needs, leave the int32
+    product exact: the (M, N) of a float64 product of the same levels."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    out = Q.int_mm(a, w, min_rows=min_rows)
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    assert torch.equal(out.double(), a.double() @ w.double().t())
+
+
 # --------------------------------------------------------------------------------------------
 # calibration, the quant build and the int8 graph end to end
 # --------------------------------------------------------------------------------------------
@@ -341,27 +354,25 @@ def to_port_calib(jax_calib):
 @pytest.fixture(scope="module", params=[1, 2], ids=["one_head", "two_heads"])
 def graph(request):
     """Both packages on one seeded scale-n graph (SwinBlock heads = param),
-    fp32, 64 px: JAX fuses, calibrates on two uint8 frames, builds its
-    `quant` collection and runs the int8 graph on a third frame; the port
-    loads the unfused weights, fuses, calibrates on the same frames and
-    builds its own quant state."""
+    fp32, 64 px: JAX fuses, calibrates on one batch of two uint8 frames,
+    builds its `quant` collection and runs the int8 graph on a third frame,
+    under one jax.jit (tests/int8_parity.py jax_int8); the port loads the
+    unfused weights, fuses, calibrates on the same batch and builds its own
+    quant state."""
     heads = request.param
     jm = JaxDetectionModel(graph_yaml(jax_yaml_model_load, heads))
     v = seeded_variables(jm, 64, np.random.default_rng(heads))
-    fv = fuse_variables(v)
     rng = np.random.default_rng(10 + heads)
-    frames = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(3)]
-    x = frames[2].astype(np.float32) / 255
+    frames = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    x = frames[2:].astype(np.float32) / 255
     with jax_on_tpu():
-        calib = JQ.calibrate(jm, fv, frames[:2])
-        qv = jax.jit(JQ.build_quant_variables)(fv, calib)
-        out, maps = jax_exact(lambda vv, xx: jm.apply(vv, xx, train=False), qv, jnp.asarray(x))
+        ref = jax_int8(jm, v, frames[:2], x)
     pm = DetectionModel(graph_yaml(yaml_model_load, heads), device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     pm.fuse()
-    port_calib = Q.calibrate(pm, frames[:2])
-    return {"calib": jax.tree.map(np.asarray, calib), "quant": jax.tree.map(np.asarray, qv["quant"]),
-            "out": np.asarray(out), "maps": [np.asarray(f) for f in maps], "x": x, "port": pm,
+    port_calib = Q.calibrate(pm, [frames[:2]])
+    out, maps = ref["out"]
+    return {"calib": ref["calib"], "quant": ref["quant"], "out": out, "maps": list(maps), "x": x, "port": pm,
             "port_calib": port_calib, "port_quant": Q.build_quant_state(pm, port_calib), "heads": heads}
 
 

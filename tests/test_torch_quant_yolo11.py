@@ -20,19 +20,17 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from improving_yolov8_cbam_swinblock_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from improving_yolov8_cbam_swinblock_tpu.nn.tasks import yaml_model_load as jax_yaml_model_load
-from improving_yolov8_cbam_swinblock_tpu.ops import quant as JQ
-from improving_yolov8_cbam_swinblock_tpu.utils.fuse import fuse_variables
 from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
 from improving_yolov8_cbam_swinblock_tpu_torch.nn import modules as M
 from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import quant_state_from_jax, state_dict_from_jax
 from tests.test_torch_model import seeded_variables
-from tests.test_torch_quant import jax_exact, jax_on_tpu, to_port_calib
+from tests.int8_parity import jax_int8
+from tests.test_torch_quant import jax_on_tpu, to_port_calib
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
@@ -57,26 +55,24 @@ def one_head_yaml(load):
 @pytest.fixture(scope="module")
 def yolo11_int8():
     """Both packages on one seeded yolo11n graph with one-head SwinBlocks,
-    fp32, 64 px: JAX fuses, calibrates on two uint8 frames, builds its
-    `quant` collection and runs the int8 graph on a third frame;
-    the port loads the unfused weights, fuses, calibrates on the same frames
-    and builds its own quant state."""
+    fp32, 64 px: JAX fuses, calibrates on one batch of two uint8 frames,
+    builds its `quant` collection and runs the int8 graph on a third frame,
+    under one jax.jit (tests/int8_parity.py jax_int8); the port loads the
+    unfused weights, fuses, calibrates on the same batch and builds its own
+    quant state."""
     jm = JaxDetectionModel(one_head_yaml(jax_yaml_model_load))
     v = seeded_variables(jm, 64, np.random.default_rng(11))
-    fv = fuse_variables(v)
     rng = np.random.default_rng(21)
-    frames = [rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8) for _ in range(3)]
-    x = frames[2].astype(np.float32) / 255
+    frames = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    x = frames[2:].astype(np.float32) / 255
     with jax_on_tpu():
-        calib = JQ.calibrate(jm, fv, frames[:2])
-        qv = jax.jit(JQ.build_quant_variables)(fv, calib)
-        out, maps = jax_exact(lambda vv, xx: jm.apply(vv, xx, train=False), qv, jnp.asarray(x))
+        ref = jax_int8(jm, v, frames[:2], x)
     pm = DetectionModel(one_head_yaml(yaml_model_load), device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     pm.fuse()
-    port_calib = Q.calibrate(pm, frames[:2])
-    return {"calib": jax.tree.map(np.asarray, calib), "quant": jax.tree.map(np.asarray, qv["quant"]),
-            "out": np.asarray(out), "maps": [np.asarray(f) for f in maps], "x": x, "port": pm,
+    port_calib = Q.calibrate(pm, [frames[:2]])
+    out, maps = ref["out"]
+    return {"calib": ref["calib"], "quant": ref["quant"], "out": out, "maps": list(maps), "x": x, "port": pm,
             "port_calib": port_calib, "port_quant": Q.build_quant_state(pm, port_calib)}
 
 

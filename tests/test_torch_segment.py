@@ -10,7 +10,10 @@ tree, for yolov8n-seg), within 2e-3 (GRAPH_TOL, of the largest magnitude:
 ~60 fp32 layers summed in another order); Proto and Segment at module level
 in eval and train mode, with the moved BatchNorm statistics, within 1e-5; the six packaged seg YAMLs' parameter counts; the weight bridge both
 ways, bit for bit, and the .ckpt round trip. One jax.jit per graph and one
-for both heads.
+for both heads. int8 (tests/int8_parity.py): yolov8n-seg calibrated and
+quantized by both packages on the same batch (Proto's transposed conv and
+cv4's last 1x1 float), the calibration, the quant state and the int8
+graph's prediction, coefficients and prototypes held to JAX's.
 
 Post-processing: NMS carrying the coefficients (single- and multi-label)
 bit for bit; process_mask within 1e-6 and process_mask_native on all but
@@ -58,6 +61,8 @@ from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import (fused_st
                                                                          state_dict_from_jax)
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.patches import fill_poly
 from tests.seeded_scores import zero_class_priors
+from tests.int8_parity import (assert_calibration_close, assert_int8_geometry, assert_out_close,
+                               assert_quant_state_close, int8_with_jax_state, jax_int8, port_int8)
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_predict import random_prediction
 from tests.test_torch_v10 import MOD_TOL, assert_stats_moved, load_module
@@ -222,9 +227,11 @@ def test_graph_matches_jax(cfg, how):
 @pytest.mark.parametrize("cfg", list(JAX_PARAMS))
 def test_seg_yamls_build_with_jax_param_counts(cfg):
     """Each packaged seg YAML builds (on the meta device) with JAX's parameter
-    count and ends in Segment: task "segment", a refused ensemble member."""
+    count and ends in Segment: task "segment", a refused ensemble member; its
+    ungrouped convs take conv_int8's geometry."""
     with torch.device("meta"):
         pm = DetectionModel(cfg, device="meta")
+    assert_int8_geometry(pm)
     assert sum(p.numel() for p in pm.parameters()) == JAX_PARAMS[cfg]
     assert pm.task == "segment" and isinstance(pm.model[-1], M.Segment) and not pm.end2end
     assert len(pm.strides) == (4 if "p6" in cfg else 3)
@@ -267,13 +274,72 @@ def test_ckpt_and_pt_round_trips(tmp_path):
 
 
 def test_int8_export_and_ensemble_refuse_segment():
+    """int8 and export take a seg model now (both were refused until this
+    slice): quantize_model gives every Conv int8 weights and leaves Proto's
+    transposed conv and cv4's last 1x1 float, and the exporter's forward
+    returns the prediction and the prototypes, its sidecar saying segment
+    (the program itself: tests/test_torch_export.py); what is refused is
+    nms=True on it (ValueError, as the JAX exporter) and an ensemble with a
+    seg member."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.cfg import get_cfg
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.exporter import Exporter, ExportForward
+
     pm = copy.deepcopy(graph(GRAPHS[0])[1]).fuse()
-    with pytest.raises(NotImplementedError, match=r"Segment"):
-        quantize_model(pm, [np.zeros((1, 64, 64, 3), np.uint8)])
-    with pytest.raises(NotImplementedError, match="export of a segment model"):
-        YOLO(cfg_nc(GRAPHS[0]), device="cpu").export(imgsz=64)
+    quantize_model(pm, [np.zeros((1, 64, 64, 3), np.uint8)])
+    head = pm.model[-1]
+    assert all(c.w_int8 is not None for c in pm.modules() if isinstance(c, M.Conv))
+    assert isinstance(head.proto.upsample, torch.nn.ConvTranspose2d) and not isinstance(head.cv4[0][2], M.Conv)
+    with torch.no_grad():
+        out, (_, mc, proto) = pm(torch.from_numpy(GRAPH_X).permute(0, 3, 1, 2))
+    assert tuple(out.shape) == (2, 4 + NC + 32, 84) and tuple(proto.shape) == (2, 32, 16, 16)
+    fm = graph(GRAPHS[0])[1]
+    with torch.no_grad():
+        pred, protos = ExportForward(fm)(torch.from_numpy(FRAMES))
+        ref, (_, _, rproto) = fm(torch.from_numpy(GRAPH_X).permute(0, 3, 1, 2))
+    assert pred.dtype == protos.dtype == torch.float32
+    assert torch.equal(pred, ref) and torch.equal(protos, rproto)
+    ex = Exporter(fm, get_cfg({"imgsz": 64}))
+    md = ex._metadata(64, ex._resolve_options(), False)
+    assert md["task"] == "segment" and "prototypes" in md["layout"]
+    with pytest.raises(ValueError, match="detect-task"):
+        Exporter(fm, get_cfg({"imgsz": 64, "nms": True}))._resolve_options()
     with pytest.raises(ValueError, match="segmentation member"):
         EnsembleModel([DetectionModel(cfg_nc("yolov8n.yaml"), device="cpu"), graph(GRAPHS[0])[1]])
+
+
+INT8_FRAMES = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+
+
+@functools.cache
+def int8_run():
+    """(port, JAX) int8 paths of yolov8n-seg's seeded weights on INT8_FRAMES (one batch), JAX's forward on GRAPH_X."""
+    v, pm = graph(GRAPHS[0])[:2]
+    return port_int8(pm, INT8_FRAMES), jax_int8(JaxDetectionModel(GRAPHS[0], nc=NC), v, INT8_FRAMES, GRAPH_X)
+
+
+def test_int8_calibration_matches_jax():
+    assert_calibration_close(*int8_run())
+
+
+def test_int8_quant_state_matches_jax():
+    assert_quant_state_close(*int8_run())
+
+
+def test_int8_graph_matches_jax():
+    """yolov8n-seg's int8 graph with JAX's quant state carried in against
+    JAX's int8 graph: the decoded boxes, class scores and coefficients, the
+    raw maps and the prototypes within OUT_TOL."""
+    port, ref = int8_run()
+    m = int8_with_jax_state(port, ref)
+    with torch.no_grad():
+        out, (maps, mc, proto) = m(torch.from_numpy(GRAPH_X).permute(0, 3, 1, 2))
+    rout, (rmaps, rmc, rproto) = ref["out"]
+    for a, b in ((0, 4), (4, 4 + NC), (4 + NC, 4 + NC + 32)):
+        assert_out_close(out[:, a:b].numpy(), rout[:, a:b])
+    for f, rf in zip(maps, rmaps):
+        assert_out_close(nhwc(f), rf)
+    assert_out_close(mc.numpy(), rmc)
+    assert_out_close(nhwc(proto), rproto)
 
 
 # ---------------------------------------------------------------------------------------------------------------

@@ -14,9 +14,12 @@ tests/golden/seg_loss.npz at the JAX test's rtol=2e-4.
 The targets: segment_transform's val and train paths against JAX's on the
 same samples and generator seed (mosaic, mixup, the warps, flips; both
 target layouts and mask_ratio 2): seg_map, boxes, classes and the
-generator's state exactly, the images within 2 levels; the loader's
-segment batches against the JAX DataLoader's; copy_paste refused; the
-validator on detections in an image without GT.
+generator's state exactly, the images within 2 levels, with copy_paste in
+flip mode and in mixup mode (mixup on and off: mixup's draw comes all the
+same); copy_paste_inst itself in both modes bit for bit; the loader's
+segment batches against the JAX DataLoader's, with copy_paste in both modes
+(mixup mode draws four more donors); a copy_paste_mode other than flip or
+mixup refused; the validator on detections in an image without GT.
 """
 
 import numpy as np
@@ -174,7 +177,10 @@ def polygon_sample(i, n=None, shape=None):
 HYP = dict(mosaic=1.0, mixup=0.5, degrees=10.0, shear=2.0, perspective=5e-4, translate=0.1, scale=0.5, flipud=0.5,
            fliplr=0.5, hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, pixel_augment=1.0, copy_paste=0.0)
 CASES = {"val": (False, {}), "train": (True, {}), "train_bit_planes": (True, {"overlap_mask": False}),
-         "train_ratio2": (True, {"mask_ratio": 2}), "train_letterbox": (True, {"mosaic": 0.0, "perspective": 0.0})}
+         "train_ratio2": (True, {"mask_ratio": 2}), "train_letterbox": (True, {"mosaic": 0.0, "perspective": 0.0}),
+         "train_copy_paste_flip": (True, {"copy_paste": 0.5}),
+         "train_copy_paste_mixup": (True, {"copy_paste": 0.5, "copy_paste_mode": "mixup"}),
+         "train_copy_paste_mixup_no_mixup": (True, {"copy_paste": 1.0, "copy_paste_mode": "mixup", "mixup": 0.0})}
 # the letterbox case's frames are IMGSZ on their long side: PyTorch's bilinear resize is not cv2's (a level or
 # two), which the HSV gains then scale; the host stack's tests hold it on frames that need no resize too
 
@@ -228,9 +234,51 @@ def test_polygon_helpers_match_jax():
 
 
 def test_copy_paste_raises():
-    with pytest.raises(NotImplementedError, match="copy_paste"):
-        PA.segment_transform([polygon_sample(k) for k in range(4)], IMGSZ, 16, True, np.random.default_rng(0),
-                             {**HYP, "copy_paste": 0.5})
+    """A copy_paste_mode other than flip or mixup raises ValueError, as the
+    JAX package's get_cfg does; copy_paste above 0 runs (it raised before
+    copy_paste_inst came to the port)."""
+    from improving_yolov8_cbam_swinblock_tpu.cfg import get_cfg as jax_get_cfg
+    from improving_yolov8_cbam_swinblock_tpu_torch.cfg import get_cfg
+
+    for fn in (get_cfg, jax_get_cfg):
+        with pytest.raises(ValueError, match="copy_paste_mode"):
+            fn({"copy_paste_mode": "paste"})
+    assert get_cfg({"copy_paste": 0.5, "copy_paste_mode": "mixup"}).copy_paste_mode == "mixup"
+    out = PA.segment_transform([polygon_sample(k) for k in range(4)], IMGSZ, 16, True, np.random.default_rng(0),
+                               {**HYP, "copy_paste": 0.5})
+    assert out["img"].shape == (IMGSZ, IMGSZ, 3)
+
+
+def inst_case(seed, n_donor=3):
+    """Pixel-space instance samples for copy_paste_inst: the image's own and
+    a donor's (of the same size), polygons beside boxes, one box-only label."""
+    def inst(i):
+        s = polygon_sample(seed * 10 + i, shape=(IMGSZ, IMGSZ))
+        return JA._inst_px(s)
+
+    return inst(0), inst(1)
+
+
+@pytest.mark.parametrize("mode", ["flip", "mixup"])
+def test_copy_paste_inst_matches_jax(mode):
+    """copy_paste_inst against JAX's on the same instance samples and p (flip:
+    the sample's own mirrored instances; mixup: a donor's): the image, boxes,
+    classes and polygons bit for bit, and instances pasted in some cases."""
+    pasted = 0
+    for seed in range(8):
+        s, donor = inst_case(seed)
+        for p in (0.3, 0.5, 1.0):
+            ref = JA.copy_paste_inst(s, np.random.default_rng(0), p, donor if mode == "mixup" else None)
+            got = PA.copy_paste_inst({k: s[k] for k in ("img", "bboxes", "cls", "polys")}, np.random.default_rng(0),
+                                     p, donor if mode == "mixup" else None)
+            np.testing.assert_array_equal(got["img"], ref["img"])
+            np.testing.assert_array_equal(got["bboxes"], ref["bboxes"])
+            np.testing.assert_array_equal(got["cls"], ref["cls"])
+            assert got["cls"].dtype == ref["cls"].dtype and len(got["polys"]) == len(ref["polys"])
+            for a, b in zip(got["polys"], ref["polys"]):
+                assert (a is None) == (b is None) and (a is None or np.array_equal(a, b))
+            pasted += len(got["cls"]) - len(s["cls"])
+    assert pasted > 0
 
 
 @pytest.fixture(scope="module")
@@ -250,6 +298,24 @@ def test_segment_loader_matches_jax(polygon_data, train):
     pl = PD.DataLoader(PD.YOLODataset(str(root), imgsz=64, max_gt=8, nc=NC), 2, train=train, hyp=hyp, workers=1,
                        task="segment", rect_shape=(64, 96))
     assert pl.device_augment is False and pl.rect_shape is None
+    n = 0
+    for got, ref in zip(pl, jl):
+        assert_sample_equal(got, ref)
+        n += 1
+    assert n == len(jl) == 2
+
+
+@pytest.mark.parametrize("mode", ["flip", "mixup"])
+def test_segment_loader_copy_paste_matches_jax(polygon_data, mode):
+    """The train loader with copy_paste 0.5 in each mode (mixup mode: four
+    more donors drawn with the others, in the JAX loader's order) against
+    the JAX DataLoader's batches."""
+    root = polygon_data.parent / "images" / "train"
+    hyp = {**HYP, "mixup": 0.5, "copy_paste": 0.5, "copy_paste_mode": mode}
+    jl = JD.DataLoader(JD.YOLODataset(str(root), imgsz=64, max_gt=8, nc=NC), 2, train=True, hyp=hyp, workers=1,
+                       task="segment")
+    pl = PD.DataLoader(PD.YOLODataset(str(root), imgsz=64, max_gt=8, nc=NC), 2, train=True, hyp=hyp, workers=1,
+                       task="segment")
     n = 0
     for got, ref in zip(pl, jl):
         assert_sample_equal(got, ref)

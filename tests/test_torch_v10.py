@@ -13,8 +13,12 @@ BN-folded (the port's fuse() and JAX's folded tree), within 2e-3; the six
 YAMLs' parameter counts and yolov10n's strict bridge both ways; get_flops
 against JAX's jaxpr product count, and ProfileModels. Serving: the
 predictor's and the validator's end2end gates, embed and track on them,
-the benchmark's mAP of an end2end Backend, a refused ensemble, int8
-refused naming SCDown, a .ckpt round trip and a CPU .pt2 program. Each JAX
+the benchmark's mAP of an end2end Backend, a refused ensemble, a .ckpt
+round trip and a CPU .pt2 program. int8 (tests/int8_parity.py): yolov10n
+calibrated and quantized by both packages on the same batch (SCDown's,
+CIB's and RepVGGDW's depth-wise convs and the light class branch float),
+the calibration, the quant state, and the int8 graph's maps and
+detections held to JAX's. Each JAX
 module and graph runs under one jax.jit, eval and train mode in the same
 one.
 """
@@ -44,6 +48,8 @@ from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import (fused_st
                                                                          jax_variables_from_state,
                                                                          state_dict_from_jax)
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.loss import detection_loss
+from tests.int8_parity import (OUT_TOL, assert_calibration_close, assert_int8_geometry, assert_out_close,
+                               assert_quant_state_close, int8_with_jax_state, jax_int8, port_int8)
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_profile import jaxpr_product_flops
 from tests.test_torch_yolo11 import close, nhwc, seeded_module, to_torch
@@ -330,9 +336,11 @@ def test_yolov10n_matches_jax(how):
 @pytest.mark.parametrize("cfg", list(JAX_PARAMS))
 def test_param_counts_equal_jax(cfg):
     """Each of the six graphs, built on the meta device, has JAX's parameter
-    count and ends in v10Detect (end2end)."""
+    count and ends in v10Detect (end2end); its ungrouped convs take
+    conv_int8's geometry."""
     with torch.device("meta"):
         pm = DetectionModel(cfg, device="meta")
+    assert_int8_geometry(pm)
     assert sum(p.numel() for p in pm.parameters()) == JAX_PARAMS[cfg]
     assert pm.end2end and isinstance(pm.model[-1], M.v10Detect)
 
@@ -448,12 +456,54 @@ def test_predict_and_val_gate_the_head_detections_as_jax():
 
 
 def test_ensemble_and_int8_refuse_yolov10():
+    """An ensemble refuses yolov10n; int8 takes it now (it was refused,
+    naming SCDown, until the JAX gate was ported): every Conv gets int8
+    weights, the grouped ones keep their float path, and the quantized
+    model gives the head's (B, 84, 6) detections."""
     with pytest.raises(ValueError, match="NMS-ensembled"):
         EnsembleModel([DetectionModel("yolov8n.yaml", device="cpu"), graph()[2]])
     m = copy.deepcopy(graph()[2]).fuse()
-    with pytest.raises(NotImplementedError, match=r"row 5 \(SCDown\)"):
-        quantize_model(m, [np.zeros((1, 64, 64, 3), np.uint8)])
-    assert not any(getattr(c, "calib", None) for c in m.modules())
+    quantize_model(m, [np.zeros((1, 64, 64, 3), np.uint8)])
+    convs = [c for c in m.modules() if isinstance(c, M.Conv)]
+    assert all(c.w_int8 is not None and c.runs_int8 == (c.conv.groups == 1) for c in convs)
+    assert m.model[5].cv2.conv.groups > 1 and not m.model[5].cv2.runs_int8 and m.model[5].cv1.runs_int8
+    with torch.no_grad():
+        dets = m(to_torch(GRAPH_X))[0]
+    assert tuple(dets.shape) == (2, 84, 6) and torch.isfinite(dets).all()
+
+
+INT8_FRAMES = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+
+
+@functools.cache
+def int8_run():
+    """(port, JAX) int8 paths of yolov10n's seeded weights on INT8_FRAMES (one batch), JAX's forward on GRAPH_X."""
+    jm, v, pm = graph()[:3]
+    return port_int8(pm, INT8_FRAMES), jax_int8(jm, v, INT8_FRAMES, GRAPH_X)
+
+
+def test_int8_calibration_matches_jax():
+    assert_calibration_close(*int8_run())
+
+
+def test_int8_quant_state_matches_jax():
+    assert_quant_state_close(*int8_run())
+
+
+def test_int8_graph_matches_jax():
+    """yolov10n's int8 graph with JAX's quant state carried in against JAX's
+    int8 graph: both map lists within OUT_TOL, and the (B, 84, 6) detections
+    as sets (dets_match) within OUT_TOL of the largest box coordinate."""
+    port, ref = int8_run()
+    m = int8_with_jax_state(port, ref)
+    with torch.no_grad():
+        dets, maps = m(to_torch(GRAPH_X))
+    rdets, rmaps = ref["out"]
+    for key in ("one2many", "one2one"):
+        for f, rf in zip(maps[key], rmaps[key]):
+            assert_out_close(nhwc(f), rf)
+    assert tuple(dets.shape) == rdets.shape == (2, 84, 6)
+    dets_match(dets.numpy(), rdets, OUT_TOL)
 
 
 def test_ckpt_round_trip_is_bit_for_bit(tmp_path):
