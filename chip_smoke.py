@@ -172,6 +172,25 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           trainer's box and mask metrics; Masks.xy of one served frame's
           masks (up to 300) with its host ms; one epoch (no val) with
           copy_paste 0.5 in each mode, flip and mixup, K2 once per micro-step
+  pose    pose estimation: YOLO(name).predict of the slice phase's frames at
+          640 px, bf16, BN-folded, seeded weights with the class priors
+          zeroed (conf 0.25), for yolov8n-pose, -pose-p6, yolo11n-pose and
+          yolo12n-pose: no kernel launched, keypoints (n, 17, 3) inside the
+          frames, each raw map and the raw keypoints within 3e-2 of the fp32
+          unfused forward (the decoded channels reported); yolov8s-pose at
+          full width: the forward's ms at batch 32 with its device time by
+          kernel, predict with keypoints at batch 32 from frames in memory
+          (img/s), the predictor's keypoints on the card against the same
+          function on the CPU (bit for bit), YOLO.track of the 8 frames with
+          bytetrack.yaml (keypoints kept in the detections' order), 4
+          micro-steps at batch 16 (K2 once each) and one against the plain
+          assigner (five loss items, bf16 grads), the step's ms;
+          YOLO("yolov8s-pose.yaml").train for one epoch on a seeded PNG
+          dataset with keypoint labels (fliplr 0.5, COCO's flip_idx; K2 once
+          per micro-step) and YOLO(best.pt).val with the (B) and (P) keys
+          against the trainer's record; the int8 forward at batch 32 beside
+          the bf16 one, an int8 predict, and the card's int8 outputs against
+          the CPU's at batch 2 in fp32 (int8_full, as int8_graphs runs it)
   int8_graphs  int8 of the graphs added since the fork's: yolov9c, yolov10s
           and yolov8s-seg at full width, quantized (bf16 compute over fp32
           weights, BN-folded) on the int8 phase's two seeded batches of 8:
@@ -184,11 +203,11 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           batch of 8 and run once at batch 8: finite outputs
   programs  a second process started after the kernel phase and joined
           after the profile phase (--programs): dynamic .pt2 programs of
-          yolov9t, yolo12n and yolov3-tiny (bf16), the int8 programs of
-          yolov10s and yolov8s-seg and the bf16 program of yolov8s-seg,
-          exported on the card at 640 px with the class priors zeroed, each
-          loaded with YOLO(path) and its predict held bit for bit (boxes,
-          and masks for seg) to the live model's at batches 1 and 3, with
+          yolov9t, yolo12n, yolov3-tiny, yolov8s-seg and yolov8s-pose
+          (bf16) and the int8 programs of yolov10s and yolov8s-seg, exported
+          on the card at 640 px with the class priors zeroed, each loaded
+          with YOLO(path) and its predict held bit for bit (boxes, and masks
+          for seg, keypoints for pose) to the live model's at batches 1 and 3, with
           each export's and load's seconds
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
@@ -440,9 +459,19 @@ INT8_FULL = ("yolov9c.yaml", "yolov10s.yaml", "yolov8s-seg.yaml")
 INT8_SWEEP = tuple(c for c in FAMILIES + V10 + SEG if c not in INT8_FULL)
 INT8_GRAPH_BATCH = 32
 INT8_CPU_MAX, INT8_CPU_MEAN = 5e-2, 5e-3
+# the pose phase: the four packaged pose YAMLs at their smallest scale, yolov8s-pose at full width; bf16 folded
+# against fp32 unfused within POSE_RTOL of the largest magnitude (the families phase's); a micro-step's five loss
+# items with K2 against the plain assigner within POSE_ITEM_RTOL, its bf16 grads bit for bit or within
+# POSE_GRAD_RTOL per graph row (the segment phase's); the forward and predict timed at POSE_BATCH; the fit epoch's
+# dataset carries COCO's flip_idx
+POSE = ("yolov8n-pose.yaml", "yolov8n-pose-p6.yaml", "yolo11n-pose.yaml", "yolo12n-pose.yaml")
+POSE_FULL = "yolov8s-pose.yaml"
+POSE_RTOL, POSE_ITEM_RTOL, POSE_GRAD_RTOL = 3e-2, 1e-5, 1e-3
+POSE_BATCH, POSE_STEPS = 32, 4
+POSE_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 # the programs process (--programs): dynamic .pt2 programs exported on the card, each loaded with YOLO(path) and
-# held bit for bit to its live model at PROGRAM_BATCHES (boxes, and masks for seg), class priors zeroed
-FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml")
+# held bit for bit to its live model at PROGRAM_BATCHES (boxes, masks and keypoints), class priors zeroed
+FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml", "yolov8s-seg.yaml", "yolov8s-pose.yaml")
 INT8_PROGRAMS = ("yolov10s.yaml", "yolov8s-seg.yaml")
 PROGRAM_BATCHES = (1, 3)
 
@@ -2892,14 +2921,289 @@ def phase_segment(dev):
     return ok, {"predict": predict, "full_width": {SEG_FULL: full}, "fit": fit}, {"segment": add_counts(*path)}
 
 
+def pose_predict(cfg, frames, dev):
+    """YOLO(cfg).predict of the slice phase's frames in bf16 (BN-folded, as
+    predict runs it) at conf 0.25 with its class priors zeroed, its launches
+    counted, each result's keypoints (n, 17, 3) inside the frame with
+    visibilities in [0, 1]; then its forward against the fp32 unfused
+    forward of the same seeded weights (TF32 off): each raw map and the raw
+    keypoints within POSE_RTOL of the largest magnitude; the decoded
+    channels' largest gap is reported."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    with zero_class_priors(yolo.model):
+        reset_counts()
+        t0 = time.perf_counter()
+        results = yolo.predict(frames, imgsz=640, conf=0.25, batch=8, verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    fp32 = YOLO(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        out, (maps, kpt) = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
+        out32, (maps32, kpt32) = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
+    errs = {"detect_maps": [rel_err(a, b) for a, b in zip(maps, maps32)], "raw_keypoints": rel_err(kpt, kpt32),
+            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(out.shape[1]))}
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and boxes_ok(results, 480, 640)
+          and keypoints_ok(results, 480, 640) and yolo.is_fused and yolo.task == "pose"
+          and bool(torch.isfinite(out).all()) and max(errs["detect_maps"] + [errs["raw_keypoints"]]) <= POSE_RTOL)
+    return ok, {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()), "launches": launches,
+                "detections_per_frame": [len(r) for r in results], "predict_s_first_call": seconds,
+                "bf16_folded_vs_fp32_rel_err": errs, "ok": ok}, launches
+
+
+def keypoints_ok(results, h, w) -> bool:
+    """Every result with detections has (n, 17, 3) keypoints, finite, inside the (h, w) frame, visibilities in [0, 1]."""
+    for r in results:
+        if not len(r):
+            continue
+        k = r.keypoints.data if r.keypoints is not None else None
+        if (k is None or k.shape != (len(r), 17, 3) or not np.isfinite(k).all() or (k[..., :2] < 0).any()
+                or (k[..., 0] > w).any() or (k[..., 1] > h).any() or (k[..., 2] < 0).any() or (k[..., 2] > 1).any()):
+            return False
+    return True
+
+
+def pose_keypoint_paths(yolo, frames, dev) -> dict:
+    """The predictor's keypoints (scale_coords on the card) against the same
+    function on the same kept rows in fp32 on the CPU, for the first two
+    frames: whether they are equal bit for bit, the largest difference."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import DetectionPredictor
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import non_max_suppression
+
+    p = DetectionPredictor(yolo.model, None)  # keypoints() reads the model's kpt_shape only
+    with torch.inference_mode():
+        pred = yolo.model(letterboxed(frames[:2], 640, dev, yolo.model.dtype))[0]
+        dets = non_max_suppression(pred, conf_thres=0.25, iou_thres=0.7, max_det=300, nc=yolo.model.nc)
+        pairs = [(img0, "x") for img0 in frames[:2]]
+        got, ref = p.keypoints(dets, pairs, 640), p.keypoints(dets.float().cpu(), pairs, 640)
+    diff = max((float(np.abs(g - r).max()) for g, r in zip(got, ref) if len(r)), default=0.0)
+    return {"keypoints": int(sum(len(r) for r in ref)), "bit_for_bit": all(np.array_equal(g, r) for g, r in zip(got, ref)),
+            "max_abs_diff_px": diff}
+
+
+def pose_batches(n, dev):
+    """train_batches (without `aug`: the pose step runs no device
+    augmentation) with each row's 17 keypoints (b, 32, 17, 3): inside its
+    box, visibility 0, 1 or 2, normalised as the loader gives them."""
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    for batch in train_batches(n, dev, aug=False):
+        xywh = batch["bboxes"].cpu().numpy()
+        xy = xywh[..., None, :2] + rng.uniform(-0.5, 0.5, (*xywh.shape[:2], 17, 2)) * xywh[..., None, 2:]
+        vis = rng.integers(0, 3, (*xywh.shape[:2], 17, 1))
+        kpts = np.concatenate([np.clip(xy, 0, 1), vis], -1).astype(np.float32)
+        kpts[kpts[..., 2] == 0, :2] = 0
+        out.append({**batch, "kpts": torch.tensor(kpts, device=dev)})
+    return out
+
+
+def pose_train(dev):
+    """yolov8s-pose's train micro-step at batch 16, 640 px, bf16 over fp32
+    masters: POSE_STEPS micro-steps with the launches counted per step (K2
+    once each) and the step's time (CUDA events); then one micro-step from
+    one state and batch with K2 and with the plain assigner (the five loss
+    items, the grads as one vector per graph row); autobatch's measure
+    (utils/model_utils.py train_step_peak_bytes) at batch 16."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.model_utils import train_step_peak_bytes
+
+    tr = DetectionTrainer(overrides={**TRAIN, "model": POSE_FULL}).setup()
+    step, acc = tr._make_train_step(nb=TRAIN_NB)
+    batches = pose_batches(POSE_STEPS + 1, dev)
+    per_step, losses = [], []
+    reset_counts()
+    for i in range(POSE_STEPS):
+        before = counts()
+        items = step(batches[i])
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        losses.append(items.tolist())
+    launches = counts()
+    (ik, gk), (ip, gp), quiet = compare_step(tr, step, batches[-1], lambda f, *a: f(*a))
+    grad = block_errs(gk, gp)
+    cycle = itertools.cycle(batches[:POSE_STEPS])
+    step_ms = cuda_ms(lambda: step(next(cycle)), iters=8, warmup=4)
+    peak = train_step_peak_bytes(tr.model, 640, TRAIN["batch"])
+    ok = (all(d == FAMILY_STEP_LAUNCHES for d in per_step) and bool(np.isfinite(losses).all()) and quiet
+          and len(losses[0]) == 5 and max(item_errs(ik, ip)) <= POSE_ITEM_RTOL and peak > 0
+          and (grads_equal(gk, gp) or max(grad.values()) <= POSE_GRAD_RTOL))
+    info = {"model": POSE_FULL, "accumulate": acc, "launches_per_step": per_step, "loss_items": losses,
+            "loss_names": ["box", "pose", "kobj", "cls", "dfl"], "step_ms_batch16": step_ms,
+            "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms, "autobatch_peak_gib_batch16": peak / 2**30,
+            "k2_vs_plain": {"loss_items_kernel": ik.tolist(), "loss_items_plain": ip.tolist(),
+                            "loss_items_rel_err": item_errs(ik, ip), "loss_items_equal": bool(torch.equal(ik, ip)),
+                            "bitwise_equal_grads": grads_equal(gk, gp), "row_grad_rel_l2_max": max(grad.values())},
+            "ok": ok}
+    del tr, step, batches
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def write_pose_dataset(root: Path) -> Path:
+    """The pose phase's seeded YOLO pose dataset, written with the stdlib as
+    the fit phase writes its own (FIT_TRAIN and FIT_VAL images, most
+    480x640, every 8th 384x512 and every 8th after the 4th 300x700, nc=1,
+    kpt_shape [17, 3] and COCO's flip_idx): 1 to 4 filled boxes per image on
+    a low-frequency background, each with 17 keypoints inside it, visibility
+    0, 1 or 2, each point a dot of its own colour."""
+    rng = np.random.default_rng(SEED + 6)
+    colors = np.array([(255, 64, 64), (64, 255, 64), (64, 64, 255), (255, 255, 64)], np.uint8)
+    for split, n in (("train", FIT_TRAIN), ("val", FIT_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = {3: (384, 512), 7: (300, 700)}.get(i % 8, (480, 640))
+            low = torch.tensor(rng.integers(0, 120, (1, 3, 8, 8)), dtype=torch.float32)
+            img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear", align_corners=False)
+            img = img[0].permute(1, 2, 0).round().to(torch.uint8).numpy().copy()
+            lines = []
+            for _ in range(int(rng.integers(1, 5))):
+                bw, bh = rng.uniform(0.15, 0.45, 2)
+                cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+                img[int((cy - bh / 2) * h):int((cy + bh / 2) * h), int((cx - bw / 2) * w):int((cx + bw / 2) * w)] = \
+                    colors[rng.integers(0, len(colors))]
+                k = np.stack([cx + rng.uniform(-0.45, 0.45, 17) * bw, cy + rng.uniform(-0.45, 0.45, 17) * bh,
+                              rng.integers(0, 3, 17)], 1)
+                for j, (x, y, v) in enumerate(k):
+                    if v:
+                        img[max(int(y * h) - 2, 0):int(y * h) + 2, max(int(x * w) - 2, 0):int(x * w) + 2] = 12 * j
+                lines.append(f"0 {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f} " + " ".join(f"{v:.6f}" for v in k.reshape(-1)))
+            (root / "images" / split / f"{split}_{i:04d}.png").write_bytes(png_bytes(img))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    data = root / "data.yaml"  # JSON is YAML
+    data.write_text(json.dumps({"path": str(root), "train": "images/train", "val": "images/val", "nc": 1,
+                                "names": {"0": "person"}, "kpt_shape": [17, 3], "flip_idx": POSE_FLIP_IDX}))
+    return data
+
+
+def pose_fit(dev):
+    """YOLO(yolov8s-pose).train for one epoch on write_pose_dataset (4
+    micro-steps on the loader's instance-aware host stack with fliplr 0.5
+    and the descriptor's flip_idx, 2 val batches), then YOLO(best.pt).val (2
+    more): K2 once per micro-step, no kernel per val batch, the box and
+    keypoint metrics ((B) and (P) keys) finite and equal to the trainer's
+    record within FIT_RECORD_ATOL."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pose_"))
+    steps, vals = [], []
+    try:
+        data = write_pose_dataset(tmp / "data")
+        fy = YOLO(POSE_FULL, device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"),
+                               **{**FIT, "epochs": 1, "save_period": -1, "fliplr": 0.5})
+            torch.cuda.synchronize()
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=FIT["imgsz"], workers=FIT["workers"],
+                          verbose=False)
+            val_s = time.perf_counter() - t0
+        e = fy.trainer.epoch_stats[0]
+        record_err = max(abs(vm[k] - metrics[k]) for k in metrics)
+        csv_head = (fy.trainer.save_dir / "results.csv").read_text().splitlines()[0]
+        p_keys = sorted(k for k in vm if k.endswith("(P)") and not k.startswith("metrics/"))
+        ok = (len(steps) == 4 and all(st["launches"] == FAMILY_STEP_LAUNCHES and st["boxes_ok"] for st in steps)
+              and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals) and record_err <= FIT_RECORD_ATOL
+              and all(np.isfinite(list(metrics.values()))) and "train/kobj_loss" in csv_head
+              and len(p_keys) == 4 and vm.pose is not None and fy.trainer.train_loader.ds.flip_idx == POSE_FLIP_IDX
+              and fy.trainer.train_loader.device_augment is False)
+        fit = {"model": POSE_FULL, "launches": fit_launches, "launches_per_step": steps, "launches_per_val_batch": vals,
+               "final_metrics": metrics, "val_best_pt": dict(vm), "pose_keys": p_keys,
+               "record_max_abs_err": record_err, "loader_wait_s": e["loader_wait_s"], "train_s": e["train_s"],
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
+               "ok": ok}
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fit, fit_launches
+
+
+def pose_track(yolo, frames) -> tuple:
+    """YOLO.track of the frames with bytetrack.yaml (fresh trackers): every
+    Results keeps predict's keypoints, in the detections' order (the
+    tracker re-orders the boxes only, as the JAX package does)."""
+    plain = yolo.predict(frames, imgsz=640, conf=TRACK_CONF, batch=8, verbose=False)
+    tracked, launches = counted(lambda: yolo.track(frames, tracker="bytetrack.yaml", imgsz=640, conf=TRACK_CONF,
+                                                   batch=8, verbose=False))
+    same = all(t.keypoints is not None and np.array_equal(t.keypoints.data, p.keypoints.data)
+               for t, p in zip(tracked, plain) if len(p))
+    ok = (same and len(tracked) == len(frames) and any(len(t.track_ids) for t in tracked)
+          and launches == FAMILY_PREDICT_LAUNCHES)
+    return ok, {"ok": bool(ok), "frames": len(tracked), "tracks_per_frame": [len(t.track_ids) for t in tracked],
+                "keypoints_in_detection_order": bool(same), "launches": launches}, launches
+
+
+def phase_pose(dev):
+    """Pose estimation (the module docstring's pose phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    predict, path = [], []
+    for cfg in POSE:
+        _, info, launches = pose_predict(cfg, frames, dev)
+        predict.append(info)
+        path.append(launches)
+        torch.cuda.empty_cache()
+
+    yolo = YOLO(POSE_FULL, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(POSE_BATCH, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "cudnn", "conv", key="conv_share")
+    del xb
+    frames32 = frames * (POSE_BATCH // len(frames))
+    with zero_class_priors(yolo.model):  # the predictor at full load: seeded scores near 0.5, up to 300 a frame
+        kw = dict(imgsz=640, conf=0.25, batch=POSE_BATCH, verbose=False)
+        yolo.predict(frames32, **kw)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = yolo.predict(frames32, **kw)
+        dt = time.perf_counter() - t0
+        path.append(counts())
+        served = {"img_per_s": POSE_BATCH / dt, "detections_per_frame": [len(r) for r in res[:8]],
+                  "keypoints_ok": keypoints_ok(res, 480, 640), "boxes_ok": boxes_ok(res, 480, 640)}
+        kpt_paths = pose_keypoint_paths(yolo, frames, dev)
+        track_ok, track, track_launches = pose_track(yolo, frames)
+        path.append(track_launches)
+    del yolo
+    torch.cuda.empty_cache()
+    serve_ok = (served["keypoints_ok"] and served["boxes_ok"] and sum(served["detections_per_frame"]) > 0
+                and kpt_paths["bit_for_bit"] and kpt_paths["keypoints"] > 0 and track_ok)
+
+    train_ok, train_info, train_launches = pose_train(dev)
+    path.append(train_launches)
+    fit, fit_launches = pose_fit(dev)
+    path.append(fit_launches)
+    rng = np.random.default_rng(SEED)  # the int8 phase's calibration frames
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    int8_ok, int8, int8_launches = int8_full(POSE_FULL, calib, frames, dev)
+    path.append(int8_launches)
+    full = {"ok": serve_ok and train_ok and int8_ok, "forward_ms_batch32": fwd_ms,
+            "forward_img_per_s": POSE_BATCH * 1e3 / fwd_ms, "forward_profile": profile, "predict_batch32": served,
+            "device_vs_cpu_keypoints": kpt_paths, "track": track, "train": train_info, "int8": int8}
+    ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
+    return ok, {"predict": predict, "full_width": {POSE_FULL: full}, "fit": fit}, {"pose": add_counts(*path)}
+
+
 def int8_outputs(model, out) -> list:
     """The outputs a check holds: a YOLOv10 head's raw maps of both branches
     (its top-k orders near-equal scores by a rounding), a seg head's
-    prediction and prototypes, else the decoded prediction."""
+    prediction and prototypes, a pose head's prediction and raw keypoints,
+    else the decoded prediction."""
     if model.end2end:
         return list(out[1]["one2many"]) + list(out[1]["one2one"])
     if model.task == "segment":
         return [out[0], out[1][2]]
+    if model.task == "pose":
+        return [out[0], out[1][1]]
     return [out[0]]
 
 
@@ -3013,24 +3317,27 @@ def phase_int8_graphs(dev):
     return ok, {"full_width": full, "smallest_scale": sweep}, {"int8_graphs": add_counts(*path)}
 
 
-def program_check(live, path: str, frames, seg: bool) -> dict:
+def same_extras(g, r) -> bool:
+    """Two Results' masks and keypoints both absent, or equal bit for bit."""
+    return all((a is None) == (b is None) and (a is None or np.array_equal(a.data, b.data))
+               for a, b in ((g.masks, r.masks), (g.keypoints, r.keypoints)))
+
+
+def program_check(live, path: str, frames) -> dict:
     """YOLO(path) (the program, on the card) against the live YOLO: predict
-    of the frames at conf 0.25 at each of PROGRAM_BATCHES, boxes (and masks)
-    bit for bit, and the launches of the program's predict."""
+    of the frames at conf 0.25 at each of PROGRAM_BATCHES, boxes (and masks,
+    and keypoints) bit for bit, and the launches of the program's predict."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
 
     t0 = time.perf_counter()
     served = YOLO(path)
     row = {"load_s": time.perf_counter() - t0, "task": served.task, "by_batch": {}}
-    ok = served.task == ("segment" if seg else "detect")
+    ok = served.task == live.task
     for b in PROGRAM_BATCHES:
         got, launches = counted(lambda: served.predict(frames, conf=0.25, batch=b, verbose=False))
         ref = live.predict(frames, imgsz=640, conf=0.25, batch=b, verbose=False)
-        same = len(got) == len(ref) and all(
-            np.array_equal(g.boxes.data, r.boxes.data)
-            and (not seg or (g.masks is None) == (r.masks is None) and (g.masks is None
-                                                                           or np.array_equal(g.masks.data, r.masks.data)))
-            for g, r in zip(got, ref))
+        same = len(got) == len(ref) and all(np.array_equal(g.boxes.data, r.boxes.data) and same_extras(g, r)
+                                            for g, r in zip(got, ref))
         row["by_batch"][b] = {"bit_for_bit": bool(same), "detections": [len(r) for r in ref], "launches": launches}
         ok &= same and sum(len(r) for r in ref) > 0 and launches == FAMILY_PREDICT_LAUNCHES
     row["ok"] = bool(ok)
@@ -3039,12 +3346,12 @@ def program_check(live, path: str, frames, seg: bool) -> dict:
 
 def programs_run(out: Path) -> int:
     """The programs process (--programs DIR, started by main beside the
-    other phases): the dynamic programs of FLOAT_PROGRAMS (bf16, BN-folded),
-    of INT8_PROGRAMS (int8: the exporter's calibration on its synthetic
-    frames, the int8 phase's) and of yolov8s-seg in bf16, exported on the
-    card at 640 px with the class priors zeroed; each held to its live model
-    (program_check) on the slice phase's first three frames. Writes
-    DIR/programs.json."""
+    other phases): the dynamic programs of FLOAT_PROGRAMS (bf16, BN-folded,
+    yolov8s-seg's and yolov8s-pose's among them) and of INT8_PROGRAMS (int8:
+    the exporter's calibration on its synthetic frames, the int8 phase's),
+    exported on the card at 640 px with the class priors zeroed; each held to
+    its live model (program_check) on the slice phase's first three frames.
+    Writes DIR/programs.json."""
     from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
 
     torch.set_num_threads(1)  # beside the main process: tracing is host work on one core
@@ -3052,8 +3359,7 @@ def programs_run(out: Path) -> int:
     calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
     frames = slice_frames()[:3]
     rows = {}
-    specs = ([(cfg, "bf16") for cfg in FLOAT_PROGRAMS] + [(cfg, "int8") for cfg in INT8_PROGRAMS]
-             + [("yolov8s-seg.yaml", "bf16")])
+    specs = [(cfg, "bf16") for cfg in FLOAT_PROGRAMS] + [(cfg, "int8") for cfg in INT8_PROGRAMS]
     for cfg, kind in specs:
         t0 = time.perf_counter()
         try:
@@ -3067,7 +3373,7 @@ def programs_run(out: Path) -> int:
                 path = src.export(format="pt2", imgsz=640, dynamic=True, int8=kind == "int8", half=kind == "bf16",
                                   project=str(out / f"{Path(cfg).stem}_{kind}"))
                 export_s = time.perf_counter() - t0
-                row = program_check(live, path, frames, live.task == "segment")
+                row = program_check(live, path, frames)
             row.update(export_s=export_s, path=Path(path).name)
         except Exception as e:  # noqa: BLE001  a failed program is a failed row, and the others still run
             row = {"ok": False, "error": f"{type(e).__name__}: {e}"[:400]}
@@ -3102,7 +3408,7 @@ def phase_programs(proc, d: Path, timeout: float):
         rows = {}
     tail = (d / "log.txt").read_text()[-1500:] if (d / "log.txt").exists() else ""
     shutil.rmtree(d, ignore_errors=True)
-    ok = rc == 0 and len(rows) == len(FLOAT_PROGRAMS) + len(INT8_PROGRAMS) + 1 and all(r["ok"] for r in rows.values())
+    ok = rc == 0 and len(rows) == len(FLOAT_PROGRAMS) + len(INT8_PROGRAMS) and all(r["ok"] for r in rows.values())
     info = {"rc": rc, "programs": rows}
     if not ok:
         info["log_tail"] = tail
@@ -3539,7 +3845,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
     YOLO11 and flagship-l phases, whose Swin blocks are 512 wide. K2 lists
     its rows at the four-level grids of the families phase (`four_levels`)
     and its row at topk=1 (`topk1`, YOLOv10's one-to-one assignment, on the
-    same inputs); its launches by path include the v10 and segment phases'."""
+    same inputs); its launches by path include the v10, segment and pose phases'."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -3929,6 +4235,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
     families_launches, k2_levels = run("families", phase_families, dev)
     (v10_launches,) = run("v10", phase_v10, dev)
     (segment_launches,) = run("segment", phase_segment, dev)
+    (pose_launches,) = run("pose", phase_pose, dev)
     (int8_graphs_launches,) = run("int8_graphs", phase_int8_graphs, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
@@ -3941,7 +4248,8 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **families_launches, **v10_launches, **segment_launches, **int8_graphs_launches,
+                            **families_launches, **v10_launches, **segment_launches, **pose_launches,
+                            **int8_graphs_launches,
                             **yolo11_launches,
                             **large_launches,
                             **yolo11_int8_launches, **autobatch_launches},

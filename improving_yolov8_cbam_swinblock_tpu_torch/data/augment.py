@@ -2,9 +2,10 @@
 data/augment.py): the letterbox, format_sample, the transforms of the
 device-augmented and val paths, and the host augmentation stack of
 device_augment=False (mosaic 2x2, 3x3 and 1x3, random_perspective, mixup,
-pixel_augment, HSV and flips, train_transform), and the segment task's
-instance-aware stack (the polygons through the same mosaic, warp, mixup and
-flips; segment_transform's overlap map or bit planes of the instances).
+pixel_augment, HSV and flips, train_transform), and the instance-aware
+stack of the segment and pose tasks (the polygons and keypoints through the
+same mosaic, warp, mixup and flips; segment_transform's overlap map or bit
+planes of the instances, pose_transform's keypoint targets).
 
 Letterbox: PyTorch's bilinear interpolation with half-pixel centres
 (align_corners=False), the rule cv2.INTER_LINEAR follows; cv2 rounds its
@@ -671,20 +672,37 @@ def train_transform(samples: List[Dict], imgsz: int, max_gt: int, rng: np.random
 
 
 # ---------------------------------------------------------------------------
-# The instance-aware host stack of the segment task (JAX data/augment.py:465-545, :611-884): the
-# polygons ride the same mosaic, warp, mixup and flips as the boxes; the targets add an overlap
-# map (or bit planes) of the instances at imgsz / mask_ratio, filled with cv2.fillPoly's rule
-# (utils/patches.py fill_poly). An instance is a polygon in pixels, or None for a box-only label.
+# The instance-aware host stack of the segment and pose tasks (JAX data/augment.py:465-545,
+# :611-909): the polygons and keypoints ride the same mosaic, warp, mixup and flips as the boxes;
+# the segment targets add an overlap map (or bit planes) of the instances at imgsz / mask_ratio,
+# filled with cv2.fillPoly's rule (utils/patches.py fill_poly), the pose targets the keypoints.
+# An instance has a polygon in pixels, or None for a box-only label, and keypoints (nk, 3) in
+# pixels with their visibility, or None.
 
 
 def _inst_px(sample: Dict) -> Dict:
-    """A loader sample with its polygons in pixels, beside its xyxy pixel boxes."""
+    """A loader sample with its polygons and keypoints in pixels, beside its xyxy pixel boxes."""
     h, w = sample["img"].shape[:2]
     n = len(sample["cls"])
     polys = list(sample.get("segments") or [None] * n)
     polys = [None if j >= len(polys) or polys[j] is None else polys[j] * np.array([w, h], np.float32)
              for j in range(n)]
-    return {"img": sample["img"], "bboxes": sample["bboxes"].astype(np.float32), "cls": sample["cls"], "polys": polys}
+    kpts = list(sample.get("kpts") or [None] * n)
+    px_kpts = []
+    for j in range(n):
+        k = kpts[j] if j < len(kpts) else None
+        if k is not None:
+            k = k.copy()
+            k[:, 0] *= w
+            k[:, 1] *= h
+        px_kpts.append(k)
+    return {"img": sample["img"], "bboxes": sample["bboxes"].astype(np.float32), "cls": sample["cls"], "polys": polys,
+            "kpts": px_kpts}
+
+
+def _map_kpts(s: Dict, fn) -> List:
+    """fn applied to each instance's keypoints (None stays None); [] for a sample without them."""
+    return [None if k is None else fn(k) for k in s.get("kpts", [])]
 
 
 def _shift_inst(s: Dict, dx: float, dy: float) -> Dict:
@@ -693,17 +711,18 @@ def _shift_inst(s: Dict, dx: float, dy: float) -> Dict:
         b[:, [0, 2]] += dx
         b[:, [1, 3]] += dy
     return {**s, "bboxes": b,
-            "polys": [None if p is None else p + np.array([dx, dy], np.float32) for p in s["polys"]]}
+            "polys": [None if p is None else p + np.array([dx, dy], np.float32) for p in s["polys"]],
+            "kpts": _map_kpts(s, lambda k: np.concatenate([k[:, :2] + np.array([dx, dy], np.float32), k[:, 2:]], 1))}
 
 
 def _scale_inst(s: Dict, r: float, padw: int, padh: int) -> Dict:
-    """Boxes and polygons scaled by the letterbox gain r, then shifted by its pad."""
-    return _shift_inst({**s, "bboxes": s["bboxes"] * r, "polys": [None if p is None else p * r for p in s["polys"]]},
-                       padw, padh)
+    """Boxes, polygons and keypoints scaled by the letterbox gain r, then shifted by its pad."""
+    return _shift_inst({**s, "bboxes": s["bboxes"] * r, "polys": [None if p is None else p * r for p in s["polys"]],
+                        "kpts": _map_kpts(s, lambda k: np.concatenate([k[:, :2] * r, k[:, 2:]], 1))}, padw, padh)
 
 
 def mosaic4_inst(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
-    """mosaic4 of instance samples: the same draws and canvas, the polygons shifted with their boxes."""
+    """mosaic4 of instance samples: the same draws and canvas, the polygons and keypoints shifted with their boxes."""
     s = imgsz
     border = (-s // 2, -s // 2)
     yc = int(rng.uniform(-border[0], 2 * s + border[0]))
@@ -716,16 +735,17 @@ def mosaic4_inst(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> D
         parts.append(_shift_inst(sample, x1a - x1b, y1a - y1b))
     return {"img": img4, "bboxes": np.clip(np.concatenate([p["bboxes"] for p in parts], 0), 0, 2 * s),
             "cls": np.concatenate([p["cls"] for p in parts], 0), "polys": sum((p["polys"] for p in parts), []),
-            "mosaic_border": border}
+            "kpts": sum((p["kpts"] for p in parts), []), "mosaic_border": border}
 
 
 def random_perspective_inst(sample: Dict, rng: np.random.Generator, degrees=0.0, translate=0.1, scale=0.5,
                             shear=0.0, perspective=0.0, border=(0, 0)) -> Dict:
     """random_perspective of an instance sample: its draws and warp; each
     polygon goes through the matrix and its box becomes the clipped
-    polygon's extent (a box-only instance: its warped corners' extent), and
-    box_candidates keeps instances with an area threshold of 0.01 where the
-    sample has a polygon, else 0.10."""
+    polygon's extent (a box-only instance: its warped corners' extent), each
+    instance's keypoints go through the matrix too and a point that leaves
+    the frame gets visibility 0, and box_candidates keeps instances with an
+    area threshold of 0.01 where the sample has a polygon, else 0.10."""
     img = sample["img"]
     h = img.shape[0] + border[0] * 2
     w = img.shape[1] + border[1] * 2
@@ -758,6 +778,8 @@ def random_perspective_inst(sample: Dict, rng: np.random.Generator, degrees=0.0,
     n = len(sample["cls"])
     new_boxes = np.zeros((n, 4), np.float32)
     new_polys = []
+    kpts = sample.get("kpts") or [None] * n
+    new_kpts = []
     for j in range(n):
         poly = sample["polys"][j]
         if poly is not None:
@@ -769,27 +791,43 @@ def random_perspective_inst(sample: Dict, rng: np.random.Generator, degrees=0.0,
             new_polys.append(None)
         cp = np.clip(pts, [0, 0], [w, h])
         new_boxes[j] = [cp[:, 0].min(), cp[:, 1].min(), cp[:, 0].max(), cp[:, 1].max()]
+        q = None
+        if kpts[j] is not None:
+            q = kpts[j].copy()
+            q[:, :2] = warp_pts(q[:, :2]).astype(np.float32)
+            q[(q[:, 0] < 0) | (q[:, 0] > w) | (q[:, 1] < 0) | (q[:, 1] > h), 2] = 0  # left the frame: invisible
+        new_kpts.append(q)
     keep = box_candidates(sample["bboxes"].T * sc, new_boxes.T,
                           area_thr=0.01 if any(p is not None for p in sample["polys"]) else 0.10)
     return {"img": img, "bboxes": new_boxes[keep], "cls": sample["cls"][keep],
-            "polys": [p for p, k in zip(new_polys, keep) if k]}
+            "polys": [p for p, k in zip(new_polys, keep) if k], "kpts": [q for q, k in zip(new_kpts, keep) if k]}
 
 
-def flip_inst(s: Dict, rng: np.random.Generator, flipud=0.0, fliplr=0.5) -> Dict:
+def flip_inst(s: Dict, rng: np.random.Generator, flipud=0.0, fliplr=0.5, flip_idx=None) -> Dict:
     """Up-down (probability flipud) then left-right (fliplr) flips of an
-    instance sample; a generator draw only for a flip whose probability is not 0."""
+    instance sample; a generator draw only for a flip whose probability is
+    not 0. A left-right flip mirrors the keypoints and, with flip_idx,
+    reorders them (left and right points swap names), as the JAX package's
+    flip_inst does when it is handed flip_idx."""
     h, w = s["img"].shape[:2]
     out = dict(s)
     if flipud and rng.random() < flipud:
         b = out["bboxes"].copy()
         b[:, [1, 3]] = h - b[:, [3, 1]]
         out.update(img=np.ascontiguousarray(out["img"][::-1]), bboxes=b,
-                   polys=[None if p is None else np.stack([p[:, 0], h - p[:, 1]], 1) for p in out["polys"]])
+                   polys=[None if p is None else np.stack([p[:, 0], h - p[:, 1]], 1) for p in out["polys"]],
+                   kpts=_map_kpts(out, lambda k: np.concatenate([k[:, :1], h - k[:, 1:2], k[:, 2:]], 1)))
     if fliplr and rng.random() < fliplr:
         b = out["bboxes"].copy()
         b[:, [0, 2]] = w - b[:, [2, 0]]
+
+        def flip_k(k):
+            q = np.concatenate([w - k[:, :1], k[:, 1:]], 1)
+            return q[np.asarray(flip_idx)] if flip_idx is not None else q
+
         out.update(img=np.ascontiguousarray(out["img"][:, ::-1]), bboxes=b,
-                   polys=[None if p is None else np.stack([w - p[:, 0], p[:, 1]], 1) for p in out["polys"]])
+                   polys=[None if p is None else np.stack([w - p[:, 0], p[:, 1]], 1) for p in out["polys"]],
+                   kpts=_map_kpts(out, flip_k))
     return out
 
 
@@ -801,7 +839,8 @@ def copy_paste_inst(s: Dict, rng: np.random.Generator, p: float = 0.5, donor: Op
     (np.argsort's order, as JAX's), the first round(p * n) of them, are
     filled (utils/patches.py fill_poly, cv2.fillPoly's rule) into one paste
     mask under which the candidates' pixels replace this sample's, and are
-    appended to its instances. No generator draw; `rng` is JAX's signature."""
+    appended to its instances (without keypoints, as in the JAX package).
+    No generator draw; `rng` is JAX's signature."""
     n = len(s["cls"])
     if p <= 0 or n == 0:
         return s
@@ -835,20 +874,25 @@ def copy_paste_inst(s: Dict, rng: np.random.Generator, p: float = 0.5, donor: Op
     img = s["img"].copy()
     sel = paste == 1
     img[sel] = src_img[sel]
-    return {**s, "img": img, "bboxes": np.concatenate([s["bboxes"], cand_boxes[ok]], 0),
-            "cls": np.concatenate([s["cls"], np.asarray([cand_cls[j] for j in ok], s["cls"].dtype)], 0),
-            "polys": s["polys"] + [cand_polys[j] for j in ok]}
+    out = {**s, "img": img, "bboxes": np.concatenate([s["bboxes"], cand_boxes[ok]], 0),
+           "cls": np.concatenate([s["cls"], np.asarray([cand_cls[j] for j in ok], s["cls"].dtype)], 0),
+           "polys": s["polys"] + [cand_polys[j] for j in ok]}
+    if "kpts" in s:
+        out["kpts"] = s["kpts"] + [None] * len(ok)
+    return out
 
 
-def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Generator, hyp: Dict) -> Dict:
+def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Generator, hyp: Dict,
+                              flip_idx=None) -> Dict:
     """The instance tasks' train pipeline for one output image (JAX
     data/augment.py:727): a 2x2 mosaic (or the letterbox), copy_paste in
     flip mode, random_perspective, copy_paste in mixup mode (with copy_paste
     above 0 and 8 samples or more: a donor mosaic of the last four samples
     after its own random_perspective), mixup with a second mosaic of samples
-    4 to 7, pixel_augment, HSV, flips. The generator's draws are JAX's,
-    among them mixup's rng.random() wherever 8 samples or more come (in
-    mixup mode with mixup 0 too). Returns a pixel-space instance sample."""
+    4 to 7, pixel_augment, HSV, flips (flip_idx: flip_inst's). The
+    generator's draws are JAX's, among them mixup's rng.random() wherever 8
+    samples or more come (in mixup mode with mixup 0 too). Returns a
+    pixel-space instance sample."""
     insts = [_inst_px(s) for s in samples]
     warp = {k: hyp.get(k, d) for k, d in (("degrees", 0.0), ("translate", 0.1), ("scale", 0.5), ("shear", 0.0),
                                           ("perspective", 0.0))}
@@ -875,10 +919,10 @@ def geometric_train_transform(samples: List[Dict], imgsz: int, rng: np.random.Ge
         r = rng.beta(32.0, 32.0)
         m = {"img": (m["img"].astype(np.float32) * r + m2["img"].astype(np.float32) * (1 - r)).astype(np.uint8),
              "bboxes": np.concatenate([m["bboxes"], m2["bboxes"]], 0), "cls": np.concatenate([m["cls"], m2["cls"]], 0),
-             "polys": m["polys"] + m2["polys"]}
+             "polys": m["polys"] + m2["polys"], "kpts": m["kpts"] + m2["kpts"]}
     m["img"] = pixel_augment(m["img"], rng, hyp.get("pixel_augment", 1.0))
     m["img"] = random_hsv(m["img"], rng, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7), hyp.get("hsv_v", 0.4))
-    return flip_inst(m, rng, hyp.get("flipud", 0.0), hyp.get("fliplr", 0.5))
+    return flip_inst(m, rng, hyp.get("flipud", 0.0), hyp.get("fliplr", 0.5), flip_idx)
 
 
 def _val_inst(sample: Dict, imgsz: int) -> Dict:
@@ -932,4 +976,32 @@ def segment_transform(sample, imgsz: int, max_gt: int, train: bool, rng, hyp: Di
             _fill_instance(seg, polys[j], m["bboxes"][j], ratio, int(j + 1))
     out["seg_map"] = seg
     out["ratio_pad"] = rp
+    return out
+
+
+def pose_transform(sample, imgsz: int, max_gt: int, kpt_shape, train: bool, rng, hyp: Dict,
+                   flip_idx=None) -> Dict[str, np.ndarray]:
+    """The pose task's sample (JAX data/augment.py:886): train runs
+    geometric_train_transform on the main sample and its donors (flip_idx
+    reorders the keypoints of a left-right flip), val the letterbox. Beside
+    format_sample's keys, `kpts`: (max_gt, nk, 3) float32, each instance's
+    keypoints with x and y normalised by imgsz and the visibility, a point
+    of visibility 0 at (0, 0), zeros for an instance without keypoints. The
+    JAX package's val sample has no ratio_pad, nor has this one."""
+    if train:
+        m = geometric_train_transform(sample if isinstance(sample, list) else [sample], imgsz, rng, hyp, flip_idx)
+    else:
+        m = _val_inst(sample[0] if isinstance(sample, list) else sample, imgsz)
+    out = format_sample({k: m[k] for k in ("img", "bboxes", "cls")}, imgsz, max_gt)
+    nk = kpt_shape[0]
+    kp = np.zeros((max_gt, nk, 3), np.float32)
+    for j in range(min(len(m["cls"]), max_gt)):
+        k = m["kpts"][j] if j < len(m["kpts"]) else None
+        if k is not None:
+            q = k.astype(np.float32)  # a copy
+            q[:, 0] /= imgsz
+            q[:, 1] /= imgsz
+            q[q[:, 2] == 0, :2] = 0  # an invisible point keeps no coordinates
+            kp[j, :len(q)] = q[:nk]
+    out["kpts"] = kp
     return out

@@ -21,9 +21,10 @@ HYP_KEYS = (
 )
 
 
-def build_yolo_dataset(cfg, img_path, data: Dict, mode: str = "train") -> YOLODataset:
+def build_yolo_dataset(cfg, img_path, data: Dict, mode: str = "train", kpt_shape=None) -> YOLODataset:
     """The dataset of one split: train mode honours `fraction`, val and test
-    read the whole split."""
+    read the whole split. A pose model's kpt_shape makes it a keypoint
+    dataset, with the data descriptor's `flip_idx`."""
     return YOLODataset(
         img_path,
         imgsz=cfg.imgsz,
@@ -32,13 +33,15 @@ def build_yolo_dataset(cfg, img_path, data: Dict, mode: str = "train") -> YOLODa
         single_cls=getattr(cfg, "single_cls", False),
         fraction=float(getattr(cfg, "fraction", 1.0) or 1.0) if mode == "train" else 1.0,
         cache=getattr(cfg, "cache", False) or False,
+        kpt_shape=kpt_shape,
+        flip_idx=data.get("flip_idx") if kpt_shape else None,
     )
 
 
 def build_dataloader(dataset: YOLODataset, batch: int, workers: int = 8, train: bool = True,
                      hyp: Optional[Dict] = None, seed: int = 0, device_augment: bool = True,
                      rect_shape=None, task: str = "detect") -> DataLoader:
-    """The fixed-shape prefetch loader; task "segment" adds the instances' targets."""
+    """The fixed-shape prefetch loader; task "segment" adds the instances' masks, "pose" their keypoints."""
     return DataLoader(dataset, batch, train=train, hyp=hyp, seed=seed, workers=workers,
                       device_augment=device_augment, rect_shape=rect_shape, task=task)
 

@@ -11,7 +11,9 @@ JAX package's data/dataset.py: check_det_dataset, YOLODataset, DataLoader).
     bboxes (B, G, 4) normalised xywh, mask (B, G), plus ratio_pad and
     orig_shape on the val path (the segment task: `seg_map`, the instances'
     overlap map or bit planes, and ratio_pad, from data/augment.py
-    segment_transform on both paths). The train path either letterboxes only and
+    segment_transform on both paths; the pose task: `kpts` (B, max_gt, nk,
+    3), from data/augment.py pose_transform, the train path swapping left
+    and right points on a flip by the descriptor's `flip_idx`). The train path either letterboxes only and
     adds `aug` (the 7 device-augmentation hyperparameters in AUG_KEYS
     order; device_augment=True, the default) or runs the host augmentation
     stack (data/augment.py train_transform; device_augment=False), each
@@ -39,7 +41,7 @@ import yaml
 
 from ..cfg import AUG_KEYS
 from ..utils.patches import image_size, imread
-from .augment import raw_train_transform, segment_transform, train_transform, val_transform
+from .augment import pose_transform, raw_train_transform, segment_transform, train_transform, val_transform
 from .utils import load_or_build_cache
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
@@ -53,7 +55,8 @@ def check_det_dataset(data) -> Dict:
     dict and nc. A bare YAML name that is not a file (`"coco8.yaml"`) is
     read from the packaged cfg/datasets/, and its relative `path:` is
     anchored at SETTINGS["datasets_dir"]; a user YAML's relative `path:` is
-    anchored at the YAML's directory. Nothing is downloaded."""
+    anchored at the YAML's directory. A pose descriptor's `kpt_shape` and
+    `flip_idx` pass through. Nothing is downloaded."""
     packaged = False
     if isinstance(data, (str, Path)):
         p = Path(data)
@@ -84,10 +87,12 @@ def check_det_dataset(data) -> Dict:
 
 
 class YOLODataset:
-    """Images and YOLO txt labels of one split."""
+    """Images and YOLO txt labels of one split; with kpt_shape (nk, nd) a
+    pose dataset's, its keypoints read by that shape, and `flip_idx` the
+    keypoint order of a left-right flip (None: the points keep their order)."""
 
     def __init__(self, img_dir: str, imgsz: int = 640, max_gt: int = 300, nc: int = 80, single_cls: bool = False,
-                 fraction: float = 1.0, cache=False):
+                 fraction: float = 1.0, cache=False, kpt_shape=None, flip_idx=None):
         self.cache = "ram" if cache is True else (str(cache).lower() if cache else None)
         if self.cache not in (None, "ram", "disk"):
             raise ValueError(f"cache={cache!r} must be True/'ram', 'disk' or False")
@@ -98,12 +103,14 @@ class YOLODataset:
         self.max_gt = max_gt
         self.nc = nc
         self.single_cls = single_cls
+        self.kpt_shape = tuple(kpt_shape) if kpt_shape else None
+        self.flip_idx = list(flip_idx) if flip_idx is not None and self.kpt_shape else None
         self.img_files = sorted(str(p) for p in self.img_dir.rglob("*") if p.suffix.lower() in IMG_EXTS)
         if not self.img_files:
             raise FileNotFoundError(f"no images found under {img_dir}")
         if fraction < 1.0:
             self.img_files = self.img_files[: max(1, round(len(self.img_files) * fraction))]
-        self.labels, self.stats = load_or_build_cache(self.img_files, nc, single_cls)
+        self.labels, self.stats = load_or_build_cache(self.img_files, nc, self.kpt_shape, single_cls)
         if self.stats.get("ncorrupt"):
             bad = self.stats["msgs"][:3]
             raise ValueError(f"{self.stats['ncorrupt']} corrupt images/labels under {img_dir}: {bad}")
@@ -152,8 +159,9 @@ class YOLODataset:
         return img
 
     def load_sample(self, idx: int) -> Dict:
-        """Raw sample: BGR image, pixel xyxy boxes, classes and each label's
-        normalised polygon (None for a box row)."""
+        """Raw sample: BGR image, pixel xyxy boxes, classes, each label's
+        normalised polygon (None for a box row) and keypoints (None where it
+        has none)."""
         img = self._read_image(idx)
         h, w = img.shape[:2]
         lab = self.labels[idx]
@@ -163,7 +171,8 @@ class YOLODataset:
             bboxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], axis=1).astype(np.float32)
         else:
             bboxes = np.zeros((0, 4), np.float32)
-        return {"img": img, "bboxes": bboxes, "cls": lab["cls"].copy(), "segments": lab.get("segments", [])}
+        return {"img": img, "bboxes": bboxes, "cls": lab["cls"].copy(), "segments": lab.get("segments", []),
+                "kpts": lab.get("kpts", [])}
 
 
 class DataLoader:
@@ -176,7 +185,8 @@ class DataLoader:
         self.bs = batch_size
         self.train = train
         self.task = task
-        # the segment task runs its own host stack, never the device augmentation nor rect, as in the JAX package
+        # the segment and pose tasks run their own host stack, never the device augmentation nor rect, as in
+        # the JAX package
         self.device_augment = device_augment and train and task == "detect"
         self.rect_shape = tuple(rect_shape) if rect_shape and task == "detect" else None  # val only: (h, w)
         self.hyp = dict(hyp or {})
@@ -200,7 +210,7 @@ class DataLoader:
     def _make_sample(self, epoch: int, pos: int, i: int) -> Dict[str, np.ndarray]:
         """Image i at position pos of the epoch. The host path's generator and
         donor draws are the JAX package's (its DataLoader._make_sample)."""
-        if self.task == "segment":
+        if self.task in ("segment", "pose"):
             rng = np.random.default_rng((self.seed * 1_000_003 + epoch) * 1_000_003 + i * 7 + pos)
             group = self.ds.load_sample(i)
             if self.train:  # the main sample, the 2x2 mosaic's donors, with mixup a second mosaic's, and in
@@ -210,6 +220,9 @@ class DataLoader:
                     n += 4
                 extra = rng.integers(0, len(self.ds), n)
                 group = [group] + [self.ds.load_sample(int(j)) for j in extra]
+            if self.task == "pose":
+                return pose_transform(group, self.ds.imgsz, self.ds.max_gt, self.ds.kpt_shape or (17, 3), self.train,
+                                      rng, self.hyp, flip_idx=self.ds.flip_idx)
             return segment_transform(group, self.ds.imgsz, self.ds.max_gt, self.train, rng, self.hyp)
         if self.device_augment:
             return raw_train_transform(self.ds.load_sample(i), self.ds.imgsz, self.ds.max_gt)

@@ -11,7 +11,12 @@ segmentation model's program returns two float32 outputs: the
 (B, 4 + nc + nm, A) prediction (the Detect layout, then the mask
 coefficients) and the prototypes (B, nm, H/4, W/4), so that masks can be
 made from it (the JAX exporter's seg program returns the prediction only);
-`nms=True` on it raises ValueError, as in the JAX exporter. A YOLOv10
+`nms=True` on it raises ValueError, as in the JAX exporter. A pose
+model's program returns one float32 (B, 4 + nc + nk * nd, A): the Detect
+layout followed by the decoded keypoints (x, y in input pixels and, where
+nd is 3, the visibility sigmoid); its sidecar says `task: pose` and gives
+`kpt_shape` (as the reference's exporter writes it; the JAX exporter does
+not), and `nms=True` on it raises too. A YOLOv10
 model's program returns its head's (B, 300, 6) detections (xyxy pixels,
 score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
 warns and is dropped (the JAX exporter would run e2e_postprocess on those
@@ -68,7 +73,8 @@ TORCH_ONLY_KEYS = (("simplify", True), ("opset", None), ("optimize", False), ("w
 class ExportForward(nn.Module):
     """uint8 (B, H, W, 3) RGB frames -> the model's float32 (B, 4 + nc, A)
     (a YOLOv10 model's (B, 300, 6) detections; a segmentation model's
-    (B, 4 + nc + nm, A) and its float32 prototypes (B, nm, H/4, W/4)), or
+    (B, 4 + nc + nm, A) and its float32 prototypes (B, nm, H/4, W/4); a
+    pose model's (B, 4 + nc + nk * nd, A)), or
     with nms e2e_postprocess's (B, max_det, 6): the frames cast to the
     model's dtype, then divided by 255, as the JAX exporter's forward does."""
 
@@ -172,8 +178,12 @@ class Exporter:
                        "e2e_postprocess)" if opts["nms"]
                        else "NHWC uint8 in, (B, 4+nc+nm, A) out (xywh pixels + cls sigmoid + mask coefficients) "
                        "and (B, nm, H/4, W/4) out (mask prototypes)" if self.model.task == "segment"
+                       else "NHWC uint8 in, (B, 4+nc+nk*nd, A) out (xywh pixels + cls sigmoid + keypoints: x, y "
+                       "pixels and, where nd is 3, the visibility sigmoid)" if self.model.task == "pose"
                        else "NHWC uint8 in, (B, 4+nc, A) out (xywh pixels + cls sigmoid)"),
         }
+        if self.model.task == "pose":  # the reference's key, which the JAX package's sidecar lacks
+            md["kpt_shape"] = [int(v) for v in self.model.kpt_shape]
         if self.model.end2end:  # a key the JAX package's sidecar lacks, written where it is true only
             md.update(end2end=True, max_det=int(self.model.model[-1].max_det))
         elif opts["nms"]:

@@ -15,9 +15,12 @@ from a file warm-starts the trainer) and adopts best.pt's EMA weights;
 `val(data=...)` returns ValMetrics. A segmentation graph (task "segment")
 predicts masks, validates box and mask mAP, trains with the seg loss and
 exports (a program with the prototypes beside the prediction) through the
-same verbs. `YOLO("model.pt2")` serves a program that `export` wrote
-(nn/autobackend.py ProgramModel): predict and track, with the masks of a
-segmentation program; the other verbs need the model itself. `track` runs
+same verbs; a pose graph (task "pose") predicts and tracks keypoints,
+validates box and OKS keypoint mAP, trains with the pose loss and exports
+(a program whose prediction carries the keypoints). `YOLO("model.pt2")`
+serves a program that `export` wrote (nn/autobackend.py ProgramModel):
+predict and track, with the masks of a segmentation program and the
+keypoints of a pose program; the other verbs need the model itself. `track` runs
 predict with ByteTrack or BoT-SORT on its events (trackers/), `embed`
 returns pooled layer embeddings, and predict's visualize writes feature
 maps.
@@ -84,7 +87,7 @@ class YOLO:
                 self.overrides = {"imgsz": int(self.model.backend.imgsz[0])}
         else:
             self.model = DetectionModel(model, **self._build)
-        self.task = self.model.task  # "detect" or "segment", from the graph's head
+        self.task = self.model.task  # "detect", "segment" or "pose", from the graph's head
 
     def _load_pt(self, path: str) -> None:
         payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -359,23 +362,30 @@ class YOLO:
         fires the val batch events of this YOLO's callbacks. A segmentation
         model (task "segment") returns its box and mask metrics ("(B)" and
         "(M)" keys, `.box` and `.seg`; fitness the sum of both; `mAP50-95`
-        the mask's), without rect, plots or JSON."""
+        the mask's), and a pose model (task "pose") its box and OKS keypoint
+        metrics ("(B)" and "(P)" keys, `.box` and `.pose`; `mAP50-95` the
+        keypoints'), each key also as metrics/<key>, without rect, plots or
+        JSON."""
         self._single("validating")
         args = get_cfg({**self.overrides, **kwargs})
         stride = max(self.model.strides)
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         info = check_det_dataset(data or args.data)
         split = args.split if info.get(args.split) else "val"
-        ds = build_yolo_dataset(args, info[split], info, mode="val")
+        ds = build_yolo_dataset(args, info[split], info, mode="val", kpt_shape=getattr(self.model, "kpt_shape", None))
         rect_shape = ds.rect_shape(stride=int(stride)) if args.rect and self.task == "detect" else None
         loader = build_dataloader(ds, int(args.batch), workers=args.workers, train=False, rect_shape=rect_shape,
                                   task=self.task)
         self.validator = TASK_VALIDATORS[self.task](self.model, loader, args, callbacks=self.callbacks)
         out = ValMetrics(self.validator())
-        if self.task == "segment":  # the box and mask keys, each also as metrics/<key>
-            for k in [k for k in out if k.endswith(("(B)", "(M)"))]:
+        if self.task in ("segment", "pose"):  # the box and mask (or keypoint) keys, each also as metrics/<key>
+            for k in [k for k in out if k.endswith(("(B)", "(M)", "(P)"))]:
                 out[f"metrics/{k}"] = out[k]
-            out.box, out.seg = self.validator.box_m.box, self.validator.mask_m.box
+            out.box = self.validator.box_m.box
+            if self.task == "segment":
+                out.seg = self.validator.mask_m.box
+            else:
+                out.pose = self.validator.pose_m.box
             return out
         for k in ("precision", "recall", "mAP50", "mAP50-95"):
             out[f"metrics/{k}(B)"] = out[k]

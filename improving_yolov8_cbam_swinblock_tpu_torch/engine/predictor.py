@@ -18,9 +18,16 @@ model's NMS carries each kept anchor's mask coefficients, and each image's
 masks (`Results.masks`, (n, H0, W0) bool) are made on the model's device
 (`native_masks`); `retina_masks` crops them by the boxes at the original
 resolution instead of at the prototypes'; `augment` does not apply, as in
-the JAX predictor. A `.pt2` program (YOLO("model.pt2"),
+the JAX predictor. A pose model's NMS carries each kept anchor's nk * nd
+decoded keypoint columns, which are scaled back through the letterbox
+(ops/boxes.py scale_coords with the letterbox's own gain and integer pad,
+clipped to the image, as the JAX predictor does) on the model's device,
+then copied to the host once a batch (`Results.keypoints`, (n, nk, nd));
+`augment` does not apply to a pose model either (the JAX predictor runs
+TTA for detect models only). A `.pt2` program (YOLO("model.pt2"),
 nn/autobackend.py ProgramModel) gives the same outputs: a segmentation
-program's prototypes are its second output.
+program's prototypes are its second output, a pose program's keypoints sit
+in its prediction.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -38,7 +45,7 @@ import torch
 from ..data.augment import letterbox, letterbox_geometry
 from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
-from ..ops.boxes import process_mask, scale_boxes
+from ..ops.boxes import process_mask, scale_boxes, scale_coords
 from ..ops.nms import non_max_suppression
 from ..ops.segments import resize_bilinear
 from ..utils.callbacks import default_callbacks, run_callbacks
@@ -138,11 +145,12 @@ class DetectionPredictor:
         else:
             if segment:  # (B, 4 + nc + nm, A) and the prototypes; no TTA
                 pred, (_, _, proto) = self.model(x)
-            else:
-                pred = self.model.predict_augment(x) if a.augment else self.model(x)[0]
+            else:  # a pose model's keypoints ride in pred; TTA for detect models only
+                pred = self.model.predict_augment(x) if a.augment and self.model.task == "detect" else self.model(x)[0]
             dets = non_max_suppression(pred, conf_thres=conf, iou_thres=float(a.iou), max_det=int(a.max_det),
                                        nc=self.model.nc, agnostic=bool(a.agnostic_nms))
         dets_dev = dets[:n]
+        kpts = self.keypoints(dets_dev, frames, imgsz) if self.model.task == "pose" else None
         dets = dets_dev[..., :6].cpu().numpy()
         t2 = time.perf_counter()
         if a.visualize:
@@ -154,6 +162,8 @@ class DetectionPredictor:
             if len(det):
                 det[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(det[:, :4]), img0.shape[:2]).numpy()
             res = Results(img0, path, self.model.names, det)
+            if kpts is not None and len(det):  # no detections: keypoints None, as in the JAX predictor
+                res.update(keypoints=kpts[i])
             if segment and len(det):
                 _, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
                 rows = dets_dev[i][torch.from_numpy(keep).to(dets_dev.device)]
@@ -164,6 +174,20 @@ class DetectionPredictor:
             out.append(res)
         self._log_results(out)
         return out
+
+    def keypoints(self, dets: torch.Tensor, frames, imgsz: int) -> List[np.ndarray]:
+        """Each image's (n, nk, nd) keypoints of its n kept NMS rows (the
+        columns after the class, in letterboxed pixels) in original pixels:
+        scale_coords with the letterbox's gain and (padw, padh), clipped to
+        the image, on the rows' device; one copy to the host for the batch."""
+        nk, nd = self.model.kpt_shape
+        kept = []
+        for det, (img0, _) in zip(dets, frames):
+            r, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
+            k = det[det[:, 4] > 0, 6:6 + nk * nd].reshape(-1, nk, nd)
+            kept.append(scale_coords((imgsz, imgsz), k, img0.shape[:2], ratio_pad=((r, r), (padw, padh))))
+        host = torch.cat(kept).cpu().numpy()
+        return np.split(host, np.cumsum([len(k) for k in kept])[:-1])
 
     def save_feature_maps(self, x: torch.Tensor, paths: Sequence[str]) -> None:
         """visualize: for each image, a grid of every rank-4 layer output of

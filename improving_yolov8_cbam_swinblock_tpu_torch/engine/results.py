@@ -1,12 +1,14 @@
 """Inference results of the predict path: numpy-backed, like the JAX
-package's engine/results.py (its detection part, and the masks of a
-segmentation model).
+package's engine/results.py (its detection part, the masks of a
+segmentation model and the keypoints of a pose model).
 
 `Results` holds one image's detections and writes them out: a log string
 (`verbose`), dicts and JSON (`summary`, `to_json`, with each mask's polygon
-as `segments`), a sqlite table (`to_sql`), an annotated copy of the image
-with the masks blended in (`plot`, `save`, `show`), YOLO label lines
-(`save_txt`) and crops (`save_crop`). Drawing and image files need cv2, as
+as `segments` and each detection's `keypoints`), a sqlite table
+(`to_sql`), an annotated copy of the image with the masks blended in and
+the keypoints dotted (`plot`, `save`, `show`), YOLO label lines
+(`save_txt`, a pose model's normalised keypoints after each box) and crops
+(`save_crop`). Drawing and image files need cv2, as
 in the JAX package; the polygons (`Masks.xy`) do not.
 """
 
@@ -114,13 +116,46 @@ class Masks:
         return len(self.data)
 
 
+class Keypoints:
+    """Pose keypoints: (n, nk, nd) float32, x and y in original image pixels
+    and, where nd is 3, the visibility score, as the JAX package's
+    engine/results.py Keypoints."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, dtype=np.float32)
+        self.orig_shape = tuple(orig_shape)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        """xy normalised by the original image's width and height."""
+        h, w = self.orig_shape
+        return self.xy / np.array([w, h], np.float32)
+
+    @property
+    def conf(self):
+        """The visibility scores (n, nk), or None where nd is 2."""
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    def __len__(self):
+        return len(self.data)
+
+
 def _class_color(cls: int) -> tuple:
     """The JAX package's Results.plot colour of a class (BGR)."""
     return tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
 
 
 class Results:
-    """One image's detections, and a segmentation model's masks (`masks`, None otherwise)."""
+    """One image's detections, a segmentation model's masks (`masks`) and a
+    pose model's keypoints (`keypoints`), each None otherwise."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None):
         self.orig_img = orig_img
@@ -129,18 +164,22 @@ class Results:
         self.names = names
         self.boxes = Boxes(boxes if boxes is not None else np.zeros((0, 6)), self.orig_shape)
         self.masks: Optional[Masks] = None
+        self.keypoints: Optional[Keypoints] = None
         self.speed = {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
         return len(self.boxes)
 
     def __getitem__(self, idx):
-        """A new Results over the selected detections (and their masks)."""
+        """A new Results over the selected detections (and their masks and keypoints)."""
         r = self.new()
         r.boxes = self.boxes[idx]
         if self.masks is not None:
             m = self.masks.data[idx]
             r.masks = Masks(m[None] if m.ndim == 2 else m, self.orig_shape)
+        if self.keypoints is not None:
+            k = self.keypoints.data
+            r.keypoints = Keypoints(k[idx].reshape((-1,) + k.shape[1:]), self.orig_shape)
         return r
 
     def new(self):
@@ -149,12 +188,14 @@ class Results:
         r.speed = dict(self.speed)
         return r
 
-    def update(self, boxes=None, masks=None):
-        """Replace the detections (and the masks) in place."""
+    def update(self, boxes=None, masks=None, keypoints=None):
+        """Replace the detections (and the masks, the keypoints) in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
+        if keypoints is not None:
+            self.keypoints = Keypoints(keypoints, self.orig_shape)
         return self
 
     def verbose(self) -> str:
@@ -170,8 +211,11 @@ class Results:
 
     def summary(self):
         """One dict per detection: name, class, confidence (5 decimals), box,
-        track_id for tracked boxes, and `segments` ({"x": [...], "y": [...]},
-        Masks.xyn) where there is a mask for every box."""
+        track_id for tracked boxes, `segments` ({"x": [...], "y": [...]},
+        Masks.xyn) where there is a mask for every box, and `keypoints`
+        ({"x": [...], "y": [...]} in pixels, as the JAX package writes them,
+        and "visible", the visibility scores, where nd is 3, as the
+        reference writes them) where the detection has keypoints."""
         out = []
         b = self.boxes
         polys = self.masks.xyn if self.masks is not None and len(self.masks) == len(b) else None
@@ -184,6 +228,11 @@ class Results:
                 row["track_id"] = int(b.id[i])
             if polys is not None:
                 row["segments"] = {"x": polys[i][:, 0].tolist(), "y": polys[i][:, 1].tolist()}
+            if self.keypoints is not None and i < len(self.keypoints):
+                k = self.keypoints
+                row["keypoints"] = {"x": k.xy[i][:, 0].tolist(), "y": k.xy[i][:, 1].tolist()}
+                if k.conf is not None:
+                    row["keypoints"]["visible"] = k.conf[i].tolist()
             out.append(row)
         return out
 
@@ -220,7 +269,8 @@ class Results:
         where it differs, kept where > 0, then 0.6 of the pixel plus 0.4 of
         its class colour, truncated, as the JAX package draws them), then
         each box and its 'name conf' label (with 'id:n' for tracked boxes),
-        coloured by class."""
+        coloured by class, then every keypoint as a filled red dot of radius
+        max(lw, 2), as the JAX package draws them."""
         import cv2
 
         img = self.orig_img.copy()
@@ -242,6 +292,10 @@ class Results:
             if b.id is not None:
                 label = f"id:{int(b.id[i])} " + label
             cv2.putText(img, label, (x1, max(y1 - 3, 10)), cv2.FONT_HERSHEY_SIMPLEX, lw / 6, color, 1)
+        if self.keypoints is not None:
+            for k in self.keypoints.xy:
+                for x, y in k:
+                    cv2.circle(img, (int(x), int(y)), max(lw, 2), (0, 0, 255), -1)
         return img
 
     def show(self, *args, **kwargs):
@@ -264,12 +318,20 @@ class Results:
 
     def save_txt(self, txt_file: str, save_conf: bool = False):
         """YOLO label lines, 'cls x y w h' normalised (and conf with save_conf),
-        '%.6g'; a segmentation model's too (no polygon), as the JAX package
-        writes them."""
+        '%.6g'; a segmentation model's too (no polygon); a pose model's
+        followed by each keypoint's x and y normalised and its other columns,
+        as the JAX package writes them."""
         lines = []
+        h, w = self.orig_shape
+        kpts = self.keypoints.data if self.keypoints is not None else None
         for i in range(len(self.boxes)):
             cls, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
             vals = [cls, *self.boxes.xywhn[i].tolist()] + ([conf] if save_conf else [])
+            if kpts is not None:
+                kn = kpts[i].copy()
+                kn[..., 0] /= w
+                kn[..., 1] /= h
+                vals += kn.reshape(-1).tolist()
             lines.append(" ".join(f"{v:.6g}" if not isinstance(v, int) else str(v) for v in vals))
         p = Path(txt_file)
         p.parent.mkdir(parents=True, exist_ok=True)

@@ -57,9 +57,18 @@ trains as the JAX trainer trains it: the loader's instance-aware host stack
 multi_scale, no rect val), the seg loss (utils/seg_loss.py: the detect
 terms, with K2, and the masks' BCE) with four loss items box, seg, cls,
 dfl (the progress line and results.csv carry train/seg_loss), and
-SegmentationValidator's box and mask metrics.
+SegmentationValidator's box and mask metrics. A pose model (task "pose", a
+graph that ends in Pose) trains likewise on the host stack
+(data/augment.py pose_transform, the keypoints carried through every
+transform, `flip_idx` from the data descriptor), with the pose loss
+(utils/pose_loss.py: the detect terms, with K2 at topk 10, the OKS location
+and the visibility BCE, gains `pose` and `kobj`), five loss items box,
+pose, kobj, cls, dfl (the reference's order; the JAX trainer logs box,
+cls and dfl only), and PoseValidator's box and keypoint metrics; a data
+descriptor's `kpt_shape` replaces the graph's, as the reference's pose
+trainer does.
 
-Not in the port yet: multi-host sharding and the pose, OBB and classify losses.
+Not in the port yet: multi-host sharding and the OBB and classify losses.
 """
 
 from __future__ import annotations
@@ -84,13 +93,15 @@ from ..utils.device import select_device
 from ..utils.files import get_save_dir
 from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
 from ..utils.loss import detection_loss
+from ..utils.pose_loss import pose_loss
 from ..utils.seg_loss import segmentation_loss
 from .validator import TASK_VALIDATORS, DetectionValidator
 
 OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
-LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl")}  # a step's items, per task
+LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"),
+              "pose": ("box", "pose", "kobj", "cls", "dfl")}  # a step's items, per task
 def checkpoint_state(path) -> Dict[str, torch.Tensor]:
     """The unfused weights a checkpoint file hands to an overlay: the EMA of
     a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
@@ -165,7 +176,8 @@ class DetectionTrainer:
     img (B, s, s, 3) uint8 RGB, cls (B, G), bboxes (B, G, 4) normalised xywh,
     mask (B, G) and, optionally, aug (7,) = mosaic, scale, translate,
     fliplr, hsv_h, hsv_s, hsv_v for the device augmentation; a segmentation
-    model's batches also carry seg_map (B, h, w) or (B, P, h, w) int32.
+    model's batches also carry seg_map (B, h, w) or (B, P, h, w) int32, a
+    pose model's kpts (B, G, nk, 3) float32.
 
     The trainer runs on the card unless `device="cpu"` is passed."""
 
@@ -205,6 +217,9 @@ class DetectionTrainer:
             if self.data is not None:
                 cfg = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
                 cfg["nc"] = 1 if a.single_cls else int(self.data["nc"])
+                f, n, head, args = cfg["head"][-1]
+                if head == "Pose" and self.data.get("kpt_shape"):  # the data's keypoints, as the reference's
+                    cfg["head"] = [*cfg["head"][:-1], [f, n, head, [args[0], list(self.data["kpt_shape"])]]]
             self.model = DetectionModel(cfg, dtype=torch.bfloat16 if a.amp else torch.float32,
                                         device=self.device, seed=a.seed, param_dtype=torch.float32)
         if self.data is not None:
@@ -244,12 +259,13 @@ class DetectionTrainer:
         a = self.args
         hyp = {k: getattr(a, k) for k in HYP_KEYS}
         task = self.model.task
-        train_ds = build_yolo_dataset(a, self.data["train"], self.data, mode="train")
+        kpt_shape = self.model.kpt_shape  # None but for a pose model, as the JAX trainer hands it on
+        train_ds = build_yolo_dataset(a, self.data["train"], self.data, mode="train", kpt_shape=kpt_shape)
         self.train_loader = build_dataloader(train_ds, int(a.batch), workers=a.workers, train=True, hyp=hyp,
                                              seed=a.seed, device_augment=bool(a.device_augment), task=task)
         self.val_loader = None
         if a.val and self.data.get("val"):
-            val_ds = build_yolo_dataset(a, self.data["val"], self.data, mode="val")
+            val_ds = build_yolo_dataset(a, self.data["val"], self.data, mode="val", kpt_shape=kpt_shape)
             rect = a.rect and task == "detect"
             rect_shape = val_ds.rect_shape(stride=int(max(self.model.strides))) if rect else None
             self.val_loader = build_dataloader(val_ds, int(a.batch), workers=a.workers, train=False, seed=a.seed,
@@ -288,7 +304,8 @@ class DetectionTrainer:
     def _make_train_step(self, nb: int):
         """Build the optimizer and return (step, accumulate): step(batch) runs
         one micro-step and returns the loss items (LOSS_NAMES: box, cls, dfl;
-        a segmentation model's box, seg, cls, dfl)."""
+        a segmentation model's box, seg, cls, dfl; a pose model's box, pose,
+        kobj, cls, dfl)."""
         a = self.args
         model = self.model
         epochs = int(a.epochs)
@@ -320,8 +337,8 @@ class DetectionTrainer:
             frac = min(max(ni / nw, 0.0), 1.0)
             return frac * base, bias_lr0 + frac * (base - bias_lr0), mom_w + frac * (mom_f - mom_w)
 
-        segment = model.task == "segment"  # the loader's host stack only, as in the JAX trainer
-        device_aug, multi_scale = bool(a.device_augment) and not segment, bool(a.multi_scale) and not segment
+        task = model.task  # segment and pose: the loader's host stack only, as in the JAX trainer
+        device_aug, multi_scale = (bool(a.device_augment) and task == "detect", bool(a.multi_scale) and task == "detect")
         nc, strides = model.nc, model.strides
         dev = self.device
 
@@ -341,7 +358,10 @@ class DetectionTrainer:
                 x = xs.to(model.dtype).clamp(0.0, 1.0)
             feats = model(x)
             gains = dict(nc=nc, strides=strides, box_gain=a.box, cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
-            if segment:
+            if task == "pose":
+                total, items = pose_loss(*feats, cls, bboxes, mask, torch.as_tensor(batch["kpts"], device=dev),
+                                         kpt_shape=model.kpt_shape, pose_gain=a.pose, kobj_gain=a.kobj, **gains)
+            elif task == "segment":
                 total, items = segmentation_loss(*feats, cls, bboxes, mask, torch.as_tensor(batch["seg_map"], device=dev),
                                                  **gains)
             else:

@@ -21,8 +21,14 @@ adds the masks: each kept detection's mask at the prototypes' resolution
 (process_mask, > 0.5) is matched by mask IoU against the loader's overlap
 map (`seg_map`, imgsz / 4), and its metrics are the box and the mask mAP:
 fitness is their sum, and `mAP50-95` is the mask's. It draws no plots and
-writes no JSON, as in the JAX package. TASK_VALIDATORS picks the validator
-of a model's task.
+writes no JSON, as in the JAX package. PoseValidator (the JAX package's,
+engine/validator.py:332-395) matches each kept detection's keypoints (the
+NMS rows' columns after the class, in letterboxed pixels) by object
+keypoint similarity against the loader's (max_gt, nk, 3) targets, with
+each GT box's area times 0.53 and the COCO sigmas where nk is 17, else
+1 / nk; its metrics are the box and the keypoint mAP (fitness their sum,
+`mAP50-95` the keypoints'), without plots or JSON. TASK_VALIDATORS picks
+the validator of a model's task.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ from pathlib import Path
 from ..ops.boxes import process_mask, xywh2xyxy
 from ..ops.nms import non_max_suppression
 from ..utils.callbacks import run_callbacks
-from ..utils.metrics import (ConfusionMatrix, DetMetrics, box_iou_np, mask_iou_np, match_predictions,
-                             plot_pr_curves)
+from ..utils.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou_np,
+                             match_predictions, plot_pr_curves)
 
 
 class DetectionValidator:
@@ -244,4 +250,61 @@ class SegmentationValidator(DetectionValidator):
                                               for k in ("precision", "recall", "mAP50", "mAP50-95"))))
 
 
-TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator}
+class PoseValidator(DetectionValidator):
+    """Box and OKS keypoint mAP of a pose model (the module docstring)."""
+
+    writes_files = False
+
+    def init_metrics(self) -> None:
+        self.box_m, self.pose_m = DetMetrics(self.model.names), DetMetrics(self.model.names)
+        self.metrics = self.box_m
+        nk = self.model.kpt_shape[0]
+        self.sigma = OKS_SIGMA if nk == 17 else np.ones(nk) / nk
+
+    def update_metrics(self, dets: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
+        """Match one batch's detections by box IoU and by OKS, as the JAX
+        package's PoseValidator does (no clip to the content region; GT boxes
+        and keypoints scaled by imgsz)."""
+        imgsz = int(self.args.imgsz)
+        nk, nd = self.model.kpt_shape
+        for i in range(dets.shape[0]):
+            det = dets[i][dets[i][:, 4] > 0]
+            gt_sel = batch["mask"][i] > 0
+            gt_cls = batch["cls"][i][gt_sel].astype(int)
+            if len(det) == 0:
+                if len(gt_cls):
+                    z = np.zeros((0, 10), bool)
+                    self.box_m.update(z, np.zeros(0), np.zeros(0), gt_cls)
+                    self.pose_m.update(z, np.zeros(0), np.zeros(0), gt_cls)
+                continue
+            gt_xyxy = xywh2xyxy(torch.from_numpy(batch["bboxes"][i][gt_sel] * imgsz)).numpy()
+            gt_kpts = batch["kpts"][i][gt_sel].copy()  # (G, nk, 3) normalised
+            gt_kpts[..., :2] *= imgsz
+            pred_cls = det[:, 5].astype(int)
+            tp_b = match_predictions(pred_cls, gt_cls, box_iou_np(gt_xyxy, det[:, :4]))
+            area = (gt_xyxy[:, 2] - gt_xyxy[:, 0]) * (gt_xyxy[:, 3] - gt_xyxy[:, 1]) * 0.53
+            oks = kpt_iou_np(gt_kpts, det[:, 6:6 + nk * nd].reshape(len(det), nk, nd), area, self.sigma)
+            tp_p = match_predictions(pred_cls, gt_cls, oks)
+            self.box_m.update(tp_b, det[:, 4], pred_cls, gt_cls)
+            self.pose_m.update(tp_p, det[:, 4], pred_cls, gt_cls)
+
+    def compute(self) -> Dict[str, float]:
+        b, p = self.box_m.compute(), self.pose_m.compute()
+        out = {f"{k}(B)": v for k, v in b.items() if k != "fitness"}
+        out.update({f"{k}(P)": v for k, v in p.items() if k != "fitness"})
+        out["fitness"] = b["fitness"] + p["fitness"]
+        out["mAP50-95"] = p["mAP50-95"]  # the headline: the keypoint mAP
+        return out
+
+    def print_results(self, out: Dict[str, float]) -> None:
+        if not getattr(self.args, "verbose", True):
+            return
+        pf = "%22s" + "%11i" * 2 + "%11.3g" * 8
+        print(("%22s" + "%11s" * 10) % ("Class", "Images", "Instances", "Box(P", "R", "mAP50", "mAP50-95)",
+                                        "Pose(P", "R", "mAP50", "mAP50-95)"))
+        nt = sum(len(st[3]) for st in self.box_m.stats)
+        print(pf % ("all", self.seen, nt, *(out[f"{k}({t})"] for t in "BP"
+                                              for k in ("precision", "recall", "mAP50", "mAP50-95"))))
+
+
+TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator}

@@ -107,6 +107,8 @@ class Backend:
         self.metadata.setdefault("nc", int(model.nc))
         self.metadata.setdefault("task", model.task)
         self.metadata.setdefault("end2end", bool(model.end2end))
+        if model.task == "pose":
+            self.metadata.setdefault("kpt_shape", [int(v) for v in model.kpt_shape])
 
     def _init_live(self, model: nn.Module, imgsz: Optional[int], device) -> None:
         self.format = "torch"
@@ -162,9 +164,10 @@ class ProgramModel(nn.Module):
     in chunks of its batch, the last padded with zero frames) and returns
     the live model's eval layout: (prediction, None), a YOLOv10 program's
     (detections, None), or a segmentation program's (prediction, (None,
-    None, prototypes)). Program outputs are float32, as the live forward's
-    decoded ones are, so the predictor's NMS and masks are the live
-    model's. A program exported with nms=True (xywh top-k without NMS) is
+    None, prototypes)); a pose program's prediction carries its keypoints,
+    whose `kpt_shape` the sidecar gives. Program outputs are float32, as
+    the live forward's decoded ones are, so the predictor's NMS, masks and
+    keypoints are the live model's. A program exported with nms=True (xywh top-k without NMS) is
     refused: serve it with Backend."""
 
     def __init__(self, path, device=None):
@@ -178,6 +181,7 @@ class ProgramModel(nn.Module):
         self.names = self.backend.names
         self.nc = self.backend.nc
         self.task = self.backend.task
+        self.kpt_shape = tuple(md["kpt_shape"]) if self.task == "pose" else None
         self.end2end = bool(md.get("end2end", False))
         self.strides = (self.backend.stride,)
         self.batch = int(md.get("batch", -1))

@@ -978,6 +978,45 @@ class Segment(Detect):
         return torch.cat([self.decode(feats), mc.float()], 1), (feats, mc.transpose(1, 2), proto)
 
 
+class Pose(Detect):
+    """Detect with nk keypoints of nd values (x, y and, where nd is 3, a
+    visibility logit) per anchor (the JAX package's nn/heads.py Pose):
+    `cv4.i` (two 3x3 Convs of c4 = max(ch[0] // 4, nk * nd) channels, then
+    a 1x1 conv with its bias to nk * nd) gives each level's raw keypoints,
+    channel j * nd + d for keypoint j.
+
+    Training returns (raw maps, raw keypoints (B, A, nk * nd)); eval returns
+    ((B, 4 + nc + nk * nd, A) in fp32: the Detect layout followed by the
+    decoded keypoints, (raw maps, raw keypoints))."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32), legacy: bool = True,
+                 kpt_shape: Sequence[int] = (17, 3)):
+        super().__init__(nc, ch, strides, legacy)
+        self.kpt_shape = (int(kpt_shape[0]), int(kpt_shape[1]))
+        nkd = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, nkd)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, nkd, 1)) for x in ch)
+
+    def decode_kpts(self, kpt: torch.Tensor, feats: List[torch.Tensor]) -> torch.Tensor:
+        """(B, nk * nd, A) raw keypoints -> the same layout in fp32: x and y
+        in input pixels, (k * 2 + anchor - 0.5) * stride, and the visibility's
+        sigmoid where nd is 3."""
+        nk, nd = self.kpt_shape
+        b = kpt.shape[0]
+        anchors, strides = make_anchors([f.shape[2:] for f in feats], self.strides, device=kpt.device)
+        k = kpt.float().reshape(b, nk, nd, -1)
+        xy = (k[:, :, :2] * 2.0 + (anchors.t()[None, None] - 0.5)) * strides.t()[None, None]
+        out = torch.cat([xy, k[:, :, 2:].sigmoid()], 2) if nd == 3 else xy
+        return out.reshape(b, nk * nd, -1)
+
+    def forward(self, xs: List[torch.Tensor]):
+        kpt = torch.cat([m(x).flatten(2) for x, m in zip(xs, self.cv4)], 2)  # (B, nk * nd, A)
+        feats = self.maps(xs, self.cv2, self.cv3)
+        if self.training:
+            return feats, kpt.transpose(1, 2)
+        return torch.cat([self.decode(feats), self.decode_kpts(kpt, feats)], 1), (feats, kpt.transpose(1, 2))
+
+
 class v10Detect(Detect):
     """YOLOv10's NMS-free head: YOLO11's Detect (its light cls branch with
     plain depth-wise Convs, as the JAX package names them) and a one-to-one

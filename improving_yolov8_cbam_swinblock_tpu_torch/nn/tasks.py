@@ -12,8 +12,10 @@ an nn.Sequential, applies a YAML-level ReLU `activation` to the Conv rows as
 the JAX package does, and derives each layer's stride from the graph
 instead of a probe forward. It builds the fork's graphs and YOLOv3, v5, v6,
 the v8 P2, P6 and ghost graphs, YOLOv9, YOLOv10 (its NMS-free `v10Detect`
-head: `DetectionModel.end2end`) and YOLO11/12, and the segmentation graphs
-that end in `Segment` (`DetectionModel.task` "segment"); a row it does not
+head: `DetectionModel.end2end`) and YOLO11/12, the segmentation graphs
+that end in `Segment` (`DetectionModel.task` "segment") and the pose graphs
+that end in `Pose` (task "pose", a row whose `kpt_shape` argument names
+the YAML's own key, as the JAX package resolves it); a row it does not
 know (the rows no packaged YAML of these uses) raises KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
@@ -137,7 +139,8 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
     layers, save = [], set()
     legacy = True  # the Detect cls branch of YOLOv8; a C3k2 or A2C2f row makes it YOLO11's
     for i, (f, n, mname, args) in enumerate(list(d["backbone"]) + list(d["head"])):
-        args = [nc if a == "nc" else _literal(a) for a in args]
+        # "nc", and a name of a top-level YAML key (the pose rows' kpt_shape), resolve as the JAX package's
+        args = [nc if a == "nc" else d[a] if isinstance(a, str) and a in d else _literal(a) for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
 
         def in_ch(j):  # j: a row, or counted back from this one (yolov3's -2)
@@ -226,6 +229,10 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             npr = make_divisible(min(_arg(args, 2, 256), max_channels) * width, 8)
             m = M.Segment(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy,
                           nm=_arg(args, 1, 32), npr=npr)
+        elif mname == "Pose":  # [nc, kpt_shape]
+            c2 = 0
+            m = M.Pose(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy,
+                       kpt_shape=tuple(_arg(args, 1, (17, 3))))
         elif mname == "v10Detect":
             c2 = 0
             m = M.v10Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
@@ -303,7 +310,10 @@ class DetectionModel(nn.Module):
     "one2one"} raw maps), in training the dict; a segmentation graph (task
     "segment") its Segment head's ((B, 4 + nc + nm, A), (raw maps, mask
     coefficients, prototypes)), in training (raw maps, coefficients,
-    prototypes). The model is built in eval mode."""
+    prototypes); a pose graph (task "pose", `kpt_shape` (nk, nd)) its Pose
+    head's ((B, 4 + nc + nk * nd, A), (raw maps, raw keypoints (B, A,
+    nk * nd))), in training (raw maps, raw keypoints). The model is built
+    in eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -315,7 +325,8 @@ class DetectionModel(nn.Module):
         self.nc = head.nc
         self.strides = head.strides
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
-        self.task = "segment" if isinstance(head, M.Segment) else "detect"
+        self.task = "segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose) else "detect"
+        self.kpt_shape = head.kpt_shape if self.task == "pose" else None
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
         self.param_dtype = param_dtype or dtype
@@ -414,8 +425,8 @@ class DetectionModel(nn.Module):
         becomes W - x), the first run drops the anchors of its coarsest level
         (large objects) and the last those of its finest (small objects), and
         the three concatenate along the anchors: (B, 4 + nc, A') in fp32. A
-        segmentation model returns its plain forward's prediction, as in the
-        JAX package."""
+        segmentation or pose model returns its plain forward's prediction,
+        as in the JAX package."""
         if self.task != "detect":
             return self(x)[0].float()
         w0 = x.shape[3]
@@ -483,7 +494,7 @@ class EnsembleModel(nn.Module):
     best boxes of all. Inference only: the members must share nc and end in
     Detect (an NMS-free YOLOv10 member is refused, as in the JAX package),
     and the input is padded to the coarsest member stride. A segmentation
-    member is refused, as in the JAX package."""
+    or pose member is refused, as in the JAX package."""
 
     def __init__(self, models):
         super().__init__()
@@ -493,8 +504,8 @@ class EnsembleModel(nn.Module):
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
         if any(m.end2end or m.task != "detect" for m in models):
-            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end) or a "
-                             "segmentation member is not")
+            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end), a "
+                             "segmentation member or a pose member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype

@@ -66,6 +66,41 @@ def scale_boxes(img1_shape: Tuple[int, int], boxes: torch.Tensor, img0_shape: Tu
     return clip_boxes(boxes / gain, img0_shape)
 
 
+def clip_coords(coords: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Points (..., 2 or more) with x clipped to [0, w] and y to [0, h] of an
+    image of shape (h, w); the columns after y pass through."""
+    h, w = shape
+    xy = torch.stack([coords[..., 0].clamp(0, w), coords[..., 1].clamp(0, h)], -1)
+    return torch.cat([xy, coords[..., 2:]], -1)
+
+
+def scale_coords(img1_shape: Tuple[int, int], coords: torch.Tensor, img0_shape: Tuple[int, int],
+                 ratio_pad=None, normalize: bool = False, padding: bool = True) -> torch.Tensor:
+    """Points (..., 2 or more) from the letterboxed img1_shape back to
+    img0_shape: less the pad (with `padding`), over the gain, clipped to the
+    image (clip_coords), and with `normalize` divided by its width and
+    height. ratio_pad ((gain, gain), (pad_w, pad_h)) gives the letterbox's
+    own gain and pad (the predictor's integer pad); without it they are
+    computed from the shapes, the pad unrounded. The JAX package's
+    ops/boxes.py scale_coords."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0], img1_shape[1] / img0_shape[1])
+        pad_w = (img1_shape[1] - img0_shape[1] * gain) / 2
+        pad_h = (img1_shape[0] - img0_shape[0] * gain) / 2
+    else:
+        gain = ratio_pad[0][0]
+        pad_w, pad_h = ratio_pad[1]
+    xy = coords[..., :2]
+    if padding:
+        xy = xy - torch.tensor([pad_w, pad_h], dtype=coords.dtype, device=coords.device)
+    gain = torch.tensor(gain, dtype=coords.dtype, device=coords.device)  # a true division on every device
+    out = clip_coords(torch.cat([xy / gain, coords[..., 2:]], -1), img0_shape)
+    if normalize:
+        out = torch.cat([out[..., :2] / torch.tensor([img0_shape[1], img0_shape[0]], dtype=out.dtype,
+                                                      device=out.device), out[..., 2:]], -1)
+    return out
+
+
 def crop_mask(masks: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """masks (n, h, w) with every pixel outside its xyxy box (n, 4, in mask
     pixels) zeroed: a pixel (row, col) is inside where x1 <= col < x2 and

@@ -51,8 +51,8 @@ SCOPE_NAMES = {"fc1": "shared_MLP.0", "fc2": "shared_MLP.2",
 # flax scopes with no module of their own in the port: the JAX package's
 # DWConv wraps a Conv in `dw`, its C3k a C3 in `c3`, its
 # nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`, and its
-# Segment head the detect branches in `detect` (the reference names them at
-# the head's own level)
+# Segment and Pose heads the detect branches in `detect` (the reference
+# names them at the head's own level)
 DROPPED_SCOPES = ("dw", "c3", "conv_transpose", "detect")
 # the flax scopes whose kernel is a transposed conv's: the nn.ConvTranspose2d
 # row's, and Proto's `upsample`
@@ -74,7 +74,7 @@ def _module_tokens(mods: Tuple[str, ...]) -> list:
         elif m.startswith("one2one_"):  # v10Detect's one-to-one twin: one2one_cv3_0_1_0 -> one2one_cv3.0.1.0
             toks.append("one2one_" + ".".join(m[len("one2one_"):].split("_")))
         elif m.startswith(("cv1_", "cv2_", "cv3_", "cv4_", "m_", "ffn_", "mlp_")):
-            # Detect per-level stacks (Segment's cv4_0_0 too), CIB's cv1_0 to cv1_4, bottlenecks (m_0, RepCSP's
+            # Detect per-level stacks (Segment's and Pose's cv4_0_0 too), CIB's cv1_0 to cv1_4, bottlenecks (m_0, RepCSP's
             # m_0_cv1, A2C2f's m_0_1), PSA and ABlock MLPs
             toks.append(".".join(m.split("_")))
         else:
@@ -185,8 +185,8 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     m.0.cv1 of a RepCSP -> m_0_cv1, conv1.bn -> conv1_bn), the children
     renamed in SCOPE_NAMES and the Swin MLP's 0 and 2 (mlp_fc1, mlp_fc2)
     take their JAX names, a DWConv and a C3k open the `dw` and `c3`
-    scopes the JAX package wraps them in, and a Segment head's detect
-    branches (cv2, cv3) its `detect` scope."""
+    scopes the JAX package wraps them in, and a Segment or Pose head's
+    detect branches (cv2, cv3) its `detect` scope."""
     scopes: Dict[str, Tuple[str, ...]] = {"": ()}
     inverse = {v: k for k, v in SCOPE_NAMES.items()}
 
@@ -208,7 +208,7 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         for name, child in mod.named_children():
             cpath = f"{path}.{name}" if path else name
             token = f"{group}_{name}" if group else name
-            if isinstance(mod, M.Segment) and name in ("cv2", "cv3"):
+            if isinstance(mod, (M.Segment, M.Pose)) and name in ("cv2", "cv3"):
                 walk(child, cpath, scope + ("detect",), token)
                 continue
             rename = renamed(mod, name, child)

@@ -4,8 +4,8 @@ the PR, P, R and F1 curves (a copy of the JAX package's
 utils/metrics.py:16-275, 375-460, 459-547 and 703; numpy on the host, as
 there). matplotlib is imported where a figure is drawn, and a plot returns
 None (plot_pr_curves an empty list) without it. The segment task's
-mask_iou_np and SegmentMetrics are here too; the pose and OBB metrics are
-not in the port.
+mask_iou_np and SegmentMetrics, and the pose task's OKS_SIGMA, kpt_iou_np
+and PoseMetrics, are here too; the OBB metrics are not in the port.
 """
 
 from __future__ import annotations
@@ -31,6 +31,23 @@ def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.n
     inter = mask1.astype(np.float32) @ mask2.astype(np.float32).T
     union = mask1.sum(1)[:, None] + mask2.sum(1)[None] - inter
     return inter / (union + eps)
+
+
+# the COCO 17-keypoint OKS sigmas
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87,
+                      0.89, 0.89]) / 10.0
+
+
+def kpt_iou_np(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma: np.ndarray,
+               eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity (N, M) of GT keypoints (N, K, 3) (a point
+    counts where its visibility is not 0) and predicted (M, K, 2 or 3), with
+    each GT's area (N,): the mean over the GT's visible points of
+    exp(-d^2 / (2 sigma)^2 / (area + eps) / 2)."""
+    d = (kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2 + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2
+    kpt_mask = kpt1[..., 2] != 0  # (N, K)
+    e = d / ((2 * sigma[None, None]) ** 2) / (area[:, None, None] + eps) / 2
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
 
 
 IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)
@@ -508,14 +525,51 @@ class SegmentMetrics:
         return dict(zip(self.keys + ["fitness"], self.mean_results() + [self.fitness]))
 
 
+class PoseMetrics(SegmentMetrics):
+    """The box and OKS keypoint Metric pair of the pose task (the JAX
+    package's utils/metrics.py PoseMetrics): fitness is the sum of both fitnesses."""
+
+    def __init__(self, save_dir=".", plot=False, names=()):
+        super().__init__(save_dir, plot, names)
+        self.pose = Metric()
+        del self.seg
+
+    def process(self, tp, tp_p, conf, pred_cls, target_cls, on_plot=None):
+        nc = max(len(self.names), int(np.max(target_cls, initial=0)) + 1)
+        self.pose.from_res(ap_per_class(np.asarray(tp_p), conf, pred_cls, target_cls), nc)
+        self.box.from_res(ap_per_class(np.asarray(tp), conf, pred_cls, target_cls), nc)
+
+    @property
+    def keys(self):
+        return ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)",
+                "metrics/precision(P)", "metrics/recall(P)", "metrics/mAP50(P)", "metrics/mAP50-95(P)"]
+
+    def mean_results(self):
+        return self.box.mean_results() + self.pose.mean_results()
+
+    def class_result(self, i):
+        return self.box.class_result(i) + self.pose.class_result(i)
+
+    @property
+    def maps(self):
+        return self.box.maps + self.pose.maps
+
+    @property
+    def fitness(self):
+        return self.pose.fitness() + self.box.fitness()
+
+
 class ValMetrics(dict):
     """What YOLO.val() returns: the metrics dict (plain keys and their
     `metrics/...(B)` aliases, or for a segmentation model the `(B)` and
-    `(M)` keys) with the reference's attribute surface: `metrics.box.map50`,
-    `metrics.seg.map` (segment), `metrics.fitness`, `metrics.results_dict`."""
+    `(M)` keys, for a pose model the `(B)` and `(P)` keys) with the
+    reference's attribute surface: `metrics.box.map50`, `metrics.seg.map`
+    (segment), `metrics.pose.map` (pose), `metrics.fitness`,
+    `metrics.results_dict`."""
 
     box: "Metric" = None
     seg: "Metric" = None
+    pose: "Metric" = None
 
     def __getattr__(self, name):
         if name in self:
@@ -527,7 +581,7 @@ class ValMetrics(dict):
         return {k: v for k, v in self.items() if k.startswith("metrics/") or k == "fitness"}
 
     def mean_results(self):
-        return [v for m in (self.box, self.seg) if m is not None for v in m.mean_results()]
+        return [v for m in (self.box, self.seg, self.pose) if m is not None for v in m.mean_results()]
 
     @property
     def maps(self):

@@ -129,9 +129,11 @@ def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
     """Peak bytes the card holds over one train micro-step of a copy of
     `model` at `batch` images of imgsz: forward in train mode on zero frames,
     the detection loss against one box per image (the TAL assigner, K2;
-    a segmentation model's seg loss, the box's mask its overlap map),
+    a segmentation model's seg loss, the box's mask its overlap map; a pose
+    model's pose loss, every keypoint visible at the box's centre),
     backward. torch.cuda.max_memory_allocated after a reset."""
     from .loss import detection_loss
+    from .pose_loss import pose_loss
     from .seg_loss import segmentation_loss
 
     dev = model.device
@@ -147,6 +149,9 @@ def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
             seg_map = torch.zeros(batch, imgsz // 4, imgsz // 4, dtype=torch.int32, device=dev)
             seg_map[:, imgsz * 3 // 32:imgsz * 5 // 32, imgsz * 3 // 32:imgsz * 5 // 32] = 1
             total, _ = segmentation_loss(*out, cls, boxes, ones, seg_map, nc=m.nc, strides=m.strides)
+        elif m.task == "pose":
+            kpts = torch.tensor([0.5, 0.5, 1.0], device=dev).repeat(batch, 1, m.kpt_shape[0], 1)
+            total, _ = pose_loss(*out, cls, boxes, ones, kpts, nc=m.nc, kpt_shape=m.kpt_shape, strides=m.strides)
         else:
             total, _ = detection_loss(out, cls, boxes, ones, nc=m.nc, strides=m.strides)
         total.backward()

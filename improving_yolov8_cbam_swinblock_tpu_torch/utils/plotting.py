@@ -1,5 +1,6 @@
-"""Drawing helpers: the port's copy of the detection part of the JAX
-package's utils/plotting.py (Colors, the cv2 Annotator, save_one_box,
+"""Drawing helpers: the port's copy of the detection and pose parts of the
+JAX package's utils/plotting.py (Colors with the pose palette, the cv2
+Annotator with its keypoints and the COCO skeleton, save_one_box,
 feature_visualization, plot_images, plot_labels, plot_results,
 output_to_target). cv2 is imported where an image is drawn and matplotlib
 where a figure is, so the package imports without either; plot_images,
@@ -23,11 +24,16 @@ _PALETTE = [
 
 class Colors:
     """Indexable palette: colors(i) is class i's stable colour, (R, G, B) or
-    (B, G, R) with bgr=True."""
+    (B, G, R) with bgr=True; `pose_palette` holds the keypoint and limb colours."""
 
     def __init__(self):
         self.palette = [p[::-1] for p in _PALETTE]
         self.n = len(self.palette)
+        self.pose_palette = np.array(
+            [(255, 128, 0), (255, 153, 51), (255, 178, 102), (230, 230, 0), (255, 153, 255), (153, 204, 255),
+             (255, 102, 255), (255, 51, 255), (102, 178, 255), (51, 153, 255), (255, 153, 153), (255, 102, 102),
+             (255, 51, 51), (153, 255, 153), (102, 255, 102), (51, 255, 51), (0, 255, 0), (0, 0, 255),
+             (255, 0, 0), (255, 255, 255)], dtype=np.uint8)
 
     def __call__(self, i: int, bgr: bool = False):
         c = self.palette[int(i) % self.n]
@@ -35,6 +41,10 @@ class Colors:
 
 
 colors = Colors()
+
+# the COCO-17 skeleton's limbs, pairs of 1-based keypoint indices
+SKELETON = [[16, 14], [14, 12], [17, 15], [15, 13], [12, 13], [6, 12], [7, 13], [6, 7], [6, 8], [7, 9], [8, 10],
+            [9, 11], [2, 3], [1, 2], [1, 3], [2, 4], [3, 5], [4, 6], [5, 7]]
 
 
 def color_for(idx: int):
@@ -54,7 +64,7 @@ def resize_nearest(img: np.ndarray, size) -> np.ndarray:
 
 
 class Annotator:
-    """Boxes and text drawn in place on a copy of a BGR image (`.img`, also `.im`)."""
+    """Boxes, text, masks and keypoints drawn in place on a copy of a BGR image (`.img`, also `.im`)."""
 
     def __init__(self, img: np.ndarray, line_width: Optional[int] = None, names: Optional[Dict] = None, **_):
         self.img = np.ascontiguousarray(img)
@@ -62,6 +72,9 @@ class Annotator:
         self.tf = max(self.lw - 1, 1)  # font thickness
         self.sf = self.lw / 3  # font scale
         self.names = names or {}
+        self.skeleton = SKELETON
+        self.limb_color = colors.pose_palette[[9, 9, 9, 9, 7, 7, 7, 0, 0, 0, 0, 0, 16, 16, 16, 16, 16, 16, 16]]
+        self.kpt_color = colors.pose_palette[[16, 16, 16, 16, 16, 0, 0, 0, 0, 0, 0, 9, 9, 9, 9, 9, 9]]
 
     @property
     def im(self):
@@ -111,6 +124,35 @@ class Annotator:
                 m = resize_nearest(m.astype(np.uint8), (h, w))
             sel = m.astype(bool)
             self.img[sel] = (self.img[sel] * (1 - alpha) + np.array(c, np.float32) * alpha).astype(self.img.dtype)
+
+    def kpts(self, kpts: np.ndarray, shape=None, radius: Optional[int] = None, kpt_line: bool = True,
+             conf_thres: float = 0.25):
+        """One instance's keypoints (nk, 2 or 3) in pixels, in place: each
+        point whose visibility (1 where nd is 2) reaches conf_thres a filled
+        circle of radius max(lw, 2) (anti-aliased), in kpt_color where nk is
+        17, else the class palette's colour of its index; with kpt_line and
+        17 points, the COCO skeleton's limbs between points that both reach
+        conf_thres, lw // 2 wide (at least 1). The JAX package's Annotator.kpts."""
+        import cv2
+
+        kpts = np.asarray(kpts, np.float32)
+        radius = radius or max(self.lw, 2)
+        nk = len(kpts)
+        is_pose = nk == 17
+        conf = kpts[:, 2] if kpts.shape[-1] == 3 else np.ones(nk, np.float32)
+        for i, (pt, cf) in enumerate(zip(kpts, conf)):
+            if cf < conf_thres:
+                continue
+            c = tuple(int(v) for v in self.kpt_color[i]) if is_pose else colors(i)
+            cv2.circle(self.img, (int(pt[0]), int(pt[1])), radius, c, -1, cv2.LINE_AA)
+        if kpt_line and is_pose:
+            for j, (a, b) in enumerate(self.skeleton):
+                if conf[a - 1] < conf_thres or conf[b - 1] < conf_thres:
+                    continue
+                p1 = (int(kpts[a - 1, 0]), int(kpts[a - 1, 1]))
+                p2 = (int(kpts[b - 1, 0]), int(kpts[b - 1, 1]))
+                cv2.line(self.img, p1, p2, tuple(int(v) for v in self.limb_color[j]), max(self.lw // 2, 1),
+                         cv2.LINE_AA)
 
     def result(self) -> np.ndarray:
         return self.img

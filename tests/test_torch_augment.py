@@ -31,7 +31,7 @@ def test_hsv_matches_jax():
     gains = rng.uniform(-1, 1, (3, 3)) * np.array([0.015, 0.7, 0.4]) + 1
     gains[2] = [1.4, 1.9, 0.3]  # hue wraps, saturation and value clip
     gains = gains.astype(np.float32)
-    ref = np.asarray(JA.hsv_device(jnp.asarray(img), jnp.asarray(gains)))
+    ref = np.asarray(jax.jit(JA.hsv_device)(jnp.asarray(img), jnp.asarray(gains)))
     got = TA.hsv_device(torch.tensor(img), torch.tensor(gains)).numpy()
     np.testing.assert_array_equal(got, ref)
 
@@ -51,7 +51,7 @@ def mosaic_inputs(s, g, seed):
 def test_mosaic_placement_matches_jax(center):
     srcs, boxes, cls, mask = mosaic_inputs(16, 5, 1)
     c = np.asarray(center, np.float32)
-    ref = [np.asarray(r) for r in JA._mosaic_one(*(jnp.asarray(a) for a in (srcs, boxes, cls, mask, c)))]
+    ref = [np.asarray(r) for r in jax.jit(JA._mosaic_one)(*(jnp.asarray(a) for a in (srcs, boxes, cls, mask, c)))]
     got = [r.numpy() for r in TA.mosaic_one(*(torch.tensor(a) for a in (srcs, boxes, cls, mask, c)))]
     np.testing.assert_array_equal(got[0], ref[0])
     for a, b in zip(got[1:], ref[1:]):
@@ -67,8 +67,8 @@ def test_affine_crop_matches_jax(k, t):
     wh = rng.uniform(1, s, (12, 2))
     boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
     kk, tt = np.float32(k), np.asarray(t, np.float32)
-    rimg, rbox, rcand = (np.asarray(v) for v in JA._affine_crop(jnp.asarray(canvas), jnp.asarray(boxes),
-                                                                jnp.asarray(kk), jnp.asarray(tt), s))
+    rimg, rbox, rcand = (np.asarray(v) for v in jax.jit(JA._affine_crop, static_argnums=4)(
+        jnp.asarray(canvas), jnp.asarray(boxes), jnp.asarray(kk), jnp.asarray(tt), s))
     gimg, gbox, gcand = TA.affine_crop(torch.tensor(canvas)[None], torch.tensor(boxes)[None],
                                        torch.tensor([kk]), torch.tensor(tt)[None], s)
     diff = np.abs(gimg[0].numpy().astype(int) - rimg.astype(int))
@@ -86,7 +86,7 @@ def test_flip_matches_jax():
     cls = rng.integers(0, 3, (3, 4)).astype(np.float32)
     mask = (rng.random((3, 4)) < 0.6).astype(np.float32)
     flip = np.array([True, False, True])
-    ref = JA.flip_lr_device(JA.AugBatch(*(jnp.asarray(a) for a in (img, boxes, cls, mask))), jnp.asarray(flip))
+    ref = jax.jit(JA.flip_lr_device)(JA.AugBatch(*(jnp.asarray(a) for a in (img, boxes, cls, mask))), jnp.asarray(flip))
     got = TA.flip_lr_device(TA.AugBatch(*(torch.tensor(a) for a in (img, boxes, cls, mask))), torch.tensor(flip))
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -108,7 +108,7 @@ def test_mosaic_affine_matches_jax_with_injected_draws():
     trans = rng.uniform(0.4 * s, 0.6 * s, (b, 2)).astype(np.float32)
     use = np.array([True, False, True])
     args = (imgs, bboxes, cls, mask, donors, centers, scales, trans, use)
-    ref = JA.mosaic_affine_device(*(jnp.asarray(a) for a in args))
+    ref = jax.jit(JA.mosaic_affine_device)(*(jnp.asarray(a) for a in args))
     got = TA.mosaic_affine_device(*(torch.tensor(a) for a in args))
     diff = np.abs(got.img.numpy().astype(int) - np.asarray(ref.img).astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3

@@ -1,7 +1,8 @@
 """Each block of the port vs its flax counterpart, on carried-across weights.
 
-The flax block is initialised, its norms, biases and BN statistics are
-randomised with numpy, the variables go through the port's weight bridge
+The flax block's variables come from its abstract init (shapes only, no
+compile): uniform kernels and random norms, biases and BN statistics, all
+drawn with numpy; the variables go through the port's weight bridge
 into the torch block (strict load), and both run the same numpy input in
 fp32. Tolerance 2e-4: the same fp32 math summed in another order.
 """
@@ -55,10 +56,18 @@ def nhwc(t):
 
 
 def carry(jmod, tmod, *args, seed=0):
-    """Init the flax block on args (one jax.jit), carry its weights into tmod; returns the variables."""
+    """The flax block's variables from its abstract init on args (no
+    compile): kernels uniform with the JAX package's conv init variance
+    1 / (3 fan_in), then randomize(); carried into tmod; returns the variables."""
     rng = np.random.default_rng(seed)
-    v = jax.jit(jmod.init)(jax.random.PRNGKey(seed), *args)
-    v = randomize(v, rng)
+
+    def leaf(sd):
+        if sd.ndim < 2:
+            return np.zeros(sd.shape, np.float32)
+        bound = np.sqrt(1.0 / np.prod(sd.shape[:-1]))
+        return rng.uniform(-bound, bound, sd.shape).astype(np.float32)
+
+    v = randomize(jax.tree.map(leaf, jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(seed), *args))), rng)
     tmod.load_state_dict(state_dict_from_jax(v), strict=True)
     tmod.eval()
     return v

@@ -754,3 +754,71 @@ def test_seg_program_serves_masks_on_the_card(cuda, tmp_path):
         assert sum(len(r) for r in ref) > 0
         for g, r in zip(got, ref):
             assert np.array_equal(g.boxes.data, r.boxes.data) and np.array_equal(g.masks.data, r.masks.data)
+
+
+@pytest.mark.cuda
+def test_pose_micro_step_launches_k2_once_and_equals_the_plain_assigner(cuda):
+    """A pose graph's train micro-step (yolov8n-pose, nc 2, 160 px, batch 2,
+    fp32 with TF32 off, the pose loss over a loader-format batch with 17
+    keypoints a box, visibilities 0, 1 and 2) launches K2 once; with the
+    plain assigner instead, the five loss items agree within 1e-5 and every
+    gradient within 1e-4 of its tensor's norm."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+
+    cfg = yaml_model_load("yolov8n-pose.yaml")
+    cfg["nc"] = 2
+    rng = np.random.default_rng(5)
+    xy, wh = rng.uniform(0.2, 0.8, (2, 8, 2)), rng.uniform(0.1, 0.3, (2, 8, 2))
+    kxy = np.clip(xy[:, :, None] + rng.uniform(-0.5, 0.5, (2, 8, 17, 2)) * wh[:, :, None], 0, 1)
+    kpts = np.concatenate([kxy, rng.integers(0, 3, (2, 8, 17, 1))], -1).astype(np.float32)
+    batch = {"img": rng.integers(0, 256, (2, 160, 160, 3), dtype=np.uint8),
+             "cls": rng.integers(0, 2, (2, 8)).astype(np.float32),
+             "bboxes": np.concatenate([xy, wh], -1).astype(np.float32), "mask": np.ones((2, 8), np.float32),
+             "kpts": kpts}
+    out = {}
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for impl in (None, "plain"):
+            tr = DetectionTrainer(overrides={"model": cfg, "batch": 2, "nbs": 4, "imgsz": 160, "amp": False}).setup()
+            tr.tal_impl = impl
+            step, _ = tr._make_train_step(nb=10)
+            before = tal_assign_cuda.launches
+            items = step(batch)
+            torch.cuda.synchronize()
+            out[impl] = (items, {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()},
+                         tal_assign_cuda.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    (ik, gk, nk), (ip, gp, npl) = out[None], out["plain"]
+    assert nk == 1 and npl == 0 and ik.shape == (5,) and float(ik[1]) > 0 and float(ik[2]) > 0
+    torch.testing.assert_close(ik, ip, rtol=1e-5, atol=0)
+    for n in gp:
+        assert (gk[n] - gp[n]).norm() <= 1e-4 * gp[n].norm().clamp(min=1e-12), n
+
+
+@pytest.mark.cuda
+def test_pose_program_keeps_its_keypoints_on_the_card(cuda, tmp_path):
+    """yolov8n-pose exported on the card (bf16, dynamic batch), loaded by
+    YOLO(path): the boxes and keypoints of its predict equal the live
+    model's bit for bit at batches 1 and 3."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-pose.yaml", device="cuda", dtype=torch.bfloat16).fuse()
+    with torch.no_grad():
+        for seq in y.model.model[-1].cv3:
+            seq[-1].bias.zero_()  # seeded class priors at 0: scores near 0.5, so that boxes come
+    path = y.export(imgsz=320, dynamic=True, half=True, project=str(tmp_path))
+    served = YOLO(path)
+    assert served.task == "pose" and served.model.kpt_shape == (17, 3)
+    frames = [np.random.default_rng(i).integers(0, 256, (240, 320, 3), dtype=np.uint8) for i in range(3)]
+    for b in (1, 3):
+        got = served.predict(frames, conf=0.25, batch=b, verbose=False)
+        ref = y.predict(frames, imgsz=320, conf=0.25, batch=b, verbose=False)
+        assert sum(len(r) for r in ref) > 0
+        for g, r in zip(got, ref):
+            assert np.array_equal(g.boxes.data, r.boxes.data)
+            assert (g.keypoints is None) == (r.keypoints is None)
+            assert g.keypoints is None or np.array_equal(g.keypoints.data, r.keypoints.data)

@@ -9,16 +9,16 @@ import jax.numpy as jnp
 
 from improving_yolov8_cbam_swinblock_tpu import YOLO as JaxYOLO
 from improving_yolov8_cbam_swinblock_tpu.data.augment import letterbox as jax_letterbox
-from improving_yolov8_cbam_swinblock_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from improving_yolov8_cbam_swinblock_tpu.ops import boxes as JB
 from improving_yolov8_cbam_swinblock_tpu.ops.nms import non_max_suppression as jax_nms
-from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, DetectionModel
 from improving_yolov8_cbam_swinblock_tpu_torch.cfg import get_cfg
 from improving_yolov8_cbam_swinblock_tpu_torch.data.augment import letterbox
 from improving_yolov8_cbam_swinblock_tpu_torch.data.build import check_source, load_inference_source
 from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import DetectionPredictor
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import boxes as TB
 from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import MAX_NMS, non_max_suppression
+from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import jax_variables_from_state
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
@@ -104,14 +104,16 @@ def test_predictor_rejects_unknown_sources(tmp_path):
 
 @pytest.fixture(scope="module")
 def weights():
-    jm = JaxDetectionModel(CFG)
-    v = jax.jit(lambda k: jm.net.init(k, jnp.zeros((1, 64, 64, 3)), train=False))(jax.random.PRNGKey(0))
-    return jax.tree.map(lambda a: np.array(a, np.float32), v)
+    """A seeded port model's weights as JAX variables: the JAX package's init
+    schemes and Detect bias priors (nn/tasks.py init_weights), without
+    compiling JAX's init of the whole graph."""
+    return jax_variables_from_state(DetectionModel(CFG, device="cpu"))
 
 
 def test_predict_matches_jax(weights):
     """Frames as large as imgsz, so the letterbox is the identity on both sides.
-    conf 0.01 keeps a few dozen detections of the random model, far apart in score."""
+    conf 0.01 keeps the detections of the random model's coarsest level, whose
+    class prior (log(5 / 400), sigmoid 0.0123) is the only one above it."""
     frames = [np.random.default_rng(i).integers(0, 256, (96, 96, 3), dtype=np.uint8) for i in range(3)]
     jy = JaxYOLO(CFG)
     jy.variables = weights

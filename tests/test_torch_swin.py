@@ -48,7 +48,8 @@ def jax_padded_reference(x, p, heads):
     ph, pw = (7 - h % 7) % 7, (7 - w % 7) % 7
     xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, ph), (0, pw), (0, 0)))
     jp = {k: jnp.asarray(v) for k, v in p.items()}
-    return np.asarray(swin_block_reference(xp, jp, num_heads=heads, window_size=7))[:, :h, :w]
+    ref = jax.jit(swin_block_reference, static_argnames=("num_heads", "window_size"))
+    return np.asarray(ref(xp, jp, num_heads=heads, window_size=7))[:, :h, :w]
 
 
 @pytest.mark.parametrize("shape,heads", [((2, 14, 21, 128), 2), ((1, 7, 14, 256), 4), ((1, 12, 10, 64), 2)])

@@ -32,7 +32,7 @@ NAMES = {"ln1_scale": "ln1_w", "ln1_bias": "ln1_b", "wqkv": "wqkv", "bqkv": "bqk
 
 
 def jax_padded_ad(x, p, cot, heads, dtype):
-    """Output and grads of sum(crop(fused_swin_block_ad(pad(x))) * cot)."""
+    """Output and grads of sum(crop(fused_swin_block_ad(pad(x))) * cot), under one jax.jit."""
     b, h, w, c = x.shape
     ph, pw = (7 - h % 7) % 7, (7 - w % 7) % 7
 
@@ -41,7 +41,7 @@ def jax_padded_ad(x, p, cot, heads, dtype):
         return (y.astype(jnp.float32) * cot).sum(), y
 
     with pltpu.force_tpu_interpret_mode():
-        (_, y), (gx, gp) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        (_, y), (gx, gp) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
             jnp.asarray(x).astype(dtype), {k: jnp.asarray(v) for k, v in p.items()})
     return np.asarray(y.astype(jnp.float32)), np.asarray(gx.astype(jnp.float32)), \
         {k: np.asarray(v) for k, v in gp.items()}
