@@ -191,6 +191,26 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           against the trainer's record; the int8 forward at batch 32 beside
           the bf16 one, an int8 predict, and the card's int8 outputs against
           the CPU's at batch 2 in fp32 (int8_full, as int8_graphs runs it)
+  obb     oriented boxes: YOLO(name).predict of the slice phase's frames at
+          640 px, nc 15, bf16, BN-folded, seeded weights with the class
+          priors zeroed (conf 0.25), for yolov8n-obb, yolo11n-obb and
+          yolo12n-obb: no kernel launched, oriented boxes (n, 7) with w >=
+          h and the angle in [0, pi), each raw map and the angles within
+          3e-2 of the fp32 unfused forward (the decoded channels reported);
+          yolov8s-obb at full width (DOTAv1's 15 classes, 1024 px): the
+          forward's ms at batch 16 with its device time by kernel, predict
+          at batch 16 from frames in memory (img/s, rotated NMS), the card's
+          rotated NMS rows and oriented boxes against the same functions on
+          the CPU on the same prediction, YOLO.track of the 8 frames
+          (oriented boxes kept in the detections' order), 4 micro-steps at
+          batch 16 with max_gt 300 (no kernel: the rotated assigner is
+          plain PyTorch, as the JAX package's is plain JAX) with the step's
+          ms and peak memory, the OBB loss on the card against the CPU in
+          fp32 (items and grads), autobatch's measure;
+          YOLO("yolov8s-obb.yaml").train for one epoch at 1024 px on a
+          seeded PNG dataset of rotated rectangles (degrees 10) and
+          YOLO(best.pt).val with OBBValidator's (B) keys against the
+          trainer's record; int8_full of yolov8s-obb at 640 px
   int8_graphs  int8 of the graphs added since the fork's: yolov9c, yolov10s
           and yolov8s-seg at full width, quantized (bf16 compute over fp32
           weights, BN-folded) on the int8 phase's two seeded batches of 8:
@@ -203,11 +223,12 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           batch of 8 and run once at batch 8: finite outputs
   programs  a second process started after the kernel phase and joined
           after the profile phase (--programs): dynamic .pt2 programs of
-          yolov9t, yolo12n, yolov3-tiny, yolov8s-seg and yolov8s-pose
-          (bf16) and the int8 programs of yolov10s and yolov8s-seg, exported
-          on the card at 640 px with the class priors zeroed, each loaded
-          with YOLO(path) and its predict held bit for bit (boxes, and masks
-          for seg, keypoints for pose) to the live model's at batches 1 and 3, with
+          yolov9t, yolo12n, yolov3-tiny, yolov8s-seg, yolov8s-pose and
+          yolov8s-obb (bf16) and the int8 programs of yolov10s and
+          yolov8s-seg, exported on the card at 640 px with the class priors
+          zeroed, each loaded with YOLO(path) and its predict held bit for
+          bit (boxes, and masks for seg, keypoints for pose, oriented boxes
+          for obb) to the live model's at batches 1 and 3, with
           each export's and load's seconds
   yolo11  the fork's YOLO11 graph, YOLO("yolo11m-cbam-swin.yaml") at 640 px,
           seeded weights (Swin blocks at (B, 40, 40, 512)): predict on the
@@ -469,9 +490,19 @@ POSE_FULL = "yolov8s-pose.yaml"
 POSE_RTOL, POSE_ITEM_RTOL, POSE_GRAD_RTOL = 3e-2, 1e-5, 1e-3
 POSE_BATCH, POSE_STEPS = 32, 4
 POSE_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+# the obb phase: the three packaged OBB YAMLs at their smallest scale, yolov8s-obb at full width (DOTAv1's 15
+# classes, 1024 px, a train batch of 16 with up to 300 GT boxes an image); bf16 folded against fp32 unfused within
+# OBB_RTOL of the largest magnitude (the families phase's); the card's rotated NMS rows against the CPU's on the
+# same prediction, at most OBB_NMS_ROW_SHARE of them moved (a probiou within an ulp of the threshold); the OBB loss
+# on the card against the CPU in fp32: the items within OBB_ITEM_RTOL, each grad within OBB_GRAD_RTOL of its norm
+OBB_GRAPHS = ("yolov8n-obb.yaml", "yolo11n-obb.yaml", "yolo12n-obb.yaml")
+OBB_FULL = "yolov8s-obb.yaml"
+OBB_NC, OBB_IMGSZ, OBB_BATCH, OBB_STEPS, OBB_MAX_GT = 15, 1024, 16, 4, 300
+OBB_RTOL, OBB_NMS_ROW_SHARE, OBB_ITEM_RTOL, OBB_GRAD_RTOL = 3e-2, 1e-2, 1e-4, 1e-3
 # the programs process (--programs): dynamic .pt2 programs exported on the card, each loaded with YOLO(path) and
 # held bit for bit to its live model at PROGRAM_BATCHES (boxes, masks and keypoints), class priors zeroed
-FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml", "yolov8s-seg.yaml", "yolov8s-pose.yaml")
+FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml", "yolov8s-seg.yaml", "yolov8s-pose.yaml",
+                  "yolov8s-obb.yaml")
 INT8_PROGRAMS = ("yolov10s.yaml", "yolov8s-seg.yaml")
 PROGRAM_BATCHES = (1, 3)
 
@@ -1997,9 +2028,11 @@ def counted_fit(steps, vals):
     and whether the batch's boxes are finite and inside [0, 1] under their
     mask, and each validation batch appends its launches to `vals`."""
     from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
-    from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import DetectionValidator, SegmentationValidator
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.validator import (DetectionValidator, OBBValidator,
+                                                                            SegmentationValidator)
 
     mk, fwd, seg_fwd = DetectionTrainer._make_train_step, DetectionValidator.forward_nms, SegmentationValidator.forward_nms
+    obb_fwd = OBBValidator.forward_nms
 
     def delta(before):
         return {k: v - before[k] for k, v in counts().items()}
@@ -2009,9 +2042,11 @@ def counted_fit(steps, vals):
 
         def run(batch):
             before = counts()
-            m = batch["mask"] > 0
-            boxes_ok = bool(np.isfinite(batch["bboxes"]).all() and (batch["bboxes"][m] >= 0).all()
-                            and (batch["bboxes"][m] <= 1).all())
+            m, b = batch["mask"] > 0, batch["bboxes"]
+            if b.shape[-1] == 5:  # an OBB batch: a rotated rectangle's centre may lie outside the frame
+                boxes_ok = bool(np.isfinite(b).all() and (b[m][:, 2:4] > 0).all())
+            else:
+                boxes_ok = bool(np.isfinite(b).all() and (b[m] >= 0).all() and (b[m] <= 1).all())
             out = step(batch)
             mosaic = float(batch["aug"][0]) if "aug" in batch else float(self.train_loader.hyp["mosaic"])
             steps.append({"epoch": self.epoch, "mosaic": mosaic, "launches": delta(before), "boxes_ok": boxes_ok})
@@ -2028,11 +2063,13 @@ def counted_fit(steps, vals):
 
     DetectionTrainer._make_train_step = counted_step
     DetectionValidator.forward_nms, SegmentationValidator.forward_nms = counted_val(fwd), counted_val(seg_fwd)
+    OBBValidator.forward_nms = counted_val(obb_fwd)
     try:
         yield
     finally:
         DetectionTrainer._make_train_step = mk
         DetectionValidator.forward_nms, SegmentationValidator.forward_nms = fwd, seg_fwd
+        OBBValidator.forward_nms = obb_fwd
 
 
 def phase_fit(dev):
@@ -3193,6 +3230,343 @@ def phase_pose(dev):
     return ok, {"predict": predict, "full_width": {POSE_FULL: full}, "fit": fit}, {"pose": add_counts(*path)}
 
 
+def obb_cfg(cfg, nc=OBB_NC) -> dict:
+    """The OBB YAML with nc classes (DOTAv1's 15 by default)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+
+    d = yaml_model_load(cfg)
+    d["nc"] = nc
+    return d
+
+
+def obb_ok(results) -> bool:
+    """Every result with detections has (n, 7) oriented boxes, finite, w >= h
+    > 0, the angle in [0, pi), conf in (0, 1], and boxes that are their
+    enclosing axis-aligned boxes."""
+    for r in results:
+        if not len(r):
+            continue
+        o = r.obb.data if r.obb is not None else None
+        if (o is None or o.shape != (len(r), 7) or not np.isfinite(o).all() or (o[:, 2] < o[:, 3]).any()
+                or (o[:, 3] <= 0).any() or (o[:, 4] < 0).any() or (o[:, 4] >= np.pi).any()
+                or (o[:, 5] <= 0).any() or (o[:, 5] > 1).any()
+                or not np.array_equal(r.boxes.xyxy, r.obb.xyxy.astype(np.float32))):
+            return False
+    return True
+
+
+def obb_predict(cfg, frames, dev):
+    """YOLO(cfg).predict of the slice phase's frames in bf16 (BN-folded) at
+    640 px, nc 15, conf 0.25 with its class priors zeroed, its launches
+    counted (none), each result's oriented boxes valid (obb_ok); then its
+    forward against the fp32 unfused forward of the same seeded weights
+    (TF32 off): each raw map and the angles within OBB_RTOL of the largest
+    magnitude; the decoded channels' largest gap is reported."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(obb_cfg(cfg), device="cuda", dtype=torch.bfloat16, seed=SEED)
+    with zero_class_priors(yolo.model):
+        reset_counts()
+        t0 = time.perf_counter()
+        results = yolo.predict(frames, imgsz=640, conf=0.25, batch=8, verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    fp32 = YOLO(obb_cfg(cfg), device="cuda", dtype=torch.float32, seed=SEED)
+    with torch.inference_mode():
+        out, (maps, ang) = yolo.model(letterboxed(frames, 640, dev, torch.bfloat16))
+        out32, (maps32, ang32) = no_tf32(fp32.model, letterboxed(frames, 640, dev, torch.float32))
+    errs = {"detect_maps": [rel_err(a, b) for a, b in zip(maps, maps32)], "angles": rel_err(ang, ang32),
+            "decoded_channels_max": max(rel_err(out[:, i], out32[:, i]) for i in range(out.shape[1]))}
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8 and obb_ok(results) and yolo.is_fused
+          and yolo.task == "obb" and sum(len(r) for r in results) > 0 and bool(torch.isfinite(out).all())
+          and max(errs["detect_maps"] + [errs["angles"]]) <= OBB_RTOL)
+    return ok, {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()), "launches": launches,
+                "detections_per_frame": [len(r) for r in results], "predict_s_first_call": seconds,
+                "bf16_folded_vs_fp32_rel_err": errs, "ok": ok}, launches
+
+
+def obb_device_paths(yolo, frames, dev) -> dict:
+    """The rotated NMS and the predictor's oriented boxes (rotated_boxes) on
+    the card against the same functions in fp32 on the CPU on the same raw
+    prediction (the first OBB_BATCH frames at 1024 px): the NMS rows equal
+    but for at most OBB_NMS_ROW_SHARE of them (a probiou within an ulp of
+    the threshold decides a suppression either way), the oriented boxes of
+    the same rows bit for bit, with the CPU's ms of each."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.engine.predictor import DetectionPredictor
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import non_max_suppression
+
+    p = DetectionPredictor(yolo.model, None)  # rotated_boxes() reads nothing of the model
+    kw = dict(conf_thres=0.25, iou_thres=0.7, max_det=300, nc=yolo.model.nc, rotated=True)
+    pairs = [(img0, "x") for img0 in frames]
+    with torch.inference_mode():
+        pred = yolo.model(letterboxed(frames, OBB_IMGSZ, dev, yolo.model.dtype))[0]
+        nms_ms = cuda_ms(lambda: non_max_suppression(pred, **kw), iters=3, warmup=1)
+        dets = non_max_suppression(pred, **kw)
+        t0 = time.perf_counter()
+        dets_cpu = non_max_suppression(pred.float().cpu(), **kw)
+        cpu_nms_s = time.perf_counter() - t0
+        got, ref = p.rotated_boxes(dets, pairs, OBB_IMGSZ), p.rotated_boxes(dets.float().cpu(), pairs, OBB_IMGSZ)
+    rows_g, rows_c = dets.cpu().numpy(), dets_cpu.numpy()
+    same_rows = (rows_g == rows_c).all(-1)
+    kept = int((rows_c[..., 4] > 0).sum())
+    moved = float(1 - same_rows[rows_c[..., 4] > 0].mean()) if kept else 0.0
+    obb_same = all(np.array_equal(g, r) for g, r in zip(got, ref))
+    return {"rows_kept": kept, "nms_rows_bit_for_bit": bool(same_rows.all()), "nms_rows_moved_share": moved,
+            "nms_rows_max_abs_diff": float(np.abs(rows_g - rows_c).max()), "nms_ms_batch16_card": nms_ms,
+            "nms_s_batch16_cpu": cpu_nms_s, "obb_bit_for_bit": obb_same,
+            "ok": kept > 0 and moved <= OBB_NMS_ROW_SHARE and obb_same}
+
+
+def obb_batches(n, dev):
+    """Seeded OBB batches in the loader's format at 1024 px, on the card:
+    img (16, 1024, 1024, 3) uint8, cls (16, 300) of 15 classes, bboxes
+    (16, 300, 5) normalised xywh and the angle in [-pi/2, 0), mask (16,
+    300) with about half the rows valid (DOTA's dense scenes)."""
+    rng = np.random.default_rng(SEED + 7)
+    b, g, s = OBB_BATCH, OBB_MAX_GT, OBB_IMGSZ
+    out = []
+    for _ in range(n):
+        boxes = np.concatenate([rng.uniform(0.05, 0.95, (b, g, 2)), rng.uniform(0.01, 0.2, (b, g, 2)),
+                                rng.uniform(-np.pi / 2, 0, (b, g, 1))], -1).astype(np.float32)
+        out.append({"img": torch.tensor(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8), device=dev),
+                    "cls": torch.tensor(rng.integers(0, OBB_NC, (b, g)).astype(np.float32), device=dev),
+                    "bboxes": torch.tensor(boxes, device=dev),
+                    "mask": torch.tensor((rng.random((b, g)) < 0.5).astype(np.float32), device=dev)})
+    return out
+
+
+def obb_loss_card_vs_cpu(model, batch, dev) -> dict:
+    """The OBB loss on one batch's head outputs (the card's train-mode bf16
+    forward, cast to fp32) on the card and on the CPU in fp32: the three
+    items within OBB_ITEM_RTOL and the grads of the raw maps and the angles
+    within OBB_GRAD_RTOL of their norm; the card's loss ms and its peak
+    memory over the forward's, and the CPU's seconds."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.obb_loss import obb_loss
+
+    kw = dict(nc=model.nc, strides=model.strides)
+    with torch.no_grad():
+        maps, ang = model.train()(batch["img"].permute(0, 3, 1, 2).to(model.dtype) / 255.0)
+    model.eval()
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        f = [m.detach().float().to(d).requires_grad_() for m in maps]
+        a = ang.detach().float().to(d).requires_grad_()
+        tgt = [batch[k].to(d) for k in ("cls", "bboxes", "mask")]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        total, items = obb_loss(f, a, *tgt, **kw)
+        total.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        out[d.type] = (torch.stack(list(items)).cpu(), [t.grad.cpu() for t in f + [a]], time.perf_counter() - t0)
+    (ik, gk, sk), (ic, gc, sc) = out["cuda"], out["cpu"]
+    grad_errs = [float((x - y).norm() / y.norm().clamp(min=1e-30)) for x, y in zip(gk, gc)]
+    item_err = item_errs(ik, ic)
+    ok = max(item_err) <= OBB_ITEM_RTOL and max(grad_errs) <= OBB_GRAD_RTOL and bool(torch.isfinite(ik).all())
+    return {"ok": ok, "loss_items_card": ik.tolist(), "loss_items_cpu": ic.tolist(), "loss_items_rel_err": item_err,
+            "grad_rel_l2": grad_errs, "loss_s_card_first_call": sk, "loss_s_cpu": sc,
+            "assigner_and_loss_peak_gib_over_forward": peak / 2**30}
+
+
+def obb_train(dev):
+    """yolov8s-obb's train micro-step at batch 16, 1024 px, nc 15, max_gt
+    300, bf16 over fp32 masters: OBB_STEPS micro-steps with the launches
+    counted per step (none: the rotated assigner is plain PyTorch), the
+    step's time (CUDA events) and peak memory, the parameters finite after
+    the optimizer's steps; the loss on the card against
+    the CPU (obb_loss_card_vs_cpu); autobatch's measure at batch 16."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.model_utils import train_step_peak_bytes
+
+    tr = DetectionTrainer(overrides={**TRAIN, "model": obb_cfg(OBB_FULL), "imgsz": OBB_IMGSZ,
+                                     "max_gt": OBB_MAX_GT}).setup()
+    step, acc = tr._make_train_step(nb=TRAIN_NB)
+    batches = obb_batches(OBB_STEPS + 1, dev)
+    per_step, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(OBB_STEPS):
+        before = counts()
+        items = step(batches[i])
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        losses.append(items.tolist())
+    launches = counts()
+    step_peak = torch.cuda.max_memory_allocated()
+    cycle = itertools.cycle(batches[:OBB_STEPS])
+    step_ms = cuda_ms(lambda: step(next(cycle)), iters=4, warmup=2)
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.model.parameters())  # after two optimizer steps
+    loss_cmp = obb_loss_card_vs_cpu(tr.model, batches[-1], dev)
+    peak = train_step_peak_bytes(tr.model, OBB_IMGSZ, TRAIN["batch"])
+    ok = (all(d == FAMILY_PREDICT_LAUNCHES for d in per_step) and bool(np.isfinite(losses).all())
+          and len(losses[0]) == 3 and loss_cmp["ok"] and peak > 0 and finite)
+    info = {"model": OBB_FULL, "nc": OBB_NC, "imgsz": OBB_IMGSZ, "max_gt": OBB_MAX_GT, "accumulate": acc,
+            "launches_per_step": per_step, "loss_items": losses, "loss_names": ["box", "cls", "dfl"],
+            "step_ms_batch16": step_ms, "train_img_per_s": TRAIN["batch"] * 1e3 / step_ms,
+            "parameters_finite_after_updates": finite,
+            "step_peak_gib": step_peak / 2**30, "autobatch_peak_gib_batch16_one_gt": peak / 2**30,
+            "card_vs_cpu_fp32": loss_cmp, "ok": ok}
+    del tr, step, batches
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def write_obb_dataset(root: Path) -> Path:
+    """The OBB phase's seeded YOLO-OBB dataset, written with the stdlib as the
+    fit phase writes its own (FIT_TRAIN and FIT_VAL images of 768x1024, every
+    4th 1024x1024, nc 15): 4 to 12 filled rotated rectangles per image (the
+    pixels whose centres fall inside, within each rectangle's bounding box)
+    on a background of 8 x 8 blocks, each labelled by its 4 corners normalised
+    (clipped to the image), as DOTA's tiles are."""
+    rng = np.random.default_rng(SEED + 8)
+    for split, n in (("train", FIT_TRAIN), ("val", FIT_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = (1024, 1024) if i % 4 == 3 else (768, 1024)
+            low = rng.integers(0, 120, (8, 8, 3), dtype=np.uint8)
+            img = np.repeat(np.repeat(low, h // 8, 0), w // 8, 1)  # a blocky low-frequency background
+            lines = []
+            for _ in range(int(rng.integers(4, 13))):
+                c, wh, a = rng.uniform(0.1, 0.9, 2) * [w, h], rng.uniform(0.03, 0.25, 2) * [w, h], rng.uniform(0, np.pi)
+                rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+                q = (np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * wh / 2) @ rot.T + c
+                x0, y0 = np.clip(np.floor(q.min(0)).astype(int), 0, [w, h])
+                x1, y1 = np.clip(np.ceil(q.max(0)).astype(int), 0, [w, h])
+                gy, gx = np.mgrid[y0:y1, x0:x1] + 0.5
+                u = (gx - c[0]) * np.cos(a) + (gy - c[1]) * np.sin(a)  # the pixel centre in the rectangle's frame
+                v = -(gx - c[0]) * np.sin(a) + (gy - c[1]) * np.cos(a)
+                img[y0:y1, x0:x1][(np.abs(u) <= wh[0] / 2) & (np.abs(v) <= wh[1] / 2)] = rng.integers(130, 256, 3)
+                k = int(rng.integers(0, OBB_NC))
+                lines.append(f"{k} " + " ".join(f"{v:.6f}" for v in np.clip(q / [w, h], 0, 1).reshape(-1)))
+            (root / "images" / split / f"{split}_{i:04d}.png").write_bytes(png_bytes(img))
+            (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    data = root / "data.yaml"  # JSON is YAML
+    data.write_text(json.dumps({"path": str(root), "train": "images/train", "val": "images/val", "nc": OBB_NC,
+                                "names": {str(k): f"class{k}" for k in range(OBB_NC)}}))
+    return data
+
+
+def obb_fit(dev):
+    """YOLO(yolov8s-obb, nc 15).train for one epoch at 1024 px on
+    write_obb_dataset (4 micro-steps on the loader's host stack with degrees
+    10, 2 val batches), then YOLO(best.pt).val (2 more): no kernel per
+    micro-step or val batch, best.pt's parameters finite, OBBValidator's (B)
+    keys finite and equal to the trainer's record within FIT_RECORD_ATOL."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obb_"))
+    steps, vals = [], []
+    try:
+        data = write_obb_dataset(tmp / "data")
+        fy = YOLO(obb_cfg(OBB_FULL), device="cuda", seed=SEED)
+        reset_counts()
+        with counted_fit(steps, vals):
+            metrics = fy.train(data=str(data), project=str(tmp / "runs"),
+                               **{**FIT, "epochs": 1, "save_period": -1, "imgsz": OBB_IMGSZ, "degrees": 10.0,
+                                  "max_gt": OBB_MAX_GT})
+            torch.cuda.synchronize()
+            fit_launches = counts()
+            best = YOLO(str(fy.trainer.wdir / "best.pt"), device="cuda")
+            t0 = time.perf_counter()
+            vm = best.val(data=str(data), batch=FIT["batch"], imgsz=OBB_IMGSZ, workers=FIT["workers"],
+                          max_gt=OBB_MAX_GT, verbose=False)
+            val_s = time.perf_counter() - t0
+        e = fy.trainer.epoch_stats[0]
+        record_err = max(abs(vm[k] - metrics[k]) for k in metrics)
+        b_keys = sorted(k for k in vm if k.startswith("metrics/") and k.endswith("(B)"))
+        finite = all(bool(torch.isfinite(p).all()) for p in best.model.parameters())
+        ok = (len(steps) == 4 and all(st["launches"] == FAMILY_PREDICT_LAUNCHES and st["boxes_ok"] for st in steps)
+              and len(vals) == 4 and all(v == FAMILY_PREDICT_LAUNCHES for v in vals) and record_err <= FIT_RECORD_ATOL
+              and all(np.isfinite(list(metrics.values()))) and len(b_keys) == 4 and vm.box is not None
+              and best.task == "obb" and fy.trainer.train_loader.device_augment is False and finite)
+        fit = {"model": OBB_FULL, "best_parameters_finite": finite, "launches": fit_launches, "launches_per_step": steps, "launches_per_val_batch": vals,
+               "final_metrics": metrics, "val_best_pt": dict(vm), "box_keys": b_keys, "record_max_abs_err": record_err,
+               "loader_wait_s": e["loader_wait_s"], "train_s": e["train_s"],
+               "train_img_per_s_with_loader": e["batches"] * FIT["batch"] / e["train_s"],
+               "val_img_per_s_in_train": e["val_seen"] / e["val_s"], "val_best_pt_img_per_s": FIT_VAL / val_s,
+               "ok": ok}
+        del fy, best
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return fit, fit_launches
+
+
+def obb_track(yolo, frames) -> tuple:
+    """YOLO.track of the frames at 1024 px with bytetrack.yaml (fresh
+    trackers): every Results keeps predict's oriented boxes, in the
+    detections' order (the tracker re-orders the enclosing boxes only, as
+    the JAX package does)."""
+    kw = dict(imgsz=OBB_IMGSZ, conf=TRACK_CONF, batch=8, verbose=False)
+    plain = yolo.predict(frames, **kw)
+    tracked, launches = counted(lambda: yolo.track(frames, tracker="bytetrack.yaml", **kw))
+    same = all(t.obb is not None and np.array_equal(t.obb.data, p.obb.data) for t, p in zip(tracked, plain) if len(p))
+    ok = (same and len(tracked) == len(frames) and any(len(t.track_ids) for t in tracked)
+          and launches == FAMILY_PREDICT_LAUNCHES)
+    return ok, {"ok": bool(ok), "frames": len(tracked), "tracks_per_frame": [len(t.track_ids) for t in tracked],
+                "obb_in_detection_order": bool(same), "launches": launches}, launches
+
+
+def phase_obb(dev):
+    """Oriented boxes (the module docstring's obb phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    predict, path = [], []
+    for cfg in OBB_GRAPHS:
+        _, info, launches = obb_predict(cfg, frames, dev)
+        predict.append(info)
+        path.append(launches)
+        torch.cuda.empty_cache()
+
+    yolo = YOLO(obb_cfg(OBB_FULL), device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(OBB_BATCH, 3, OBB_IMGSZ, OBB_IMGSZ, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=10)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "cudnn", "conv", key="conv_share")
+    del xb
+    frames16 = frames * (OBB_BATCH // len(frames))
+    with zero_class_priors(yolo.model):  # the predictor at full load: seeded scores near 0.5, up to 300 a frame
+        kw = dict(imgsz=OBB_IMGSZ, conf=0.25, batch=OBB_BATCH, verbose=False)
+        yolo.predict(frames16, **kw)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = yolo.predict(frames16, **kw)
+        dt = time.perf_counter() - t0
+        path.append(counts())
+        served = {"img_per_s": OBB_BATCH / dt, "detections_per_frame": [len(r) for r in res[:8]],
+                  "obb_ok": obb_ok(res)}
+        device_paths = obb_device_paths(yolo, frames16, dev)
+        track_ok, track, track_launches = obb_track(yolo, frames)
+        path.append(track_launches)
+    del yolo
+    torch.cuda.empty_cache()
+    serve_ok = served["obb_ok"] and sum(served["detections_per_frame"]) > 0 and device_paths["ok"] and track_ok
+
+    train_ok, train_info, train_launches = obb_train(dev)
+    path.append(train_launches)
+    fit, fit_launches = obb_fit(dev)
+    path.append(fit_launches)
+    rng = np.random.default_rng(SEED)  # the int8 phase's calibration frames
+    calib = [rng.integers(0, 255, (8, 640, 640, 3), dtype=np.uint8) for _ in range(2)]
+    int8_ok, int8, int8_launches = int8_full(OBB_FULL, calib, frames, dev)
+    path.append(int8_launches)
+    full = {"ok": serve_ok and train_ok and int8_ok, "forward_ms_batch16": fwd_ms,
+            "forward_img_per_s": OBB_BATCH * 1e3 / fwd_ms, "forward_profile": profile, "predict_batch16": served,
+            "device_vs_cpu": device_paths, "track": track, "train": train_info, "int8_640px": int8}
+    ok = all(r["ok"] for r in predict) and full["ok"] and fit["ok"]
+    return ok, {"predict": predict, "full_width": {OBB_FULL: full}, "fit": fit}, {"obb": add_counts(*path)}
+
+
 def int8_outputs(model, out) -> list:
     """The outputs a check holds: a YOLOv10 head's raw maps of both branches
     (its top-k orders near-equal scores by a rounding), a seg head's
@@ -3264,7 +3638,7 @@ def int8_full(cfg, calib, frames, dev) -> tuple:
     torch.cuda.empty_cache()
     cpu = int8_card_vs_cpu(cfg, calib, frames, dev)
     ok = (launches == FAMILY_PREDICT_LAUNCHES and calib_launches == FAMILY_PREDICT_LAUNCHES and len(results) == 8
-          and boxes_ok(results, 480, 640) and cpu["ok"])
+          and (obb_ok(results) if yolo.task == "obb" else boxes_ok(results, 480, 640)) and cpu["ok"])
     info = {"model": cfg, "ok": bool(ok), "int8_convs": sum(m.runs_int8 for m in convs),
             "float_convs": sum(m.w_int8 is None or not m.runs_int8 for m in convs), "calibrate_s": calib_s,
             "calibration_launches": calib_launches, "predict_launches": launches,
@@ -3318,9 +3692,9 @@ def phase_int8_graphs(dev):
 
 
 def same_extras(g, r) -> bool:
-    """Two Results' masks and keypoints both absent, or equal bit for bit."""
+    """Two Results' masks, keypoints and oriented boxes both absent, or equal bit for bit."""
     return all((a is None) == (b is None) and (a is None or np.array_equal(a.data, b.data))
-               for a, b in ((g.masks, r.masks), (g.keypoints, r.keypoints)))
+               for a, b in ((g.masks, r.masks), (g.keypoints, r.keypoints), (g.obb, r.obb)))
 
 
 def program_check(live, path: str, frames) -> dict:
@@ -3845,7 +4219,7 @@ def kernels_line(yolo, tr, int8_yolo, dev, launches, build, wide, k2_levels):
     YOLO11 and flagship-l phases, whose Swin blocks are 512 wide. K2 lists
     its rows at the four-level grids of the families phase (`four_levels`)
     and its row at topk=1 (`topk1`, YOLOv10's one-to-one assignment, on the
-    same inputs); its launches by path include the v10, segment and pose phases'."""
+    same inputs); its launches by path include the v10, segment, pose and obb phases'."""
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin as S
     from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
     from improving_yolov8_cbam_swinblock_tpu_torch.ops.swin import swin_block, swin_block_bwd
@@ -4236,6 +4610,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
     (v10_launches,) = run("v10", phase_v10, dev)
     (segment_launches,) = run("segment", phase_segment, dev)
     (pose_launches,) = run("pose", phase_pose, dev)
+    (obb_launches,) = run("obb", phase_obb, dev)
     (int8_graphs_launches,) = run("int8_graphs", phase_int8_graphs, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
@@ -4248,7 +4623,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
                            {"predict": predict_launches, "serve": serve_launches, **track_launches,
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
-                            **families_launches, **v10_launches, **segment_launches, **pose_launches,
+                            **families_launches, **v10_launches, **segment_launches, **pose_launches, **obb_launches,
                             **int8_graphs_launches,
                             **yolo11_launches,
                             **large_launches,

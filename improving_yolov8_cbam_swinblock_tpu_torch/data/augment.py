@@ -3,9 +3,10 @@ data/augment.py): the letterbox, format_sample, the transforms of the
 device-augmented and val paths, and the host augmentation stack of
 device_augment=False (mosaic 2x2, 3x3 and 1x3, random_perspective, mixup,
 pixel_augment, HSV and flips, train_transform), and the instance-aware
-stack of the segment and pose tasks (the polygons and keypoints through the
-same mosaic, warp, mixup and flips; segment_transform's overlap map or bit
-planes of the instances, pose_transform's keypoint targets).
+stack of the segment, pose and OBB tasks (the polygons and keypoints through
+the same mosaic, warp, mixup and flips; segment_transform's overlap map or
+bit planes of the instances, pose_transform's keypoint targets,
+obb_transform's rotated boxes).
 
 Letterbox: PyTorch's bilinear interpolation with half-pixel centres
 (align_corners=False), the rule cv2.INTER_LINEAR follows; cv2 rounds its
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.patches import fill_poly
+from ..utils.patches import fill_poly, min_area_rect
 
 
 def _resize(t: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
@@ -672,10 +673,11 @@ def train_transform(samples: List[Dict], imgsz: int, max_gt: int, rng: np.random
 
 
 # ---------------------------------------------------------------------------
-# The instance-aware host stack of the segment and pose tasks (JAX data/augment.py:465-545,
-# :611-909): the polygons and keypoints ride the same mosaic, warp, mixup and flips as the boxes;
+# The instance-aware host stack of the segment, pose and OBB tasks (JAX data/augment.py:465-545,
+# :611-940): the polygons and keypoints ride the same mosaic, warp, mixup and flips as the boxes;
 # the segment targets add an overlap map (or bit planes) of the instances at imgsz / mask_ratio,
-# filled with cv2.fillPoly's rule (utils/patches.py fill_poly), the pose targets the keypoints.
+# filled with cv2.fillPoly's rule (utils/patches.py fill_poly), the pose targets the keypoints,
+# the OBB targets each polygon's minimum-area rectangle (utils/patches.py min_area_rect).
 # An instance has a polygon in pixels, or None for a box-only label, and keypoints (nk, 3) in
 # pixels with their visibility, or None.
 
@@ -1005,3 +1007,35 @@ def pose_transform(sample, imgsz: int, max_gt: int, kpt_shape, train: bool, rng,
             kp[j, :len(q)] = q[:nk]
     out["kpts"] = kp
     return out
+
+
+def obb_transform(sample, imgsz: int, max_gt: int, train: bool, rng, hyp: Dict) -> Dict[str, np.ndarray]:
+    """The OBB task's sample (JAX data/augment.py:912): train runs
+    geometric_train_transform on the main sample and its donors (the
+    4-corner polygons through every warp), val the letterbox. Each polygon
+    of 4 points or more becomes its minimum-area rectangle (utils/patches.py
+    min_area_rect, cv2.minAreaRect's rule, the angle in [-90, 0) degrees); a
+    rectangle with a side of 1 pixel or less is dropped. Returns img (RGB),
+    cls, mask and bboxes (max_gt, 5): x, y, w, h normalised by imgsz and the
+    angle in radians. No ratio_pad, as in the JAX package."""
+    if train:
+        m = geometric_train_transform(sample if isinstance(sample, list) else [sample], imgsz, rng, hyp)
+    else:
+        m = _val_inst(sample[0] if isinstance(sample, list) else sample, imgsz)
+    out_box = np.zeros((max_gt, 5), np.float32)
+    out_cls = np.zeros((max_gt,), np.float32)
+    out_mask = np.zeros((max_gt,), np.float32)
+    n = 0
+    for j, p in enumerate(m["polys"]):
+        if n >= max_gt:
+            break
+        if p is None or len(p) < 4:
+            continue
+        (cx, cy), (bw, bh), ang = min_area_rect(p.astype(np.float32))
+        if bw <= 1 or bh <= 1:
+            continue
+        out_box[n] = [cx / imgsz, cy / imgsz, bw / imgsz, bh / imgsz, np.deg2rad(ang)]
+        out_cls[n] = m["cls"][j]
+        out_mask[n] = 1.0
+        n += 1
+    return {"img": m["img"][..., ::-1].copy(), "cls": out_cls, "bboxes": out_box, "mask": out_mask}

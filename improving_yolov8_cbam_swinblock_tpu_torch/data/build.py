@@ -41,7 +41,8 @@ def build_yolo_dataset(cfg, img_path, data: Dict, mode: str = "train", kpt_shape
 def build_dataloader(dataset: YOLODataset, batch: int, workers: int = 8, train: bool = True,
                      hyp: Optional[Dict] = None, seed: int = 0, device_augment: bool = True,
                      rect_shape=None, task: str = "detect") -> DataLoader:
-    """The fixed-shape prefetch loader; task "segment" adds the instances' masks, "pose" their keypoints."""
+    """The fixed-shape prefetch loader; task "segment" adds the instances' masks, "pose" their keypoints,
+    "obb" makes the boxes rotated (xywhr)."""
     return DataLoader(dataset, batch, train=train, hyp=hyp, seed=seed, workers=workers,
                       device_augment=device_augment, rect_shape=rect_shape, task=task)
 

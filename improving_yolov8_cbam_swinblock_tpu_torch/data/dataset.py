@@ -13,7 +13,10 @@ JAX package's data/dataset.py: check_det_dataset, YOLODataset, DataLoader).
     overlap map or bit planes, and ratio_pad, from data/augment.py
     segment_transform on both paths; the pose task: `kpts` (B, max_gt, nk,
     3), from data/augment.py pose_transform, the train path swapping left
-    and right points on a flip by the descriptor's `flip_idx`). The train path either letterboxes only and
+    and right points on a flip by the descriptor's `flip_idx`; the OBB
+    task: `bboxes` (B, max_gt, 5) normalised xywh and the angle in radians,
+    each 4-corner polygon label's minimum-area rectangle, from
+    data/augment.py obb_transform). The train path either letterboxes only and
     adds `aug` (the 7 device-augmentation hyperparameters in AUG_KEYS
     order; device_augment=True, the default) or runs the host augmentation
     stack (data/augment.py train_transform; device_augment=False), each
@@ -41,7 +44,8 @@ import yaml
 
 from ..cfg import AUG_KEYS
 from ..utils.patches import image_size, imread
-from .augment import pose_transform, raw_train_transform, segment_transform, train_transform, val_transform
+from .augment import (obb_transform, pose_transform, raw_train_transform, segment_transform, train_transform,
+                      val_transform)
 from .utils import load_or_build_cache
 
 IMG_EXTS = {".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp"}
@@ -185,8 +189,8 @@ class DataLoader:
         self.bs = batch_size
         self.train = train
         self.task = task
-        # the segment and pose tasks run their own host stack, never the device augmentation nor rect, as in
-        # the JAX package
+        # the segment, pose and OBB tasks run their own host stack, never the device augmentation nor rect, as
+        # in the JAX package
         self.device_augment = device_augment and train and task == "detect"
         self.rect_shape = tuple(rect_shape) if rect_shape and task == "detect" else None  # val only: (h, w)
         self.hyp = dict(hyp or {})
@@ -210,7 +214,7 @@ class DataLoader:
     def _make_sample(self, epoch: int, pos: int, i: int) -> Dict[str, np.ndarray]:
         """Image i at position pos of the epoch. The host path's generator and
         donor draws are the JAX package's (its DataLoader._make_sample)."""
-        if self.task in ("segment", "pose"):
+        if self.task in ("segment", "pose", "obb"):
             rng = np.random.default_rng((self.seed * 1_000_003 + epoch) * 1_000_003 + i * 7 + pos)
             group = self.ds.load_sample(i)
             if self.train:  # the main sample, the 2x2 mosaic's donors, with mixup a second mosaic's, and in
@@ -223,6 +227,8 @@ class DataLoader:
             if self.task == "pose":
                 return pose_transform(group, self.ds.imgsz, self.ds.max_gt, self.ds.kpt_shape or (17, 3), self.train,
                                       rng, self.hyp, flip_idx=self.ds.flip_idx)
+            if self.task == "obb":  # the polygons of the 4-corner labels, read as segments
+                return obb_transform(group, self.ds.imgsz, self.ds.max_gt, self.train, rng, self.hyp)
             return segment_transform(group, self.ds.imgsz, self.ds.max_gt, self.train, rng, self.hyp)
         if self.device_augment:
             return raw_train_transform(self.ds.load_sample(i), self.ds.imgsz, self.ds.max_gt)

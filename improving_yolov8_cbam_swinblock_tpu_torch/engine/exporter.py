@@ -16,7 +16,11 @@ model's program returns one float32 (B, 4 + nc + nk * nd, A): the Detect
 layout followed by the decoded keypoints (x, y in input pixels and, where
 nd is 3, the visibility sigmoid); its sidecar says `task: pose` and gives
 `kpt_shape` (as the reference's exporter writes it; the JAX exporter does
-not), and `nms=True` on it raises too. A YOLOv10
+not), and `nms=True` on it raises too. An OBB model's program returns
+one float32 (B, 4 + nc + 1, A): the rotated boxes' centre and size in
+input pixels, the class sigmoids and the angle in radians; its sidecar
+says `task: obb` and gives that layout, and `nms=True` on it raises, as
+for every task but detect (the JAX exporter's :90-91). A YOLOv10
 model's program returns its head's (B, 300, 6) detections (xyxy pixels,
 score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
 warns and is dropped (the JAX exporter would run e2e_postprocess on those
@@ -74,7 +78,8 @@ class ExportForward(nn.Module):
     """uint8 (B, H, W, 3) RGB frames -> the model's float32 (B, 4 + nc, A)
     (a YOLOv10 model's (B, 300, 6) detections; a segmentation model's
     (B, 4 + nc + nm, A) and its float32 prototypes (B, nm, H/4, W/4); a
-    pose model's (B, 4 + nc + nk * nd, A)), or
+    pose model's (B, 4 + nc + nk * nd, A); an OBB model's (B, 4 + nc + 1,
+    A)), or
     with nms e2e_postprocess's (B, max_det, 6): the frames cast to the
     model's dtype, then divided by 255, as the JAX exporter's forward does."""
 
@@ -180,6 +185,8 @@ class Exporter:
                        "and (B, nm, H/4, W/4) out (mask prototypes)" if self.model.task == "segment"
                        else "NHWC uint8 in, (B, 4+nc+nk*nd, A) out (xywh pixels + cls sigmoid + keypoints: x, y "
                        "pixels and, where nd is 3, the visibility sigmoid)" if self.model.task == "pose"
+                       else "NHWC uint8 in, (B, 4+nc+1, A) out (rotated boxes' xywh pixels + cls sigmoid + angle "
+                       "in radians)" if self.model.task == "obb"
                        else "NHWC uint8 in, (B, 4+nc, A) out (xywh pixels + cls sigmoid)"),
         }
         if self.model.task == "pose":  # the reference's key, which the JAX package's sidecar lacks

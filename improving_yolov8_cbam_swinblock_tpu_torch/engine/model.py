@@ -17,10 +17,14 @@ predicts masks, validates box and mask mAP, trains with the seg loss and
 exports (a program with the prototypes beside the prediction) through the
 same verbs; a pose graph (task "pose") predicts and tracks keypoints,
 validates box and OKS keypoint mAP, trains with the pose loss and exports
-(a program whose prediction carries the keypoints). `YOLO("model.pt2")`
-serves a program that `export` wrote (nn/autobackend.py ProgramModel):
-predict and track, with the masks of a segmentation program and the
-keypoints of a pose program; the other verbs need the model itself. `track` runs
+(a program whose prediction carries the keypoints); an oriented-box graph
+(task "obb") predicts rotated boxes (rotated NMS, `Results.obb`), tracks
+their enclosing boxes, validates the probiou box mAP, trains with the OBB
+loss and exports (a program whose prediction carries the angle).
+`YOLO("model.pt2")` serves a program that `export` wrote
+(nn/autobackend.py ProgramModel): predict and track, with the masks of a
+segmentation program, the keypoints of a pose program and the rotated
+boxes of an OBB program; the other verbs need the model itself. `track` runs
 predict with ByteTrack or BoT-SORT on its events (trackers/), `embed`
 returns pooled layer embeddings, and predict's visualize writes feature
 maps.
@@ -87,7 +91,7 @@ class YOLO:
                 self.overrides = {"imgsz": int(self.model.backend.imgsz[0])}
         else:
             self.model = DetectionModel(model, **self._build)
-        self.task = self.model.task  # "detect", "segment" or "pose", from the graph's head
+        self.task = self.model.task  # "detect", "segment", "pose" or "obb", from the graph's head
 
     def _load_pt(self, path: str) -> None:
         payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -365,7 +369,9 @@ class YOLO:
         the mask's), and a pose model (task "pose") its box and OKS keypoint
         metrics ("(B)" and "(P)" keys, `.box` and `.pose`; `mAP50-95` the
         keypoints'), each key also as metrics/<key>, without rect, plots or
-        JSON."""
+        JSON; an oriented-box model (task "obb") its probiou box metrics (the
+        plain keys and their metrics/...(B) aliases, `.box`), without rect,
+        plots or JSON."""
         self._single("validating")
         args = get_cfg({**self.overrides, **kwargs})
         stride = max(self.model.strides)

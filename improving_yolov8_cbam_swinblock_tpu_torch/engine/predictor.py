@@ -24,10 +24,16 @@ decoded keypoint columns, which are scaled back through the letterbox
 clipped to the image, as the JAX predictor does) on the model's device,
 then copied to the host once a batch (`Results.keypoints`, (n, nk, nd));
 `augment` does not apply to a pose model either (the JAX predictor runs
-TTA for detect models only). A `.pt2` program (YOLO("model.pt2"),
-nn/autobackend.py ProgramModel) gives the same outputs: a segmentation
-program's prototypes are its second output, a pose program's keypoints sit
-in its prediction.
+TTA for detect models only). An oriented-box model's NMS is rotated
+(ops/nms.py, probiou), and each kept row's centre and size go back through
+the letterbox and are regularised (`rotated_boxes`) on the model's device,
+then copied to the host once a batch: `Results.obb` ((n, 7) xywhr, conf,
+cls) and `Results.boxes` their enclosing axis-aligned boxes, unclipped, as
+the JAX predictor makes them; `augment` does not apply to it either. A
+`.pt2` program (YOLO("model.pt2"), nn/autobackend.py ProgramModel) gives
+the same outputs: a segmentation program's prototypes are its second
+output, a pose program's keypoints and an OBB program's angles sit in its
+prediction.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -47,6 +53,7 @@ from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
 from ..ops.boxes import process_mask, scale_boxes, scale_coords
 from ..ops.nms import non_max_suppression
+from ..ops.rotated import regularize_rboxes
 from ..ops.segments import resize_bilinear
 from ..utils.callbacks import default_callbacks, run_callbacks
 from .results import Results
@@ -145,12 +152,14 @@ class DetectionPredictor:
         else:
             if segment:  # (B, 4 + nc + nm, A) and the prototypes; no TTA
                 pred, (_, _, proto) = self.model(x)
-            else:  # a pose model's keypoints ride in pred; TTA for detect models only
+            else:  # a pose model's keypoints, an OBB model's angles ride in pred; TTA for detect models only
                 pred = self.model.predict_augment(x) if a.augment and self.model.task == "detect" else self.model(x)[0]
             dets = non_max_suppression(pred, conf_thres=conf, iou_thres=float(a.iou), max_det=int(a.max_det),
-                                       nc=self.model.nc, agnostic=bool(a.agnostic_nms))
+                                       nc=self.model.nc, agnostic=bool(a.agnostic_nms),
+                                       rotated=self.model.task == "obb")
         dets_dev = dets[:n]
         kpts = self.keypoints(dets_dev, frames, imgsz) if self.model.task == "pose" else None
+        obbs = self.rotated_boxes(dets_dev, frames, imgsz) if self.model.task == "obb" else None
         dets = dets_dev[..., :6].cpu().numpy()
         t2 = time.perf_counter()
         if a.visualize:
@@ -159,16 +168,22 @@ class DetectionPredictor:
         for i, (det, (img0, path)) in enumerate(zip(dets, frames)):
             keep = det[:, 4] > 0
             det = det[keep].copy()
-            if len(det):
-                det[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(det[:, :4]), img0.shape[:2]).numpy()
-            res = Results(img0, path, self.model.names, det)
-            if kpts is not None and len(det):  # no detections: keypoints None, as in the JAX predictor
-                res.update(keypoints=kpts[i])
-            if segment and len(det):
-                _, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
-                rows = dets_dev[i][torch.from_numpy(keep).to(dets_dev.device)]
-                res.update(masks=native_masks(proto[i], rows, imgsz, (padw, padh), img0.shape[:2],
-                                              torch.from_numpy(det[:, :4]), bool(a.retina_masks)).cpu().numpy())
+            if obbs is not None:
+                res = Results(img0, path, self.model.names)
+                if len(det):  # the enclosing boxes of the rotated ones, unclipped; none: obb None, as in JAX
+                    res.update(obb=obbs[i])
+                    res.update(boxes=np.concatenate([res.obb.xyxy, obbs[i][:, 5:7]], 1))
+            else:
+                if len(det):
+                    det[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(det[:, :4]), img0.shape[:2]).numpy()
+                res = Results(img0, path, self.model.names, det)
+                if kpts is not None and len(det):  # no detections: keypoints None, as in the JAX predictor
+                    res.update(keypoints=kpts[i])
+                if segment and len(det):
+                    _, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
+                    rows = dets_dev[i][torch.from_numpy(keep).to(dets_dev.device)]
+                    res.update(masks=native_masks(proto[i], rows, imgsz, (padw, padh), img0.shape[:2],
+                                                  torch.from_numpy(det[:, :4]), bool(a.retina_masks)).cpu().numpy())
             res.speed = {"preprocess": (t1 - t0) * 1000 / n, "inference": (t2 - t1) * 1000 / n,
                          "postprocess": 0.0}
             out.append(res)
@@ -186,6 +201,25 @@ class DetectionPredictor:
             r, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
             k = det[det[:, 4] > 0, 6:6 + nk * nd].reshape(-1, nk, nd)
             kept.append(scale_coords((imgsz, imgsz), k, img0.shape[:2], ratio_pad=((r, r), (padw, padh))))
+        host = torch.cat(kept).cpu().numpy()
+        return np.split(host, np.cumsum([len(k) for k in kept])[:-1])
+
+    def rotated_boxes(self, dets: torch.Tensor, frames, imgsz: int) -> List[np.ndarray]:
+        """Each image's (n, 7) oriented boxes [x, y, w, h, angle, conf, cls]
+        of its n kept rotated-NMS rows (x, y, w, h, conf, cls, angle in
+        letterboxed pixels) in original pixels: the centre less the
+        letterbox's integer pad and the centre and size over its gain (a true
+        division), then regularize_rboxes (w >= h, angle in [0, pi)), on the
+        rows' device, unclipped, as the JAX predictor does; one copy to the
+        host for the batch."""
+        kept = []
+        for det, (img0, _) in zip(dets, frames):
+            r, _, (padw, _, padh, _) = letterbox_geometry(img0.shape[:2], imgsz)
+            d = det[det[:, 4] > 0]
+            gain = torch.tensor(r, dtype=d.dtype, device=d.device)
+            xy = (d[:, :2] - torch.tensor([padw, padh], dtype=d.dtype, device=d.device)) / gain
+            rb = regularize_rboxes(torch.cat([xy, d[:, 2:4] / gain, d[:, 6:7]], 1))
+            kept.append(torch.cat([rb, d[:, 4:6]], 1))
         host = torch.cat(kept).cpu().numpy()
         return np.split(host, np.cumsum([len(k) for k in kept])[:-1])
 

@@ -1,14 +1,15 @@
 """Inference results of the predict path: numpy-backed, like the JAX
 package's engine/results.py (its detection part, the masks of a
-segmentation model and the keypoints of a pose model).
+segmentation model, the keypoints of a pose model and the oriented boxes
+of an OBB model).
 
 `Results` holds one image's detections and writes them out: a log string
 (`verbose`), dicts and JSON (`summary`, `to_json`, with each mask's polygon
 as `segments` and each detection's `keypoints`), a sqlite table
 (`to_sql`), an annotated copy of the image with the masks blended in and
 the keypoints dotted (`plot`, `save`, `show`), YOLO label lines
-(`save_txt`, a pose model's normalised keypoints after each box) and crops
-(`save_crop`). Drawing and image files need cv2, as
+(`save_txt`, a pose model's normalised keypoints after each box, an OBB
+model's normalised corners) and crops (`save_crop`). Drawing and image files need cv2, as
 in the JAX package; the polygons (`Masks.xy`) do not.
 """
 
@@ -148,14 +149,65 @@ class Keypoints:
         return len(self.data)
 
 
+class OBB:
+    """Oriented boxes: (n, 7) float32 [x, y, w, h, angle, conf, cls] in
+    original image pixels and radians, or (n, 8) with a track id before
+    conf, as the JAX package's engine/results.py OBB."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        data = np.asarray(data, dtype=np.float32)
+        n = data.shape[-1] if data.size else 7
+        self.data = data.reshape(-1, n)
+        self.is_track = n == 8
+        self.orig_shape = tuple(orig_shape)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def id(self):
+        """Track ids, or None for plain detections."""
+        return self.data[:, 5] if self.is_track else None
+
+    @property
+    def conf(self):
+        return self.data[:, -2]
+
+    @property
+    def cls(self):
+        return self.data[:, -1]
+
+    @property
+    def xyxyxyxy(self):
+        """The 4 corners (n, 4, 2) of each box."""
+        x, y, w, h, r = (self.data[:, i] for i in range(5))
+        c, s = np.cos(r), np.sin(r)
+        vx = np.stack([w / 2 * c, w / 2 * s], -1)
+        vy = np.stack([-h / 2 * s, h / 2 * c], -1)
+        ctr = self.data[:, :2]
+        return np.stack([ctr + vx + vy, ctr + vx - vy, ctr - vx - vy, ctr - vx + vy], axis=1)
+
+    @property
+    def xyxy(self):
+        """The enclosing axis-aligned boxes (n, 4)."""
+        pts = self.xyxyxyxy
+        return np.concatenate([pts.min(1), pts.max(1)], axis=-1)
+
+    def __len__(self):
+        return len(self.data)
+
+
 def _class_color(cls: int) -> tuple:
     """The JAX package's Results.plot colour of a class (BGR)."""
     return tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
 
 
 class Results:
-    """One image's detections, a segmentation model's masks (`masks`) and a
-    pose model's keypoints (`keypoints`), each None otherwise."""
+    """One image's detections, a segmentation model's masks (`masks`), a
+    pose model's keypoints (`keypoints`) and an oriented-box model's
+    rotated boxes (`obb`, with `boxes` their enclosing axis-aligned boxes),
+    each None otherwise."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None):
         self.orig_img = orig_img
@@ -165,6 +217,7 @@ class Results:
         self.boxes = Boxes(boxes if boxes is not None else np.zeros((0, 6)), self.orig_shape)
         self.masks: Optional[Masks] = None
         self.keypoints: Optional[Keypoints] = None
+        self.obb: Optional[OBB] = None
         self.speed = {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
@@ -180,6 +233,8 @@ class Results:
         if self.keypoints is not None:
             k = self.keypoints.data
             r.keypoints = Keypoints(k[idx].reshape((-1,) + k.shape[1:]), self.orig_shape)
+        if self.obb is not None:
+            r.obb = OBB(np.atleast_2d(self.obb.data[idx]), self.orig_shape)
         return r
 
     def new(self):
@@ -188,21 +243,25 @@ class Results:
         r.speed = dict(self.speed)
         return r
 
-    def update(self, boxes=None, masks=None, keypoints=None):
-        """Replace the detections (and the masks, the keypoints) in place."""
+    def update(self, boxes=None, masks=None, keypoints=None, obb=None):
+        """Replace the detections (and the masks, the keypoints, the oriented boxes) in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
+        if obb is not None:
+            self.obb = OBB(obb, self.orig_shape)
         return self
 
     def verbose(self) -> str:
-        """The log string: '2 persons, 1 bus, ', or '(no detections), '."""
-        if not len(self.boxes):
+        """The log string: '2 persons, 1 bus, ', or '(no detections), ' (an
+        oriented-box model's counted from its oriented boxes)."""
+        src = self.obb if self.obb is not None else self.boxes
+        if not len(src):
             return "(no detections), "
-        cls = self.boxes.cls.astype(int)
+        cls = src.cls.astype(int)
         out = ""
         for c in np.unique(cls):
             n = int((cls == c).sum())
@@ -215,7 +274,9 @@ class Results:
         Masks.xyn) where there is a mask for every box, and `keypoints`
         ({"x": [...], "y": [...]} in pixels, as the JAX package writes them,
         and "visible", the visibility scores, where nd is 3, as the
-        reference writes them) where the detection has keypoints."""
+        reference writes them) where the detection has keypoints. An
+        oriented-box model's rows give the enclosing axis-aligned boxes, as
+        the JAX package's do (the reference's give the four corners)."""
         out = []
         b = self.boxes
         polys = self.masks.xyn if self.masks is not None and len(self.masks) == len(b) else None
@@ -270,7 +331,9 @@ class Results:
         its class colour, truncated, as the JAX package draws them), then
         each box and its 'name conf' label (with 'id:n' for tracked boxes),
         coloured by class, then every keypoint as a filled red dot of radius
-        max(lw, 2), as the JAX package draws them."""
+        max(lw, 2), as the JAX package draws them. An oriented-box model's
+        boxes are the enclosing axis-aligned ones, as the JAX package draws
+        them (the reference draws the rotated polygons)."""
         import cv2
 
         img = self.orig_img.copy()
@@ -319,12 +382,18 @@ class Results:
     def save_txt(self, txt_file: str, save_conf: bool = False):
         """YOLO label lines, 'cls x y w h' normalised (and conf with save_conf),
         '%.6g'; a segmentation model's too (no polygon); a pose model's
-        followed by each keypoint's x and y normalised and its other columns,
-        as the JAX package writes them."""
+        followed by each keypoint's x and y normalised and its other columns;
+        an oriented-box model's 'cls x1 y1 ... x4 y4' (its corners
+        normalised, and conf), as the JAX package writes them."""
         lines = []
         h, w = self.orig_shape
         kpts = self.keypoints.data if self.keypoints is not None else None
-        for i in range(len(self.boxes)):
+        obb = self.obb if self.obb is not None and len(self.obb) else None
+        for i in range(len(obb) if obb is not None else 0):
+            pts = obb.xyxyxyxy[i].reshape(-1) / np.array([w, h] * 4, np.float32)
+            vals = [int(obb.cls[i]), *pts.tolist()] + ([float(obb.conf[i])] if save_conf else [])
+            lines.append(" ".join(f"{v:.6g}" if not isinstance(v, int) else str(v) for v in vals))
+        for i in range(len(self.boxes) if obb is None else 0):
             cls, conf = int(self.boxes.cls[i]), float(self.boxes.conf[i])
             vals = [cls, *self.boxes.xywhn[i].tolist()] + ([conf] if save_conf else [])
             if kpts is not None:

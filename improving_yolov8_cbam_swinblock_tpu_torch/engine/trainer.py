@@ -66,9 +66,15 @@ and the visibility BCE, gains `pose` and `kobj`), five loss items box,
 pose, kobj, cls, dfl (the reference's order; the JAX trainer logs box,
 cls and dfl only), and PoseValidator's box and keypoint metrics; a data
 descriptor's `kpt_shape` replaces the graph's, as the reference's pose
-trainer does.
+trainer does. An oriented-box model (task "obb", a graph that ends in OBB)
+trains on the host stack too (data/augment.py obb_transform: each 4-corner
+polygon label's minimum-area rectangle), with the OBB loss
+(utils/obb_loss.py: the rotated task-aligned assigner in plain PyTorch, as
+the JAX package's is plain JAX, so no kernel runs on this path; probiou
+box loss, BCE, DFL), three loss items box, cls, dfl, and OBBValidator's
+rotated-box metrics.
 
-Not in the port yet: multi-host sharding and the OBB and classify losses.
+Not in the port yet: multi-host sharding and the classify loss.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from ..utils.device import select_device
 from ..utils.files import get_save_dir
 from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
 from ..utils.loss import detection_loss
+from ..utils.obb_loss import obb_loss
 from ..utils.pose_loss import pose_loss
 from ..utils.seg_loss import segmentation_loss
 from .validator import TASK_VALIDATORS, DetectionValidator
@@ -101,7 +108,7 @@ OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
 LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"),
-              "pose": ("box", "pose", "kobj", "cls", "dfl")}  # a step's items, per task
+              "pose": ("box", "pose", "kobj", "cls", "dfl"), "obb": ("box", "cls", "dfl")}  # a step's items, per task
 def checkpoint_state(path) -> Dict[str, torch.Tensor]:
     """The unfused weights a checkpoint file hands to an overlay: the EMA of
     a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
@@ -177,7 +184,8 @@ class DetectionTrainer:
     mask (B, G) and, optionally, aug (7,) = mosaic, scale, translate,
     fliplr, hsv_h, hsv_s, hsv_v for the device augmentation; a segmentation
     model's batches also carry seg_map (B, h, w) or (B, P, h, w) int32, a
-    pose model's kpts (B, G, nk, 3) float32.
+    pose model's kpts (B, G, nk, 3) float32; an OBB model's bboxes are
+    (B, G, 5): normalised xywh and the angle in radians.
 
     The trainer runs on the card unless `device="cpu"` is passed."""
 
@@ -305,7 +313,7 @@ class DetectionTrainer:
         """Build the optimizer and return (step, accumulate): step(batch) runs
         one micro-step and returns the loss items (LOSS_NAMES: box, cls, dfl;
         a segmentation model's box, seg, cls, dfl; a pose model's box, pose,
-        kobj, cls, dfl)."""
+        kobj, cls, dfl; an OBB model's box, cls, dfl)."""
         a = self.args
         model = self.model
         epochs = int(a.epochs)
@@ -337,7 +345,7 @@ class DetectionTrainer:
             frac = min(max(ni / nw, 0.0), 1.0)
             return frac * base, bias_lr0 + frac * (base - bias_lr0), mom_w + frac * (mom_f - mom_w)
 
-        task = model.task  # segment and pose: the loader's host stack only, as in the JAX trainer
+        task = model.task  # segment, pose and obb: the loader's host stack only, as in the JAX trainer
         device_aug, multi_scale = (bool(a.device_augment) and task == "detect", bool(a.multi_scale) and task == "detect")
         nc, strides = model.nc, model.strides
         dev = self.device
@@ -358,7 +366,10 @@ class DetectionTrainer:
                 x = xs.to(model.dtype).clamp(0.0, 1.0)
             feats = model(x)
             gains = dict(nc=nc, strides=strides, box_gain=a.box, cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
-            if task == "pose":
+            if task == "obb":  # the rotated assigner is plain PyTorch, as the JAX package's is plain JAX: no tal_impl
+                total, items = obb_loss(*feats, cls, bboxes, mask, nc=nc, strides=strides, box_gain=a.box,
+                                        cls_gain=a.cls, dfl_gain=a.dfl)
+            elif task == "pose":
                 total, items = pose_loss(*feats, cls, bboxes, mask, torch.as_tensor(batch["kpts"], device=dev),
                                          kpt_shape=model.kpt_shape, pose_gain=a.pose, kobj_gain=a.kobj, **gains)
             elif task == "segment":

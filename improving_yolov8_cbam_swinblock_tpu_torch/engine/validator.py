@@ -27,8 +27,12 @@ NMS rows' columns after the class, in letterboxed pixels) by object
 keypoint similarity against the loader's (max_gt, nk, 3) targets, with
 each GT box's area times 0.53 and the COCO sigmas where nk is 17, else
 1 / nk; its metrics are the box and the keypoint mAP (fitness their sum,
-`mAP50-95` the keypoints'), without plots or JSON. TASK_VALIDATORS picks
-the validator of a model's task.
+`mAP50-95` the keypoints'), without plots or JSON. OBBValidator (the JAX
+package's, engine/validator.py:396-438) runs the rotated NMS (probiou,
+multi-label where nc > 1) and matches each kept box (xywh and the angle,
+in letterboxed pixels) by probiou against the loader's normalised xywhr
+targets scaled by imgsz; its metrics are the box keys, without plots or
+JSON. TASK_VALIDATORS picks the validator of a model's task.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..ops.boxes import process_mask, xywh2xyxy
 from ..ops.nms import non_max_suppression
 from ..utils.callbacks import run_callbacks
 from ..utils.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou_np,
-                             match_predictions, plot_pr_curves)
+                             match_predictions, plot_pr_curves, probiou_np)
 
 
 class DetectionValidator:
@@ -307,4 +311,40 @@ class PoseValidator(DetectionValidator):
                                               for k in ("precision", "recall", "mAP50", "mAP50-95"))))
 
 
-TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator}
+class OBBValidator(DetectionValidator):
+    """Rotated-box mAP of an oriented-box model by probiou matching (the module docstring)."""
+
+    writes_files = False
+
+    @torch.inference_mode()
+    def forward_nms(self, img: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 RGB -> (B, max_det, 7) rotated detections x, y,
+        w, h, conf, cls, angle in letterboxed pixels, on the host."""
+        m = self.model
+        x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
+        pred, _ = m(x)
+        dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=int(self.args.max_det),
+                                   nc=m.nc, multi_label=m.nc > 1, rotated=True)
+        return dets.cpu().numpy()
+
+    def update_metrics(self, dets: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
+        """Match one batch's rotated detections by probiou, as the JAX
+        package's OBBValidator does (GT xywh scaled by imgsz)."""
+        imgsz = int(self.args.imgsz)
+        for i in range(dets.shape[0]):
+            det = dets[i][dets[i][:, 4] > 0]
+            gt_sel = batch["mask"][i] > 0
+            gt_cls = batch["cls"][i][gt_sel].astype(int)
+            gt_r = batch["bboxes"][i][gt_sel].copy()  # (G, 5) normalised xywhr
+            gt_r[:, :4] *= imgsz
+            if len(det) == 0:
+                if len(gt_cls):
+                    self.metrics.update(np.zeros((0, 10), bool), np.zeros(0), np.zeros(0), gt_cls)
+                continue
+            iou = probiou_np(gt_r, np.concatenate([det[:, :4], det[:, 6:7]], 1))
+            tp = match_predictions(det[:, 5].astype(int), gt_cls, iou)
+            self.metrics.update(tp, det[:, 4], det[:, 5].astype(int), gt_cls)
+
+
+TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator,
+                   "obb": OBBValidator}

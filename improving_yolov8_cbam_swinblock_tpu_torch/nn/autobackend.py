@@ -165,7 +165,8 @@ class ProgramModel(nn.Module):
     the live model's eval layout: (prediction, None), a YOLOv10 program's
     (detections, None), or a segmentation program's (prediction, (None,
     None, prototypes)); a pose program's prediction carries its keypoints,
-    whose `kpt_shape` the sidecar gives. Program outputs are float32, as
+    whose `kpt_shape` the sidecar gives, an OBB program's its angles (the
+    predictor's NMS is then rotated). Program outputs are float32, as
     the live forward's decoded ones are, so the predictor's NMS, masks and
     keypoints are the live model's. A program exported with nms=True (xywh top-k without NMS) is
     refused: serve it with Backend."""

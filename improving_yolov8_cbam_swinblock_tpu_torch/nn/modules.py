@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
 from ..ops.nms import e2e_postprocess
 from ..ops.quant import conv_int8
+from ..ops.rotated import dist2rbox
 from ..ops.swin import swin_block, swin_block_train
 from ..ops.swin_int8 import QNAMES as SWIN_QNAMES
 from ..ops.swin_int8 import q8, swin_block_int8, swin_gemm_absmax
@@ -916,15 +917,22 @@ class Detect(nn.Module):
         """The per-level raw maps of one (box, cls) branch pair."""
         return [torch.cat([a(x), b(x)], 1) for x, a, b in zip(xs, cv2, cv3)]
 
-    def decode(self, feats: List[torch.Tensor], xywh: bool = True) -> torch.Tensor:
+    def decode(self, feats: List[torch.Tensor], xywh: bool = True, angle: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """(B, 4 + nc, A) in fp32: the boxes in input pixels (xywh, or xyxy)
-        followed by the class sigmoids."""
+        followed by the class sigmoids. With an OBB head's angles (B, A, 1)
+        in fp32 the boxes are rotated: dist2rbox's centre and size, times
+        the strides, as the JAX package's Detect decodes them."""
         bsz = feats[0].shape[0]
         no = 4 * self.reg_max + self.nc
         x_cat = torch.cat([f.reshape(bsz, no, -1) for f in feats], 2).float()  # (B, no, A)
         box, cls = x_cat.split((4 * self.reg_max, self.nc), 1)
         anchors, strides = make_anchors([f.shape[2:] for f in feats], self.strides, device=x_cat.device)
-        dbox = dist2bbox(dfl_decode(box, self.reg_max), anchors.t()[None], xywh) * strides.t()[None]
+        dist = dfl_decode(box, self.reg_max)
+        if angle is not None:
+            dbox = (dist2rbox(dist.transpose(1, 2), angle, anchors[None]) * strides[None]).transpose(1, 2)
+        else:
+            dbox = dist2bbox(dist, anchors.t()[None], xywh) * strides.t()[None]
         return torch.cat([dbox, cls.sigmoid()], 1)
 
     def forward(self, xs: List[torch.Tensor]):
@@ -1015,6 +1023,33 @@ class Pose(Detect):
         if self.training:
             return feats, kpt.transpose(1, 2)
         return torch.cat([self.decode(feats), self.decode_kpts(kpt, feats)], 1), (feats, kpt.transpose(1, 2))
+
+
+class OBB(Detect):
+    """Detect with ne rotation angles per anchor (the JAX package's
+    nn/heads.py OBB): `cv4.i` (two 3x3 Convs of c4 = max(ch[0] // 4, ne)
+    channels, then a 1x1 conv with its bias to ne) gives each level's angle
+    logits, and the angle is (sigmoid - 0.25) * pi in fp32, in [-pi/4,
+    3 pi/4). In eval the angle rotates the Detect decode (dist2rbox).
+
+    Training returns (raw maps, angles (B, A, ne)); eval returns ((B, 4 +
+    nc + ne, A) in fp32: the rotated boxes' centre and size in input
+    pixels, the class sigmoids and the angles, (raw maps, angles))."""
+
+    def __init__(self, nc: int, ch: Sequence[int], strides: Sequence[int] = (8, 16, 32), legacy: bool = True,
+                 ne: int = 1):
+        super().__init__(nc, ch, strides, legacy)
+        self.ne = int(ne)
+        c4 = max(ch[0] // 4, self.ne)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, self.ne, 1)) for x in ch)
+
+    def forward(self, xs: List[torch.Tensor]):
+        logit = torch.cat([m(x).flatten(2) for x, m in zip(xs, self.cv4)], 2)  # (B, ne, A)
+        angle = ((logit.float().sigmoid() - 0.25) * math.pi).transpose(1, 2)  # (B, A, ne)
+        feats = self.maps(xs, self.cv2, self.cv3)
+        if self.training:
+            return feats, angle
+        return torch.cat([self.decode(feats, angle=angle), angle.transpose(1, 2)], 1), (feats, angle)
 
 
 class v10Detect(Detect):

@@ -13,9 +13,10 @@ the JAX package does, and derives each layer's stride from the graph
 instead of a probe forward. It builds the fork's graphs and YOLOv3, v5, v6,
 the v8 P2, P6 and ghost graphs, YOLOv9, YOLOv10 (its NMS-free `v10Detect`
 head: `DetectionModel.end2end`) and YOLO11/12, the segmentation graphs
-that end in `Segment` (`DetectionModel.task` "segment") and the pose graphs
+that end in `Segment` (`DetectionModel.task` "segment"), the pose graphs
 that end in `Pose` (task "pose", a row whose `kpt_shape` argument names
-the YAML's own key, as the JAX package resolves it); a row it does not
+the YAML's own key, as the JAX package resolves it) and the oriented-box
+graphs that end in `OBB` (task "obb"); a row it does not
 know (the rows no packaged YAML of these uses) raises KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
@@ -233,6 +234,10 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             c2 = 0
             m = M.Pose(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy,
                        kpt_shape=tuple(_arg(args, 1, (17, 3))))
+        elif mname == "OBB":  # [nc, ne]
+            c2 = 0
+            m = M.OBB(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f], legacy=legacy,
+                      ne=_arg(args, 1, 1))
         elif mname == "v10Detect":
             c2 = 0
             m = M.v10Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
@@ -312,8 +317,10 @@ class DetectionModel(nn.Module):
     coefficients, prototypes)), in training (raw maps, coefficients,
     prototypes); a pose graph (task "pose", `kpt_shape` (nk, nd)) its Pose
     head's ((B, 4 + nc + nk * nd, A), (raw maps, raw keypoints (B, A,
-    nk * nd))), in training (raw maps, raw keypoints). The model is built
-    in eval mode."""
+    nk * nd))), in training (raw maps, raw keypoints); an oriented-box graph
+    (task "obb") its OBB head's ((B, 4 + nc + 1, A): rotated xywh, scores
+    and the angle in radians, (raw maps, angles (B, A, 1))), in training
+    (raw maps, angles). The model is built in eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -325,7 +332,8 @@ class DetectionModel(nn.Module):
         self.nc = head.nc
         self.strides = head.strides
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
-        self.task = "segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose) else "detect"
+        self.task = ("segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose)
+                     else "obb" if isinstance(head, M.OBB) else "detect")
         self.kpt_shape = head.kpt_shape if self.task == "pose" else None
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
@@ -425,8 +433,8 @@ class DetectionModel(nn.Module):
         becomes W - x), the first run drops the anchors of its coarsest level
         (large objects) and the last those of its finest (small objects), and
         the three concatenate along the anchors: (B, 4 + nc, A') in fp32. A
-        segmentation or pose model returns its plain forward's prediction,
-        as in the JAX package."""
+        segmentation, pose or oriented-box model returns its plain forward's
+        prediction, as in the JAX package."""
         if self.task != "detect":
             return self(x)[0].float()
         w0 = x.shape[3]
@@ -493,8 +501,8 @@ class EnsembleModel(nn.Module):
     concatenate along the anchors, and the predictor's one NMS keeps the
     best boxes of all. Inference only: the members must share nc and end in
     Detect (an NMS-free YOLOv10 member is refused, as in the JAX package),
-    and the input is padded to the coarsest member stride. A segmentation
-    or pose member is refused, as in the JAX package."""
+    and the input is padded to the coarsest member stride. A segmentation,
+    pose or oriented-box member is refused, as in the JAX package."""
 
     def __init__(self, models):
         super().__init__()
@@ -505,7 +513,7 @@ class EnsembleModel(nn.Module):
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
         if any(m.end2end or m.task != "detect" for m in models):
             raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end), a "
-                             "segmentation member or a pose member is not")
+                             "segmentation member, a pose member or an obb member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype

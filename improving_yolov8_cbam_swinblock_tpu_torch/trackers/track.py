@@ -10,7 +10,9 @@ across batches. A stream source (webcams, stream URLs) keeps one tracker
 per stream. Each frame's Results gets the tracks as 7-column boxes
 [x1, y1, x2, y2, id, conf, cls] (Results.update) and their ids as
 `track_ids`; a frame without an active track keeps its detections and
-gets no ids, as in the JAX package.
+gets no ids, as in the JAX package. The trackers take the axis-aligned
+boxes only: an oriented-box model's `Results.obb` (like a pose model's
+keypoints) stays in the detections' order, as the JAX package leaves it.
 """
 
 from __future__ import annotations

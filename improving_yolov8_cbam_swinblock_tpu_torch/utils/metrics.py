@@ -4,8 +4,9 @@ the PR, P, R and F1 curves (a copy of the JAX package's
 utils/metrics.py:16-275, 375-460, 459-547 and 703; numpy on the host, as
 there). matplotlib is imported where a figure is drawn, and a plot returns
 None (plot_pr_curves an empty list) without it. The segment task's
-mask_iou_np and SegmentMetrics, and the pose task's OKS_SIGMA, kpt_iou_np
-and PoseMetrics, are here too; the OBB metrics are not in the port.
+mask_iou_np and SegmentMetrics, the pose task's OKS_SIGMA, kpt_iou_np and
+PoseMetrics, and the OBB task's probiou_np, batch_probiou and OBBMetrics
+(JAX utils/metrics.py:50-70, 398-402, 633-667) are here too.
 """
 
 from __future__ import annotations
@@ -48,6 +49,38 @@ def kpt_iou_np(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma: np.n
     kpt_mask = kpt1[..., 2] != 0  # (N, K)
     e = d / ((2 * sigma[None, None]) ** 2) / (area[:, None, None] + eps) / 2
     return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
+def _probiou_terms(b: np.ndarray):
+    a_ = b[:, 2] ** 2 / 12.0
+    b_ = b[:, 3] ** 2 / 12.0
+    r = b[:, 4]
+    c, s = np.cos(r), np.sin(r)
+    return a_ * c**2 + b_ * s**2, a_ * s**2 + b_ * c**2, (a_ - b_) * c * s
+
+
+def probiou_np(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """(N, 5) GT and (M, 5) predicted xywhr boxes -> (N, M) probabilistic
+    IoU, on the host (the numpy twin of ops/rotated.py probiou)."""
+    x1, y1 = obb1[:, 0, None], obb1[:, 1, None]
+    x2, y2 = obb2[None, :, 0], obb2[None, :, 1]
+    a1, b1, c1 = (t[:, None] for t in _probiou_terms(obb1))
+    a2, b2, c2 = (t[None, :] for t in _probiou_terms(obb2))
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    t3 = 0.5 * np.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * np.sqrt(np.clip(a1 * b1 - c1**2, 0, None) * np.clip(a2 * b2 - c2**2, 0, None)) + eps)
+        + eps
+    )
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+
+
+def batch_probiou(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Pairwise probabilistic IoU (N, M) of (N, 5) and (M, 5) xywhr boxes, in float32."""
+    return probiou_np(np.asarray(obb1, np.float32), np.asarray(obb2, np.float32), eps)
 
 
 IOU_THRESHOLDS = np.linspace(0.5, 0.95, 10)
@@ -557,6 +590,48 @@ class PoseMetrics(SegmentMetrics):
     @property
     def fitness(self):
         return self.pose.fitness() + self.box.fitness()
+
+
+class OBBMetrics:
+    """The rotated-box Metric of the OBB task (the JAX package's
+    utils/metrics.py OBBMetrics): the box keys only, fitness the box's."""
+
+    def __init__(self, save_dir=".", plot=False, names=()):
+        self.save_dir = save_dir
+        self.plot = plot
+        self.names = dict(names) if not isinstance(names, dict) else names
+        self.box = Metric()
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
+
+    def process(self, tp, conf, pred_cls, target_cls, on_plot=None):
+        nc = max(len(self.names), int(np.max(target_cls, initial=0)) + 1)
+        self.box.from_res(ap_per_class(np.asarray(tp), conf, pred_cls, target_cls), nc)
+
+    @property
+    def keys(self):
+        return ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)"]
+
+    def mean_results(self):
+        return self.box.mean_results()
+
+    def class_result(self, i):
+        return self.box.class_result(i)
+
+    @property
+    def maps(self):
+        return self.box.maps
+
+    @property
+    def fitness(self):
+        return self.box.fitness()
+
+    @property
+    def ap_class_index(self):
+        return self.box.ap_class_index
+
+    @property
+    def results_dict(self):
+        return dict(zip(self.keys + ["fitness"], self.mean_results() + [self.fitness]))
 
 
 class ValMetrics(dict):

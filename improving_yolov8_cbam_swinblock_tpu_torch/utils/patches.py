@@ -14,6 +14,7 @@ rect shape with it.
 from __future__ import annotations
 
 import functools
+import math
 import struct
 import zlib
 from pathlib import Path
@@ -503,3 +504,198 @@ def contour_area(contour: np.ndarray) -> float:
         return 0.0
     prev = np.roll(c, 1, 0)
     return float(abs(np.cumsum(prev[:, 0] * c[:, 1] - prev[:, 1] * c[:, 0])[-1] * 0.5))
+
+
+# ---------------------------------------------------------------------------
+# min_area_rect: cv2.minAreaRect of the OpenCV 5 build the JAX package runs with, in numpy, for
+# the OBB targets. The points' convex hull (cv2.convexHull's counter-clockwise output: its
+# Sklansky scans of the x-sorted points, then the cyclic shift that makes the indices ascend),
+# then rotating calipers in float32 (OpenCV's rotcalipers.cpp: four calipers from the lowest,
+# rightmost, highest and leftmost points, each step turning the caliper of the smallest angle
+# onto its edge, the last rectangle of the least area kept), the box's angle in degrees brought
+# into [-90, 0) by steps of 90 with the sides swapped at each step. Rules found against
+# cv2.minAreaRect itself (tests/test_torch_obb_train.py).
+
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _f(v) -> float:
+    """v rounded to float32, as a Python float."""
+    return float(np.float32(v))
+
+
+def _sign(v) -> int:
+    return (v > 0) - (v < 0)
+
+
+def _sklansky(p, start: int, end: int, nsign: int, sign2: int) -> list:
+    """One Sklansky scan of cv2's convexHull over the x-sorted points p from
+    start towards end: the stack of kept indices."""
+    incr = 1 if end > start else -1
+    if start == end or p[start] == p[end]:
+        return [start]
+    pprev, pcur, pnext = start, start + incr, start + 2 * incr
+    stack = [pprev, pcur, pnext] + [0] * (abs(end - start) + 2)
+    size = 3
+    end += incr
+    while pnext != end:
+        cury, nexty = p[pcur][1], p[pnext][1]
+        by = _f(nexty - cury)
+        if _sign(by) != nsign:
+            ax, bx = _f(p[pcur][0] - p[pprev][0]), _f(p[pnext][0] - p[pcur][0])
+            ay = _f(cury - p[pprev][1])
+            if _sign(ay * bx - ax * by) == sign2 and (ax != 0 or ay != 0):  # a convex turn (in float64)
+                pprev, pcur = pcur, pnext
+                pnext += incr
+                stack[size] = pnext
+                size += 1
+            elif pprev == start:
+                pcur = pnext
+                stack[1] = pcur
+                pnext += incr
+                stack[2] = pnext
+            else:
+                stack[size - 2] = pnext
+                pcur = pprev
+                pprev = stack[size - 4]
+                size -= 1
+        else:
+            pnext += incr
+            stack[size - 1] = pnext
+    return stack[:size - 1]
+
+
+def convex_hull(points) -> np.ndarray:
+    """cv2.convexHull(points) (counter-clockwise, the points returned) of
+    float32 points (n, 2): (m, 2) float32, in cv2's order."""
+    pts = np.asarray(points, np.float32).reshape(-1, 2)
+    total = len(pts)
+    if total == 0:
+        return pts
+    order = sorted(range(total), key=lambda i: (pts[i, 0], pts[i, 1]))
+    p = [(float(pts[i, 0]), float(pts[i, 1])) for i in order]
+    miny = maxy = 0
+    for i in range(1, total):
+        if p[miny][1] > p[i][1]:
+            miny = i
+        if p[maxy][1] < p[i][1]:
+            maxy = i
+    if p[0] == p[total - 1]:
+        return pts[[order[0]]]
+    tl, tr = _sklansky(p, total - 1, maxy, -1, -1), _sklansky(p, 0, maxy, -1, 1)  # the upper half
+    hull = [order[i] for i in tl[:-1]] + [order[tr[i]] for i in range(len(tr) - 1, 0, -1)]
+    stop = tr[1] if len(tr) > 2 else tl[-2] if len(tl) > 2 else -1
+    bl, br = _sklansky(p, 0, miny, 1, -1), _sklansky(p, total - 1, miny, 1, 1)  # the lower half
+    nbl, nbr = len(bl), len(br)
+    if stop >= 0:
+        check = bl[1] if nbl > 2 else br[2 - nbl] if nbl + nbr > 2 else -1
+        if check == stop or (check >= 0 and p[check] == p[stop]):  # collinear: the lower half mirrors the upper
+            nbl, nbr = min(nbl, 2), min(nbr, 2)
+    hull += [order[i] for i in bl[:nbl - 1]] + [order[br[i]] for i in range(nbr - 1, 0, -1)]
+    n = len(hull)
+    if n >= 3:  # a cyclic shift that makes the indices ascend (or descend), where one does
+        lo = hi = lt = 0
+        for i in range(1, n):
+            lt += hull[i - 1] < hull[i]
+            if 1 < lt <= i - 2:
+                break
+            lo = i if hull[i] < hull[lo] else lo
+            hi = i if hull[i] > hull[hi] else hi
+        if abs(hi - lo) in (1, n - 1) and (lt <= 1 or lt >= n - 2):
+            ascending = (hi + 1) % n == lo
+            i0 = lo if ascending else hi
+            shifted = hull[i0:] + hull[:i0]
+            if i0 > 0 and all(ascending == (a < b) for a, b in zip(shifted, shifted[1:])):
+                hull = shifted
+    return pts[hull]
+
+
+def _calipers(P: list):
+    """OpenCV's rotatingCalipers (CALIPERS_MINAREARECT) in float32 over the
+    hull P: (corner, side along the base, side across it) of the rectangle."""
+    n = len(P)
+    vect, inv = [], []
+    left = bottom = right = top = 0
+    left_x = right_x = P[0][0]
+    top_y = bottom_y = P[0][1]
+    for i in range(n):
+        x0, y0 = P[i]
+        if x0 < left_x:
+            left_x, left = x0, i
+        if x0 > right_x:
+            right_x, right = x0, i
+        if y0 > top_y:
+            top_y, top = y0, i
+        if y0 < bottom_y:
+            bottom_y, bottom = y0, i
+        dx, dy = P[(i + 1) % n][0] - x0, P[(i + 1) % n][1] - y0  # exact in float64
+        vect.append((_f(dx), _f(dy)))
+        inv.append(_f(1.0 / math.sqrt(dx * dx + dy * dy)))
+    orientation = 0.0
+    ax, ay = vect[-1]
+    for bx, by in vect:
+        c = ax * by - ay * bx
+        if c != 0:
+            orientation = 1.0 if c > 0 else -1.0
+            break
+        ax, ay = bx, by
+    a, b = orientation, 0.0
+    seq = [bottom, right, top, left]
+    minarea, best = _F32_MAX, None
+    for _ in range(n):
+        v = [vect[s] for s in seq]
+        dp = (_f(_f(a * v[0][0]) + _f(b * v[0][1])), _f(_f(-b * v[1][0]) + _f(a * v[1][1])),
+              _f(_f(-a * v[2][0]) - _f(b * v[2][1])), _f(_f(b * v[3][0]) - _f(a * v[3][1])))
+        main, maxcos = 0, _f(dp[0] * inv[seq[0]])
+        for i in range(1, 4):
+            c = _f(dp[i] * inv[seq[i]])
+            if c > maxcos:
+                main, maxcos = i, c
+        k = seq[main]
+        lx, ly = _f(vect[k][0] * inv[k]), _f(vect[k][1] * inv[k])
+        a, b = ((lx, ly), (ly, -lx), (-lx, -ly), (-ly, lx))[main]
+        seq[main] = (seq[main] + 1) % n
+        dx, dy = _f(P[seq[1]][0] - P[seq[3]][0]), _f(P[seq[1]][1] - P[seq[3]][1])
+        width = _f(_f(dx * a) + _f(dy * b))
+        dx, dy = _f(P[seq[2]][0] - P[seq[0]][0]), _f(P[seq[2]][1] - P[seq[0]][1])
+        height = _f(_f(-dx * b) + _f(dy * a))
+        area = _f(width * height)
+        if area <= minarea:
+            minarea, best = area, (seq[3], a, width, b, height, seq[0])
+    il, a1, width, b1, height, ib = best
+    a2, b2 = -b1, a1
+    c1 = _f(_f(a1 * P[il][0]) + _f(P[il][1] * b1))
+    c2 = _f(_f(a2 * P[ib][0]) + _f(P[ib][1] * b2))
+    idet = _f(1.0 / _f(_f(a1 * b2) - _f(a2 * b1)))
+    px = _f(_f(_f(c1 * b2) - _f(c2 * b1)) * idet)
+    py = _f(_f(_f(a1 * c2) - _f(a2 * c1)) * idet)
+    return (px, py), (_f(a1 * width), _f(b1 * width)), (_f(a2 * height), _f(b2 * height))
+
+
+def min_area_rect(points):
+    """cv2.minAreaRect(points) of float32 points (n, 2): ((cx, cy), (w, h),
+    angle) as Python floats of float32 values, the angle in degrees in
+    [-90, 0)."""
+    hull = convex_hull(points)
+    n = len(hull)
+    P = [(float(x), float(y)) for x, y in hull]
+    cx = cy = w = h = 0.0
+    deg = 0.0
+    if n > 2:
+        o0, o1, o2 = _calipers(P)
+        cx = _f(o0[0] + _f(_f(o1[0] + o2[0]) * 0.5))
+        cy = _f(o0[1] + _f(_f(o1[1] + o2[1]) * 0.5))
+        w, h = _f(math.sqrt(o1[0] * o1[0] + o1[1] * o1[1])), _f(math.sqrt(o2[0] * o2[0] + o2[1] * o2[1]))
+        deg = math.degrees(math.atan2(o1[1], o1[0]))
+    elif n == 2:
+        cx, cy = _f(_f(P[0][0] + P[1][0]) * 0.5), _f(_f(P[0][1] + P[1][1]) * 0.5)
+        dx, dy = P[1][0] - P[0][0], P[1][1] - P[0][1]
+        w = _f(math.sqrt(dx * dx + dy * dy))
+        deg = math.degrees(math.atan2(dy, dx))
+    elif n == 1:
+        cx, cy = P[0]
+    while deg >= 0:
+        deg, w, h = deg - 90, h, w
+    while deg < -90:
+        deg, w, h = deg + 90, h, w
+    return (cx, cy), (w, h), _f(deg)

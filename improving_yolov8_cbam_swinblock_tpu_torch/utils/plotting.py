@@ -1,8 +1,8 @@
 """Drawing helpers: the port's copy of the detection and pose parts of the
 JAX package's utils/plotting.py (Colors with the pose palette, the cv2
-Annotator with its keypoints and the COCO skeleton, save_one_box,
-feature_visualization, plot_images, plot_labels, plot_results,
-output_to_target). cv2 is imported where an image is drawn and matplotlib
+Annotator with its keypoints, the COCO skeleton and rotated box labels,
+save_one_box, feature_visualization, plot_images, plot_labels,
+plot_results, output_to_target, output_to_rotated_target). cv2 is imported where an image is drawn and matplotlib
 where a figure is, so the package imports without either; plot_images,
 plot_labels and plot_results return None where theirs does not import."""
 
@@ -86,13 +86,21 @@ class Annotator:
         luma = 0.299 * color[2] + 0.587 * color[1] + 0.114 * color[0]
         return (0, 0, 0) if luma > 160 else txt_color
 
-    def box_label(self, box: Sequence[float], label: str = "", color=(128, 128, 128), txt_color=(255, 255, 255)):
-        """An xyxy box and its label on a filled strip above it (below it at the top edge)."""
+    def box_label(self, box: Sequence[float], label: str = "", color=(128, 128, 128), txt_color=(255, 255, 255),
+                  rotated: bool = False):
+        """An xyxy box and its label on a filled strip above it (below it at
+        the top edge); with `rotated`, box holds 4 corners (x, y), drawn as a
+        closed polyline, the label at the first corner."""
         import cv2
 
         txt_color = self.get_txt_color(color, txt_color)
-        p1, p2 = (int(box[0]), int(box[1])), (int(box[2]), int(box[3]))
-        cv2.rectangle(self.img, p1, p2, color, self.lw, cv2.LINE_AA)
+        if rotated:
+            pts = np.asarray(box, np.int32).reshape(-1, 1, 2)
+            cv2.polylines(self.img, [pts], True, color, self.lw, cv2.LINE_AA)
+            p1 = tuple(pts[0, 0])
+        else:
+            p1, p2 = (int(box[0]), int(box[1])), (int(box[2]), int(box[3]))
+            cv2.rectangle(self.img, p1, p2, color, self.lw, cv2.LINE_AA)
         if label:
             w, h = cv2.getTextSize(label, 0, self.sf, self.tf)[0]
             outside = p1[1] - h >= 3
@@ -313,4 +321,21 @@ def output_to_target(output, max_det: int = 300):
         confs.append(o[:, 4])
     if not bids:
         return np.zeros(0), np.zeros(0), np.zeros((0, 4)), np.zeros(0)
+    return np.concatenate(bids), np.concatenate(clss), np.concatenate(boxes), np.concatenate(confs)
+
+
+def output_to_rotated_target(output, max_det: int = 300):
+    """Rotated NMS output (B, n, 7) x, y, w, h, conf, cls, angle -> (batch
+    index, class, xywhr, conf) arrays of the kept detections (JAX
+    utils/plotting.py:411)."""
+    bids, clss, boxes, confs = [], [], [], []
+    for i, o in enumerate(np.asarray(output)):
+        o = o[:max_det]
+        o = o[o[:, 4] > 0]
+        bids.append(np.full(len(o), i))
+        clss.append(o[:, 5])
+        boxes.append(np.concatenate([o[:, :4], o[:, 6:7]], 1))
+        confs.append(o[:, 4])
+    if not bids:
+        return np.zeros(0), np.zeros(0), np.zeros((0, 5)), np.zeros(0)
     return np.concatenate(bids), np.concatenate(clss), np.concatenate(boxes), np.concatenate(confs)

@@ -40,6 +40,17 @@ def select_candidates_in_gts(xy_centers: torch.Tensor, gt_bboxes: torch.Tensor, 
     return (xc - lx > eps) & (yc - ly > eps) & (rx - xc > eps) & (ry - yc > eps)
 
 
+def select_highest_overlaps(mask_pos: torch.Tensor, overlaps: torch.Tensor):
+    """mask_pos (B, G, A) bool, overlaps (B, G, A) -> (target_gt_idx (B, A),
+    fg (B, A) bool, mask_pos): an anchor claimed by several GTs goes to the
+    argmax of its overlaps over all GTs (the first among ties), and each
+    anchor's GT is its first positive one, 0 where it has none."""
+    multi = mask_pos.sum(1) > 1  # (B, A)
+    is_max = torch.zeros_like(mask_pos).scatter_(1, overlaps.argmax(1, keepdim=True), True)
+    mask_pos = torch.where(multi[:, None], is_max, mask_pos)
+    return mask_pos.to(torch.uint8).argmax(1), mask_pos.any(1), mask_pos
+
+
 def task_aligned_assign_plain(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk: int = 10,
                               num_classes: int = 80, alpha: float = ALPHA, beta: float = BETA,
                               eps: float = 1e-9) -> TALResult:
@@ -73,12 +84,7 @@ def task_aligned_assign_plain(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bb
         live.scatter_(-1, hit, float("-inf"))
     mask_pos = mask_topk & cand
 
-    # an anchor claimed by several GTs goes to the argmax of overlaps over all GTs
-    multi = mask_pos.sum(1) > 1  # (B, A)
-    is_max = torch.zeros_like(mask_pos).scatter_(1, overlaps.argmax(1, keepdim=True), True)
-    mask_pos = torch.where(multi[:, None], is_max, mask_pos)
-    fg = mask_pos.any(1)
-    tgt_idx = mask_pos.to(torch.uint8).argmax(1)  # first positive GT; 0 where none
+    tgt_idx, fg, mask_pos = select_highest_overlaps(mask_pos, overlaps)
 
     labels = torch.gather(gt_cls, 1, tgt_idx)
     boxes = torch.gather(gbox, 1, tgt_idx[..., None].expand(b, a, 4))

@@ -822,3 +822,68 @@ def test_pose_program_keeps_its_keypoints_on_the_card(cuda, tmp_path):
             assert np.array_equal(g.boxes.data, r.boxes.data)
             assert (g.keypoints is None) == (r.keypoints is None)
             assert g.keypoints is None or np.array_equal(g.keypoints.data, r.keypoints.data)
+
+
+@pytest.mark.cuda
+def test_obb_micro_step_on_the_card_equals_the_cpu(cuda):
+    """An OBB graph's train micro-step (yolov8n-obb, nc 2, 160 px, batch 2,
+    fp32 with TF32 off, the OBB loss over a loader-format batch of rotated
+    boxes) launches no kernel (the rotated assigner is plain PyTorch, as
+    the JAX package's is plain JAX); the card's three loss items agree with
+    the same step on the CPU within 1e-4 and every gradient within 1e-3 of
+    its tensor's norm."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+
+    cfg = yaml_model_load("yolov8n-obb.yaml")
+    cfg["nc"] = 2
+    rng = np.random.default_rng(6)
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (2, 8, 2)), rng.uniform(0.1, 0.3, (2, 8, 2)),
+                            rng.uniform(-np.pi / 2, 0, (2, 8, 1))], -1).astype(np.float32)
+    batch = {"img": rng.integers(0, 256, (2, 160, 160, 3), dtype=np.uint8),
+             "cls": rng.integers(0, 2, (2, 8)).astype(np.float32), "bboxes": boxes, "mask": np.ones((2, 8), np.float32)}
+    out = {}
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            tr = DetectionTrainer(overrides={"model": cfg, "batch": 2, "nbs": 4, "imgsz": 160, "amp": False},
+                                  device=dev).setup()
+            step, _ = tr._make_train_step(nb=10)
+            before = tal_assign_cuda.launches
+            items = step(batch)
+            out[dev] = (items.cpu(), {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()},
+                        tal_assign_cuda.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    (ik, gk, nk), (ic, gc, _) = out["cuda"], out["cpu"]
+    assert nk == 0 and ik.shape == (3,) and bool((ik > 0).all())
+    torch.testing.assert_close(ik, ic, rtol=1e-4, atol=0)
+    for n in gc:
+        assert (gk[n] - gc[n]).norm() <= 1e-3 * gc[n].norm().clamp(min=1e-12), n
+
+
+@pytest.mark.cuda
+def test_obb_program_keeps_its_rotated_boxes_on_the_card(cuda, tmp_path):
+    """yolov8n-obb exported on the card (bf16, dynamic batch), loaded by
+    YOLO(path): the enclosing boxes and the oriented boxes of its predict
+    equal the live model's bit for bit at batches 1 and 3."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-obb.yaml", device="cuda", dtype=torch.bfloat16).fuse()
+    with torch.no_grad():
+        for seq in y.model.model[-1].cv3:
+            seq[-1].bias.zero_()  # seeded class priors at 0: scores near 0.5, so that boxes come
+    path = y.export(imgsz=320, dynamic=True, half=True, project=str(tmp_path))
+    served = YOLO(path)
+    assert served.task == "obb"
+    frames = [np.random.default_rng(i).integers(0, 256, (240, 320, 3), dtype=np.uint8) for i in range(3)]
+    for b in (1, 3):
+        got = served.predict(frames, conf=0.25, batch=b, verbose=False)
+        ref = y.predict(frames, imgsz=320, conf=0.25, batch=b, verbose=False)
+        assert sum(len(r) for r in ref) > 0
+        for g, r in zip(got, ref):
+            assert np.array_equal(g.boxes.data, r.boxes.data)
+            assert (g.obb is None) == (r.obb is None)
+            assert g.obb is None or np.array_equal(g.obb.data, r.obb.data)

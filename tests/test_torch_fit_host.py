@@ -184,7 +184,7 @@ def test_packaged_descriptors_resolve_as_jax(tmp_path, monkeypatch):
         "Argoverse", "GlobalWheat2020", "Objects365", "SKU-110K", "VOC", "VisDrone", "african-wildlife",
         "brain-tumor", "coco", "coco128", "coco8", "lvis", "medical-pills", "open-images-v7", "signature", "xView",
         "coco8-seg", "coco128-seg", "carparts-seg", "crack-seg", "package-seg", "coco8-pose", "coco-pose",
-        "tiger-pose", "hand-keypoints", "dog-pose")}
+        "tiger-pose", "hand-keypoints", "dog-pose", "DOTAv1", "DOTAv1.5", "dota8")}
     for n in packaged - {"coco8.yaml"}:
         assert yaml.safe_load((PD.DATASETS_DIR / n).read_text()) == yaml.safe_load(
             (JD.Path(JD.__file__).parent.parent / "cfg" / "datasets" / n).read_text())
