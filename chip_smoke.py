@@ -211,6 +211,26 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           seeded PNG dataset of rotated rectangles (degrees 10) and
           YOLO(best.pt).val with OBBValidator's (B) keys against the
           trainer's record; int8_full of yolov8s-obb at 640 px
+  classify  image classification: the six *-cls* graphs (yolov8s-cls,
+          yolov8-cls-resnet50 and -resnet101, yolo11s-cls, yolo11-cls-resnet18,
+          yolo12s-cls; nc 1000, seeded weights): YOLO(name).predict of the
+          slice phase's frames at 224 px in bf16, BN-folded (no kernel
+          launched, probs summing to 1) and its forward against the fp32
+          unfused forward (TF32 off), the logits within CLS_RTOL of their
+          largest magnitude; yolov8s-cls at full width: the forward's ms at batch
+          64 with its device time by kernel, predict at batch 64 from frames
+          in memory (img/s), 4 micro-steps at batch 32 (bf16 over fp32
+          masters, dropout 0.1: the step's ms and peak memory) and one of
+          yolov8-cls-resnet50; a seeded image folder (10 classes, 48 train and
+          8 val PNGs each, about 256 px) written with the stdlib;
+          YOLO("yolov8s-cls.yaml").train for two epochs at batch 16 on it
+          (RandAugment, erasing 0.4, dropout 0.1; top1 and top5 each epoch)
+          and YOLO(best.pt).val against the trainer's record; best.pt
+          quantized on 16 val images, its top-1 on the 80 val images against
+          the bf16 model's and its forward's ms beside the bf16 one's at
+          batch 64; yolov8s-cls exported with a static batch of 8 and with a
+          dynamic batch, each served by YOLO(path) against the live model's
+          probs; no kernel launched on any of these paths
   int8_graphs  int8 of the graphs added since the fork's: yolov9c, yolov10s
           and yolov8s-seg at full width, quantized (bf16 compute over fp32
           weights, BN-folded) on the int8 phase's two seeded batches of 8:
@@ -505,6 +525,20 @@ FLOAT_PROGRAMS = ("yolov9t.yaml", "yolo12n.yaml", "yolov3-tiny.yaml", "yolov8s-s
                   "yolov8s-obb.yaml")
 INT8_PROGRAMS = ("yolov10s.yaml", "yolov8s-seg.yaml")
 PROGRAM_BATCHES = (1, 3)
+# the classify phase: the six *-cls* graphs' forwards at 224 px (bf16 BN-folded against the fp32 unfused forward,
+# TF32 off: the logits within CLS_RTOL of their largest magnitude); yolov8s-cls at full width (nc 1000) and its
+# training on a seeded image folder of CLS_NC classes (CLS_TRAIN and CLS_VAL PNGs of 256 px a class; 60 micro-steps,
+# so that the BatchNorm statistics that eval reads have moved); its int8 model's top-1 against the bf16 model's on
+# the val images (at least CLS_INT8_AGREE of them the same); its programs' probs within CLS_PROGRAM_RTOL of the live
+# model's largest probability
+CLS_GRAPHS = ("yolov8s-cls.yaml", "yolov8-cls-resnet50.yaml", "yolov8-cls-resnet101.yaml", "yolo11s-cls.yaml",
+              "yolo11-cls-resnet18.yaml", "yolo12s-cls.yaml")
+CLS_FULL, CLS_RESNET = "yolov8s-cls.yaml", "yolov8-cls-resnet50.yaml"
+CLS_IMGSZ, CLS_BATCH, CLS_NC, CLS_TRAIN, CLS_VAL = 224, 64, 10, 48, 8
+CLS_FIT = {"epochs": 2, "batch": 16, "nbs": 16, "imgsz": CLS_IMGSZ, "optimizer": "SGD", "lr0": 0.01,
+           "warmup_epochs": 0.0, "erasing": 0.4, "auto_augment": "randaugment", "dropout": 0.1, "workers": 8,
+           "seed": SEED, "save_period": -1}
+CLS_RTOL, CLS_INT8_AGREE, CLS_PROGRAM_RTOL = 3e-2, 0.8, 1e-2
 
 
 def emit(obj) -> None:
@@ -3567,6 +3601,263 @@ def phase_obb(dev):
     return ok, {"predict": predict, "full_width": {OBB_FULL: full}, "fit": fit}, {"obb": add_counts(*path)}
 
 
+def write_cls_dataset(root: Path) -> Path:
+    """The classify phase's seeded image folder, written with the stdlib:
+    train/ and val/ of CLS_NC classes, CLS_TRAIN and CLS_VAL PNGs a class of
+    256 x 256 (every 4th 240 x 320): a class's colour on a blocky
+    low-frequency background, with a rectangle of another colour."""
+    rng = np.random.default_rng(SEED + 9)
+    colors = rng.integers(0, 256, (CLS_NC, 3))
+    for split, n in (("train", CLS_TRAIN), ("val", CLS_VAL)):
+        for c in range(CLS_NC):
+            d = root / split / f"class{c}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                h, w = (240, 320) if i % 4 == 3 else (256, 256)
+                low = rng.integers(-40, 40, (8, 8, 3))
+                img = np.clip(colors[c] + np.repeat(np.repeat(low, h // 8, 0), w // 8, 1), 0, 255).astype(np.uint8)
+                y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+                img[y0:y0 + h // 4, x0:x0 + w // 4] = rng.integers(0, 256, 3)
+                (d / f"{i:03d}.png").write_bytes(png_bytes(img))
+    return root
+
+
+def cls_forward(cfg, frames, dev):
+    """YOLO(cfg).predict of the frames at 224 px in bf16 (BN-folded), its
+    launches counted (none), then its forward on the resized frames against
+    the fp32 unfused forward of the same seeded weights (TF32 off): the
+    logits (the head's linear output, hooked) within CLS_RTOL of their
+    largest magnitude, the softmax's gap, its spread over the classes (a
+    seeded graph without shortcuts gives near-uniform probabilities: its
+    features shrink through every layer) and the share of frames whose
+    top-1 class is the same."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    yolo = YOLO(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    results, launches = counted(lambda: yolo.predict(frames, imgsz=CLS_IMGSZ, batch=len(frames), verbose=False))
+    fp32 = YOLO(cfg, device="cuda", dtype=torch.float32, seed=SEED)
+    x = torch.stack([torch.nn.functional.interpolate(torch.as_tensor(f[..., ::-1].copy(), device=dev).permute(
+        2, 0, 1)[None].float(), size=(CLS_IMGSZ, CLS_IMGSZ), mode="bilinear", align_corners=False)[0]
+        for f in frames]).round().clamp(0, 255) / 255.0
+    x = x.contiguous(memory_format=torch.channels_last)
+    logits = []
+    hooks = [m.model.model[-1].linear.register_forward_hook(lambda mod, inp, out: logits.append(out.float()))
+             for m in (yolo, fp32)]
+    with torch.inference_mode():
+        probs = yolo.model(x.to(torch.bfloat16))
+        probs32 = no_tf32(fp32.model, x)
+    for h in hooks:
+        h.remove()
+    err = rel_err(logits[0], logits[1])
+    same_top1 = float((probs.argmax(1) == probs32.argmax(1)).float().mean())
+    ok = (launches == FAMILY_PREDICT_LAUNCHES and len(results) == len(frames) and yolo.is_fused
+          and yolo.task == "classify" and all(abs(float(r.probs.data.sum()) - 1) < 1e-3 for r in results)
+          and bool(torch.isfinite(probs).all()) and err <= CLS_RTOL)
+    info = {"model": cfg, "params": sum(p.numel() for p in fp32.model.parameters()), "launches": launches,
+            "bf16_folded_vs_fp32_logits_rel_err": err, "probs_rel_err": rel_err(probs, probs32),
+            "largest_logit_fp32": logits[1].abs().max().item(),
+            "probs_spread_fp32": (probs32.max(1).values - probs32.min(1).values).max().item(),
+            "same_top1_share": same_top1, "ok": ok}
+    del yolo, fp32
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def cls_steps(cfg, dev, n: int, batch: int) -> tuple:
+    """n train micro-steps of cfg (nc CLS_NC, 224 px, bf16 over fp32 masters,
+    SGD, dropout 0.1) at `batch` on seeded uint8 images and labels: the
+    loss items finite, the launches (none), the mean ms of the steps after
+    the first (host clock, the card synchronised) and the peak memory."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
+
+    model = yaml_model_load(cfg)
+    model["nc"] = CLS_NC
+    tr = DetectionTrainer(overrides={"model": model, "batch": batch, "nbs": 64, "imgsz": CLS_IMGSZ, "amp": True,
+                                     "optimizer": "SGD", "dropout": 0.1, "seed": SEED}, device=dev).setup()
+    step, _ = tr._make_train_step(nb=100)
+    rng = np.random.default_rng(SEED + 10)
+    batches = [{"img": rng.integers(0, 256, (batch, CLS_IMGSZ, CLS_IMGSZ, 3), dtype=np.uint8),
+                "label": rng.integers(0, CLS_NC, batch).astype(np.int32)} for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    items, times = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items.append(step(batches[i % 2]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counts()
+    losses = torch.stack(items).float().cpu().numpy()
+    ok = launches == FAMILY_PREDICT_LAUNCHES and bool(np.isfinite(losses).all()) and losses.shape == (n, 1)
+    info = {"model": cfg, "batch": batch, "losses": losses[:, 0].tolist(), "launches": launches,
+            "micro_step_ms": 1e3 * float(np.mean(times[1:] if n > 1 else times)),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "ok": ok}
+    del tr, step
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def cls_fit(data: Path, project: Path) -> tuple:
+    """YOLO(yolov8s-cls).train for CLS_FIT's two epochs on the image folder
+    (RandAugment, erasing 0.4, dropout 0.1; val each epoch), then
+    YOLO(best.pt).val on the folder against the trainer's best record (its
+    fitness): the losses finite, no kernel launched, top1 and top5 printed."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO(CLS_FULL, device="cuda", seed=SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = y.train(data=str(data), project=str(project), **CLS_FIT)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tr = y.trainer
+    best = YOLO(str(tr.wdir / "best.pt"), device="cuda")
+    t0 = time.perf_counter()
+    vm = best.val(data=str(data), batch=CLS_FIT["batch"], imgsz=CLS_IMGSZ, workers=8, verbose=False)
+    val_s = time.perf_counter() - t0
+    launches = counts()
+    rows = tr.metrics_rows
+    losses = [r["train/loss"] for r in rows]
+    e = tr.epoch_stats[-1]
+    ok = (len(rows) == 2 and bool(np.isfinite(losses).all()) and launches == FAMILY_PREDICT_LAUNCHES
+          and best.task == "classify" and set(metrics) == {"top1", "top5", "fitness"}
+          and abs(vm["fitness"] - tr.best_fitness) <= FIT_RECORD_ATOL and vm["top5"] == vm["metrics/accuracy_top5"]
+          and tr.model.nc == CLS_NC)
+    info = {"model": CLS_FULL, "settings": CLS_FIT, "train_loss_per_epoch": losses, "final_metrics": metrics,
+            "val_best_pt": dict(vm), "best_fitness": tr.best_fitness, "launches": launches, "train_call_s": train_s,
+            "val_call_s": val_s,
+            "batches_per_epoch": e["batches"],
+            "train_img_per_s_with_loader": e["batches"] * CLS_FIT["batch"] / e["train_s"],
+            "loader_wait_ms_per_batch": 1e3 * e["loader_wait_s"] / e["batches"],
+            "micro_step_ms_in_fit": 1e3 * (e["train_s"] - e["loader_wait_s"]) / e["batches"],
+            "val_seen": tr.validator.seen, "val_img_per_s_best_pt": best.validator.seen / val_s, "ok": ok}
+    return ok, info, launches, best
+
+
+def cls_int8(best, data: Path, dev) -> tuple:
+    """The trained yolov8s-cls (best.pt: fp32 weights, bf16 compute),
+    BN-folded and quantized on two batches of 8 val images: its top-1 on
+    every val image against the bf16 model's (at least CLS_INT8_AGREE the
+    same), and its forward's ms at batch CLS_BATCH beside the bf16 one's."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.data.classify import ClassificationDataset, ClassificationLoader
+
+    loader = ClassificationLoader(ClassificationDataset(data / "val", imgsz=CLS_IMGSZ), 16, train=False, workers=8)
+    imgs = np.concatenate([b["img"] for b in loader])[:CLS_NC * CLS_VAL]
+    bf = copy.deepcopy(best.model).fuse()
+    q = copy.deepcopy(best.model).fuse()
+    reset_counts()
+    quantize_model(q, [imgs[:8], imgs[8:16]])
+    x = torch.as_tensor(imgs, device=dev).permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        pq, pb = q(x), bf(x)
+        agree = float((pq.argmax(1) == pb.argmax(1)).float().mean())
+        xb = x[torch.arange(CLS_BATCH, device=dev) % len(x)]
+        int8_ms, bf16_ms = cuda_ms(lambda: q(xb), iters=10), cuda_ms(lambda: bf(xb), iters=10)
+    launches = counts()
+    convs = [m for m in q.modules() if hasattr(m, "runs_int8")]
+    ok = (agree >= CLS_INT8_AGREE and launches == FAMILY_PREDICT_LAUNCHES and bool(torch.isfinite(pq).all())
+          and all(c.runs_int8 for c in convs))
+    info = {"ok": ok, "int8_convs": sum(c.runs_int8 for c in convs), "val_images": len(imgs),
+            "top1_agreement_with_bf16": agree, "int8_forward_ms": int8_ms, "bf16_forward_ms": bf16_ms,
+            "int8_over_bf16": int8_ms / bf16_ms, "batch": CLS_BATCH, "launches": launches}
+    del bf, q
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def cls_programs(frames, project: Path) -> tuple:
+    """yolov8s-cls (bf16, BN-folded, seeded) exported at 224 px with a static
+    batch of 8 and with a dynamic batch, each served by YOLO(path) on the 8
+    frames (the dynamic one also on 3): probs within CLS_PROGRAM_RTOL of the
+    live model's largest probability (the gap printed), no kernel launched."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO(CLS_FULL, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    rows, ok = [], True
+    reset_counts()
+    for dynamic in (False, True):
+        t0 = time.perf_counter()
+        path = y.export(imgsz=CLS_IMGSZ, batch=8, dynamic=dynamic, project=str(project / f"dyn{int(dynamic)}"))
+        export_s = time.perf_counter() - t0
+        served = YOLO(path)
+        for n in ((8, 3) if dynamic else (8,)):
+            got = served.predict(frames[:n], batch=n, verbose=False)
+            ref = y.predict(frames[:n], imgsz=CLS_IMGSZ, batch=n, verbose=False)
+            g, r = np.stack([a.probs.data for a in got]), np.stack([a.probs.data for a in ref])
+            gap = float(np.abs(g - r).max() / np.abs(r).max())
+            rows.append({"dynamic": dynamic, "frames": n, "rel_gap": gap, "bit_for_bit": bool(np.array_equal(g, r)),
+                         "export_s": export_s, "task": served.task})
+            ok &= gap <= CLS_PROGRAM_RTOL and served.task == "classify"
+    launches = counts()
+    ok &= launches == FAMILY_PREDICT_LAUNCHES
+    del y
+    torch.cuda.empty_cache()
+    return bool(ok), {"ok": bool(ok), "programs": rows, "launches": launches}, launches
+
+
+def phase_classify(dev):
+    """Image classification (the module docstring's classify phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    frames = slice_frames()
+    forwards, path = [], []
+    for cfg in CLS_GRAPHS:
+        _, info, launches = cls_forward(cfg, frames, dev)
+        forwards.append(info)
+        path.append(launches)
+
+    yolo = YOLO(CLS_FULL, device="cuda", dtype=torch.bfloat16, seed=SEED).fuse()
+    xb = torch.rand(CLS_BATCH, 3, CLS_IMGSZ, CLS_IMGSZ, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: yolo.model(xb), iters=20)
+    profile = forward_profile(yolo.model, xb, fwd_ms, "cudnn", "conv", key="conv_share")
+    del xb
+    frames64 = frames * (CLS_BATCH // len(frames))
+    kw = dict(imgsz=CLS_IMGSZ, batch=CLS_BATCH, verbose=False)
+    yolo.predict(frames64, **kw)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = yolo.predict(frames64, **kw)
+    dt = time.perf_counter() - t0
+    path.append(counts())
+    served = {"img_per_s": CLS_BATCH / dt, "frames": len(res), "top5_of_frame0": res[0].probs.top5,
+              "verbose_of_frame0": res[0].verbose()}
+    del yolo
+    torch.cuda.empty_cache()
+
+    step_ok, steps, step_launches = cls_steps(CLS_FULL, dev, 4, 32)
+    path.append(step_launches)
+    rn_ok, resnet, rn_launches = cls_steps(CLS_RESNET, dev, 1, 32)
+    path.append(rn_launches)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cls_"))
+    try:
+        t0 = time.perf_counter()
+        data = write_cls_dataset(tmp / "data")
+        write_s = time.perf_counter() - t0
+        fit_ok, fit, fit_launches, best = cls_fit(data, tmp / "runs")
+        path.append(fit_launches)
+        int8_ok, int8, int8_launches = cls_int8(best, data, dev)
+        path.append(int8_launches)
+        del best
+        prog_ok, programs, prog_launches = cls_programs(frames, tmp / "programs")
+        path.append(prog_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    full = {"forward_ms_batch64": fwd_ms, "forward_img_per_s": CLS_BATCH * 1e3 / fwd_ms, "forward_profile": profile,
+            "predict_batch64": served, "micro_steps_batch32": steps}
+    ok = all(f["ok"] for f in forwards) and step_ok and rn_ok and fit_ok and int8_ok and prog_ok
+    return ok, {"forwards": forwards, "full_width": {CLS_FULL: full, CLS_RESNET: resnet}, "dataset_write_s": write_s,
+                "fit": fit, "int8": int8, "programs": programs}, {"classify": add_counts(*path)}
+
+
 def int8_outputs(model, out) -> list:
     """The outputs a check holds: a YOLOv10 head's raw maps of both branches
     (its top-k orders near-equal scores by a rounding), a seg head's
@@ -4611,6 +4902,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
     (segment_launches,) = run("segment", phase_segment, dev)
     (pose_launches,) = run("pose", phase_pose, dev)
     (obb_launches,) = run("obb", phase_obb, dev)
+    (classify_launches,) = run("classify", phase_classify, dev)
     (int8_graphs_launches,) = run("int8_graphs", phase_int8_graphs, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
@@ -4624,6 +4916,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
                             **families_launches, **v10_launches, **segment_launches, **pose_launches, **obb_launches,
+                            **classify_launches,
                             **int8_graphs_launches,
                             **yolo11_launches,
                             **large_launches,

@@ -20,7 +20,10 @@ not), and `nms=True` on it raises too. An OBB model's program returns
 one float32 (B, 4 + nc + 1, A): the rotated boxes' centre and size in
 input pixels, the class sigmoids and the angle in radians; its sidecar
 says `task: obb` and gives that layout, and `nms=True` on it raises, as
-for every task but detect (the JAX exporter's :90-91). A YOLOv10
+for every task but detect (the JAX exporter's :90-91). A classify
+model's program returns the float32 (B, nc) softmax; its sidecar says
+`task: classify` and stride 1 (no stride rounds its imgsz; the JAX
+exporter writes 32). A YOLOv10
 model's program returns its head's (B, 300, 6) detections (xyxy pixels,
 score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
 warns and is dropped (the JAX exporter would run e2e_postprocess on those
@@ -92,6 +95,8 @@ class ExportForward(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0
         out = self.model(x)
+        if self.model.task == "classify":  # the (B, nc) softmax
+            return out.float()
         pred = out[0].float()
         if self.nms:
             return e2e_postprocess(pred, self.max_det, self.model.nc)
@@ -168,7 +173,7 @@ class Exporter:
     def _metadata(self, imgsz: int, opts: Dict, quantized: bool) -> Dict:
         md = {
             "description": "improving_yolov8_cbam_swinblock_tpu_torch export (torch.export program)",
-            "stride": int(max(self.model.strides)),
+            "stride": int(max(self.model.strides, default=1)),  # a classify model's 1: imgsz is not rounded
             "task": self.model.task,
             "batch": -1 if opts["dynamic"] else opts["batch"],
             "imgsz": [imgsz, imgsz],
@@ -187,6 +192,7 @@ class Exporter:
                        "pixels and, where nd is 3, the visibility sigmoid)" if self.model.task == "pose"
                        else "NHWC uint8 in, (B, 4+nc+1, A) out (rotated boxes' xywh pixels + cls sigmoid + angle "
                        "in radians)" if self.model.task == "obb"
+                       else "NHWC uint8 in, (B, nc) out (class softmax)" if self.model.task == "classify"
                        else "NHWC uint8 in, (B, 4+nc, A) out (xywh pixels + cls sigmoid)"),
         }
         if self.model.task == "pose":  # the reference's key, which the JAX package's sidecar lacks

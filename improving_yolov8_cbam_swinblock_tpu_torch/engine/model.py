@@ -20,8 +20,11 @@ validates box and OKS keypoint mAP, trains with the pose loss and exports
 (a program whose prediction carries the keypoints); an oriented-box graph
 (task "obb") predicts rotated boxes (rotated NMS, `Results.obb`), tracks
 their enclosing boxes, validates the probiou box mAP, trains with the OBB
-loss and exports (a program whose prediction carries the angle).
-`YOLO("model.pt2")` serves a program that `export` wrote
+loss and exports (a program whose prediction carries the angle); a
+classification graph (task "classify") predicts class probabilities
+(`Results.probs`), validates top-1 and top-5 accuracy on an image folder,
+trains with the cross-entropy on one, quantizes and exports (a program of
+the softmax). `YOLO("model.pt2")` serves a program that `export` wrote
 (nn/autobackend.py ProgramModel): predict and track, with the masks of a
 segmentation program, the keypoints of a pose program and the rotated
 boxes of an OBB program; the other verbs need the model itself. `track` runs
@@ -91,7 +94,7 @@ class YOLO:
                 self.overrides = {"imgsz": int(self.model.backend.imgsz[0])}
         else:
             self.model = DetectionModel(model, **self._build)
-        self.task = self.model.task  # "detect", "segment", "pose" or "obb", from the graph's head
+        self.task = self.model.task  # "detect", "segment", "pose", "obb" or "classify", from the graph's head
 
     def _load_pt(self, path: str) -> None:
         payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -225,7 +228,7 @@ class YOLO:
                               ("embed", "embeddings")):
                 if getattr(args, key):
                     raise NotImplementedError(f"{key} on an ensemble: {what} of one model; use one member")
-        stride = max(self.model.strides)
+        stride = max(self.model.strides, default=1)  # a classify model's imgsz is not rounded
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         if not self.is_fused and not is_quantized(self.model):
             self.fuse()
@@ -371,9 +374,24 @@ class YOLO:
         keypoints'), each key also as metrics/<key>, without rect, plots or
         JSON; an oriented-box model (task "obb") its probiou box metrics (the
         plain keys and their metrics/...(B) aliases, `.box`), without rect,
-        plots or JSON."""
+        plots or JSON; a classify model its top1, top5 and fitness
+        ((top1 + top5) / 2) on the image folder `data` (its `split`
+        subfolder, default val), each also under the reference's
+        metrics/accuracy_top1 and metrics/accuracy_top5 (the JAX package's
+        YOLO.val reads the folder as a data YAML and fails)."""
         self._single("validating")
         args = get_cfg({**self.overrides, **kwargs})
+        if self.task == "classify":
+            from ..data.classify import ClassificationDataset, ClassificationLoader
+
+            root = Path(data or args.data)
+            folder = root / args.split if (root / args.split).is_dir() else root / "val"
+            loader = ClassificationLoader(ClassificationDataset(folder, imgsz=int(args.imgsz)), int(args.batch),
+                                          train=False, workers=args.workers)
+            self.validator = TASK_VALIDATORS["classify"](self.model, loader, args, callbacks=self.callbacks)
+            out = ValMetrics(self.validator())
+            out["metrics/accuracy_top1"], out["metrics/accuracy_top5"] = out["top1"], out["top5"]
+            return out
         stride = max(self.model.strides)
         args.imgsz = math.ceil(int(args.imgsz) / stride) * stride
         info = check_det_dataset(data or args.data)

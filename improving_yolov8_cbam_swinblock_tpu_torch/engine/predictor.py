@@ -33,7 +33,11 @@ the JAX predictor makes them; `augment` does not apply to it either. A
 `.pt2` program (YOLO("model.pt2"), nn/autobackend.py ProgramModel) gives
 the same outputs: a segmentation program's prototypes are its second
 output, a pose program's keypoints and an OBB program's angles sit in its
-prediction.
+prediction. A classify model's frames are resized to imgsz x imgsz on the
+model's device (no letterbox: the JAX predictor's plain resize, PyTorch's
+bilinear rule in place of cv2's), and each image's softmax goes to
+`Results.probs` (one copy to the host a batch; no NMS, no TTA); a classify
+program gives the same.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -48,7 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.augment import letterbox, letterbox_geometry
+from ..data.augment import _resize, letterbox, letterbox_geometry
 from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
 from ..ops.boxes import process_mask, scale_boxes, scale_coords
@@ -138,6 +142,8 @@ class DetectionPredictor:
 
     @torch.inference_mode()
     def run_batch(self, frames: Sequence[Tuple[np.ndarray, str]], imgsz: int, bs: int) -> List[Results]:
+        if self.model.task == "classify":
+            return self.run_classify_batch(frames, imgsz, bs)
         t0 = time.perf_counter()
         a = self.args
         x = self.preprocess(frames, imgsz, bs)
@@ -186,6 +192,31 @@ class DetectionPredictor:
                                                   torch.from_numpy(det[:, :4]), bool(a.retina_masks)).cpu().numpy())
             res.speed = {"preprocess": (t1 - t0) * 1000 / n, "inference": (t2 - t1) * 1000 / n,
                          "postprocess": 0.0}
+            out.append(res)
+        self._log_results(out)
+        return out
+
+    def run_classify_batch(self, frames: Sequence[Tuple[np.ndarray, str]], imgsz: int, bs: int) -> List[Results]:
+        """A classify model's batch: each frame resized to imgsz x imgsz on the
+        model's device, BGR -> RGB, padded with zero frames to bs, / 255 in
+        the model's dtype; the (n, nc) softmax copied to the host once."""
+        t0 = time.perf_counter()
+        dev = self.model.device
+        x = torch.stack([_resize(torch.from_numpy(np.ascontiguousarray(img0)).to(dev), (imgsz, imgsz)).flip(-1)
+                         for img0, _ in frames])
+        n = len(frames)
+        if n < bs:
+            x = torch.cat([x, x.new_zeros((bs - n, *x.shape[1:]))])
+        x = x.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0
+        t1 = time.perf_counter()
+        probs = self.model(x)[:n].float().cpu().numpy()
+        t2 = time.perf_counter()
+        if self.args.visualize:
+            self.save_feature_maps(x[:n], [path for _, path in frames])
+        out = []
+        for p, (img0, path) in zip(probs, frames):
+            res = Results(img0, path, self.model.names).update(probs=p)
+            res.speed = {"preprocess": (t1 - t0) * 1000 / n, "inference": (t2 - t1) * 1000 / n, "postprocess": 0.0}
             out.append(res)
         self._log_results(out)
         return out

@@ -198,6 +198,38 @@ class OBB:
         return len(self.data)
 
 
+class Probs:
+    """A classify model's class probabilities (nc,) float32 (the JAX
+    package's Probs): top1, top5 (np.argsort of the negated probabilities:
+    the JAX package's ranking), top1conf, top5conf."""
+
+    def __init__(self, data, orig_shape=None):
+        self.data = np.asarray(data, np.float32).reshape(-1)
+        self.orig_shape = orig_shape
+
+    @property
+    def top1(self) -> int:
+        return int(np.argmax(self.data))
+
+    @property
+    def top5(self) -> list:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data[self.top1])
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return self.data[self.top5]
+
+    def __array__(self, dtype=None, copy=None):
+        return self.data.astype(dtype) if dtype is not None else self.data
+
+    def __len__(self):
+        return len(self.data)
+
+
 def _class_color(cls: int) -> tuple:
     """The JAX package's Results.plot colour of a class (BGR)."""
     return tuple(int(v) for v in np.array([37, 255, 225]) * ((cls % 5 + 1) / 5))
@@ -206,8 +238,9 @@ def _class_color(cls: int) -> tuple:
 class Results:
     """One image's detections, a segmentation model's masks (`masks`), a
     pose model's keypoints (`keypoints`) and an oriented-box model's
-    rotated boxes (`obb`, with `boxes` their enclosing axis-aligned boxes),
-    each None otherwise."""
+    rotated boxes (`obb`, with `boxes` their enclosing axis-aligned boxes)
+    and a classify model's class probabilities (`probs`, no boxes), each
+    None otherwise."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str], boxes: Optional[np.ndarray] = None):
         self.orig_img = orig_img
@@ -218,6 +251,7 @@ class Results:
         self.masks: Optional[Masks] = None
         self.keypoints: Optional[Keypoints] = None
         self.obb: Optional[OBB] = None
+        self.probs: Optional[Probs] = None
         self.speed = {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
@@ -243,8 +277,8 @@ class Results:
         r.speed = dict(self.speed)
         return r
 
-    def update(self, boxes=None, masks=None, keypoints=None, obb=None):
-        """Replace the detections (and the masks, the keypoints, the oriented boxes) in place."""
+    def update(self, boxes=None, masks=None, keypoints=None, obb=None, probs=None):
+        """Replace the detections (and the masks, the keypoints, the oriented boxes, the probabilities) in place."""
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
         if masks is not None:
@@ -253,11 +287,16 @@ class Results:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
         if obb is not None:
             self.obb = OBB(obb, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
         return self
 
     def verbose(self) -> str:
         """The log string: '2 persons, 1 bus, ', or '(no detections), ' (an
-        oriented-box model's counted from its oriented boxes)."""
+        oriented-box model's counted from its oriented boxes); a classify
+        model's top 5 classes with their probabilities, 'cat 0.91, dog 0.05, '."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(i, i)} {self.probs.data[i]:.2f}" for i in self.probs.top5) + ", "
         src = self.obb if self.obb is not None else self.boxes
         if not len(src):
             return "(no detections), "
@@ -276,7 +315,12 @@ class Results:
         and "visible", the visibility scores, where nd is 3, as the
         reference writes them) where the detection has keypoints. An
         oriented-box model's rows give the enclosing axis-aligned boxes, as
-        the JAX package's do (the reference's give the four corners)."""
+        the JAX package's do (the reference's give the four corners). A
+        classify model's one row: the top-1 class's name, class and
+        confidence."""
+        if self.probs is not None:
+            i = self.probs.top1
+            return [{"name": self.names.get(i, str(i)), "class": i, "confidence": round(self.probs.top1conf, 5)}]
         out = []
         b = self.boxes
         polys = self.masks.xyn if self.masks is not None and len(self.masks) == len(b) else None
@@ -333,11 +377,18 @@ class Results:
         coloured by class, then every keypoint as a filled red dot of radius
         max(lw, 2), as the JAX package draws them. An oriented-box model's
         boxes are the enclosing axis-aligned ones, as the JAX package draws
-        them (the reference draws the rotated polygons)."""
+        them (the reference draws the rotated polygons). A classify model's
+        image carries its top 5 'name prob' lines in white, as the JAX
+        package writes them."""
         import cv2
 
         img = self.orig_img.copy()
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
+        if self.probs is not None:
+            for j, i in enumerate(self.probs.top5):
+                cv2.putText(img, f"{self.names.get(i, i)} {self.probs.data[i]:.2f}", (8, 28 + 24 * j),
+                            cv2.FONT_HERSHEY_SIMPLEX, 0.7, (255, 255, 255), 2)
+            return img
         b = self.boxes
         if self.masks is not None and len(self.masks):
             masks = np.asarray(self.masks)

@@ -72,9 +72,19 @@ polygon label's minimum-area rectangle), with the OBB loss
 (utils/obb_loss.py: the rotated task-aligned assigner in plain PyTorch, as
 the JAX package's is plain JAX, so no kernel runs on this path; probiou
 box loss, BCE, DFL), three loss items box, cls, dfl, and OBBValidator's
-rotated-box metrics.
+rotated-box metrics. A classify model (task "classify", a graph that ends
+in Classify) trains on an image folder (`data` a directory holding
+`train/<class>/` and `val/<class>/`; names from train's class folders):
+data/classify.py's loader (random crop, flip, RandAugment at
+`auto_augment`, erasing at `erasing`), the cross-entropy of the fp32
+log-softmax of the logits, the mean over the batch (not scaled by it, as
+in the JAX package and the reference), one loss item `loss` (the
+reference's column train/loss; the JAX trainer logs box 0, cls the loss,
+dfl 0), the Classify head's Dropout at `dropout` drawing from a
+torch.Generator seeded from `seed` (saved for resume), no stride rounding
+of imgsz, and ClassificationValidator's top-1 and top-5 accuracy.
 
-Not in the port yet: multi-host sharding and the classify loss.
+Not in the port yet: multi-host sharding.
 """
 
 from __future__ import annotations
@@ -88,9 +98,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..cfg import AUG_KEYS, get_cfg
 from ..data.build import HYP_KEYS, build_dataloader, build_yolo_dataset
+from ..data.classify import ClassificationDataset, ClassificationLoader, classification_data
 from ..data.dataset import check_det_dataset
 from ..nn.tasks import DetectionModel, yaml_model_load
 from ..ops.augment_device import device_augment, scale_content
@@ -108,7 +120,14 @@ OPTIMIZERS = ("Adam", "Adamax", "AdamW", "NAdam", "RAdam", "RMSProp", "SGD")
 CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
 LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"),
-              "pose": ("box", "pose", "kobj", "cls", "dfl"), "obb": ("box", "cls", "dfl")}  # a step's items, per task
+              "pose": ("box", "pose", "kobj", "cls", "dfl"), "obb": ("box", "cls", "dfl"),
+              "classify": ("loss",)}  # a step's items, per task (results.csv: train/<item>_loss; classify's train/loss)
+
+
+def loss_column(item: str) -> str:
+    return "train/loss" if item == "loss" else f"train/{item}_loss"
+
+
 def checkpoint_state(path) -> Dict[str, torch.Tensor]:
     """The unfused weights a checkpoint file hands to an overlay: the EMA of
     a JAX-format `.ckpt`/`.msgpack`, or the state of a `.pt`. A BN-folded
@@ -207,8 +226,10 @@ class DetectionTrainer:
         self.data = None
         self.validator: Optional[DetectionValidator] = None
         self._eval_model: Optional[DetectionModel] = None
-        if self.args.data:
-            self.data = check_det_dataset(self.args.data)
+        if self.args.data:  # a directory is an image folder of classes, as the JAX trainer reads it
+            data = self.args.data
+            is_folder = isinstance(data, (str, Path)) and Path(data).is_dir()
+            self.data = classification_data(data) if is_folder else check_det_dataset(data)
             self.save_dir = get_save_dir(self.args)
             self.wdir = self.save_dir / "weights"
             self.wdir.mkdir(parents=True, exist_ok=True)
@@ -232,8 +253,14 @@ class DetectionTrainer:
                                         device=self.device, seed=a.seed, param_dtype=torch.float32)
         if self.data is not None:
             self.model.names = dict(self.data["names"])
-        stride = max(self.model.strides)
-        a.imgsz = math.ceil(int(a.imgsz) / stride) * stride
+        self.drop_gen = None
+        if self.model.task == "classify":  # no strides to round imgsz to; the head's Dropout on a seeded generator
+            self.drop_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
+            self.model.model[-1].drop.p = float(a.dropout or 0.0)
+            self.model.model[-1].drop.generator = self.drop_gen
+        else:
+            stride = max(self.model.strides)
+            a.imgsz = math.ceil(int(a.imgsz) / stride) * stride
         self.model.train()
         if int(a.batch) == -1:  # autobatch, as the JAX trainer's setup runs it
             from ..utils.model_utils import check_train_batch_size
@@ -252,7 +279,7 @@ class DetectionTrainer:
         self.aug_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
         if self.data is not None:
             self._build_datasets()
-            if a.plots:
+            if a.plots and self.model.task != "classify":
                 from ..utils.plotting import plot_labels
 
                 labs = self.train_loader.ds.labels
@@ -265,6 +292,16 @@ class DetectionTrainer:
 
     def _build_datasets(self) -> None:
         a = self.args
+        if self.model.task == "classify":  # the image folder's train/ and val/, as the JAX trainer builds them
+            train_ds = ClassificationDataset(self.data["train"], imgsz=a.imgsz, erasing=float(a.erasing or 0.0),
+                                             auto_augment=a.auto_augment or None)
+            self.train_loader = ClassificationLoader(train_ds, int(a.batch), train=True, seed=a.seed,
+                                                     workers=a.workers)
+            self.val_loader = None
+            if a.val and self.data.get("val"):
+                val_ds = ClassificationDataset(self.data["val"], imgsz=a.imgsz)
+                self.val_loader = ClassificationLoader(val_ds, int(a.batch), train=False, workers=a.workers)
+            return
         hyp = {k: getattr(a, k) for k in HYP_KEYS}
         task = self.model.task
         kpt_shape = self.model.kpt_shape  # None but for a pose model, as the JAX trainer hands it on
@@ -313,7 +350,8 @@ class DetectionTrainer:
         """Build the optimizer and return (step, accumulate): step(batch) runs
         one micro-step and returns the loss items (LOSS_NAMES: box, cls, dfl;
         a segmentation model's box, seg, cls, dfl; a pose model's box, pose,
-        kobj, cls, dfl; an OBB model's box, cls, dfl)."""
+        kobj, cls, dfl; an OBB model's box, cls, dfl; a classify model's
+        loss, on batches {"img", "label"})."""
         a = self.args
         model = self.model
         epochs = int(a.epochs)
@@ -350,7 +388,14 @@ class DetectionTrainer:
         nc, strides = model.nc, model.strides
         dev = self.device
 
-        def train_step(batch) -> torch.Tensor:
+        def classify_loss(batch):
+            """The cross-entropy of the fp32 log-softmax of the logits, the mean over the batch."""
+            img = torch.as_tensor(batch["img"], device=dev)
+            logits = model(img.permute(0, 3, 1, 2).to(model.dtype) / 255.0)
+            total = F.cross_entropy(logits.float(), torch.as_tensor(batch["label"], device=dev).long())
+            return total, (total.detach(),)
+
+        def detect_loss(batch):
             img = torch.as_tensor(batch["img"], device=dev)
             cls = torch.as_tensor(batch["cls"], device=dev)
             bboxes = torch.as_tensor(batch["bboxes"], device=dev).float()
@@ -377,6 +422,10 @@ class DetectionTrainer:
                                                  **gains)
             else:
                 total, items = detection_loss(feats, cls, bboxes, mask, **gains)
+            return total, items
+
+        def train_step(batch) -> torch.Tensor:
+            total, items = (classify_loss if task == "classify" else detect_loss)(batch)
             total.backward()  # grads add up in .grad across micro-steps
             if (self.step + 1) % accumulate == 0:
                 self._apply_update(opt, params, *schedules(self.step))
@@ -448,7 +497,7 @@ class DetectionTrainer:
                 if batch is None:
                     break
                 losses.append(self.train_step(batch))
-                if a.plots and epoch == 0 and len(losses) <= 3:
+                if a.plots and epoch == 0 and len(losses) <= 3 and self.model.task != "classify":
                     from ..utils.plotting import plot_images
 
                     plot_images(batch["img"], batch["cls"], batch["bboxes"], batch["mask"],
@@ -458,8 +507,8 @@ class DetectionTrainer:
             dt = time.perf_counter() - t0
             print(("%11s" + "%11.4g" * len(mean_loss) + "%11s   %.1f img/s") % (
                 f"{epoch + 1}/{epochs}", *mean_loss, a.imgsz, nb * int(a.batch) / max(dt, 1e-9)))
-            row = {"epoch": epoch, **{f"train/{k}_loss": float(v) for k, v in zip(LOSS_NAMES[self.model.task],
-                                                                                  mean_loss)}, "time_s": round(dt, 2)}
+            row = {"epoch": epoch, **{loss_column(k): float(v) for k, v in zip(LOSS_NAMES[self.model.task], mean_loss)},
+                   "time_s": round(dt, 2)}
             stats = {"epoch": epoch, "batches": nb, "train_s": dt, "loader_wait_s": wait}
             if self.val_loader is not None:
                 tv = time.perf_counter()
@@ -550,6 +599,7 @@ class DetectionTrainer:
                 "best_fitness": self.best_fitness, "nc": m.nc, "names": dict(m.names),
                 "args": {k: v for k, v in vars(self.args).items() if isinstance(v, (int, float, str, bool))},
                 "aug_gen": self.aug_gen.get_state(),
+                **({"drop_gen": self.drop_gen.get_state()} if self.drop_gen is not None else {}),
             },
         }, Path(path))
 
@@ -566,6 +616,8 @@ class DetectionTrainer:
         self.epoch = int(tr["epoch"])
         self.best_fitness = float(tr["best_fitness"])
         self.aug_gen.set_state(tr["aug_gen"])
+        if self.drop_gen is not None:
+            self.drop_gen.set_state(tr["drop_gen"])
 
     def _write_csv(self) -> None:
         keys = sorted({k for r in self.metrics_rows for k in r})

@@ -32,7 +32,8 @@ package's, engine/validator.py:396-438) runs the rotated NMS (probiou,
 multi-label where nc > 1) and matches each kept box (xywh and the angle,
 in letterboxed pixels) by probiou against the loader's normalised xywhr
 targets scaled by imgsz; its metrics are the box keys, without plots or
-JSON. TASK_VALIDATORS picks the validator of a model's task.
+JSON. ClassificationValidator gives a classify model's top-1 and top-5
+accuracy. TASK_VALIDATORS picks the validator of a model's task.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ from pathlib import Path
 from ..ops.boxes import process_mask, xywh2xyxy
 from ..ops.nms import non_max_suppression
 from ..utils.callbacks import run_callbacks
-from ..utils.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np, mask_iou_np,
-                             match_predictions, plot_pr_curves, probiou_np)
+from ..utils.metrics import (OKS_SIGMA, ClassifyMetrics, ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np,
+                             mask_iou_np, match_predictions, plot_pr_curves, probiou_np)
 
 
 class DetectionValidator:
@@ -346,5 +347,50 @@ class OBBValidator(DetectionValidator):
             self.metrics.update(tp, det[:, 4], det[:, 5].astype(int), gt_cls)
 
 
+class ClassificationValidator(DetectionValidator):
+    """Top-1 and top-5 accuracy of a classify model (the JAX package's
+    ClassificationValidator, engine/validator.py:64-103): each batch of the
+    image-folder loader's (B, s, s, 3) uint8 RGB images / 255 goes through
+    the eval forward (the softmax) on the model's device, and each image's
+    top 5 classes are np.argsort(-probs)[:, :5] on the host, as the JAX
+    validator ranks them. Every row of a batch counts, so the images that
+    the last val batch wraps around to count twice, as in the JAX package.
+    Returns top1, top5 and fitness, (top1 + top5) / 2 (ClassifyMetrics and
+    the reference; the JAX validator's fitness is top1). No plots, no JSON."""
+
+    writes_files = False
+
+    def init_metrics(self) -> None:
+        self.metrics = ClassifyMetrics()
+        self.pred, self.targets = [], []
+
+    @torch.inference_mode()
+    def forward_nms(self, img: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 RGB -> (B, min(5, nc)) class indices by falling probability, on the host."""
+        m = self.model
+        x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
+        probs = m(x).float().cpu().numpy()
+        return np.argsort(-probs, axis=-1)[:, :min(5, probs.shape[-1])]
+
+    def update_metrics(self, topk: np.ndarray, batch: Dict[str, np.ndarray]) -> None:
+        self.pred.append(topk)
+        self.targets.append(np.asarray(batch["label"]))
+
+    def compute(self) -> Dict[str, float]:
+        """The hits over the images counted (exact ratios of counts, as the JAX validator's)."""
+        n = sum(len(t) for t in self.targets)
+        if n:
+            topk, labels = np.concatenate(self.pred), np.concatenate(self.targets)
+            self.metrics.top1 = int((topk[:, 0] == labels).sum()) / n
+            self.metrics.top5 = int((topk == labels[:, None]).any(1).sum()) / n
+        return {"top1": self.metrics.top1, "top5": self.metrics.top5, "fitness": self.metrics.fitness}
+
+    def print_results(self, out: Dict[str, float]) -> None:
+        if not getattr(self.args, "verbose", True):
+            return
+        print("%22s%11s%11s" % ("classes", "top1_acc", "top5_acc"))
+        print("%22s%11.3g%11.3g" % ("all", out["top1"], out["top5"]))
+
+
 TASK_VALIDATORS = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator,
-                   "obb": OBBValidator}
+                   "obb": OBBValidator, "classify": ClassificationValidator}

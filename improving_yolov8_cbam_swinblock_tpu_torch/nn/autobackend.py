@@ -17,7 +17,8 @@ Input: (B, H, W, 3) uint8 NHWC frames, numpy or a tensor. Output: numpy
 float32, the Detect layout, or (B, max_det, 6) for a program exported with
 nms and for a YOLOv10 model or program (`end2end`); for a segmentation
 model or program (`task` "segment") two arrays, the (B, 4+nc+nm, A)
-prediction and the (B, nm, H/4, W/4) prototypes. A checkpoint or model
+prediction and the (B, nm, H/4, W/4) prototypes; for a classify model or
+program (`task` "classify") the (B, nc) softmax. A checkpoint or model
 runs as it is, unfused, in the dtype it was built with (fp32 for a JAX
 checkpoint), as the JAX Backend runs its checkpoints. A program runs on the
 device it was exported on.
@@ -103,7 +104,7 @@ class Backend:
     def _adopt(self, model: nn.Module) -> None:
         self._fn = ExportForward(model).eval()
         self.metadata.setdefault("names", {int(k): str(v) for k, v in model.names.items()})
-        self.metadata.setdefault("stride", int(max(model.strides)))
+        self.metadata.setdefault("stride", int(max(model.strides, default=1)))
         self.metadata.setdefault("nc", int(model.nc))
         self.metadata.setdefault("task", model.task)
         self.metadata.setdefault("end2end", bool(model.end2end))
@@ -162,7 +163,8 @@ class ProgramModel(nn.Module):
     (NHWC memory), turns them back into the uint8 frames they were made from
     (x * 255, rounded: exact in fp32), runs the program (a static program
     in chunks of its batch, the last padded with zero frames) and returns
-    the live model's eval layout: (prediction, None), a YOLOv10 program's
+    the live model's eval layout: (prediction, None), a classify program's
+    (B, nc) softmax alone, a YOLOv10 program's
     (detections, None), or a segmentation program's (prediction, (None,
     None, prototypes)); a pose program's prediction carries its keypoints,
     whose `kpt_shape` the sidecar gives, an OBB program's its angles (the
@@ -213,7 +215,7 @@ class ProgramModel(nn.Module):
             out = self.program(img)
         if self.task == "segment":
             return out[0], (None, None, out[1])
-        return out, None
+        return out if self.task == "classify" else (out, None)
 
     def predict_augment(self, x):
         raise NotImplementedError("augment=True needs the live model: a program holds one scale")

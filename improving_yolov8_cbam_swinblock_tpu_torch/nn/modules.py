@@ -849,6 +849,103 @@ class A2C2f(nn.Module):
         return (x.float() + self.gamma.view(1, -1, 1, 1) * y.float()).to(x.dtype)
 
 
+class ResNetBlock(nn.Module):
+    """The bottleneck ResNet block: 1x1 (SiLU), 3x3 stride s (SiLU), 1x1 to
+    e * c2 (no activation), plus the input or its projection (`shortcut.0`,
+    a 1x1 stride-s Conv without activation, where the stride or the width
+    changes), through a ReLU."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, 3, s, p=1)
+        self.cv3 = Conv(c2, c3, 1, act=False)
+        self.shortcut = nn.Sequential(Conv(c1, c3, 1, s, act=False)) if s != 1 or c1 != c3 else nn.Identity()
+
+    def forward(self, x):
+        return F.relu(self.cv3(self.cv2(self.cv1(x))) + self.shortcut(x))
+
+
+class ResNetLayer(nn.Module):
+    """n ResNetBlocks (the first with stride s) in `layer`, or, with
+    is_first, the stem: a 7x7 stride-2 Conv (SiLU) and a 3x3 stride-2 max
+    pool padded with -inf, as the JAX package pads it."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        if is_first:
+            self.layer = nn.Sequential(Conv(c1, c2, 7, 2, p=3), nn.MaxPool2d(3, 2, 1))
+        else:
+            self.layer = nn.Sequential(*(ResNetBlock(c1 if i == 0 else e * c2, c2, s if i == 0 else 1, e)
+                                         for i in range(n)))
+
+    def forward(self, x):
+        return self.layer(x)
+
+
+class BasicBlock(nn.Module):
+    """The two-conv ResNet block of resnet18 and resnet34: 3x3 stride s
+    (ReLU), 3x3 (no activation), plus the input or its 1x1 stride-s
+    projection (`shortcut.0`), through a ReLU."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, s, act="relu", p=1)
+        self.cv2 = Conv(c2, c2, 3, 1, act=False, p=1)
+        self.shortcut = nn.Sequential(Conv(c1, c2, 1, s, act=False)) if s != 1 or c1 != c2 else nn.Identity()
+
+    def forward(self, x):
+        return F.relu(self.cv2(self.cv1(x)) + self.shortcut(x))
+
+
+class TorchVision(nn.Module):
+    """A torchvision ResNet's feature trunk, built natively as the JAX
+    package builds it (no torchvision, no downloaded weights): the stem
+    (a ResNetLayer with is_first) and four stages `layer1` to `layer4` of
+    widths 64 to 512 (stride 1, then 2), BasicBlocks for resnet18 and
+    resnet34 (nn.Sequential), a ResNetLayer of bottlenecks for resnet50; its
+    output is (B, c2, H / 32, W / 32), c2 512 (2048 for resnet50). The
+    reference's module names are torchvision's (`m.0`, `m.4.0.conv1`), which
+    a fused Conv and BatchNorm cannot take: these are the JAX package's
+    scopes. Only the trunk form (unwrap, truncate 2: avgpool and fc dropped)
+    of these three names is built; `weights` is accepted for the YAML's
+    sake."""
+
+    STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3)}
+
+    def __init__(self, c1: int, model: str = "resnet18", weights: str = "DEFAULT", unwrap: bool = True,
+                 truncate: int = 2, split: bool = False):
+        super().__init__()
+        name = str(model)
+        if name not in self.STAGES:
+            raise NotImplementedError(f"TorchVision backbone '{name}' not supported natively "
+                                      f"(available: {sorted(self.STAGES)})")
+        if split:
+            raise NotImplementedError("TorchVision split=True is not supported")
+        if not (unwrap and truncate == 2):
+            raise NotImplementedError("only the feature-trunk form (unwrap=True, truncate=2 — drop avgpool+fc) is "
+                                      "supported; classification uses the Classify head")
+        self.stem = ResNetLayer(c1, 64, is_first=True)
+        c = 64
+        for si, (w, nblk) in enumerate(zip((64, 128, 256, 512), self.STAGES[name])):
+            s = 1 if si == 0 else 2
+            if name == "resnet50":
+                setattr(self, f"layer{si + 1}", ResNetLayer(c, w, s, n=nblk, e=4))
+                c = 4 * w
+            else:
+                setattr(self, f"layer{si + 1}", nn.Sequential(*(BasicBlock(c if i == 0 else w, w, s if i == 0 else 1)
+                                                                for i in range(nblk))))
+                c = w
+        self.c2 = c
+
+    def forward(self, x):
+        x = self.stem(x)
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+        return x
+
+
 class Concat(nn.Module):
     def forward(self, xs: List[torch.Tensor]):
         return torch.cat(xs, 1)
@@ -1083,3 +1180,50 @@ class v10Detect(Detect):
         if self.training:
             return maps
         return e2e_postprocess(self.decode(maps["one2one"], xywh=False), self.max_det, self.nc), maps
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its weight and bias to the input's dtype at use."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Dropout(nn.Module):
+    """flax's nn.Dropout: in training each element is kept where a uniform
+    draw is below 1 - p and scaled by 1 / (1 - p), else zeroed; the identity
+    in eval and at p 0. The draws come from `generator` (the trainer sets a
+    seeded torch.Generator on the model's device; None: the global one)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p <= 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Classify(nn.Module):
+    """The image classification head: a 1x1 Conv to c_ (1280), the mean
+    over H and W, Dropout (`drop`, rate 0 unless the trainer sets the
+    `dropout` setting), then `linear` to nc. A list input is concatenated
+    on the channels first. Training returns the logits (B, nc) in the
+    compute dtype; eval the softmax (B, nc) in fp32, as the JAX package's
+    head returns it (the reference's eval returns (softmax, logits))."""
+
+    def __init__(self, c1: int, nc: int = 1000, c_: int = 1280, dropout: float = 0.0):
+        super().__init__()
+        self.nc = nc
+        self.conv = Conv(c1, c_, 1, 1)
+        self.drop = Dropout(dropout)
+        self.linear = Linear(c_, nc)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(list(x), 1)
+        y = self.linear(self.drop(self.conv(x).mean((2, 3))))
+        return y if self.training else y.float().softmax(-1)

@@ -16,7 +16,10 @@ head: `DetectionModel.end2end`) and YOLO11/12, the segmentation graphs
 that end in `Segment` (`DetectionModel.task` "segment"), the pose graphs
 that end in `Pose` (task "pose", a row whose `kpt_shape` argument names
 the YAML's own key, as the JAX package resolves it) and the oriented-box
-graphs that end in `OBB` (task "obb"); a row it does not
+graphs that end in `OBB` (task "obb") and the classification graphs
+that end in `Classify` (task "classify": the yolov8, yolo11 and yolo12 cls
+graphs, the ResNet-50 and -101 ones of `ResNetLayer` rows and yolo11's
+resnet18 `TorchVision` trunk, none of them width-scaled); a row it does not
 know (the rows no packaged YAML of these uses) raises KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
@@ -241,6 +244,18 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
         elif mname == "v10Detect":
             c2 = 0
             m = M.v10Detect(args[0] if args else nc, [in_ch(j) for j in f], [in_factor(j) for j in f])
+        elif mname == "Classify":  # [nc]: never width-scaled
+            c2 = args[0] if args else nc
+            m = M.Classify(c1 if c1 is not None else sum(in_ch(j) for j in f), c2)
+        elif mname == "TorchVision":  # [c2, model, weights, unwrap, truncate]: the trunk's own width, stride 32
+            m = M.TorchVision(c1, *(str(a) if k < 2 else a for k, a in enumerate(args[1:5])))
+            c2 = m.c2
+            fac *= 32
+        elif mname == "ResNetLayer":  # [c1, c2, s, is_first, n, e]: never width-scaled
+            s_, first, e_ = _arg(args, 2, 1), _arg(args, 3, False), _arg(args, 5, 4)
+            m = M.ResNetLayer(c1, args[1], s_, first, _arg(args, 4, 1), e_)
+            c2 = args[1] if first else e_ * args[1]
+            fac *= 4 if first else s_
         else:
             raise KeyError(f"Unknown module in YAML: {mname!r} (row {i})")
         if n > 1:
@@ -270,8 +285,8 @@ def _literal(a):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the JAX package's schemes: conv and transposed-conv
     kernels uniform with variance 1/(3 fan_in) (fan_in = in channels x kernel
-    area), Swin attention projections xavier-uniform, Swin MLP normal with
-    variance 1/fan_in, zero biases, unit norms, and the Detect bias priors."""
+    area), Swin attention projections xavier-uniform, Swin MLP and
+    Classify's linear normal with variance 1/fan_in, zero biases, unit norms, and the Detect bias priors."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight  # (out, in / g, kh, kw), transposed (in, out / g, kh, kw)
@@ -286,6 +301,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if isinstance(mod, nn.BatchNorm2d):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+        elif isinstance(mod, M.Linear):  # Classify's: flax's Dense init, variance 1 / fan_in
+            mod.weight.normal_(0.0, math.sqrt(1.0 / mod.weight.shape[1]), generator=generator)
+            mod.bias.zero_()
         elif isinstance(mod, M.SwinBlock):
             for w in (mod.attn.in_proj_weight, mod.attn.out_proj.weight):
                 bound = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
@@ -320,7 +338,9 @@ class DetectionModel(nn.Module):
     nk * nd))), in training (raw maps, raw keypoints); an oriented-box graph
     (task "obb") its OBB head's ((B, 4 + nc + 1, A): rotated xywh, scores
     and the angle in radians, (raw maps, angles (B, A, 1))), in training
-    (raw maps, angles). The model is built in eval mode."""
+    (raw maps, angles); a classification graph (task "classify", no
+    strides) its Classify head's (B, nc) softmax in fp32, in training the
+    (B, nc) logits. The model is built in eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -330,10 +350,11 @@ class DetectionModel(nn.Module):
         self.model, self.save, self.meta = parse_model(self.yaml)
         head = self.model[-1]
         self.nc = head.nc
-        self.strides = head.strides
+        self.strides = getattr(head, "strides", ())  # a classify model has none: imgsz is not rounded
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
         self.task = ("segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose)
-                     else "obb" if isinstance(head, M.OBB) else "detect")
+                     else "obb" if isinstance(head, M.OBB) else "classify" if isinstance(head, M.Classify)
+                     else "detect")
         self.kpt_shape = head.kpt_shape if self.task == "pose" else None
         self.names = {i: str(i) for i in range(self.nc)}
         self.dtype = dtype
@@ -349,7 +370,7 @@ class DetectionModel(nn.Module):
 
     def _cast(self, dtype: torch.dtype) -> None:
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, M.Linear)):
                 mod.to(dtype)
             elif isinstance(mod, M.SwinBlock):
                 for p in mod.parameters():
@@ -388,7 +409,7 @@ class DetectionModel(nn.Module):
         n = len(self.model)
         wanted = {int(i) % n for i in layers}
         for i in wanted:
-            if isinstance(self.model[i], M.Detect):
+            if isinstance(self.model[i], (M.Detect, M.Classify)):
                 raise ValueError(f"embed: layer {i} is {self.model[i].type}, whose output is no feature map; "
                                  f"take a layer before it (0 to {i - 1})")
         pooled = []
@@ -513,7 +534,7 @@ class EnsembleModel(nn.Module):
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
         if any(m.end2end or m.task != "detect" for m in models):
             raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end), a "
-                             "segmentation member, a pose member or an obb member is not")
+                             "segmentation member, a pose member, an obb member or a classify member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype

@@ -8,7 +8,7 @@ importer), with layout transforms:
   * conv kernels HWIO -> OIHW;
   * transposed-conv kernels (kh, kw, in, out) -> (in, out, kh, kw), flipped
     in space: flax's ConvTranspose does not flip its kernel, torch's does;
-  * Dense kernels (in, out) -> Linear weights (out, in);
+  * Dense kernels (in, out) -> Linear weights (out, in) (Classify's `linear`);
   * the SwinBlock packed in-projection (C, 3C) -> in_proj_weight (3C, C);
   * BatchNorm scale/bias and mean/var -> weight/bias and
     running_mean/running_var (plus num_batches_tracked, which flax has not).
@@ -29,6 +29,7 @@ into the buffers that ops/quant.py's load_quant_state sets.
 
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, Mapping, Tuple
 
@@ -73,6 +74,10 @@ def _module_tokens(mods: Tuple[str, ...]) -> list:
             toks.append("mlp.0" if m.endswith("1") else "mlp.2")
         elif m.startswith("one2one_"):  # v10Detect's one-to-one twin: one2one_cv3_0_1_0 -> one2one_cv3.0.1.0
             toks.append("one2one_" + ".".join(m[len("one2one_"):].split("_")))
+        elif re.fullmatch(r"(layer\d*|shortcut)_\d+", m):
+            # ResNetLayer's blocks (layer_0), a ResNet block's projection (shortcut_0), TorchVision's BasicBlocks
+            # (layer1_0): the reference's layer.0 and shortcut.0, and the JAX package's scopes with dots
+            toks.append(m.replace("_", "."))
         elif m.startswith(("cv1_", "cv2_", "cv3_", "cv4_", "m_", "ffn_", "mlp_")):
             # Detect per-level stacks (Segment's, Pose's and OBB's cv4_0_0 too), CIB's cv1_0 to cv1_4, bottlenecks
             # (m_0, RepCSP's m_0_cv1, A2C2f's m_0_1), PSA and ABlock MLPs

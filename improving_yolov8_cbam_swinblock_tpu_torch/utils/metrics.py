@@ -634,6 +634,33 @@ class OBBMetrics:
         return dict(zip(self.keys + ["fitness"], self.mean_results() + [self.fitness]))
 
 
+class ClassifyMetrics:
+    """Top-1 and top-5 accuracy (the JAX package's ClassifyMetrics): process
+    takes the true classes (N,) and each image's top-5 predictions (N, 5);
+    fitness is their mean, as the reference's."""
+
+    def __init__(self):
+        self.top1 = 0.0
+        self.top5 = 0.0
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
+
+    def process(self, targets, pred) -> None:
+        correct = (np.asarray(targets)[:, None] == np.asarray(pred)).astype(np.float32)
+        self.top1, self.top5 = np.stack((correct[:, 0], correct.max(1)), axis=1).mean(0).tolist()
+
+    @property
+    def fitness(self) -> float:
+        return (self.top1 + self.top5) / 2
+
+    @property
+    def keys(self) -> List[str]:
+        return ["metrics/accuracy_top1", "metrics/accuracy_top5"]
+
+    @property
+    def results_dict(self) -> Dict[str, float]:
+        return dict(zip(self.keys + ["fitness"], [self.top1, self.top5, self.fitness]))
+
+
 class ValMetrics(dict):
     """What YOLO.val() returns: the metrics dict (plain keys and their
     `metrics/...(B)` aliases, or for a segmentation model the `(B)` and

@@ -132,7 +132,8 @@ def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
     a segmentation model's seg loss, the box's mask its overlap map; a pose
     model's pose loss, every keypoint visible at the box's centre; an OBB
     model's OBB loss, the box at angle 0: with one GT an image, its dense
-    (B, G, A) assigner tensors are small), backward.
+    (B, G, A) assigner tensors are small; a classify model's cross-entropy
+    against class 0), backward.
     torch.cuda.max_memory_allocated after a reset."""
     from .loss import detection_loss
     from .obb_loss import obb_loss
@@ -155,6 +156,8 @@ def train_step_peak_bytes(model, imgsz: int, batch: int) -> int:
         elif m.task == "pose":
             kpts = torch.tensor([0.5, 0.5, 1.0], device=dev).repeat(batch, 1, m.kpt_shape[0], 1)
             total, _ = pose_loss(*out, cls, boxes, ones, kpts, nc=m.nc, kpt_shape=m.kpt_shape, strides=m.strides)
+        elif m.task == "classify":  # the logits' cross-entropy against class 0
+            total = torch.nn.functional.cross_entropy(out.float(), torch.zeros(batch, dtype=torch.long, device=dev))
         elif m.task == "obb":
             rboxes = torch.tensor([0.5, 0.5, 0.25, 0.25, 0.0], device=dev).repeat(batch, 1, 1)
             total, _ = obb_loss(*out, cls, rboxes, ones, nc=m.nc, strides=m.strides)

@@ -887,3 +887,51 @@ def test_obb_program_keeps_its_rotated_boxes_on_the_card(cuda, tmp_path):
             assert np.array_equal(g.boxes.data, r.boxes.data)
             assert (g.obb is None) == (r.obb is None)
             assert g.obb is None or np.array_equal(g.obb.data, r.obb.data)
+
+
+@pytest.mark.cuda
+def test_classify_forward_on_the_card_equals_the_cpu(cuda):
+    """yolov8s-cls (nc 1000) and yolo11-cls-resnet18 at 224 px in fp32 with
+    TF32 off: the card's eval softmax equals the same weights' on the CPU
+    within 1e-4 of its largest value, the train logits within 1e-3 of
+    theirs; no kernel runs (no SwinBlock, no assigner)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+
+    x = torch.rand(4, 3, 224, 224, generator=torch.Generator().manual_seed(3))
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for cfg in ("yolov8s-cls.yaml", "yolo11-cls-resnet18.yaml"):
+            cpu = DetectionModel(cfg, device="cpu")
+            card = DetectionModel(cfg, device="cuda")
+            card.load_state_dict(cpu.state_dict())
+            before = S.swin_block_cuda.launches
+            with torch.no_grad():
+                got, want = card(x.to(cuda)).cpu(), cpu(x)
+                got_t, want_t = card.train()(x.to(cuda)).cpu(), cpu.train()(x)
+            assert S.swin_block_cuda.launches == before and card.task == "classify" and got.shape == (4, 1000)
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+            assert (got_t - want_t).abs().max() <= 1e-3 * want_t.abs().max()
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+
+
+@pytest.mark.cuda
+def test_classify_predict_and_program_on_the_card(cuda, tmp_path):
+    """yolov8n-cls in bf16 on the card: predict gives each frame's probs
+    (summing to 1 within 1e-5) and top5; a dynamic program of it served by
+    YOLO(path) gives the live model's probs bit for bit at batches 1 and 3."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    y = YOLO("yolov8n-cls.yaml", device="cuda", dtype=torch.bfloat16).fuse()
+    frames = [np.random.default_rng(i).integers(0, 256, (240, 320, 3), dtype=np.uint8) for i in range(3)]
+    res = y.predict(frames, imgsz=224, batch=3, verbose=False)
+    assert all(abs(r.probs.data.sum() - 1) < 1e-5 and len(r.probs.top5) == 5 for r in res)
+    path = y.export(imgsz=224, dynamic=True, half=True, project=str(tmp_path))
+    served = YOLO(path)
+    assert served.task == "classify"
+    for b in (1, 3):
+        got = served.predict(frames, batch=b, verbose=False)
+        ref = y.predict(frames, imgsz=224, batch=b, verbose=False)
+        for g, r in zip(got, ref):
+            assert np.array_equal(g.probs.data, r.probs.data)
