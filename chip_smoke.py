@@ -231,6 +231,20 @@ Phases, one JSON line each; the script exits non-zero if any phase fails:
           batch 64; yolov8s-cls exported with a static batch of 8 and with a
           dynamic batch, each served by YOLO(path) against the live model's
           probs; no kernel launched on any of these paths
+  rtdetr  RT-DETR: rtdetr-l (nc 80, 640 px, seeded weights, the score heads'
+          bias priors zeroed): its bf16 BN-folded forward against the fp32
+          one at batch 2 (TF32 off; queries matched by their anchor: the
+          share shared, boxes and scores, the same top-1 class per kept
+          query); the forward's ms at batch 32 with its device time by kernel
+          (grid_sampler's and the sort's shares) and, by events, the six
+          decoder layers and the top-k alone; RTDETR(...).predict of the slice
+          phase's frames at batch 32 (img/s) and YOLO.val on 16 seeded PNGs; 8
+          micro-steps at batch 16 (bf16 over fp32 masters, max_gt 32, the
+          denoising group, the Hungarian-matched loss: the step's ms, the
+          assignment's host ms, the peak memory); one micro-step's loss items
+          in fp32 on the card against the CPU's (batch 2, the same weights,
+          batch and draws); the other four RT-DETR YAMLs' bf16 folded forward
+          against fp32 the same way; no kernel launched on any of these paths
   int8_graphs  int8 of the graphs added since the fork's: yolov9c, yolov10s
           and yolov8s-seg at full width, quantized (bf16 compute over fp32
           weights, BN-folded) on the int8 phase's two seeded batches of 8:
@@ -539,6 +553,28 @@ CLS_FIT = {"epochs": 2, "batch": 16, "nbs": 16, "imgsz": CLS_IMGSZ, "optimizer":
            "warmup_epochs": 0.0, "erasing": 0.4, "auto_augment": "randaugment", "dropout": 0.1, "workers": 8,
            "seed": SEED, "save_period": -1}
 CLS_RTOL, CLS_INT8_AGREE, CLS_PROGRAM_RTOL = 3e-2, 0.8, 1e-2
+# the rtdetr phase: rtdetr-l (nc 80, 640 px) at full width and the other four RT-DETR YAMLs, seeded weights with
+# the score heads' bias priors zeroed. The bf16 BN-folded forward against the fp32 unfused one (TF32 off) at batch
+# RTDETR_CHECK_BATCH: the two select their queries by a top-k over 8400 anchors' scores that bf16 rounds, so the
+# queries are matched by their anchor; at least RTDETR_SHARED of the fp32 queries' anchors are selected in bf16 too,
+# those queries' boxes (normalised) and scores within RTDETR_ATOL; each kept query (score over 0.25) whose top-1
+# class differs must have had its fp32 top two within RTDETR_FLIP_MARGIN (a near tie that the rounding decides: the
+# seeded class scores of 80 classes often lie that close; sound runs read at most 6.9e-3), and the share with the
+# same top-1 is reported. Every check draws the weights that the seeded init zeroes in the head (the box heads' last
+# layers, the deformable attention's sampling_offsets and attention_weights) from a normal of std RTDETR_DRAW_STD
+# (draw_query_paths), so that the boxes leave their anchors and the sampling depends on the query. The forward and predict at RTDETR_BATCH; RTDETR_STEPS micro-steps at RTDETR_STEP_BATCH (max_gt MAX_GT:
+# the denoising group of 3 x 2 x 32 queries); one micro-step's loss on the card against the CPU's in fp32 at batch
+# RTDETR_CPU_BATCH with the same weights, batch and denoising draws: the head alone, fed the CPU's feature maps, its
+# total and items within RTDETR_ITEM_RTOL, and where a matched layer's assignment differs, both assignments' total
+# costs (the CPU's costs) within RTDETR_TIE_RTOL of each other: a near tie (untrained boxes give many assignments of
+# equal cost); the whole model's total within RTDETR_ITEM_RTOL (its last layer's items are reported beside the
+# CPU's own change under a 1e-6 scaling of its input: the seeded train-mode graph amplifies a rounding to 2e-3 in
+# them); val on RTDETR_VAL seeded PNGs
+RTDETR_FULL = "rtdetr-l.yaml"
+RTDETR_OTHERS = ("rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml", "yolov8-rtdetr.yaml")
+RTDETR_BATCH, RTDETR_STEP_BATCH, RTDETR_STEPS, RTDETR_CHECK_BATCH, RTDETR_CPU_BATCH, RTDETR_VAL = 32, 16, 8, 2, 2, 16
+RTDETR_SHARED, RTDETR_ATOL, RTDETR_ITEM_RTOL, RTDETR_TIE_RTOL = 0.9, 5e-2, 1e-3, 1e-5
+RTDETR_FLIP_MARGIN, RTDETR_DRAW_STD = 1.5e-2, 0.02
 
 
 def emit(obj) -> None:
@@ -1423,12 +1459,16 @@ def add_counts(*cs) -> dict:
 
 
 def class_biases(model) -> list:
-    """(name, tensor) of the last class conv's bias of every Detect-family head of `model`."""
+    """(name, tensor) of the last class conv's bias of every Detect-family
+    head of `model`, and of every score head of an RT-DETR head."""
     from improving_yolov8_cbam_swinblock_tpu_torch.nn.modules import Detect
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.transformer import RTDETRDecoder
 
     names = {id(p): n for n, p in model.named_parameters()}
-    return [(names[id(seq[-1].bias)], seq[-1].bias) for head in model.modules() if isinstance(head, Detect)
-            for _, cv3 in head.branches() for seq in cv3]
+    out = [(names[id(seq[-1].bias)], seq[-1].bias) for head in model.modules() if isinstance(head, Detect)
+           for _, cv3 in head.branches() for seq in cv3]
+    return out + [(names[id(lin.bias)], lin.bias) for head in model.modules() if isinstance(head, RTDETRDecoder)
+                  for lin in (head.enc_score_head, *head.dec_score_head)]
 
 
 @contextlib.contextmanager
@@ -3858,6 +3898,360 @@ def phase_classify(dev):
                 "fit": fit, "int8": int8, "programs": programs}, {"classify": add_counts(*path)}
 
 
+@torch.no_grad()
+def draw_query_paths(model, seed: int = SEED, std: float = RTDETR_DRAW_STD) -> None:
+    """Draw, from a seeded normal of `std`, the weights that an RT-DETR
+    head's seeded init zeroes: the last layer of every box head and every
+    deformable attention's sampling_offsets and attention_weights matrices.
+    Seeded, every box is its anchor and the sampling points and their weights
+    do not depend on the query; drawn, a check holds the box-refinement
+    ladder and the query-dependent sampling. The draws are made on the CPU
+    in a fixed module order, so two models of one graph get the same."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.transformer import MSDeformAttn
+
+    g = torch.Generator().manual_seed(seed)
+    head = model.model[-1]
+    lins = [mlp.layers[-1] for mlp in (head.enc_bbox_head, *head.dec_bbox_head)]
+    lins += [lin for m in head.modules() if isinstance(m, MSDeformAttn) for lin in (m.sampling_offsets, m.attention_weights)]
+    for lin in lins:
+        lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * std)
+
+
+def rtdetr_queries(model, x):
+    """model(x)'s (B, nq, 4 + nc) fp32 output and the anchor index of each
+    query (the head's top-k, recomputed from its encoder scores, hooked)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import _topk_first
+
+    head = model.model[-1]
+    seen = []
+    hook = head.enc_score_head.register_forward_hook(lambda mod, inp, out: seen.append(out.float().amax(-1)))
+    try:
+        with torch.inference_mode():
+            y = model(x)[0].float()
+    finally:
+        hook.remove()
+    return y, _topk_first(seen[0], y.shape[1])[1]
+
+
+def rtdetr_check(cfg, dev) -> dict:
+    """cfg's bf16 BN-folded forward against its fp32 unfused one (TF32 off)
+    on RTDETR_CHECK_BATCH seeded 640 px images, the score heads' priors
+    zeroed and the query paths drawn (draw_query_paths), queries matched
+    by anchor (RTDETR_SHARED, RTDETR_ATOL; a changed top-1 class only at a
+    near tie, RTDETR_FLIP_MARGIN); no kernel launched."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+
+    x = torch.rand(RTDETR_CHECK_BATCH, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    x = x.contiguous(memory_format=torch.channels_last)
+    fp32 = DetectionModel(cfg, device=dev, seed=SEED)
+    bf16 = DetectionModel(cfg, device=dev, seed=SEED, dtype=torch.bfloat16)
+    draw_query_paths(fp32)
+    draw_query_paths(bf16)
+    bf16.fuse()
+    reset_counts()
+    with zero_class_priors(fp32), zero_class_priors(bf16):
+        y32, a32 = no_tf32(rtdetr_queries, fp32, x)
+        y16, a16 = rtdetr_queries(bf16, x.to(torch.bfloat16))
+    launches = counts()
+    box_err, score_err, shared, kept, flip_margins = 0.0, 0.0, 0, 0, []
+    for b in range(x.shape[0]):
+        pos16 = {int(a): i for i, a in enumerate(a16[b].tolist())}
+        for i, a in enumerate(a32[b].tolist()):
+            j = pos16.get(int(a))
+            if j is None:
+                continue
+            shared += 1
+            box_err = max(box_err, (y16[b, j, :4] - y32[b, i, :4]).abs().max().item())
+            score_err = max(score_err, (y16[b, j, 4:] - y32[b, i, 4:]).abs().max().item())
+            if y32[b, i, 4:].max() > 0.25:
+                kept += 1
+                if y16[b, j, 4:].argmax() != y32[b, i, 4:].argmax():
+                    top2 = y32[b, i, 4:].topk(2).values
+                    flip_margins.append((top2[0] - top2[1]).item())
+    n = a32.numel()
+    info = {"model": cfg, "params": sum(p.numel() for p in fp32.parameters()), "queries": n,
+            "shared_anchor_share": shared / n, "box_abs_err": box_err, "score_abs_err": score_err,
+            "kept_fp32": kept, "same_top1_share": 1 - len(flip_margins) / max(kept, 1),
+            "largest_fp32_margin_of_a_changed_top1": max(flip_margins, default=0.0),
+            "finite": bool(torch.isfinite(y16).all()), "launches": launches}
+    info["ok"] = (info["finite"] and shared / n >= RTDETR_SHARED and box_err <= RTDETR_ATOL
+                  and score_err <= RTDETR_ATOL and kept > 0 and max(flip_margins, default=0.0) <= RTDETR_FLIP_MARGIN
+                  and launches == FAMILY_PREDICT_LAUNCHES and bool(fp32.is_rtdetr))
+    del fp32, bf16
+    torch.cuda.empty_cache()
+    return info
+
+
+def rtdetr_forward_ms(model, dev) -> dict:
+    """rtdetr-l's bf16 folded forward at RTDETR_BATCH (CUDA events), its
+    device time by kernel (torch.profiler: the deformable sampling's
+    grid_sampler share, the top-k's sort share) and, by events on the
+    inputs the forward handed them, the six decoder layers and the top-k alone."""
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import _topk_first
+
+    xb = torch.rand(RTDETR_BATCH, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    xb = xb.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    head = model.model[-1]
+    args = []
+    hook = head.decoder.register_forward_pre_hook(lambda mod, a, kw: args.append((a, kw)), with_kwargs=True)
+    scores = []
+    hook2 = head.enc_score_head.register_forward_hook(lambda mod, inp, out: scores.append(out.float().amax(-1)))
+    with torch.inference_mode():
+        model(xb)
+        hook.remove()
+        hook2.remove()
+        fwd_ms = cuda_ms(lambda: model(xb), iters=10)
+        a, kw = args[0]
+        dec_ms = cuda_ms(lambda: head.decoder(*a, **kw), iters=10)
+        topk_ms = cuda_ms(lambda: _topk_first(scores[0], head.nq), iters=10)
+    profile = forward_profile(model, xb, fwd_ms, "grid_sampler", key="grid_sample_share",
+                              more={"sort_share": ("sort", "Sort")})
+    return {"batch": RTDETR_BATCH, "forward_ms": fwd_ms, "forward_img_per_s": RTDETR_BATCH * 1e3 / fwd_ms,
+            "decoder_ms": dec_ms, "decoder_share": dec_ms / fwd_ms, "topk_ms": topk_ms, "profile": profile}
+
+
+def write_rtdetr_val(root: Path) -> Path:
+    """RTDETR_VAL seeded 480x640 PNGs with 1-5 coloured boxes of one class (val only), and their data.yaml."""
+    rng = np.random.default_rng(SEED + 11)
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+    for i in range(RTDETR_VAL):
+        img = rng.integers(0, 90, (480, 640, 3), dtype=np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(1, 6))):
+            bw, bh = rng.uniform(0.1, 0.4, 2)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            img[int((cy - bh / 2) * 480):int((cy + bh / 2) * 480), int((cx - bw / 2) * 640):int((cx + bw / 2) * 640)] = \
+                rng.integers(100, 256, 3)
+            lines.append(f"0 {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        (root / "images" / "val" / f"{i:03d}.png").write_bytes(png_bytes(img))
+        (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+    data = root / "data.yaml"
+    data.write_text(json.dumps({"path": str(root), "train": "images/val", "val": "images/val", "nc": 80,
+                                "names": {str(i): f"class{i}" for i in range(80)}}))
+    return data
+
+
+def rtdetr_serve(dev, tmp: Path) -> tuple:
+    """YOLO("rtdetr-l.yaml") in bf16, BN-folded by predict, the score priors
+    zeroed: predict of the slice phase's 480x640 frames at RTDETR_BATCH
+    (img/s, boxes inside the frames, no kernel), and YOLO.val on the seeded
+    PNGs (no NMS: every query of every image)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import RTDETR
+
+    yolo = RTDETR(RTDETR_FULL, device=dev, dtype=torch.bfloat16, seed=SEED)
+    frames = slice_frames() * (RTDETR_BATCH // 8)
+    kw = dict(imgsz=640, batch=RTDETR_BATCH, conf=0.25, verbose=False)
+    with zero_class_priors(yolo.model):
+        yolo.predict(frames, **kw)  # warm-up (and the fold)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = yolo.predict(frames, **kw)
+        dt = time.perf_counter() - t0
+        launches = counts()
+        data = write_rtdetr_val(tmp / "val")
+        t0 = time.perf_counter()
+        vm = yolo.val(data=str(data), batch=RTDETR_STEP_BATCH, imgsz=640, workers=8, verbose=False)
+        val_s = time.perf_counter() - t0
+    launches = add_counts(launches, counts())
+    n_det = [len(r) for r in res]
+    centres = np.concatenate([(r.boxes.xyxy[:, :2] + r.boxes.xyxy[:, 2:]) / 2 for r in res])
+    boxes_in = (all(np.isfinite(r.boxes.data).all() and (r.boxes.conf > 0.25).all() and len(r) <= 300 for r in res)
+                and (centres >= 0).all() and (centres <= [640, 480]).all())  # unclipped boxes: their centres
+    ok = (boxes_in and min(n_det) > 0 and launches == FAMILY_PREDICT_LAUNCHES
+          and np.isfinite(vm["fitness"]) and yolo.validator.seen == RTDETR_VAL)
+    info = {"predict_img_per_s": RTDETR_BATCH / dt, "detections_per_frame": [min(n_det), max(n_det)],
+            "val": {k: vm[k] for k in ("precision", "recall", "mAP50", "mAP50-95", "fitness")},
+            "val_img_per_s": RTDETR_VAL / val_s, "val_times": yolo.validator.times, "launches": launches, "ok": ok}
+    del yolo
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def rtdetr_steps(dev) -> tuple:
+    """RTDETR_STEPS micro-steps of rtdetr-l at RTDETR_STEP_BATCH, 640 px, bf16
+    over fp32 masters, SGD, device augmentation on, max_gt MAX_GT: the
+    denoising group and the Hungarian-matched loss; the items finite, the
+    micro-step ms (host clock, the card synchronised), the host ms of the
+    assignment per micro-step (costs' copy, scipy, indices' copy), the peak
+    memory, no kernel."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils import detr_loss
+
+    tr = DetectionTrainer(overrides={**TRAIN, "model": RTDETR_FULL, "batch": RTDETR_STEP_BATCH, "max_gt": MAX_GT},
+                          device=dev).setup()
+    step, _ = tr._make_train_step(nb=TRAIN_NB)
+    batches = train_batches(2, dev, b=RTDETR_STEP_BATCH)
+    assign_s = []
+    orig_hungarian = detr_loss.hungarian_assign
+
+    def timed_hungarian(*a):  # the forward finished first: the costs, their copy, scipy, the indices' copy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_hungarian(*a)
+        assign_s[-1] += time.perf_counter() - t0
+        return out
+
+    detr_loss.hungarian_assign = timed_hungarian
+    items, times = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    try:
+        for i in range(RTDETR_STEPS):
+            assign_s.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            items.append(step(batches[i % 2]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        detr_loss.hungarian_assign = orig_hungarian
+    launches = counts()
+    losses = torch.stack(items).float().cpu().numpy()
+    ok = launches == FAMILY_PREDICT_LAUNCHES and bool(np.isfinite(losses).all()) and losses.shape == (RTDETR_STEPS, 3)
+    info = {"batch": RTDETR_STEP_BATCH, "max_gt": MAX_GT, "items_giou_cls_l1": losses.tolist(),
+            "micro_step_ms": 1e3 * float(np.mean(times[1:])), "assign_host_ms_per_step": 1e3 * float(np.mean(assign_s[1:])),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "launches": launches, "ok": ok}
+    del tr, step
+    torch.cuda.empty_cache()
+    return ok, info, launches
+
+
+def rtdetr_card_vs_cpu(dev) -> dict:
+    """rtdetr-l's train-mode forward and loss in fp32 (TF32 off) at
+    RTDETR_CPU_BATCH on the CPU and on the card, with the same seeded
+    weights (the query paths drawn, draw_query_paths), batch and denoising
+    draws. Held: the head alone on the card, fed the CPU's three feature
+    maps (the query selection, the decoder with its box ladder and
+    deformable sampling, the denoising group, the Hungarian-matched loss):
+    the total and the items within RTDETR_ITEM_RTOL of the CPU's; each
+    matched layer's assignment as anchors (the top-k orders scores that the
+    two devices round apart, so a query's index names another anchor on
+    each), the share that differs, and where one does, both assignments'
+    total costs under the CPU's costs within RTDETR_TIE_RTOL (a near tie;
+    an anchor that only one device selected is counted apart). Reported:
+    the whole model on the card against the CPU, beside the CPU against
+    itself with its input scaled by 1 + 1e-6 (the seeded backbone's
+    train-mode BatchNorm at batch 2 and the drawn decoder amplify a
+    rounding that far, so only the whole model's total is held to
+    RTDETR_ITEM_RTOL, not its last layer's items)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.transformer import cdn_draws
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.nms import _topk_first
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.detr_loss import assign_host, match_costs, rtdetr_loss
+
+    batch = {k: v.cpu() for k, v in train_batches(1, dev, aug=False, b=RTDETR_CPU_BATCH)[0].items()}
+    x = batch["img"].permute(0, 3, 1, 2).float() / 255.0
+    draws = cdn_draws(RTDETR_CPU_BATCH, 2 * 3 * MAX_GT, 80, torch.Generator().manual_seed(SEED), "cpu")
+    cpu = DetectionModel(RTDETR_FULL, device="cpu", seed=SEED).train()
+    draw_query_paths(cpu)
+    card = DetectionModel(RTDETR_FULL, device=dev, seed=SEED).train()
+    card.load_state_dict(cpu.state_dict())
+
+    def run(m, d, xin, feats=None):
+        """(assignment (L, B, G), each query's anchor (B, nq), [total, giou,
+        cls, l1], the matched layers' costs, the head's input maps) of the
+        model m on device d, or of its head alone on `feats`."""
+        t = {"cls": batch["cls"].long().to(d), "bboxes": batch["bboxes"].to(d), "mask": batch["mask"].to(d),
+             "dn_draws": {k: v.to(d) for k, v in draws.items()}}
+        head = m.model[-1]
+        seen, taken = [], []
+        hooks = [head.enc_score_head.register_forward_hook(lambda mod, i, o: seen.append(o.float().amax(-1))),
+                 head.register_forward_pre_hook(lambda mod, a: taken.append([f.detach().cpu() for f in a[0]]))]
+        try:
+            if feats is None:
+                preds = m(xin.to(d).contiguous(memory_format=torch.channels_last), targets=t)
+            else:
+                preds = head([f.to(d) for f in feats], t)
+        finally:
+            for h in hooks:
+                h.remove()
+        num_dn = preds["dec_bboxes"].shape[2] - preds["enc_bboxes"].shape[1]
+        anchors = _topk_first(seen[0], preds["enc_bboxes"].shape[1])[1].cpu()
+        mb = torch.cat([preds["enc_bboxes"][None], preds["dec_bboxes"][:, :, num_dn:]], 0)
+        ms = torch.cat([preds["enc_scores"][None], preds["dec_scores"][:, :, num_dn:]], 0)
+        cost = match_costs(mb, ms, t["bboxes"], t["cls"], t["mask"] > 0).cpu()
+        q = torch.from_numpy(assign_host(cost.reshape(-1, *cost.shape[-2:]).numpy())).reshape(cost.shape[:-2] + (-1,))
+        total, items = rtdetr_loss(preds, t["cls"], t["bboxes"], t["mask"], 80, num_dn=num_dn)
+        return q, anchors, torch.stack([total, *items]).detach().cpu(), cost, taken[0]
+
+    with torch.no_grad():
+        q_cpu, a_cpu, v_cpu, cost, feats = no_tf32(run, cpu, "cpu", x)
+        q_head, a_head, v_head, _, _ = no_tf32(run, card, dev, x, feats)
+        q_card, a_card, v_card, _, _ = no_tf32(run, card, dev, x)
+        v_self = no_tf32(run, cpu, "cpu", x * (1 + 1e-6))[2]
+    valid = (batch["mask"] > 0)[None].expand_as(q_cpu)
+    as_anchor = lambda q, a: a[None].expand(q.shape[0], -1, -1).gather(2, q)  # (L, B, G) anchors assigned
+    rel = lambda v: ((v - v_cpu).abs() / v_cpu.abs()).tolist()
+
+    def moved(q_dev, a_dev) -> dict:
+        """How the device's assignment differs from the CPU's, as anchors."""
+        differ = (as_anchor(q_cpu, a_cpu) != as_anchor(q_dev, a_dev)) & valid
+        gaps, apart = [], 0
+        for li, bi in {(int(a), int(b)) for a, b, _ in differ.nonzero()}:
+            cols = valid[li, bi].nonzero()[:, 0]
+            pos = {int(a): i for i, a in enumerate(a_cpu[bi].tolist())}
+            dev_q = [pos.get(int(a_dev[bi, q])) for q in q_dev[li, bi, cols].tolist()]
+            if None in dev_q:
+                apart += 1
+                continue
+            mine = cost[li, bi][torch.tensor(dev_q), cols].sum().item()
+            theirs = cost[li, bi][q_cpu[li, bi, cols], cols].sum().item()
+            gaps.append(abs(mine - theirs) / abs(theirs))
+        return {"assignment_moved_share": float(differ.sum() / valid.sum()),
+                "moved_assignment_cost_gap": max(gaps, default=0.0), "moved_with_an_anchor_one_side_only": apart,
+                "query_order_moved_share": float((a_cpu != a_dev).float().mean())}
+
+    head_alone = {"total_and_items_rel_err": rel(v_head), **moved(q_head, a_head)}
+    info = {"batch": RTDETR_CPU_BATCH, "head_alone": head_alone,
+            "whole_model": {"total_and_items_rel_err": rel(v_card), **moved(q_card, a_card)},
+            "cpu_input_times_1_plus_1e-6_rel_err": rel(v_self),
+            "cpu": v_cpu.tolist(), "card_head_alone": v_head.tolist(), "card": v_card.tolist()}
+    info["ok"] = (max(head_alone["total_and_items_rel_err"]) <= RTDETR_ITEM_RTOL
+                  and head_alone["moved_assignment_cost_gap"] <= RTDETR_TIE_RTOL
+                  and abs(v_card[0] - v_cpu[0]).item() <= RTDETR_ITEM_RTOL * abs(v_cpu[0]).item()
+                  and bool(torch.isfinite(v_card).all()))
+    del cpu, card
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_rtdetr(dev):
+    """RT-DETR (the module docstring's rtdetr phase)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+
+    checks = [rtdetr_check(RTDETR_FULL, dev)]
+    path = [checks[0]["launches"]]
+    model = DetectionModel(RTDETR_FULL, device=dev, seed=SEED, dtype=torch.bfloat16)
+    draw_query_paths(model)
+    model.fuse()
+    reset_counts()
+    with zero_class_priors(model):
+        forward = rtdetr_forward_ms(model, dev)
+    path.append(counts())
+    del model
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rtdetr_"))
+    try:
+        serve_ok, serve, serve_launches = rtdetr_serve(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    path.append(serve_launches)
+    step_ok, steps, step_launches = rtdetr_steps(dev)
+    path.append(step_launches)
+    card_cpu = rtdetr_card_vs_cpu(dev)
+    for cfg in RTDETR_OTHERS:
+        checks.append(rtdetr_check(cfg, dev))
+        path.append(checks[-1]["launches"])
+    ok = all(c["ok"] for c in checks) and serve_ok and step_ok and card_cpu["ok"]
+    return ok, {"forwards_bf16_vs_fp32": checks, "full_width": {str(RTDETR_FULL): {"forward": forward, "serve": serve,
+                                                                               "micro_steps": steps,
+                                                                               "loss_card_vs_cpu": card_cpu}}}, \
+        {"rtdetr": add_counts(*path)}
+
+
 def int8_outputs(model, out) -> list:
     """The outputs a check holds: a YOLOv10 head's raw maps of both branches
     (its top-k orders near-equal scores by a rounding), a seg head's
@@ -4421,9 +4815,10 @@ def kernel_times(prof, steps):
     return total, top, share
 
 
-def forward_profile(model, x, forward_ms, *kernels, key="swin_share"):
+def forward_profile(model, x, forward_ms, *kernels, key="swin_share", more=None):
     """Device time by kernel over 3 forwards of model on x (torch.profiler),
-    with the share (under `key`) of the kernels whose names hold one of `kernels`."""
+    with the share (under `key`) of the kernels whose names hold one of
+    `kernels`, and under each key of `more` the share of its names'."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -4437,7 +4832,7 @@ def forward_profile(model, x, forward_ms, *kernels, key="swin_share"):
     if total == 0:
         return None
     return {"kernel_us_per_forward": total, "device_busy_share": total / (1e3 * forward_ms),
-            key: share(*kernels),
+            key: share(*kernels), **{k: share(*names) for k, names in (more or {}).items()},
             "top": [{"name": e.key[:90], "us_per_forward": e.device_time_total / 3, "calls": e.count // 3}
                     for e in top]}
 
@@ -4903,6 +5298,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
     (pose_launches,) = run("pose", phase_pose, dev)
     (obb_launches,) = run("obb", phase_obb, dev)
     (classify_launches,) = run("classify", phase_classify, dev)
+    (rtdetr_launches,) = run("rtdetr", phase_rtdetr, dev)
     (int8_graphs_launches,) = run("int8_graphs", phase_int8_graphs, dev)
     (yolo11_launches,) = run("yolo11", phase_yolo11, dev)
     (large_launches,) = run("flagship_l", phase_flagship_l, dev)
@@ -4916,7 +5312,7 @@ def run_phases(dev, name, smi, build, wide, programs, failed, run) -> int:
                             "train": train_launches,
                             "int8": int8_launches, "export": export_launches, "fit": fit_launches, **fit_host_launches,
                             **families_launches, **v10_launches, **segment_launches, **pose_launches, **obb_launches,
-                            **classify_launches,
+                            **classify_launches, **rtdetr_launches,
                             **int8_graphs_launches,
                             **yolo11_launches,
                             **large_launches,

@@ -82,13 +82,18 @@ def letterbox_geometry(shape: Tuple[int, int], new_shape: Union[int, Tuple[int, 
 
 
 def letterbox(img: Union[np.ndarray, torch.Tensor], new_shape: Union[int, Tuple[int, int]], device=None,
-              scaleup: bool = True) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
+              scaleup: bool = True, scale_fill: bool = False) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
     """Min-ratio resize and pad (grey 114) of an (H, W, 3) uint8 image, the
-    pad split evenly on both sides. scaleup=False only shrinks. Returns
-    (image (new_h, new_w, 3) uint8 on `device`, gain, (padw, padh) of the
-    top-left pad)."""
+    pad split evenly on both sides. scaleup=False only shrinks; scale_fill
+    stretches the image to new_shape with no pad (RT-DETR's predict; gain
+    1, no pad returned, as the JAX package returns them). Returns (image
+    (new_h, new_w, 3) uint8 on `device`, gain, (padw, padh) of the top-left
+    pad)."""
     t = torch.as_tensor(img, device=device)
     shape = tuple(t.shape[:2])
+    if scale_fill:
+        size = (new_shape, new_shape) if isinstance(new_shape, int) else tuple(new_shape)
+        return (t if shape == size else _resize(t, size)), 1.0, (0, 0)
     r, new_unpad, (left, right, top, bottom) = letterbox_geometry(shape, new_shape, scaleup)
     if shape[::-1] != new_unpad:
         t = _resize(t, (new_unpad[1], new_unpad[0]))

@@ -70,7 +70,7 @@ import yaml
 
 from ..nn.tasks import EnsembleModel
 from ..ops.nms import e2e_postprocess
-from ..ops.quant import is_quantized, quantize_model
+from ..ops.quant import RTDETR_LATER, is_quantized, quantize_model
 from ..utils.callbacks import default_callbacks, run_callbacks
 
 FORMATS = {"pt2": {"batch", "dynamic", "half", "int8", "nms"}}  # format: the options it takes
@@ -211,6 +211,8 @@ class Exporter:
                              "program) only")
         if isinstance(self.model, EnsembleModel):
             raise NotImplementedError("exporting an ensemble is not supported: export one member")
+        if self.model.is_rtdetr:
+            raise NotImplementedError(RTDETR_LATER.format(what="export (a .pt2 program)"))
         opts = self._resolve_options()
         imgsz = int(self.args.imgsz)
         t0 = time.time()

@@ -24,7 +24,10 @@ loss and exports (a program whose prediction carries the angle); a
 classification graph (task "classify") predicts class probabilities
 (`Results.probs`), validates top-1 and top-5 accuracy on an image folder,
 trains with the cross-entropy on one, quantizes and exports (a program of
-the softmax). `YOLO("model.pt2")` serves a program that `export` wrote
+the softmax); an RT-DETR graph (`RTDETR(...)` or `YOLO(...)` of a graph
+that ends in RTDETRDecoder) predicts without NMS, validates and trains on
+the Hungarian-matched loss, and refuses int8 and export for now.
+`YOLO("model.pt2")` serves a program that `export` wrote
 (nn/autobackend.py ProgramModel): predict and track, with the masks of a
 segmentation program, the keypoints of a pose program and the rotated
 boxes of an OBB program; the other verbs need the model itself. `track` runs
@@ -458,3 +461,16 @@ class YOLO:
                     "param_dtype": str(m.param_dtype).removeprefix("torch."), "state_dict": m.state_dict()},
                    Path(path))
         return str(path)
+
+
+class RTDETR(YOLO):
+    """The RT-DETR facade: the YOLO verbs on a graph that ends in RTDETRDecoder
+    (`rtdetr-l.yaml` by default): NMS-free predict and val, training on the
+    Hungarian-matched DETR loss. Any other graph raises ValueError, as the
+    JAX package's RTDETR does."""
+
+    def __init__(self, model="rtdetr-l.yaml", device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(model, device=device, dtype=dtype, seed=seed, param_dtype=param_dtype)
+        if not self.model.is_rtdetr:
+            raise ValueError("RTDETR only supports RTDETRDecoder-headed graphs (rtdetr-*.yaml)")

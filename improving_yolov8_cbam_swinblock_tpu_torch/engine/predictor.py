@@ -37,7 +37,12 @@ prediction. A classify model's frames are resized to imgsz x imgsz on the
 model's device (no letterbox: the JAX predictor's plain resize, PyTorch's
 bilinear rule in place of cv2's), and each image's softmax goes to
 `Results.probs` (one copy to the host a batch; no NMS, no TTA); a classify
-program gives the same.
+program gives the same. An RT-DETR model's frames are stretched to imgsz x
+imgsz on the device (no pad: letterbox's scale_fill, PyTorch's bilinear
+rule in place of cv2's), and each query's normalised box is scaled by its
+original frame, unclipped, with its best class score and class, the
+queries at or below `conf` dropped: no NMS, no TTA, as the JAX predictor
+serves it.
 The predict events of utils/callbacks.py fire around each batch, in
 `__call__` and in `stream`; the trackers of YOLO.track ride on them. `embed`
 returns pooled layer embeddings of the same preprocessed frames.
@@ -55,7 +60,7 @@ import torch
 from ..data.augment import _resize, letterbox, letterbox_geometry
 from ..data.build import SourceTypes, check_source, load_inference_source
 from ..data.loaders import IMG_EXTS, LoadImagesAndVideos
-from ..ops.boxes import process_mask, scale_boxes, scale_coords
+from ..ops.boxes import detr_rows, process_mask, scale_boxes, scale_coords
 from ..ops.nms import non_max_suppression
 from ..ops.rotated import regularize_rboxes
 from ..ops.segments import resize_bilinear
@@ -135,7 +140,9 @@ class DetectionPredictor:
         """The frames letterboxed on the model's device, BGR -> RGB, in [0, 1]
         in the model's dtype: (max(n, bs), 3, imgsz, imgsz), an NCHW view of
         NHWC memory (channels_last), padded with zero frames to bs."""
-        batch = torch.stack([letterbox(img0, imgsz, device=self.model.device)[0].flip(-1) for img0, _ in frames])
+        fill = self.model.is_rtdetr  # RT-DETR stretches each frame to imgsz x imgsz
+        batch = torch.stack([letterbox(img0, imgsz, device=self.model.device, scale_fill=fill)[0].flip(-1)
+                             for img0, _ in frames])
         if len(frames) < bs:
             batch = torch.cat([batch, batch.new_zeros((bs - len(frames), *batch.shape[1:]))])
         return batch.permute(0, 3, 1, 2).to(self.model.dtype) / 255.0
@@ -152,7 +159,11 @@ class DetectionPredictor:
         conf = 0.25 if a.conf is None else float(a.conf)
         segment = self.model.task == "segment"
         proto = None
-        if self.model.end2end:  # YOLOv10: the head's top-k detections, gated by conf; no TTA, no NMS
+        rtdetr = self.model.is_rtdetr
+        if rtdetr:  # the queries' normalised xyxy, best score and class, gated by conf; no TTA, no NMS
+            dets = detr_rows(self.model(x)[0])
+            dets = dets * (dets[..., 4:5] > conf)
+        elif self.model.end2end:  # YOLOv10: the head's top-k detections, gated by conf; no TTA, no NMS
             dets = self.model(x)[0]
             dets = dets * (dets[..., 4:5] > conf)
         else:
@@ -180,7 +191,9 @@ class DetectionPredictor:
                     res.update(obb=obbs[i])
                     res.update(boxes=np.concatenate([res.obb.xyxy, obbs[i][:, 5:7]], 1))
             else:
-                if len(det):
+                if len(det) and rtdetr:  # normalised -> the original frame's pixels, unclipped
+                    det[:, :4] *= np.array(img0.shape[1::-1] * 2, np.float32)
+                elif len(det):
                     det[:, :4] = scale_boxes((imgsz, imgsz), torch.from_numpy(det[:, :4]), img0.shape[:2]).numpy()
                 res = Results(img0, path, self.model.names, det)
                 if kpts is not None and len(det):  # no detections: keypoints None, as in the JAX predictor

@@ -82,7 +82,13 @@ in the JAX package and the reference), one loss item `loss` (the
 reference's column train/loss; the JAX trainer logs box 0, cls the loss,
 dfl 0), the Classify head's Dropout at `dropout` drawing from a
 torch.Generator seeded from `seed` (saved for resume), no stride rounding
-of imgsz, and ClassificationValidator's top-1 and top-5 accuracy.
+of imgsz, and ClassificationValidator's top-1 and top-5 accuracy. An
+RT-DETR model (`is_rtdetr`, a graph that ends in RTDETRDecoder) trains
+on the detect batches with the GT passed into its head for the denoising
+group (its draws from a torch.Generator seeded from `seed`, saved for
+resume) and the Hungarian-matched DETR loss (utils/detr_loss.py: no
+kernel runs on this path), three loss items giou, cls, l1 (the
+reference's names), and DetectionValidator's NMS-free branch.
 
 Not in the port yet: multi-host sharding.
 """
@@ -107,6 +113,7 @@ from ..data.dataset import check_det_dataset
 from ..nn.tasks import DetectionModel, yaml_model_load
 from ..ops.augment_device import device_augment, scale_content
 from ..utils.callbacks import default_callbacks, run_callbacks
+from ..utils.detr_loss import rtdetr_loss
 from ..utils.device import select_device
 from ..utils.files import get_save_dir
 from ..utils.jax_import import ema_state, overlay_state, read_checkpoint
@@ -121,7 +128,12 @@ CLIP_NORM = 10.0
 FLAGSHIP = "yolov8s-cbam-swin.yaml"
 LOSS_NAMES = {"detect": ("box", "cls", "dfl"), "segment": ("box", "seg", "cls", "dfl"),
               "pose": ("box", "pose", "kobj", "cls", "dfl"), "obb": ("box", "cls", "dfl"),
-              "classify": ("loss",)}  # a step's items, per task (results.csv: train/<item>_loss; classify's train/loss)
+              "classify": ("loss",), "rtdetr": ("giou", "cls", "l1")}
+# a step's items, per task (results.csv: train/<item>_loss; classify's train/loss); an RT-DETR model's under "rtdetr"
+
+
+def loss_names(model) -> tuple:
+    return LOSS_NAMES["rtdetr" if model.is_rtdetr else model.task]
 
 
 def loss_column(item: str) -> str:
@@ -253,7 +265,10 @@ class DetectionTrainer:
                                         device=self.device, seed=a.seed, param_dtype=torch.float32)
         if self.data is not None:
             self.model.names = dict(self.data["names"])
-        self.drop_gen = None
+        self.drop_gen = self.dn_gen = None
+        if self.model.is_rtdetr:  # the denoising group's draws, on a seeded generator saved for resume
+            self.dn_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
+            self.model.model[-1].dn_generator = self.dn_gen
         if self.model.task == "classify":  # no strides to round imgsz to; the head's Dropout on a seeded generator
             self.drop_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
             self.model.model[-1].drop.p = float(a.dropout or 0.0)
@@ -351,7 +366,7 @@ class DetectionTrainer:
         one micro-step and returns the loss items (LOSS_NAMES: box, cls, dfl;
         a segmentation model's box, seg, cls, dfl; a pose model's box, pose,
         kobj, cls, dfl; an OBB model's box, cls, dfl; a classify model's
-        loss, on batches {"img", "label"})."""
+        loss, on batches {"img", "label"}; an RT-DETR model's giou, cls, l1)."""
         a = self.args
         model = self.model
         epochs = int(a.epochs)
@@ -409,6 +424,11 @@ class DetectionTrainer:
                 k = 0.5 + torch.rand((), generator=self.aug_gen, device=dev)
                 xs, bboxes, mask = scale_content(x.float(), bboxes, mask, k)
                 x = xs.to(model.dtype).clamp(0.0, 1.0)
+            if model.is_rtdetr:  # the GT into the head for the denoising group; the Hungarian-matched loss
+                preds = model(x, targets={"cls": cls.long(), "bboxes": bboxes, "mask": mask})
+                num_dn = preds["dec_bboxes"].shape[2] - preds["enc_bboxes"].shape[1]
+                total, items = rtdetr_loss(preds, cls, bboxes, mask, nc, num_dn=num_dn)
+                return total, tuple(t.detach() for t in items)
             feats = model(x)
             gains = dict(nc=nc, strides=strides, box_gain=a.box, cls_gain=a.cls, dfl_gain=a.dfl, tal_impl=self.tal_impl)
             if task == "obb":  # the rotated assigner is plain PyTorch, as the JAX package's is plain JAX: no tal_impl
@@ -507,7 +527,7 @@ class DetectionTrainer:
             dt = time.perf_counter() - t0
             print(("%11s" + "%11.4g" * len(mean_loss) + "%11s   %.1f img/s") % (
                 f"{epoch + 1}/{epochs}", *mean_loss, a.imgsz, nb * int(a.batch) / max(dt, 1e-9)))
-            row = {"epoch": epoch, **{loss_column(k): float(v) for k, v in zip(LOSS_NAMES[self.model.task], mean_loss)},
+            row = {"epoch": epoch, **{loss_column(k): float(v) for k, v in zip(loss_names(self.model), mean_loss)},
                    "time_s": round(dt, 2)}
             stats = {"epoch": epoch, "batches": nb, "train_s": dt, "loader_wait_s": wait}
             if self.val_loader is not None:
@@ -600,6 +620,7 @@ class DetectionTrainer:
                 "args": {k: v for k, v in vars(self.args).items() if isinstance(v, (int, float, str, bool))},
                 "aug_gen": self.aug_gen.get_state(),
                 **({"drop_gen": self.drop_gen.get_state()} if self.drop_gen is not None else {}),
+                **({"dn_gen": self.dn_gen.get_state()} if self.dn_gen is not None else {}),
             },
         }, Path(path))
 
@@ -618,6 +639,8 @@ class DetectionTrainer:
         self.aug_gen.set_state(tr["aug_gen"])
         if self.drop_gen is not None:
             self.drop_gen.set_state(tr["drop_gen"])
+        if self.dn_gen is not None:
+            self.dn_gen.set_state(tr["dn_gen"])
 
     def _write_csv(self) -> None:
         keys = sorted({k for r in self.metrics_rows for k in r})

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's engine/validator.py (_iter_val_batches and
 DetectionValidator, without sharding): letterboxed batches -> forward (eval
 mode) -> greedy NMS at conf 0.001, iou 0.7, `max_det`, multi-label when
-nc > 1 (a YOLOv10 model's head detections gated at conf 0.001 instead) ->
+nc > 1 (a YOLOv10 model's head detections gated at conf 0.001 instead; an
+RT-DETR model's every query, xywh scaled by the input's size, sorted by
+score, with no NMS and no gate) ->
 boxes clipped to each image's content region (ratio_pad) -> TP matching
 against the GT in letterboxed pixels over 10 IoU thresholds ->
 ap_per_class. on_val_batch_start and on_val_batch_end fire around each
@@ -46,7 +48,7 @@ import torch
 
 from pathlib import Path
 
-from ..ops.boxes import process_mask, xywh2xyxy
+from ..ops.boxes import detr_rows, process_mask, xywh2xyxy
 from ..ops.nms import non_max_suppression
 from ..utils.callbacks import run_callbacks
 from ..utils.metrics import (OKS_SIGMA, ClassifyMetrics, ConfusionMatrix, DetMetrics, box_iou_np, kpt_iou_np,
@@ -78,6 +80,10 @@ class DetectionValidator:
         m = self.model
         x = torch.as_tensor(img, device=m.device).permute(0, 3, 1, 2).to(m.dtype) / 255.0
         pred, _ = m(x)
+        if m.is_rtdetr:  # every query, highest score first (stable); no NMS, no conf gate
+            dets = detr_rows(pred, (img.shape[2], img.shape[1]))
+            order = torch.sort(dets[..., 4], dim=-1, descending=True, stable=True)[1]
+            return dets.gather(1, order[..., None].expand(-1, -1, 6)).cpu().numpy()
         if m.end2end:  # YOLOv10: the head's detections, gated by the val conf only
             return (pred * (pred[..., 4:5] > self.conf)).cpu().numpy()
         dets = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou, max_det=int(self.args.max_det),

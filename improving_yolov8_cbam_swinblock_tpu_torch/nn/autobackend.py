@@ -186,6 +186,7 @@ class ProgramModel(nn.Module):
         self.task = self.backend.task
         self.kpt_shape = tuple(md["kpt_shape"]) if self.task == "pose" else None
         self.end2end = bool(md.get("end2end", False))
+        self.is_rtdetr = False  # export refuses RT-DETR graphs: no program holds one
         self.strides = (self.backend.stride,)
         self.batch = int(md.get("batch", -1))
         self.dtype = torch.float32

@@ -579,6 +579,85 @@ class RepConv(nn.Module):
         return activate(y.to(x.dtype), self.act)
 
 
+class RepC3(nn.Module):
+    """RT-DETR's CSP block: n RepConvs on one 1x1 branch (`cv1`, `m`), added
+    to a second 1x1 branch (`cv2`), then a 1x1 Conv (`cv3`) where the hidden
+    width c2 * e is not c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(RepConv(c_, c_, 3) for _ in range(n)))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else nn.Identity()
+
+    def forward(self, x):
+        return self.cv3(self.m(self.cv1(x)) + self.cv2(x))
+
+
+class LightConv(nn.Module):
+    """PP-HGNetV2's light conv: a 1x1 Conv without activation (`conv1`),
+    then a depth-wise k x k Conv (`conv2`, ReLU unless act says otherwise)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act="relu"):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class HGStem(nn.Module):
+    """PP-HGNetV2's stem, stride 4, every Conv with ReLU: a 3x3 stride-2
+    Conv, then two branches of the map padded by one at the right and the
+    bottom (a 2x2 stride-1 max pool, and two 2x2 unpadded Convs, the second
+    on its input padded the same way), concatenated, a 3x3 stride-2 Conv and
+    a 1x1 Conv to c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act="relu")
+        self.stem2a = Conv(cm, cm // 2, 2, 1, act="relu", p=0)
+        self.stem2b = Conv(cm // 2, cm, 2, 1, act="relu", p=0)
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = Conv(cm, c2, 1, 1, act="relu")
+
+    @staticmethod
+    def _pad(x):
+        return F.pad(x, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+
+    def forward(self, x):
+        x = self._pad(self.stem1(x))
+        x2 = self.stem2b(self._pad(self.stem2a(x)))
+        x1 = F.max_pool2d(x, 2, 1)  # the padded map, no further pad: the reference's ceil-mode pool
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PP-HGNetV2's block: n Convs (or LightConvs) of width cm and kernel k in
+    a chain (`m`), the input and every output concatenated, a 1x1 squeeze
+    Conv to c2 / 2 (`sc`) and a 1x1 excite Conv to c2 (`ec`), all with act
+    (ReLU); plus the input where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False,
+                 shortcut: bool = False, act="relu"):
+        super().__init__()
+        block = LightConv if lightconv else Conv
+        self.m = nn.ModuleList(block(c1 if i == 0 else cm, cm, k=k, act=act) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=act)
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y
+
+
 class RepBottleneck(Bottleneck):
     """Bottleneck whose first conv is a RepConv."""
 

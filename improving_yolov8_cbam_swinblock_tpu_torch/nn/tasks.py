@@ -19,8 +19,11 @@ the YAML's own key, as the JAX package resolves it) and the oriented-box
 graphs that end in `OBB` (task "obb") and the classification graphs
 that end in `Classify` (task "classify": the yolov8, yolo11 and yolo12 cls
 graphs, the ResNet-50 and -101 ones of `ResNetLayer` rows and yolo11's
-resnet18 `TorchVision` trunk, none of them width-scaled); a row it does not
-know (the rows no packaged YAML of these uses) raises KeyError naming it.
+resnet18 `TorchVision` trunk, none of them width-scaled) and the RT-DETR
+graphs that end in `RTDETRDecoder` (`DetectionModel.is_rtdetr`: the
+PP-HGNetV2 rows `HGStem` and `HGBlock`, `DWConv`, `RepC3`, `AIFI`, and
+Conv's long form [c2, k, s, p, g, d, act]); a row it does not know (the
+rows no packaged YAML of these uses) raises KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
 embeddings (`embed`) and every layer's feature maps (`features`), and
@@ -42,6 +45,7 @@ import yaml
 
 from ..utils.device import select_device
 from . import modules as M
+from .transformer import AIFI, MHA, RTDETRDecoder
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
 
@@ -50,11 +54,23 @@ def _arg(a: list, i: int, default):
 
 
 def _conv_args(a: list) -> dict:
-    """A Conv row's [c2, k, s, p] (yolov5's stem gives p); the long form's g, d and act raise."""
-    if len(a) > 4:
-        raise KeyError(f"Conv rows with groups, dilation or an activation ({a}) are not built by the port")
+    """A Conv row's [c2, k, s, p, g, d, act] (yolov5's stem gives p; the
+    RT-DETR heads' input projections the long form, act False: no
+    activation). g and d other than 1 raise: no packaged YAML has them."""
+    if _arg(a, 4, 1) != 1 or _arg(a, 5, 1) != 1:
+        raise KeyError(f"Conv rows with groups or dilation ({a}) are not built by the port")
     kw = {"k": _arg(a, 1, 1), "s": _arg(a, 2, 1)}
+    if len(a) > 6:
+        kw["act"] = a[6]
     return {**kw, "p": a[3]} if len(a) > 3 and a[3] is not None else kw
+
+
+def _dwconv_args(a: list) -> dict:
+    """A DWConv row's [c2, k, s, d, act] (groups gcd(c1, c2)); d other than 1 raises."""
+    if _arg(a, 3, 1) not in (1, None):
+        raise KeyError(f"DWConv rows with dilation ({a}) are not built by the port")
+    kw = {"k": _arg(a, 1, 1), "s": _arg(a, 2, 1)}
+    return {**kw, "act": a[4]} if len(a) > 4 else kw
 
 
 # YAML rows whose output channels are width-scaled: name -> (module, its
@@ -65,6 +81,9 @@ def _conv_args(a: list) -> dict:
 # other name raises KeyError.
 BASE_MODULES = {
     "Conv": (M.Conv, _conv_args, False),
+    "DWConv": (M.DWConv, _dwconv_args, False),
+    "LightConv": (M.LightConv, lambda a: {"k": _arg(a, 1, 1)}, False),
+    "RepC3": (M.RepC3, lambda a: {}, True),
     "Bottleneck": (M.Bottleneck, lambda a: {"shortcut": _arg(a, 1, True)}, False),
     "C2f": (M.C2f, lambda a: {"shortcut": _arg(a, 1, False)}, True),
     "C3": (M.C3, lambda a: {"shortcut": _arg(a, 1, True)}, True),
@@ -135,7 +154,8 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
         scale = scale or next(iter(scales))
         depth, width, max_channels = scales[scale]
 
-    # a YAML-level activation (yolov6's `torch.nn.ReLU()`) covers the Conv rows only, as in the JAX package
+    # a YAML-level activation (yolov6's `torch.nn.ReLU()`) covers the Conv and DWConv rows that give none, as in
+    # the JAX package
     act_str = str(d.get("activation") or "")
     act_override = "relu" if "ReLU" in act_str and "SiLU" not in act_str else None
 
@@ -177,7 +197,7 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             else:
                 cls, kwargs_of, own_depth = BASE_MODULES[mname]
                 kw = kwargs_of(args)
-                if mname == "Conv" and act_override:
+                if mname in ("Conv", "DWConv") and act_override and "act" not in kw:
                     kw["act"] = act_override
                 if own_depth:
                     kw["n"] = n
@@ -251,6 +271,22 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             m = M.TorchVision(c1, *(str(a) if k < 2 else a for k, a in enumerate(args[1:5])))
             c2 = m.c2
             fac *= 32
+        elif mname == "HGStem":  # [cm, c2]: never width-scaled, stride 4
+            c2 = args[1]
+            m = M.HGStem(c1, args[0], c2)
+            fac *= 4
+        elif mname == "HGBlock":  # [cm, c2, k, lightconv, shortcut]: never width-scaled; its n is the row's repeat
+            c2 = args[1]
+            m = M.HGBlock(c1, args[0], c2, k=_arg(args, 2, 3), n=n, lightconv=_arg(args, 3, False),
+                          shortcut=_arg(args, 4, False))
+            n = 1
+        elif mname == "AIFI":  # [cm, num_heads]: the input's channels pass through
+            c2 = c1
+            m = AIFI(c1, _arg(args, 0, 2048), _arg(args, 1, 8))
+        elif mname == "RTDETRDecoder":  # [nc, hd, nq, ndp, nh, ndl, d_ffn]
+            c2 = 0
+            kw = dict(zip(("hd", "nq", "ndp", "nh", "ndl", "d_ffn"), args[1:]))
+            m = RTDETRDecoder(args[0] if args else nc, [in_ch(j) for j in f], strides=[in_factor(j) for j in f], **kw)
         elif mname == "ResNetLayer":  # [c1, c2, s, is_first, n, e]: never width-scaled
             s_, first, e_ = _arg(args, 2, 1), _arg(args, 3, False), _arg(args, 5, 4)
             m = M.ResNetLayer(c1, args[1], s_, first, _arg(args, 4, 1), e_)
@@ -317,6 +353,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for mod in model.modules():
         if isinstance(mod, M.Detect):
             mod.bias_init()
+        elif hasattr(mod, "init_jax"):  # RT-DETR's attention, deformable attention and head
+            mod.init_jax(generator)
 
 
 class DetectionModel(nn.Module):
@@ -340,7 +378,11 @@ class DetectionModel(nn.Module):
     and the angle in radians, (raw maps, angles (B, A, 1))), in training
     (raw maps, angles); a classification graph (task "classify", no
     strides) its Classify head's (B, nc) softmax in fp32, in training the
-    (B, nc) logits. The model is built in eval mode."""
+    (B, nc) logits; an RT-DETR graph (`is_rtdetr`, task "detect") its
+    RTDETRDecoder's ((B, nq, 4 + nc) normalised xywh and class sigmoids,
+    None), in training, with `targets` (cls, bboxes, mask of the batch)
+    passed to the head for its denoising group, the train dict
+    (nn/transformer.py). The model is built in eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -352,6 +394,7 @@ class DetectionModel(nn.Module):
         self.nc = head.nc
         self.strides = getattr(head, "strides", ())  # a classify model has none: imgsz is not rounded
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
+        self.is_rtdetr = isinstance(head, RTDETRDecoder)  # NMS-free queries; trains on Hungarian matching
         self.task = ("segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose)
                      else "obb" if isinstance(head, M.OBB) else "classify" if isinstance(head, M.Classify)
                      else "detect")
@@ -372,18 +415,18 @@ class DetectionModel(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, M.Linear)):
                 mod.to(dtype)
-            elif isinstance(mod, M.SwinBlock):
+            elif isinstance(mod, (M.SwinBlock, MHA)):
                 for p in mod.parameters():
                     if p.dim() == 2:
                         p.data = p.data.to(dtype)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None):
         y: Dict[int, Any] = {}
         out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         for m in self.model:
             if m.f != -1:
                 out = y[m.f] if isinstance(m.f, int) else [out if j == -1 else y[j] for j in m.f]
-            out = m(out)
+            out = m(out, targets) if targets is not None and isinstance(m, RTDETRDecoder) else m(out)
             if m.i in self.save:
                 y[m.i] = out
         return out
@@ -409,7 +452,7 @@ class DetectionModel(nn.Module):
         n = len(self.model)
         wanted = {int(i) % n for i in layers}
         for i in wanted:
-            if isinstance(self.model[i], (M.Detect, M.Classify)):
+            if isinstance(self.model[i], (M.Detect, M.Classify, RTDETRDecoder)):
                 raise ValueError(f"embed: layer {i} is {self.model[i].type}, whose output is no feature map; "
                                  f"take a layer before it (0 to {i - 1})")
         pooled = []
@@ -532,13 +575,13 @@ class EnsembleModel(nn.Module):
         ncs = sorted({m.nc for m in models})
         if len(ncs) != 1:
             raise ValueError(f"ensemble members disagree on nc: {ncs}")
-        if any(m.end2end or m.task != "detect" for m in models):
-            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end), a "
+        if any(m.end2end or m.is_rtdetr or m.task != "detect" for m in models):
+            raise ValueError("only plain detect heads can be NMS-ensembled: a YOLOv10 (end2end), an RT-DETR, a "
                              "segmentation member, a pose member, an obb member or a classify member is not")
         self.members = nn.ModuleList(models)
         m0 = models[0]
         self.nc, self.names, self.dtype = m0.nc, m0.names, m0.dtype
-        self.end2end = False
+        self.end2end = self.is_rtdetr = False
         self.task = "detect"
         self.strides = tuple(max(s) for s in zip(*(tuple(m.strides) for m in models)))
         self.eval()

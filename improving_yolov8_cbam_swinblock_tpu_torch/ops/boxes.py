@@ -49,6 +49,26 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy - half, xy + half], -1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h) on the last dim."""
+    lt, rb = x[..., :2], x[..., 2:4]
+    return torch.cat([(lt + rb) * 0.5, rb - lt], -1)
+
+
+def detr_rows(y: torch.Tensor, wh: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """RT-DETR's eval output (B, nq, 4 + nc), sigmoid xywh then the class
+    scores -> (B, nq, 6) fp32 rows (x1, y1, x2, y2, best score, its class),
+    in query order. wh (w, h) scales the normalised xywh before the
+    conversion (val's input pixels); without it the boxes stay normalised
+    (predict scales them by each original frame)."""
+    y = y.float()
+    score, cls = y[..., 4:].max(-1)
+    box = y[..., :4]
+    if wh is not None:
+        box = box * torch.tensor([*wh, *wh], dtype=torch.float32, device=y.device)
+    return torch.cat([xywh2xyxy(box), score[..., None], cls[..., None].float()], -1)
+
+
 def clip_boxes(boxes: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """Clip xyxy boxes to an image of shape (h, w)."""
     h, w = shape

@@ -188,6 +188,11 @@ def load_quant_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Mod
     return model
 
 
+# what the RT-DETR graphs do not have yet, and the slice that brings it (ROADMAP.md, Queue 1)
+RTDETR_LATER = ("{what} of an RT-DETR graph is not in the port yet: it comes with the slice that brings int8 and "
+                ".pt2 programs to the RT-DETR graphs (ROADMAP.md, Queue 1)")
+
+
 def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
     model that the JAX package quantizes, in place; returns the model.
@@ -198,6 +203,8 @@ def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     dilation conv_int8 does not take."""
     from ..nn.modules import Conv
 
+    if model.is_rtdetr:
+        raise NotImplementedError(RTDETR_LATER.format(what="int8 (quantize_model)"))
     for name, m in _quantizable(model).items():
         if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
             _fp32_weight(f"{name}.conv.weight", m.conv.weight)

@@ -9,7 +9,13 @@ importer), with layout transforms:
   * transposed-conv kernels (kh, kw, in, out) -> (in, out, kh, kw), flipped
     in space: flax's ConvTranspose does not flip its kernel, torch's does;
   * Dense kernels (in, out) -> Linear weights (out, in) (Classify's `linear`);
-  * the SwinBlock packed in-projection (C, 3C) -> in_proj_weight (3C, C);
+  * the SwinBlock's and RT-DETR's packed in-projections (C, 3C) -> in_proj_weight (3C, C);
+  * RT-DETR's scopes that flax flattens with underscores (`input_proj_0`,
+    `decoder_layers_0`, `enc_output_0`, `dec_bbox_head_0`, an MLP's
+    `layers_0`) -> the reference's dotted names, AIFI's `enc` scope dropped
+    (its `fc1` stays `fc1`), and the head's embedding table
+    (`denoising_class_embed`, a leaf of the head's own scope) ->
+    `denoising_class_embed.weight`;
   * BatchNorm scale/bias and mean/var -> weight/bias and
     running_mean/running_var (plus num_batches_tracked, which flax has not).
 
@@ -38,6 +44,7 @@ import torch
 import torch.nn as nn
 
 from ..nn import modules as M
+from ..nn import transformer as T
 from . import serialization
 
 
@@ -54,7 +61,12 @@ SCOPE_NAMES = {"fc1": "shared_MLP.0", "fc2": "shared_MLP.2",
 # nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`, and its
 # Segment, Pose and OBB heads the detect branches in `detect` (the
 # reference names them at the head's own level)
-DROPPED_SCOPES = ("dw", "c3", "conv_transpose", "detect")
+DROPPED_SCOPES = ("dw", "c3", "conv_transpose", "detect", "enc")
+# RT-DETR's numbered scopes, which flax joins with an underscore; the decoder's layers have no scope of their own
+NUMBERED_SCOPES = re.compile(r"(input_proj|enc_output|dec_score_head|dec_bbox_head|layers)_(\d+)")
+DECODER_LAYERS = re.compile(r"decoder_layers_(\d+)")
+# a leaf that is an RT-DETR head's own parameter (an embedding table), not a module's
+EMBEDDINGS = ("denoising_class_embed",)
 # the flax scopes whose kernel is a transposed conv's: the nn.ConvTranspose2d
 # row's, and Proto's `upsample`
 TRANSPOSED_SCOPES = ("conv_transpose", "upsample")
@@ -63,10 +75,17 @@ TRANSPOSED_SCOPES = ("conv_transpose", "upsample")
 def _module_tokens(mods: Tuple[str, ...]) -> list:
     """flax module scopes -> the port's module path tokens."""
     toks = []
-    for m in mods:
+    for i, m in enumerate(mods):
         if m in DROPPED_SCOPES:
             continue
-        if m in SCOPE_NAMES:
+        if i and mods[i - 1] == "enc":  # AIFI's encoder layer: ma, fc1, fc2, norm1, norm2 as they are
+            toks.append(m)
+        elif NUMBERED_SCOPES.fullmatch(m):
+            name, idx = m.rsplit("_", 1)
+            toks.append(f"{name}.{idx}")
+        elif DECODER_LAYERS.fullmatch(m):
+            toks.append("decoder.layers." + m.rsplit("_", 1)[1])
+        elif m in SCOPE_NAMES:
             toks.append(SCOPE_NAMES[m])
         elif m.startswith("model_"):  # a row, or a repeat of it (model_10_3)
             toks.append("model." + ".".join(m.split("_")[1:]))
@@ -93,6 +112,8 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
     toks = _module_tokens(mods)
     if collection == "batch_stats":
         return ".".join(toks) + "." + {"mean": "running_mean", "var": "running_var"}[leaf], "none"
+    if leaf in EMBEDDINGS:
+        return ".".join(toks + [leaf, "weight"]), "none"
     if toks[-1] == "in_proj":  # torch MultiheadAttention packs qkv at the attention level
         prefix = ".".join(toks[:-1])
         return (f"{prefix}.in_proj_weight", "linear_t") if leaf == "kernel" else (f"{prefix}.in_proj_bias", "none")
@@ -190,8 +211,9 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     m.0.cv1 of a RepCSP -> m_0_cv1, conv1.bn -> conv1_bn), the children
     renamed in SCOPE_NAMES and the Swin MLP's 0 and 2 (mlp_fc1, mlp_fc2)
     take their JAX names, a DWConv and a C3k open the `dw` and `c3`
-    scopes the JAX package wraps them in, and a Segment, Pose or OBB head's
-    detect branches (cv2, cv3) its `detect` scope."""
+    scopes the JAX package wraps them in, a Segment, Pose or OBB head's
+    detect branches (cv2, cv3) its `detect` scope, AIFI's layer its `enc`
+    scope, and RT-DETR's decoder no scope (its layers are decoder_layers_0)."""
     scopes: Dict[str, Tuple[str, ...]] = {"": ()}
     inverse = {v: k for k, v in SCOPE_NAMES.items()}
 
@@ -210,6 +232,8 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         walk(child, cpath, cscope, None)
 
     def walk(mod: nn.Module, path: str, scope: Tuple[str, ...], group):
+        if isinstance(mod, T.AIFI):
+            scope += ("enc",)
         for name, child in mod.named_children():
             cpath = f"{path}.{name}" if path else name
             token = f"{group}_{name}" if group else name
@@ -221,7 +245,8 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
                 for idx, sub in child.named_children():
                     if idx in rename:
                         enter(sub, f"{cpath}.{idx}", scope + (rename[idx],))
-            elif type(child) in (nn.ModuleList, nn.Sequential, M.RepBottleneck) or isinstance(mod, M.RepConv):
+            elif (type(child) in (nn.ModuleList, nn.Sequential, M.RepBottleneck, T.DeformableTransformerDecoder)
+                  or isinstance(mod, M.RepConv)):
                 walk(child, cpath, scope, token)
             else:
                 enter(child, cpath, scope + (token,))
@@ -231,8 +256,9 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
 
 
 def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
-    """(collection, leaf path within the module's scope, transform tag) of a
-    port tensor; the bias of a fused Conv's conv goes to `fused` under the Conv's scope."""
+    """(collection, sub-scope within the module's scope, leaf name) of a port
+    tensor; the bias of a fused Conv's conv goes to `fused` under the Conv's
+    scope; an embedding table's leaf is its module's scope itself (leaf None)."""
     if isinstance(mod, nn.Conv2d):
         if attr == "bias" and isinstance(parent, M.Conv):
             return "fused", (), "bias"
@@ -249,8 +275,10 @@ def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
         return "params", (), {"weight": "scale", "bias": "bias"}[attr]
     if isinstance(mod, nn.Linear):
         return "params", (), {"weight": "kernel", "bias": "bias"}[attr]
-    if isinstance(mod, nn.MultiheadAttention):
+    if isinstance(mod, (nn.MultiheadAttention, T.MHA)):
         return "params", ("in_proj",), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}[attr]
+    if isinstance(mod, nn.Embedding):  # an RT-DETR head's table: a leaf of the head's scope, named as the module
+        return "params", (), None
     raise KeyError(f"no JAX twin for {type(mod).__name__}.{attr}")
 
 
@@ -275,7 +303,7 @@ def jax_variables_from_state(model: nn.Module) -> Dict[str, dict]:
             path = scopes[ppath] + ("bias",)
             tag = "none"
         else:
-            path = scopes[mpath] + sub + (leaf,)
+            path = scopes[mpath] + sub + ((leaf,) if leaf else ())
             back, tag = _torch_name(path, coll)
             if back != name:
                 raise KeyError(f"{name} maps to {'/'.join(path)}, which maps back to {back}")

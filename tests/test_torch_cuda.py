@@ -935,3 +935,123 @@ def test_classify_predict_and_program_on_the_card(cuda, tmp_path):
         ref = y.predict(frames, imgsz=224, batch=b, verbose=False)
         for g, r in zip(got, ref):
             assert np.array_equal(g.probs.data, r.probs.data)
+
+
+# the JAX package's tiny RT-DETR graph (tests/test_rtdetr.py): 2 decoder layers, 16 queries
+TINY_RTDETR = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+                                     [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [48, 3, 2]],
+                                     [-1, 1, "Conv", [64, 3, 2]]],
+               "head": [[-1, 1, "AIFI", [64, 4]], [[2, 3, 5], 1, "RTDETRDecoder", ["nc", 32, 16, 2, 4, 2, 64]]]}
+
+
+@pytest.fixture
+def no_tf32_convs():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_rtdetr_l_forward_on_the_card_equals_the_cpu(cuda, no_tf32_convs):
+    """rtdetr-l (nc 80) at 320 px, batch 2, fp32 with TF32 off, seeded
+    weights with the score heads' bias priors zeroed and the box heads'
+    last layers and the deformable attention's sampling_offsets and
+    attention_weights matrices drawn (chip_smoke.draw_query_paths, normal
+    0.02; seeded, they are 0, every box is its anchor and the sampling does
+    not depend on the query): the queries matched by their anchor (the top-k orders scores
+    that the two devices round apart), at least 99 % of the CPU's anchors
+    selected on the card too, those queries' boxes and scores within 1e-3
+    of the CPU's largest value; no kernel runs."""
+    from chip_smoke import draw_query_paths, rtdetr_queries
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+
+    cpu = DetectionModel("rtdetr-l.yaml", device="cpu")
+    head = cpu.model[-1]
+    with torch.no_grad():
+        for lin in (head.enc_score_head, *head.dec_score_head):
+            lin.bias.zero_()
+    draw_query_paths(cpu, seed=5)
+    card = DetectionModel("rtdetr-l.yaml", device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 3, 320, 320, generator=torch.Generator().manual_seed(4))
+    before = S.swin_block_cuda.launches
+    (got, a_card), (want, a_cpu) = rtdetr_queries(card, x.to(cuda)), rtdetr_queries(cpu, x)
+    assert S.swin_block_cuda.launches == before and got.shape == want.shape == (2, 300, 84)
+    got, a_card = got.cpu(), a_card.cpu()
+    shared = 0
+    for b in range(2):
+        pos = {int(a): i for i, a in enumerate(a_card[b].tolist())}
+        rows = [(i, pos[int(a)]) for i, a in enumerate(a_cpu[b].tolist()) if int(a) in pos]
+        shared += len(rows)
+        i, j = (torch.tensor(r) for r in zip(*rows))
+        assert (got[b, j] - want[b, i]).abs().max() <= 1e-3 * want.abs().max()
+    assert shared >= 0.99 * 600
+
+
+@pytest.mark.cuda
+def test_rtdetr_loss_on_the_card_equals_the_cpu(cuda, no_tf32_convs):
+    """The tiny graph's train dict and its Hungarian-matched loss in fp32 on
+    the card and on the CPU, with the same weights (the query paths drawn,
+    chip_smoke.draw_query_paths), batch and denoising draws: the assignment of every matched layer equal, the total and the
+    (giou, cls, l1) items within 1e-4 of their size."""
+    from chip_smoke import draw_query_paths
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.transformer import cdn_draws
+    from improving_yolov8_cbam_swinblock_tpu_torch.utils.detr_loss import hungarian_assign, rtdetr_loss
+
+    cpu = DetectionModel(TINY_RTDETR, device="cpu").train()
+    draw_query_paths(cpu, seed=3)
+    card = DetectionModel(TINY_RTDETR, device="cuda").train()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32))
+    cls = torch.tensor([[0, 1, 2, 0], [2, 1, 0, 0]])
+    box = torch.tensor(np.concatenate([rng.uniform(0.2, 0.6, (2, 4, 2)), rng.uniform(0.1, 0.4, (2, 4, 2))], -1),
+                       dtype=torch.float32)
+    mask = torch.tensor([[1, 1, 1, 0], [1, 1, 0, 0]], dtype=torch.float32)
+    box = box * mask[..., None]
+    draws = cdn_draws(2, 200, 3, torch.Generator().manual_seed(1), "cpu")
+    out = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        t = {"cls": cls.to(dev), "bboxes": box.to(dev), "mask": mask.to(dev),
+             "dn_draws": {k: v.to(dev) for k, v in draws.items()}}
+        preds = m(x.to(dev), targets=t)
+        num_dn = preds["dec_bboxes"].shape[2] - preds["enc_bboxes"].shape[1]
+        main_b = torch.cat([preds["enc_bboxes"][None], preds["dec_bboxes"][:, :, num_dn:]], 0)
+        main_s = torch.cat([preds["enc_scores"][None], preds["dec_scores"][:, :, num_dn:]], 0)
+        q = hungarian_assign(main_b, main_s, t["bboxes"], t["cls"], t["mask"] > 0).cpu()
+        total, items = rtdetr_loss(preds, t["cls"], t["bboxes"], t["mask"], 3, num_dn=num_dn)
+        out.append((q, torch.stack([total, *items]).detach().cpu()))
+    assert bool(((out[0][0] == out[1][0]) | (mask == 0)).all())  # every image's real GT slots
+    assert (out[1][1] - out[0][1]).abs().max() <= 1e-4 * out[0][1].abs().max()
+
+
+@pytest.mark.cuda
+def test_rtdetr_yolo_train_two_micro_steps_on_the_card(cuda, tmp_path):
+    """YOLO.train of the tiny graph on the card: two epochs of one micro-step
+    each on the same two images (augmentation off), SGD: the logged giou,
+    cls and l1 losses finite, and their sum lower after the first step."""
+    import json
+
+    from chip_smoke import png_bytes
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO
+
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        (tmp_path / "images" / split).mkdir(parents=True)
+        (tmp_path / "labels" / split).mkdir(parents=True)
+        for i in range(2):
+            img = rng.integers(0, 60, (64, 64, 3), dtype=np.uint8)
+            img[16:40, 8:32] = (255, 64, 64)
+            (tmp_path / "images" / split / f"{i}.png").write_bytes(png_bytes(img))
+            (tmp_path / "labels" / split / f"{i}.txt").write_text("1 0.3125 0.4375 0.375 0.375\n")
+    data = tmp_path / "data.yaml"
+    data.write_text(json.dumps({"path": str(tmp_path), "train": "images/train", "val": "images/val", "nc": 3,
+                                "names": {"0": "a", "1": "b", "2": "c"}}))
+    y = YOLO(TINY_RTDETR, device="cuda")
+    y.train(data=str(data), epochs=2, batch=2, nbs=2, imgsz=64, max_gt=4, workers=0, val=False, optimizer="SGD",
+            lr0=0.02, warmup_epochs=0.0, mosaic=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0, fliplr=0.0, translate=0.0,
+            scale=0.0, close_mosaic=0, plots=False, project=str(tmp_path / "runs"))
+    sums = [sum(r[k] for k in ("train/giou_loss", "train/cls_loss", "train/l1_loss")) for r in y.trainer.metrics_rows]
+    assert len(sums) == 2 and np.isfinite(sums).all() and sums[1] < sums[0]
