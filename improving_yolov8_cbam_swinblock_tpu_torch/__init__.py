@@ -13,8 +13,8 @@ Hand-written CUDA kernels
 for Hopper: the SwinBlock forward (csrc/swin_block_fwd.cu), its backward
 (csrc/swin_block_bwd.cu) and its int8 form (csrc/swin_block_int8.cu), and
 the task-aligned assigner (csrc/tal_assign.cu). `RTDETR` serves and
-trains the RT-DETR graphs. Entry points run on the card unless the
-caller passes device="cpu".
+trains the RT-DETR graphs, `YOLOWorld` the open-vocabulary YOLO-World
+graphs. Entry points run on the card unless the caller passes device="cpu".
 """
 
 from pathlib import Path as _Path
@@ -28,14 +28,14 @@ from .ops.quant import quantize_model
 # the sample images that YOLO.predict serves without a source (copies of the JAX package's assets)
 ASSETS = _Path(__file__).parent / "assets"
 
-__all__ = ["ASSETS", "YOLO", "RTDETR", "DetectionModel", "DetectionTrainer", "EnsembleModel", "Results",
-           "quantize_model"]
+__all__ = ["ASSETS", "YOLO", "RTDETR", "YOLOWorld", "DetectionModel", "DetectionTrainer", "EnsembleModel",
+           "Results", "quantize_model"]
 
 
 def __getattr__(name):
-    # RTDETR loads on first use, as the JAX package exports it
-    if name == "RTDETR":
-        from .engine.model import RTDETR
+    # RTDETR and YOLOWorld load on first use, as the JAX package exports them
+    if name in ("RTDETR", "YOLOWorld"):
+        from .engine import model
 
-        return RTDETR
+        return getattr(model, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -27,7 +27,14 @@ exporter writes 32). A YOLOv10
 model's program returns its head's (B, 300, 6) detections (xyxy pixels,
 score, class: NMS-free); its sidecar says `end2end`, and `nms=True` on it
 warns and is dropped (the JAX exporter would run e2e_postprocess on those
-detections as if they were (B, 4 + nc, A)). The SwinBlocks
+detections as if they were (B, 4 + nc, A)). An RT-DETR model's program
+returns its decoder's (B, nq, 4 + nc) queries (normalised xywh, then the
+class sigmoids: NMS-free), with the encoder's stable top-k and the
+deformable sampling's grid_sample in the graph; its sidecar says
+`is_rtdetr` and `nq`, and `nms=True` on it raises (nothing to suppress;
+the JAX exporter has no such check). A YOLO-World model's program holds
+the text features set before export as a constant (the prompts of its
+sidecar's names) and returns the Detect layout at nc = their number. The SwinBlocks
 stay in the graph as the port's operators (`yolov8_cbam_swin::swin_block_fwd`,
 `yolov8_cbam_swin::swin_block_int8`, ops/swin.py and ops/swin_int8.py), so
 the loaded program launches K1, or K4 when int8, on the card. Load it with
@@ -70,7 +77,7 @@ import yaml
 
 from ..nn.tasks import EnsembleModel
 from ..ops.nms import e2e_postprocess
-from ..ops.quant import RTDETR_LATER, is_quantized, quantize_model
+from ..ops.quant import is_quantized, quantize_model
 from ..utils.callbacks import default_callbacks, run_callbacks
 
 FORMATS = {"pt2": {"batch", "dynamic", "half", "int8", "nms"}}  # format: the options it takes
@@ -82,7 +89,7 @@ class ExportForward(nn.Module):
     (a YOLOv10 model's (B, 300, 6) detections; a segmentation model's
     (B, 4 + nc + nm, A) and its float32 prototypes (B, nm, H/4, W/4); a
     pose model's (B, 4 + nc + nk * nd, A); an OBB model's (B, 4 + nc + 1,
-    A)), or
+    A); an RT-DETR model's (B, nq, 4 + nc)), or
     with nms e2e_postprocess's (B, max_det, 6): the frames cast to the
     model's dtype, then divided by 255, as the JAX exporter's forward does."""
 
@@ -124,6 +131,9 @@ class Exporter:
             opts["half"] = False
         if opts["nms"] and self.model.task != "detect":
             raise ValueError(f"nms=True export requires a detect-task model, not a {self.model.task} model")
+        if opts["nms"] and self.model.is_rtdetr:
+            raise ValueError("nms=True export of an RT-DETR model: its decoder's queries are NMS-free, there is "
+                             "nothing to suppress; export it with nms=False")
         if opts["nms"] and self.model.end2end:
             print("WARNING: nms=True on a YOLOv10 (end2end) model: its head gives the NMS-free detections "
                   "already, setting nms=False")
@@ -184,6 +194,8 @@ class Exporter:
             "nms": opts["nms"],
             "layout": ("NHWC uint8 in, (B, max_det, 6) out (xyxy pixels, conf, cls: the YOLOv10 head's NMS-free "
                        "top-k)" if self.model.end2end
+                       else "NHWC uint8 in, (B, nq, 4+nc) out (normalised xywh + cls sigmoid: the RT-DETR decoder's "
+                       "NMS-free queries)" if self.model.is_rtdetr
                        else "NHWC uint8 in, (B, max_det, 6) out (xywh pixels, conf, cls: the NMS-free top-k of "
                        "e2e_postprocess)" if opts["nms"]
                        else "NHWC uint8 in, (B, 4+nc+nm, A) out (xywh pixels + cls sigmoid + mask coefficients) "
@@ -199,6 +211,8 @@ class Exporter:
             md["kpt_shape"] = [int(v) for v in self.model.kpt_shape]
         if self.model.end2end:  # a key the JAX package's sidecar lacks, written where it is true only
             md.update(end2end=True, max_det=int(self.model.model[-1].max_det))
+        elif self.model.is_rtdetr:  # the same: the queries need no NMS
+            md.update(is_rtdetr=True, nq=int(self.model.model[-1].nq))
         elif opts["nms"]:
             md["max_det"] = int(self.args.max_det)
         return md
@@ -211,8 +225,6 @@ class Exporter:
                              "program) only")
         if isinstance(self.model, EnsembleModel):
             raise NotImplementedError("exporting an ensemble is not supported: export one member")
-        if self.model.is_rtdetr:
-            raise NotImplementedError(RTDETR_LATER.format(what="export (a .pt2 program)"))
         opts = self._resolve_options()
         imgsz = int(self.args.imgsz)
         t0 = time.time()
@@ -229,10 +241,15 @@ class Exporter:
     def export_pt2(self, model: nn.Module, path: Path, imgsz: int, opts: Dict) -> Path:
         """torch.export of ExportForward(model) on the model's device, saved to
         `path`. A dynamic program is traced at batch 2 (a batch of 1 would be
-        specialised) and takes any batch."""
+        specialised) and takes any batch. One forward first fills the tables
+        that RT-DETR's modules cache per map size (their positions and
+        anchors), so that the program holds them as constants."""
         fwd = ExportForward(model, opts["nms"], int(self.args.max_det)).eval()
         b = 2 if opts["dynamic"] else opts["batch"]
         img = torch.zeros((b, imgsz, imgsz, 3), dtype=torch.uint8, device=model.device)
+        if model.is_rtdetr:
+            with torch.no_grad():
+                fwd(img)
         dims = ({0: torch.export.Dim("batch", min=1)},) if opts["dynamic"] else None
         program = torch.export.export(fwd, (img,), dynamic_shapes=dims, strict=False)
         path.parent.mkdir(parents=True, exist_ok=True)

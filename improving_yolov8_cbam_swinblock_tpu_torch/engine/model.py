@@ -26,8 +26,15 @@ classification graph (task "classify") predicts class probabilities
 trains with the cross-entropy on one, quantizes and exports (a program of
 the softmax); an RT-DETR graph (`RTDETR(...)` or `YOLO(...)` of a graph
 that ends in RTDETRDecoder) predicts without NMS, validates and trains on
-the Hungarian-matched loss, and refuses int8 and export for now.
-`YOLO("model.pt2")` serves a program that `export` wrote
+the Hungarian-matched loss, quantizes and exports (a program of the
+(B, nq, 4 + nc) queries, served without NMS); a YOLO-World graph
+(`YOLOWorld(...)` or `YOLO(...)` of a graph that ends in WorldDetect)
+scores against the text features of its prompts, which `set_classes`
+sets (utils/text_model.py), and otherwise takes the detect verbs; served
+from a `.ckpt` or `.pt` its text features are those of its saved names
+(a `.pt` of the port also carries the features themselves, so that
+embeddings set by hand survive), and a program of it holds the features
+it was exported with. `YOLO("model.pt2")` serves a program that `export` wrote
 (nn/autobackend.py ProgramModel): predict and track, with the masks of a
 segmentation program, the keypoints of a pose program and the rotated
 boxes of an OBB program; the other verbs need the model itself. `track` runs
@@ -110,6 +117,8 @@ class YOLO:
         self.model.load_state_dict(payload["state_dict"], strict=True)
         if "names" in payload:
             self.model.names = dict(payload["names"])
+            if self.model.is_world:  # the features saved beside the names, else the names' own
+                self.model.set_classes(list(self.model.names.values()), embeddings=payload.get("txt_feats"))
         self.ckpt_path = path
 
     def _load_ckpt(self, path: str) -> None:
@@ -130,12 +139,24 @@ class YOLO:
         names = payload.get("names") or {}
         if names:
             self.model.names = {int(k): str(v) for k, v in names.items()}
+            if self.model.is_world:  # the saved names' text features (the JAX package keeps the placeholders)
+                self.model.set_classes([self.model.names[i] for i in sorted(self.model.names)])
         self.ckpt_path = path
         self.overrides = {k: v for k, v in (payload.get("args") or {}).items() if k == "imgsz"}
 
     @property
     def names(self) -> Dict[int, str]:
         return self.model.names
+
+    def set_classes(self, names) -> "YOLO":
+        """The open-vocabulary class swap of a World model (the JAX package's
+        YOLO.set_classes): the prompts' text features replace the model's,
+        and nc and names follow; the weights stay. A program holds the
+        features it was exported with and refuses."""
+        self._single("setting the classes of", program=True)
+        self.model.set_classes(list(names))
+        self.predictor = None
+        return self
 
     @property
     def is_fused(self) -> bool:
@@ -457,8 +478,9 @@ class YOLO:
                        "fused": variables.get("fused", {}), "args": {}}
             Path(path).write_bytes(serialization.dumps(payload))
             return str(path)
+        world = {"names": dict(m.names), "txt_feats": m.txt_feats.cpu()} if m.is_world else {}
         torch.save({"yaml": m.yaml, "fused": self.is_fused, "dtype": str(m.dtype).removeprefix("torch."),
-                    "param_dtype": str(m.param_dtype).removeprefix("torch."), "state_dict": m.state_dict()},
+                    "param_dtype": str(m.param_dtype).removeprefix("torch."), "state_dict": m.state_dict(), **world},
                    Path(path))
         return str(path)
 
@@ -474,3 +496,16 @@ class RTDETR(YOLO):
         super().__init__(model, device=device, dtype=dtype, seed=seed, param_dtype=param_dtype)
         if not self.model.is_rtdetr:
             raise ValueError("RTDETR only supports RTDETRDecoder-headed graphs (rtdetr-*.yaml)")
+
+
+class YOLOWorld(YOLO):
+    """The open-vocabulary YOLO-World facade (`yolov8s-worldv2.yaml` by
+    default): the YOLO verbs on a graph that ends in WorldDetect, whose
+    classes are set by text prompts (`set_classes`). Any other graph raises
+    ValueError, as the JAX package's YOLOWorld does."""
+
+    def __init__(self, model="yolov8s-worldv2.yaml", device=None, dtype: torch.dtype = torch.float32, seed: int = 0,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(model, device=device, dtype=dtype, seed=seed, param_dtype=param_dtype)
+        if not getattr(self.model, "is_world", False):
+            raise ValueError("YOLOWorld only supports WorldDetect-headed graphs (yolov8*-world*.yaml)")

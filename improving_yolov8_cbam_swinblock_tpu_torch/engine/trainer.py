@@ -88,7 +88,11 @@ on the detect batches with the GT passed into its head for the denoising
 group (its draws from a torch.Generator seeded from `seed`, saved for
 resume) and the Hungarian-matched DETR loss (utils/detr_loss.py: no
 kernel runs on this path), three loss items giou, cls, l1 (the
-reference's names), and DetectionValidator's NMS-free branch.
+reference's names), and DetectionValidator's NMS-free branch. A
+YOLO-World model (`is_world`) takes the text features of the data's names
+(`set_classes`) before its first step, as the JAX trainer does, and trains
+on the detect loss at nc = the number of names (K2 once per micro-step);
+its eval model and checkpoints carry those features.
 
 Not in the port yet: multi-host sharding.
 """
@@ -265,6 +269,8 @@ class DetectionTrainer:
                                         device=self.device, seed=a.seed, param_dtype=torch.float32)
         if self.data is not None:
             self.model.names = dict(self.data["names"])
+            if self.model.is_world:  # the text features of the data's names, as the JAX trainer encodes them
+                self.model.set_classes([str(v) for v in self.data["names"].values()])
         self.drop_gen = self.dn_gen = None
         if self.model.is_rtdetr:  # the denoising group's draws, on a seeded generator saved for resume
             self.dn_gen = torch.Generator(device=self.device).manual_seed(int(a.seed))
@@ -578,6 +584,8 @@ class DetectionTrainer:
                                               param_dtype=m.param_dtype)
         ev = self._eval_model
         ev.names = dict(self.model.names)
+        if ev.is_world:
+            ev.set_classes(list(ev.names.values()), embeddings=self.model.txt_feats)
         with torch.no_grad():
             for name, t in self._named_state(ev):
                 t.copy_(self.ema[name])
@@ -612,7 +620,7 @@ class DetectionTrainer:
         torch.save({
             "yaml": m.yaml, "fused": False, "dtype": str(m.dtype).removeprefix("torch."),
             "param_dtype": str(m.param_dtype).removeprefix("torch."), "names": dict(m.names),
-            "state_dict": ema_state,
+            **({"txt_feats": m.txt_feats.cpu()} if m.is_world else {}), "state_dict": ema_state,
             "train": {
                 "model": m.state_dict(), "optimizer": self.optimizer.state_dict(), "ema": self.ema,
                 "ema_updates": self.ema_updates, "step": self.step, "epoch": self.epoch,

@@ -164,7 +164,8 @@ class ProgramModel(nn.Module):
     (x * 255, rounded: exact in fp32), runs the program (a static program
     in chunks of its batch, the last padded with zero frames) and returns
     the live model's eval layout: (prediction, None), a classify program's
-    (B, nc) softmax alone, a YOLOv10 program's
+    (B, nc) softmax alone, an RT-DETR program's (queries, None) (its
+    sidecar's `is_rtdetr`: the predictor's RT-DETR path), a YOLOv10 program's
     (detections, None), or a segmentation program's (prediction, (None,
     None, prototypes)); a pose program's prediction carries its keypoints,
     whose `kpt_shape` the sidecar gives, an OBB program's its angles (the
@@ -186,7 +187,7 @@ class ProgramModel(nn.Module):
         self.task = self.backend.task
         self.kpt_shape = tuple(md["kpt_shape"]) if self.task == "pose" else None
         self.end2end = bool(md.get("end2end", False))
-        self.is_rtdetr = False  # export refuses RT-DETR graphs: no program holds one
+        self.is_rtdetr = bool(md.get("is_rtdetr", False))  # the predictor then stretches frames and keeps queries
         self.strides = (self.backend.stride,)
         self.batch = int(md.get("batch", -1))
         self.dtype = torch.float32
@@ -220,6 +221,10 @@ class ProgramModel(nn.Module):
 
     def predict_augment(self, x):
         raise NotImplementedError("augment=True needs the live model: a program holds one scale")
+
+    def set_classes(self, names, embeddings=None):
+        raise ValueError("a .pt2 program holds the text features it was exported with: set the classes on the live "
+                         "model (YOLO(...).set_classes) and export it again")
 
 
 def check_class_names(names, nc: Optional[int] = None) -> Dict[int, str]:

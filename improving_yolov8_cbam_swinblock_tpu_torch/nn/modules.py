@@ -67,6 +67,15 @@ def batch_norm_train(bn: nn.BatchNorm2d, y32: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def batch_norm_eval(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """BatchNorm of y (B, C, H, W) by its running statistics, in fp32, on
+    the (B*H*W, C) view of the NHWC memory (see Conv.norm)."""
+    b, c, h, w = y.shape
+    y2 = y.float().permute(0, 2, 3, 1).reshape(-1, c)
+    out = F.batch_norm(y2, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
+    return out.view(b, h, w, c).permute(0, 3, 1, 2)
+
+
 def record_amax(calib: Dict[str, torch.Tensor], key: str, t: torch.Tensor) -> None:
     """calib[key] = max(calib[key], |t|.max()) in fp32: a calibration pass's running maximum."""
     amax = t.float().abs().amax()
@@ -145,11 +154,7 @@ class Conv(nn.Module):
         bit."""
         if self.training:
             return batch_norm_train(self.bn, y.float())
-        bn = self.bn
-        b, c, h, w = y.shape
-        y2 = y.float().permute(0, 2, 3, 1).reshape(-1, c)
-        out = F.batch_norm(y2, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
-        return out.view(b, h, w, c).permute(0, 3, 1, 2)
+        return batch_norm_eval(self.bn, y)
 
     @torch.no_grad()
     def fuse(self):
@@ -1099,10 +1104,9 @@ class Detect(nn.Module):
         followed by the class sigmoids. With an OBB head's angles (B, A, 1)
         in fp32 the boxes are rotated: dist2rbox's centre and size, times
         the strides, as the JAX package's Detect decodes them."""
-        bsz = feats[0].shape[0]
-        no = 4 * self.reg_max + self.nc
+        bsz, no = feats[0].shape[:2]  # 4 * reg_max + the class count (a WorldDetect's: its prompts')
         x_cat = torch.cat([f.reshape(bsz, no, -1) for f in feats], 2).float()  # (B, no, A)
-        box, cls = x_cat.split((4 * self.reg_max, self.nc), 1)
+        box, cls = x_cat.split((4 * self.reg_max, no - 4 * self.reg_max), 1)
         anchors, strides = make_anchors([f.shape[2:] for f in feats], self.strides, device=x_cat.device)
         dist = dfl_decode(box, self.reg_max)
         if angle is not None:

@@ -22,8 +22,11 @@ graphs, the ResNet-50 and -101 ones of `ResNetLayer` rows and yolo11's
 resnet18 `TorchVision` trunk, none of them width-scaled) and the RT-DETR
 graphs that end in `RTDETRDecoder` (`DetectionModel.is_rtdetr`: the
 PP-HGNetV2 rows `HGStem` and `HGBlock`, `DWConv`, `RepC3`, `AIFI`, and
-Conv's long form [c2, k, s, p, g, d, act]); a row it does not know (the
-rows no packaged YAML of these uses) raises KeyError naming it.
+Conv's long form [c2, k, s, p, g, d, act]) and the YOLO-World graphs that
+end in `WorldDetect` (`DetectionModel.is_world`: the `C2fAttn` and
+`ImagePoolingAttn` rows, the text features threaded beside the image); a
+row it does not know (the rows no packaged YAML of these uses) raises
+KeyError naming it.
 `DetectionModel` also
 runs the JAX package's test-time augmentation (`predict_augment`), gives pooled layer
 embeddings (`embed`) and every layer's feature maps (`features`), and
@@ -45,6 +48,7 @@ import yaml
 
 from ..utils.device import select_device
 from . import modules as M
+from .modules_world import C2fAttn, ImagePoolingAttn, WorldDetect
 from .transformer import AIFI, MHA, RTDETRDecoder
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "cfg"
@@ -287,6 +291,21 @@ def parse_model(d: dict) -> Tuple[nn.ModuleList, List[int], Dict[str, Any]]:
             c2 = 0
             kw = dict(zip(("hd", "nq", "ndp", "nh", "ndl", "d_ffn"), args[1:]))
             m = RTDETRDecoder(args[0] if args else nc, [in_ch(j) for j in f], strides=[in_factor(j) for j in f], **kw)
+        elif mname == "C2fAttn":  # [c2, ec, nh, gc]: c2 and ec width-scaled, nh by the JAX package's rule
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            ec = make_divisible(min(args[1], max_channels // 2) * width, 8)
+            nh = _arg(args, 2, 1)
+            nh = int(max(round(min(nh, max_channels // 2 // 32)) * width, 1)) if nh > 1 else nh
+            m = C2fAttn(c1, c2, n=n, ec=ec, nh=nh, gc=_arg(args, 3, 512))
+            n = 1
+        elif mname == "ImagePoolingAttn":  # [ec]: refines the text; the image path passes its last input on
+            ch_list = [in_ch(j) for j in f]
+            c2, fac = ch_list[-1], in_factor(f[-1])
+            m = ImagePoolingAttn(_arg(args, 0, 256), ch_list)
+        elif mname == "WorldDetect":  # [nc, embed, with_bn]
+            c2 = 0
+            m = WorldDetect(_arg(args, 0, nc), [in_ch(j) for j in f], [in_factor(j) for j in f],
+                            embed=_arg(args, 1, 512), with_bn=_arg(args, 2, False))
         elif mname == "ResNetLayer":  # [c1, c2, s, is_first, n, e]: never width-scaled
             s_, first, e_ = _arg(args, 2, 1), _arg(args, 3, False), _arg(args, 5, 4)
             m = M.ResNetLayer(c1, args[1], s_, first, _arg(args, 4, 1), e_)
@@ -382,7 +401,11 @@ class DetectionModel(nn.Module):
     RTDETRDecoder's ((B, nq, 4 + nc) normalised xywh and class sigmoids,
     None), in training, with `targets` (cls, bboxes, mask of the batch)
     passed to the head for its denoising group, the train dict
-    (nn/transformer.py). The model is built in eval mode."""
+    (nn/transformer.py); a YOLO-World graph (`is_world`) Detect's layout at
+    nc = the number of prompts, scored against `txt_feats`, a (1, K, 512)
+    fp32 buffer that is not part of the state: the hash-projected names
+    "0" to "nc - 1" until `set_classes` sets others. The model is built in
+    eval mode."""
 
     def __init__(self, cfg: Union[str, dict] = "yolov8s-cbam-swin.yaml", dtype: torch.dtype = torch.float32,
                  device=None, seed: int = 0, param_dtype: Optional[torch.dtype] = None):
@@ -395,6 +418,7 @@ class DetectionModel(nn.Module):
         self.strides = getattr(head, "strides", ())  # a classify model has none: imgsz is not rounded
         self.end2end = isinstance(head, M.v10Detect)  # NMS-free: the head returns the detections
         self.is_rtdetr = isinstance(head, RTDETRDecoder)  # NMS-free queries; trains on Hungarian matching
+        self.is_world = isinstance(head, WorldDetect)  # open vocabulary: scores against txt_feats
         self.task = ("segment" if isinstance(head, M.Segment) else "pose" if isinstance(head, M.Pose)
                      else "obb" if isinstance(head, M.OBB) else "classify" if isinstance(head, M.Classify)
                      else "detect")
@@ -404,7 +428,11 @@ class DetectionModel(nn.Module):
         self.param_dtype = param_dtype or dtype
         init_weights(self, torch.Generator().manual_seed(seed))
         self._cast(self.param_dtype)
+        if self.is_world:  # the JAX package's placeholder prompts, the class indices
+            self.register_buffer("txt_feats", torch.zeros(1, self.nc, 512), persistent=False)
         self.to(dev).to(memory_format=torch.channels_last)
+        if self.is_world and dev.type != "meta":
+            self.set_classes([str(i) for i in range(self.nc)])
         self.eval()
 
     @property
@@ -420,28 +448,61 @@ class DetectionModel(nn.Module):
                     if p.dim() == 2:
                         p.data = p.data.to(dtype)
 
-    def forward(self, x: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None):
-        y: Dict[int, Any] = {}
-        out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        for m in self.model:
-            if m.f != -1:
-                out = y[m.f] if isinstance(m.f, int) else [out if j == -1 else y[j] for j in m.f]
-            out = m(out, targets) if targets is not None and isinstance(m, RTDETRDecoder) else m(out)
-            if m.i in self.save:
-                y[m.i] = out
-        return out
+    def set_classes(self, names, embeddings=None) -> None:
+        """The open-vocabulary class swap of a World graph (the JAX package's
+        DetectionModel.set_classes): the prompts' text features
+        (utils/text_model.py encode_texts, on this model's device where a
+        CLIP tower runs), or `embeddings` (K, 512) or (1, K, 512) given, become
+        `txt_feats`; nc and names follow. The parameters stay as they are."""
+        from ..utils.text_model import encode_texts
 
-    def _outputs(self, x: torch.Tensor):
-        """Each layer and its output in order, as forward computes them."""
+        if not self.is_world:
+            raise ValueError("set_classes requires an open-vocabulary (World) head")
+        names = [str(n) for n in names]
+        e = encode_texts(names, device=self.txt_feats.device) if embeddings is None else embeddings
+        e = torch.as_tensor(e).detach().to(device=self.txt_feats.device, dtype=torch.float32)
+        e = e[None] if e.dim() == 2 else e
+        if e.shape[1] != len(names):
+            raise ValueError(f"{e.shape[1]} embeddings for {len(names)} classes")
+        self.txt_feats = e.clone()
+        self.nc = len(names)
+        self.names = dict(enumerate(names))
+
+    def texts(self, batch: int) -> Optional[torch.Tensor]:
+        """A World graph's text features for a batch, (B, K, 512) fp32; None for another graph."""
+        return self.txt_feats.expand(batch, -1, -1) if self.is_world else None
+
+    @staticmethod
+    def run_layer(m: nn.Module, x, txt=None, ori=None, targets=None):
+        """One row on its input x: (its output, the text features after it).
+        C2fAttn reads the current text, ImagePoolingAttn refines it (its
+        output is its last input), WorldDetect scores against the original
+        text `ori`; `targets` go to an RT-DETR head."""
+        if isinstance(m, C2fAttn):
+            return m(x, txt), txt
+        if isinstance(m, ImagePoolingAttn):
+            return x[-1], m(x, txt)
+        if isinstance(m, WorldDetect):
+            return m(x, ori), txt
+        return (m(x, targets) if targets is not None and isinstance(m, RTDETRDecoder) else m(x)), txt
+
+    def _layers(self, x: torch.Tensor, targets=None):
+        """Each layer and its output in order (run_layer; a World graph's text features go along)."""
         y: Dict[int, Any] = {}
         out = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        txt = ori = self.texts(out.shape[0])
         for m in self.model:
             if m.f != -1:
                 out = y[m.f] if isinstance(m.f, int) else [out if j == -1 else y[j] for j in m.f]
-            out = m(out)
+            out, txt = self.run_layer(m, out, txt, ori, targets)
             if m.i in self.save:
                 y[m.i] = out
             yield m, out
+
+    def forward(self, x: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None):
+        for _, out in self._layers(x, targets):
+            pass
+        return out
 
     def embed(self, x: torch.Tensor, layers) -> torch.Tensor:
         """(B, sum of C): the output of each of `layers` (indices into the
@@ -456,7 +517,7 @@ class DetectionModel(nn.Module):
                 raise ValueError(f"embed: layer {i} is {self.model[i].type}, whose output is no feature map; "
                                  f"take a layer before it (0 to {i - 1})")
         pooled = []
-        for m, out in self._outputs(x):
+        for m, out in self._layers(x):
             if m.i in wanted:
                 pooled.append(out.mean((2, 3)))
                 if m.i == max(wanted):
@@ -470,7 +531,7 @@ class DetectionModel(nn.Module):
         in the port's layout."""
         n = len(self.model)
         wanted = set(range(n)) if layers is None else {int(i) % n for i in layers}
-        return [(m.i, m.type, out) for m, out in self._outputs(x)
+        return [(m.i, m.type, out) for m, out in self._layers(x)
                 if m.i in wanted and isinstance(out, torch.Tensor) and out.dim() == 4]
 
     def fuse(self) -> "DetectionModel":

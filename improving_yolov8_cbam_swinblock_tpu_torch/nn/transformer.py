@@ -143,7 +143,8 @@ class AIFI(TransformerEncoderLayer):
         b, c, h, w = x.shape
         key = (w, h, c, x.device, x.dtype)
         if key not in self._pos:
-            self._pos[key] = torch.from_numpy(sincos_2d_pos(w, h, c)).to(x.device, x.dtype)
+            with torch.inference_mode(False):  # a plain tensor: a later train step may save it for its backward
+                self._pos[key] = torch.from_numpy(sincos_2d_pos(w, h, c)).to(x.device, x.dtype)
         y = super().forward(x.permute(0, 2, 3, 1).reshape(b, h * w, c), pos=self._pos[key])
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
@@ -415,7 +416,9 @@ class RTDETRDecoder(nn.Module):
             a = np.concatenate(anchors, 0)[None]
             valid = ((a > 0.01) & (a < 0.99)).all(-1, keepdims=True)
             a = np.where(valid, np.log(a / (1 - a)), np.inf).astype(np.float32)
-            self._anchor_cache[key] = (torch.from_numpy(a).to(device), torch.from_numpy(valid.astype(np.float32)).to(device))
+            with torch.inference_mode(False):  # a plain tensor: a later train step may save it for its backward
+                self._anchor_cache[key] = (torch.from_numpy(a).to(device),
+                                           torch.from_numpy(valid.astype(np.float32)).to(device))
         return self._anchor_cache[key]
 
     def forward(self, xs: List[torch.Tensor], targets: Optional[Dict[str, torch.Tensor]] = None):

@@ -16,7 +16,9 @@ The JAX package's int8 gate: every module that is a `Conv` in the JAX
 package records its input (`x_amax`) and gets int8 weights, grouped ones
 included, and runs its product in int8 where it is ungrouped
 (Conv.runs_int8, JAX's g == 1): the rows of every graph the port builds
-(the fork's, YOLO11, YOLOv3 to v9, YOLOv10, YOLO12, the seg graphs). A
+(the fork's, YOLO11, YOLOv3 to v9, YOLOv10, YOLO12, the seg graphs, the
+RT-DETR graphs' HGStem, HGBlock, RepC3 and the decoder's `input_proj.i`,
+YOLO-World's C2fAttn with its attention's `ec` and `proj_conv`). A
 grouped conv (DWConv, SCDown's and RepVGGDW's depth-wise convs, CIB's,
 v10Detect's light class branch, GhostConv's cheap op, the `pe` of
 Attention and AAttn) keeps its float path; so do YOLO11 Attention's and
@@ -24,7 +26,11 @@ AAttn's products, whose qkv and proj Convs go int8. What is a raw conv in
 the JAX package stays float and uncalibrated: RepConv's two branches (port
 Convs whose BatchNorm RepConv applies itself), CBLinear, the transposed
 convs of yolov6 and Proto, the last 1x1 convs of Detect, v10Detect's two
-branch sets and Segment's cv4, and CBAM's convs. Every SwinBlock records
+branch sets and Segment's cv4, CBAM's convs and ImagePoolingAttn's
+projections; so do the Linears (RT-DETR's AIFI, deformable attention and
+decoder, YOLO-World's text products), as the JAX package's
+build_quant_variables quantizes only Conv kernels and the SwinBlock's
+products. Every SwinBlock records
 the inputs of its four products (`qkv_amax`, `out_amax`, `fc1_amax`,
 `fc2_amax`), its input (`xin_amax`) and its float output (`yout_amax`).
 Quantize a BN-folded model as the JAX package's bench and exporter do:
@@ -76,7 +82,8 @@ def conv_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor, x_sc
     dequantized as acc * (x_scale * w_scale) in fp32 -> (B, O, Ho, Wo),
     channels_last. A 1x1 stride-1 conv is one int8 product of the NHWC view
     (B*H*W, C) with (O, C); a k x k conv gathers its k*k shifted, strided
-    views of the zero-padded NHWC input into (B*Ho*Wo, k*k*C) first. The
+    windows of the zero-padded NHWC input (a strided view) into (B*Ho*Wo,
+    k*k*C) first, in one copy. The
     integer sums are exact (torch._int_mm accumulates in int32), as XLA's
     int8 convolution is in the JAX package."""
     o, c, kh, kw = w_int8.shape
@@ -87,11 +94,11 @@ def conv_int8(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor, x_sc
     else:
         xp = F.pad(xq, (0, 0, padding, padding, padding, padding))
         ho, wo = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
-        cols = torch.cat([xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
-                          for dy in range(kh) for dx in range(kw)], -1).reshape(-1, kh * kw * c)
+        win = xp.unfold(1, kh, stride).unfold(2, kw, stride)  # (B, Ho, Wo, C, kh, kw), a view
+        cols = win.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * c)  # one copy, (dy, dx, c) per row
     acc = int_mm(cols, w_int8.permute(0, 2, 3, 1).reshape(o, kh * kw * c), min_rows=ho * wo)
     y = acc.view(b, ho, wo, o).permute(0, 3, 1, 2).float()
-    return y * (x_scale.float() * w_scale.float()).view(1, -1, 1, 1)
+    return y * (x_scale * w_scale).view(1, -1, 1, 1)  # the scales are fp32 (load_quant_state)
 
 
 def _quantizable(model: nn.Module) -> Dict[str, nn.Module]:
@@ -188,11 +195,6 @@ def load_quant_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Mod
     return model
 
 
-# what the RT-DETR graphs do not have yet, and the slice that brings it (ROADMAP.md, Queue 1)
-RTDETR_LATER = ("{what} of an RT-DETR graph is not in the port yet: it comes with the slice that brings int8 and "
-                ".pt2 programs to the RT-DETR graphs (ROADMAP.md, Queue 1)")
-
-
 def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     """Calibrate on `batches` and quantize every Conv and SwinBlock of the
     model that the JAX package quantizes, in place; returns the model.
@@ -203,8 +205,6 @@ def quantize_model(model: nn.Module, batches: Iterable) -> nn.Module:
     dilation conv_int8 does not take."""
     from ..nn.modules import Conv
 
-    if model.is_rtdetr:
-        raise NotImplementedError(RTDETR_LATER.format(what="int8 (quantize_model)"))
     for name, m in _quantizable(model).items():
         if isinstance(m, Conv):  # refuse before the calibration sweep, not after it
             _fp32_weight(f"{name}.conv.weight", m.conv.weight)

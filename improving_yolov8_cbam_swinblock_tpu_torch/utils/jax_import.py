@@ -16,6 +16,10 @@ importer), with layout transforms:
     (its `fc1` stays `fc1`), and the head's embedding table
     (`denoising_class_embed`, a leaf of the head's own scope) ->
     `denoising_class_embed.weight`;
+  * YOLO-World's scopes (`projections_0`, ImagePoolingAttn's `query_ln`
+    and `query_fc`, which the reference holds as `query.0` and `query.1`)
+    and leaves (`scale_p` -> `scale`; a contrastive head's `bias` and
+    `logit_scale` as they are);
   * BatchNorm scale/bias and mean/var -> weight/bias and
     running_mean/running_var (plus num_batches_tracked, which flax has not).
 
@@ -44,6 +48,7 @@ import torch
 import torch.nn as nn
 
 from ..nn import modules as M
+from ..nn import modules_world as W
 from ..nn import transformer as T
 from . import serialization
 
@@ -51,22 +56,28 @@ from . import serialization
 # flax scopes named otherwise in the reference's state: CBAM's channel MLP,
 # a GhostBottleneck's branches, RepNCSPELAN4's two (RepCSP, Conv) branches
 # and a RepConv's two (conv, bn) branches, which the JAX package holds
-# without a scope of their own
+# without a scope of their own, and ImagePoolingAttn's (LayerNorm, Linear)
+# pairs, which it holds as query_ln and query_fc
 SCOPE_NAMES = {"fc1": "shared_MLP.0", "fc2": "shared_MLP.2",
                "gc1": "conv.0", "dwmid": "conv.1", "gc2": "conv.2", "sc_dw": "shortcut.0", "sc_pw": "shortcut.1",
                "cv2_csp": "cv2.0", "cv2_conv": "cv2.1", "cv3_csp": "cv3.0", "cv3_conv": "cv3.1",
-               "conv1_conv": "conv1.conv", "conv1_bn": "conv1.bn", "conv2_conv": "conv2.conv", "conv2_bn": "conv2.bn"}
+               "conv1_conv": "conv1.conv", "conv1_bn": "conv1.bn", "conv2_conv": "conv2.conv", "conv2_bn": "conv2.bn",
+               **{f"{n}_{part}": f"{n}.{i}" for n in ("query", "key", "value") for i, part in enumerate(("ln", "fc"))}}
 # flax scopes with no module of their own in the port: the JAX package's
 # DWConv wraps a Conv in `dw`, its C3k a C3 in `c3`, its
 # nn.ConvTranspose2d row a flax ConvTranspose in `conv_transpose`, and its
 # Segment, Pose and OBB heads the detect branches in `detect` (the
 # reference names them at the head's own level)
 DROPPED_SCOPES = ("dw", "c3", "conv_transpose", "detect", "enc")
-# RT-DETR's numbered scopes, which flax joins with an underscore; the decoder's layers have no scope of their own
-NUMBERED_SCOPES = re.compile(r"(input_proj|enc_output|dec_score_head|dec_bbox_head|layers)_(\d+)")
+# RT-DETR's and ImagePoolingAttn's numbered scopes, which flax joins with an underscore; the decoder's layers have no
+# scope of their own
+NUMBERED_SCOPES = re.compile(r"(input_proj|enc_output|dec_score_head|dec_bbox_head|layers|projections)_(\d+)")
 DECODER_LAYERS = re.compile(r"decoder_layers_(\d+)")
 # a leaf that is an RT-DETR head's own parameter (an embedding table), not a module's
 EMBEDDINGS = ("denoising_class_embed",)
+# YOLO-World's parameters of a module's own (MaxSigmoidAttnBlock's and ImagePoolingAttn's scale, a contrastive
+# head's bias and logit scale): the flax leaf -> the reference's name
+WORLD_LEAVES = {"scale_p": "scale", "logit_scale": "logit_scale"}
 # the flax scopes whose kernel is a transposed conv's: the nn.ConvTranspose2d
 # row's, and Proto's `upsample`
 TRANSPOSED_SCOPES = ("conv_transpose", "upsample")
@@ -114,7 +125,7 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
         return ".".join(toks) + "." + {"mean": "running_mean", "var": "running_var"}[leaf], "none"
     if leaf in EMBEDDINGS:
         return ".".join(toks + [leaf, "weight"]), "none"
-    if toks[-1] == "in_proj":  # torch MultiheadAttention packs qkv at the attention level
+    if toks and toks[-1] == "in_proj":  # torch MultiheadAttention packs qkv at the attention level
         prefix = ".".join(toks[:-1])
         return (f"{prefix}.in_proj_weight", "linear_t") if leaf == "kernel" else (f"{prefix}.in_proj_bias", "none")
     base = ".".join(toks)
@@ -123,7 +134,9 @@ def _torch_name(path: Tuple[str, ...], collection: str) -> Tuple[str, str]:
     if leaf == "scale":
         return f"{base}.weight", "none"
     if leaf in ("bias", "gamma"):  # gamma: A2C2f's residual scale
-        return f"{base}.{leaf}", "none"
+        return ".".join(toks + [leaf]), "none"
+    if leaf in WORLD_LEAVES:
+        return ".".join(toks + [WORLD_LEAVES[leaf]]), "none"
     raise KeyError(f"unmapped flax leaf {'/'.join(path)} ({collection})")
 
 
@@ -222,7 +235,7 @@ def _flax_scopes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
         if isinstance(mod, M.SwinBlock) and name == "mlp":
             return {"0": "mlp_fc1", "2": "mlp_fc2"}
         if isinstance(child, nn.Sequential) and isinstance(mod, (M.ChannelAttention, M.GhostBottleneck,
-                                                                  M.RepNCSPELAN4)):
+                                                                  M.RepNCSPELAN4, W.ImagePoolingAttn)):
             return {idx: inverse[f"{name}.{idx}"] for idx, _ in child.named_children() if f"{name}.{idx}" in inverse}
         return None
 
@@ -279,6 +292,8 @@ def _flax_leaf(mod: nn.Module, parent: nn.Module, attr: str):
         return "params", ("in_proj",), {"in_proj_weight": "kernel", "in_proj_bias": "bias"}[attr]
     if isinstance(mod, nn.Embedding):  # an RT-DETR head's table: a leaf of the head's scope, named as the module
         return "params", (), None
+    if isinstance(mod, (W.MaxSigmoidAttnBlock, W.ImagePoolingAttn, W.ContrastiveHead, W.BNContrastiveHead)):
+        return "params", (), {"bias": "bias", "scale": "scale_p", "logit_scale": "logit_scale"}[attr]
     raise KeyError(f"no JAX twin for {type(mod).__name__}.{attr}")
 
 
@@ -315,7 +330,7 @@ def jax_variables_from_state(model: nn.Module) -> Dict[str, dict]:
         node = out.setdefault(coll, {})
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr, dtype=np.float32)
+        node[path[-1]] = np.array(arr, dtype=np.float32, order="C")  # a 0-d leaf stays 0-d (a logit scale)
     return out
 
 

@@ -218,26 +218,28 @@ def profile_layers(model, imgsz: int = 640, iters: int = 3, verbose: bool = True
     rows = []
     was_training = model.training
     model.eval()
+    txt = ori = model.texts(1)  # a World graph's text features ride along (DetectionModel.run_layer)
     try:
         with torch.inference_mode():
             for m in model.model:
                 if m.f != -1:
                     out = y[m.f] if isinstance(m.f, int) else [out if j == -1 else y[j] for j in m.f]
                 inp = out
-                res = m(inp)  # warm-up: kernels built, memory allocated
+                res, nxt = model.run_layer(m, inp, txt, ori)  # warm-up: kernels built, memory allocated
                 if cuda:
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     start.record()
                     for _ in range(iters):
-                        res = m(inp)
+                        res, _ = model.run_layer(m, inp, txt, ori)
                     end.record()
                     torch.cuda.synchronize()
                     ms = start.elapsed_time(end) / iters
                 else:
                     t0 = time.perf_counter()
                     for _ in range(iters):
-                        res = m(inp)
+                        res, _ = model.run_layer(m, inp, txt, ori)
                     ms = (time.perf_counter() - t0) / iters * 1e3
+                txt = nxt
                 first = res[0] if isinstance(res, (tuple, list)) else res
                 row = {"i": m.i, "module": m.type, "ms": ms, "params": sum(p.numel() for p in m.parameters()),
                        "out": tuple(first.shape)}

@@ -3,9 +3,11 @@ utils/settings.py): a versioned JSON at $XDG_CONFIG_HOME (or ~/.config)
 /improving_yolov8_cbam_swinblock_tpu_torch/settings.json with dict access,
 update() and reset(). Its keys are the ones the port reads: `datasets_dir`
 (where a packaged dataset descriptor's relative `path:` is anchored, as in
-the JAX package), `tensorboard` (as in the JAX package) and
-`hosted_loggers`, which the JAX package lacks: off by default, it lets the
-hosted loggers of utils/integrations.py register."""
+the JAX package), `tensorboard` (as in the JAX package), `clip_npz` (as in
+the JAX package: a CLIP text-tower archive that utils/text_model.py's
+encode_texts uses where its caller names none; empty: the hash projection)
+and `hosted_loggers`, which the JAX package lacks: off by default, it lets
+the hosted loggers of utils/integrations.py register."""
 
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class SettingsManager(dict):
             "datasets_dir": str(root / "datasets"),
             "tensorboard": True,
             "hosted_loggers": False,
+            "clip_npz": "",
         }
         super().__init__(self.defaults)
         try:

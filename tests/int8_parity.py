@@ -2,7 +2,8 @@
 
 `jax_int8` runs the JAX package's path on a BN-folded tree under one
 jax.jit, compiled with `xla_allow_excess_precision` off as
-tests/test_torch_quant.py compiles it: the calibration pass of its
+tests/test_torch_quant.py compiles it (and, but for that file's flagship,
+at optimization level 0): the calibration pass of its
 ops/quant.py calibrate (apply with the `calib` collection mutable, on one
 uint8 batch cast to the model's dtype and divided by 255),
 build_quant_variables, and the int8 eval forward. `port_int8` runs the port's on a
@@ -31,10 +32,15 @@ from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import quant_sta
 CALIB_RTOL = 2e-3
 OUT_TOL, OUT_MEAN = 5e-2, 5e-3
 EXACT = {"xla_allow_excess_precision": False}
+# jax_int8's compile also at XLA's backend optimization level 0 (a shorter compile; the same convs summed in
+# another order, far inside CALIB_RTOL and OUT_TOL)
+EXACT_QUICK = {**EXACT, "xla_backend_optimization_level": 0}
 
 
-def jax_int8(jm, v, frames: np.ndarray, x: np.ndarray) -> dict:
-    """The JAX package's int8 path: {"calib", "quant", "out"} as numpy trees."""
+def jax_int8(jm, v, frames: np.ndarray, x: np.ndarray, options=EXACT_QUICK) -> dict:
+    """The JAX package's int8 path: {"calib", "quant", "out"} as numpy trees,
+    compiled with `options` (EXACT holds the int8 SwinBlock's bf16 roundings
+    bit for bit, which tests/test_torch_quant.py's flagship needs)."""
 
     def run(fv, img, xx):
         _, mut = jm.apply(fv, img.astype(jm.dtype) / 255.0, train=False, mutable=["calib"])
@@ -42,7 +48,7 @@ def jax_int8(jm, v, frames: np.ndarray, x: np.ndarray) -> dict:
         return {"calib": mut["calib"], "quant": qv["quant"], "out": jm.apply(qv, xx, train=False)}
 
     args = (fuse_variables(v), jnp.asarray(frames), jnp.asarray(x))
-    return jax.tree.map(np.asarray, jax.jit(run).lower(*args).compile(compiler_options=EXACT)(*args))
+    return jax.tree.map(np.asarray, jax.jit(run).lower(*args).compile(compiler_options=options)(*args))
 
 
 def port_int8(pm, frames: np.ndarray) -> dict:

@@ -1055,3 +1055,115 @@ def test_rtdetr_yolo_train_two_micro_steps_on_the_card(cuda, tmp_path):
             scale=0.0, close_mosaic=0, plots=False, project=str(tmp_path / "runs"))
     sums = [sum(r[k] for k in ("train/giou_loss", "train/cls_loss", "train/l1_loss")) for r in y.trainer.metrics_rows]
     assert len(sums) == 2 and np.isfinite(sums).all() and sums[1] < sums[0]
+
+
+# the JAX package's tiny World graph (tests/test_world.py): C2fAttn at P5, ImagePoolingAttn, C2fAttn at P3 and P4,
+# WorldDetect scoring 512-wide embeddings
+TINY_WORLD = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]],
+                                    [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "Conv", [48, 3, 2]],
+                                    [-1, 1, "Conv", [64, 3, 2]]],
+              "head": [[-1, 1, "C2fAttn", [64, 32, 2]], [[2, 3, -1], 1, "ImagePoolingAttn", [32]],
+                       [2, 1, "C2fAttn", [32, 16, 1]], [3, 1, "C2fAttn", [48, 16, 1]],
+                       [[7, 8, 5], 1, "WorldDetect", ["nc", 512, False]]]}
+WORLD_PROMPTS = ["person", "bicycle", "car", "dog", "kite"]
+
+
+@pytest.mark.cuda
+def test_world_forward_on_the_card_equals_the_cpu(cuda, no_tf32_convs):
+    """The tiny World graph at five prompts, its Convs at unit gain and its
+    class prior zeroed (chip_smoke.unit_gain: the seeded features would
+    reach the head near constant), fp32 with TF32 off, 64 px, batch 2: the
+    card's prediction within 1e-4 of the CPU's largest magnitude, its class
+    scores spread, its text features the CPU's bit for bit (the hash
+    projection is numpy)."""
+    from chip_smoke import unit_gain
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionModel
+
+    cpu = DetectionModel(dict(TINY_WORLD), device="cpu")
+    cpu.set_classes(WORLD_PROMPTS)
+    unit_gain(cpu)
+    with torch.no_grad():
+        for h in cpu.model[-1].cv4:
+            h.bias.zero_()
+    card = DetectionModel(dict(TINY_WORLD), device="cuda")
+    card.set_classes(WORLD_PROMPTS)
+    card.load_state_dict(cpu.state_dict())
+    assert torch.equal(card.txt_feats.cpu(), cpu.txt_feats)
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want, got = cpu(x)[0], card(x.to(cuda))[0].cpu()
+    assert got.shape == want.shape == (2, 4 + 5, 84) and want[:, 4:].std() > 1e-2
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_world_micro_step_launches_k2_once_and_equals_the_plain_assigner(cuda, no_tf32_convs):
+    """A World graph's train micro-step (the tiny graph at five prompts, 64
+    px, batch 2, fp32 with TF32 off, the detect loss at nc 5) launches K2
+    once; with the plain assigner instead, the three loss items agree within
+    1e-5 and every gradient within 1e-4 of its tensor's norm, or within 1e-6
+    of the largest gradient's norm where it is rounding noise (the attention
+    keys' bias, which the softmax cancels)."""
+    from improving_yolov8_cbam_swinblock_tpu_torch import DetectionTrainer
+    from improving_yolov8_cbam_swinblock_tpu_torch.ops.tal import tal_assign_cuda
+
+    rng = np.random.default_rng(5)
+    xy, wh = rng.uniform(0.25, 0.75, (2, 6, 2)), rng.uniform(0.15, 0.4, (2, 6, 2))
+    batch = {"img": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+             "cls": rng.integers(0, 5, (2, 6)).astype(np.float32),
+             "bboxes": np.concatenate([xy, wh], -1).astype(np.float32), "mask": np.ones((2, 6), np.float32)}
+    out = {}
+    for impl in (None, "plain"):
+        tr = DetectionTrainer(overrides={"model": dict(TINY_WORLD), "batch": 2, "nbs": 4, "imgsz": 64,
+                                         "amp": False}).setup()
+        tr.model.set_classes(WORLD_PROMPTS)
+        tr.tal_impl = impl
+        step, _ = tr._make_train_step(nb=10)
+        before = tal_assign_cuda.launches
+        items = step(batch)
+        torch.cuda.synchronize()
+        out[impl] = (items, {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()},
+                     tal_assign_cuda.launches - before)
+    (ik, gk, nk), (ip, gp, npl) = out[None], out["plain"]
+    assert nk == 1 and npl == 0 and ik.shape == (3,) and torch.isfinite(ik).all()
+    torch.testing.assert_close(ik, ip, rtol=1e-5, atol=0)
+    floor = 1e-6 * max(g.norm() for g in gp.values())
+    for n in gp:
+        assert (gk[n] - gp[n]).norm() <= torch.maximum(1e-4 * gp[n].norm(), floor), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["rtdetr", "world"])
+def test_int8_program_of_the_query_and_world_graphs_on_the_card(cuda, tmp_path, graph):
+    """The tiny RT-DETR and World graphs (class priors zeroed, BN-folded)
+    exported int8 with a dynamic batch on the card: YOLO(path) serves
+    batches 1 and 3 bit for bit with the live quantized model, the RT-DETR
+    program's queries through the predictor's NMS-free path."""
+    import copy
+
+    from improving_yolov8_cbam_swinblock_tpu_torch import YOLO, quantize_model
+    from improving_yolov8_cbam_swinblock_tpu_torch.nn.autobackend import Backend
+
+    y = YOLO(copy.deepcopy(TINY_RTDETR if graph == "rtdetr" else TINY_WORLD), device="cuda",
+             param_dtype=torch.float32)
+    if graph == "world":
+        y.set_classes(WORLD_PROMPTS[:2])
+    with torch.no_grad():
+        for m in y.model.modules():
+            if hasattr(m, "logit_scale"):
+                m.bias.zero_()
+    y.fuse()
+    path = y.export(imgsz=64, int8=True, dynamic=True, project=str(tmp_path))
+    rng = np.random.default_rng(0)  # the exporter's synthetic calibration frames
+    live = copy.deepcopy(y)
+    quantize_model(live.model, [rng.integers(0, 255, (8, 64, 64, 3), np.uint8) for _ in range(2)])
+    served = YOLO(path)
+    assert served.model.is_rtdetr == (graph == "rtdetr")
+    for b in (1, 3):
+        img = np.random.default_rng(b).integers(0, 256, (b, 64, 64, 3), dtype=np.uint8)
+        assert np.array_equal(served.model.backend(img), Backend(live.model)(img))
+    src = [np.random.default_rng(i).integers(0, 256, (48, 80, 3), dtype=np.uint8) for i in range(3)]
+    got = served.predict(src, conf=0.25, batch=3, verbose=False)
+    ref = live.predict(src, imgsz=64, conf=0.25, batch=3, verbose=False)
+    assert sum(len(r) for r in ref) > 0
+    assert all(np.array_equal(g.boxes.data, r.boxes.data) for g, r in zip(got, ref))

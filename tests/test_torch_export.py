@@ -360,3 +360,72 @@ def test_v10_int8_program_keeps_the_head_layout(tmp_path, capsys):
     assert sum(len(r) for r in ref) > 0
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.boxes.data, r.boxes.data)
+
+
+# the tiny RT-DETR graph of its test file (AIFI, a two-layer decoder of 16 queries), and a World graph of each World
+# block in eight rows (C2fAttn, ImagePoolingAttn, WorldDetect with worldv2's BN contrastive heads) at two prompts:
+# what the program cases test does not depend on the graph's depth, and an int8 program's export time grows with
+# its convs
+COMPACT_WORLD = {"nc": 3, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [16, 3, 2]],
+                                       [-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [24, 3, 2]],
+                                       [-1, 1, "Conv", [32, 3, 2]]],
+                 "head": [[-1, 1, "C2fAttn", [32, 16, 2]], [[2, 3, -1], 1, "ImagePoolingAttn", [16]],
+                          [[2, 3, 5], 1, "WorldDetect", ["nc", 512, True]]]}  # embed: the text width
+WORLD_NAMES = ["cat", "dog"]
+
+
+def small_graph(kind):
+    from tests.test_torch_rtdetr import TINY_RTDETR
+
+    return copy.deepcopy(TINY_RTDETR if kind == "rtdetr" else COMPACT_WORLD)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("kind", ["rtdetr", "world"])
+def test_rtdetr_and_world_programs_equal_the_live_model(tmp_path, kind, dynamic, int8):
+    """An RT-DETR and a World graph (BN-folded, class priors zeroed), float
+    and int8 (quantized on the exporter's synthetic frames), at a static
+    batch of 3 and with a dynamic batch: the program's output equals the
+    live model's bit for bit at each batch it takes, and YOLO(path).predict
+    gives the live model's detections. The RT-DETR sidecar gives the
+    NMS-free query layout (B, 16, 4 + nc) and the predictor keeps its
+    queries (no NMS); the World program holds the text features of the
+    prompts set before export (its sidecar's names), and set_classes on it
+    raises, naming the live model. The RT-DETR program holds the encoder's
+    stable sort (its top-k, the lower index first) and grid_sample."""
+    from tests.seeded_scores import zero_class_priors
+
+    y = YOLO(small_graph(kind), device="cpu", param_dtype=torch.float32)
+    if kind == "world":
+        y.set_classes(WORLD_NAMES)
+    zero_class_priors(y.model)
+    y.fuse()
+    path = y.export(imgsz=64, int8=int8, dynamic=dynamic, batch=3, project=str(tmp_path))
+    md = yaml.safe_load(open(f"{path}.yaml"))
+    assert md["int8"] == int8 and md["batch"] == (-1 if dynamic else 3) and md["task"] == "detect"
+    live = copy.deepcopy(y)
+    if int8:
+        rng = np.random.default_rng(0)  # the exporter's synthetic calibration frames
+        quantize_model(live.model, [rng.integers(0, 255, (8, 64, 64, 3), np.uint8) for _ in range(2)])
+    served = YOLO(path, device="cpu")
+    nc = 3 if kind == "rtdetr" else len(WORLD_NAMES)
+    if kind == "rtdetr":
+        assert md["is_rtdetr"] and md["nq"] == 16 and "(B, nq, 4+nc)" in md["layout"] and served.model.is_rtdetr
+        ops = {str(n.target) for n in served.model.backend._fn.graph.nodes}
+        assert {"aten.sort.stable", "aten.grid_sampler.default"} <= ops  # the encoder's stable top-k, the sampling
+    else:
+        assert md["names"] == dict(enumerate(WORLD_NAMES)) and md["nc"] == nc and served.names == md["names"]
+        with pytest.raises(ValueError, match="live model"):
+            served.set_classes(["bus"])
+    for b in (1, 3) if dynamic else (3,):
+        img = frames(b, seed=b)
+        out = served.model.backend(img)
+        assert out.shape == ((b, 16, 4 + nc) if kind == "rtdetr" else (b, 4 + nc, 84))
+        np.testing.assert_array_equal(out, Backend(live.model)(img))
+    src = [np.random.default_rng(i).integers(0, 256, (48, 80, 3), dtype=np.uint8) for i in range(3)]
+    got = served.predict(src, conf=0.25, batch=3, verbose=False)
+    ref = live.predict(src, imgsz=64, conf=0.25, batch=3, verbose=False)
+    assert sum(len(r) for r in ref) > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.boxes.data, r.boxes.data)

@@ -19,8 +19,8 @@ int8 graph held to JAX's; for yolov6n, yolov8n-ghost-p6 and yolo12n the
 set of calibrated convs equal to JAX's (from an abstract trace of its
 calibration pass: no compile) and a finite int8 forward; every graph of the
 slice's ungrouped convs take conv_int8's square geometry (the bridge test),
-and quantize_model refuses one that does not. YOLOv10 has tests/test_torch_v10.py. Each JAX module and graph runs under
-one jax.jit, eval and train mode in the same one.
+and quantize_model refuses one that does not. YOLOv10 has tests/test_torch_v10.py. The JAX modules run
+under one jax.jit together and each graph under its own, eval and train mode in the same one.
 """
 
 import copy
@@ -90,21 +90,34 @@ def load_module(pm, v):
 
 
 @functools.cache
+def jax_modules_run():
+    """{name: (variables, input, eval output, train output, moved batch_stats)}
+    of every MODULES case, all under one jax.jit (one compile, not one a case)."""
+    cases = {}
+    for name, make in MODULES.items():
+        jm, _, shape = make()
+        rng = np.random.default_rng(7)
+        x = rng.normal(0, 1, shape).astype(np.float32)
+        v = seeded_module(jm, jnp.asarray(x), rng)
+        if "gamma" in v["params"]:  # away from its 0.01 init, so that the residual weighs
+            v["params"]["gamma"] = rng.uniform(0.5, 1.5, v["params"]["gamma"].shape).astype(np.float32)
+        cases[name] = (jm, v, x)
+
+    def run(vs, xs):
+        out = {}
+        for name, (jm, _, _) in cases.items():
+            train, moved = jm.apply(vs[name], xs[name], train=True, mutable=["batch_stats"])
+            out[name] = (jm.apply(vs[name], xs[name], train=False), train, moved.get("batch_stats", {}))
+        return out
+
+    out = jax.jit(run)({k: c[1] for k, c in cases.items()}, {k: jnp.asarray(c[2]) for k, c in cases.items()})
+    out = jax.tree.map(np.asarray, out)
+    return {k: (v, x, *out[k]) for k, (_, v, x) in cases.items()}
+
+
 def jax_module_run(name):
-    """(variables, input, eval output, train output, moved batch_stats) of a MODULES case, one jax.jit."""
-    jm, _, shape = MODULES[name]()
-    rng = np.random.default_rng(7)
-    x = rng.normal(0, 1, shape).astype(np.float32)
-    v = seeded_module(jm, jnp.asarray(x), rng)
-    if "gamma" in v["params"]:  # away from its 0.01 init, so that the residual weighs
-        v["params"]["gamma"] = rng.uniform(0.5, 1.5, v["params"]["gamma"].shape).astype(np.float32)
-
-    def both(vv, xx):
-        train, moved = jm.apply(vv, xx, train=True, mutable=["batch_stats"])
-        return jm.apply(vv, xx, train=False), train, moved.get("batch_stats", {})
-
-    out = jax.jit(both)(v, jnp.asarray(x))
-    return v, x, *jax.tree.map(np.asarray, out)
+    """(variables, input, eval output, train output, moved batch_stats) of a MODULES case."""
+    return jax_modules_run()[name]
 
 
 @pytest.mark.parametrize("name", list(MODULES))
@@ -182,28 +195,39 @@ SLICE = ("yolov3.yaml", "yolov3-spp.yaml", "yolov3-tiny.yaml", "yolov5n.yaml", "
 
 @functools.cache
 def graph(cfg):
-    """(JAX model, seeded variables, the port model loaded strictly, the
-    jitted JAX forward) of a graph at 64 px."""
+    """(JAX model, seeded variables, the port model loaded strictly) of a graph at 64 px."""
     jm = JaxDetectionModel(cfg)
     v = seeded_variables(jm, 64, np.random.default_rng(0))
     pm = DetectionModel(cfg, device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
-    return jm, v, pm, jax.jit(lambda vv, x: jm.apply(vv, x, train=False))
+    return jm, v, pm
 
 
 GRAPH_X = np.random.default_rng(64).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+# the graphs' JAX forward compiled at XLA's backend optimization level 0: a shorter compile, its convs summed in
+# another order (far inside GRAPH_TOL, as tests/test_torch_obb.py measured)
+QUICK = {"xla_backend_optimization_level": 0}
 FUSED_REF = "yolov9t.yaml"  # the graph held to JAX's BN-folded forward, whose tree keeps RepConv's BatchNorms
 
 
 @functools.cache
+def jax_graphs_out():
+    """{cfg: JAX's forward of the graph on GRAPH_X} for every one of GRAPHS,
+    all under one jax.jit compiled at XLA's optimization level 0 (QUICK):
+    on its BN-folded variables (fuse_variables) for FUSED_REF, else on the
+    unfused ones. Folding is exact in real arithmetic, so the port's
+    unfused and folded forwards are both held to it."""
+    models = {cfg: graph(cfg)[0] for cfg in GRAPHS}
+    vs = {cfg: fuse_variables(graph(cfg)[1]) if cfg == FUSED_REF else graph(cfg)[1] for cfg in GRAPHS}
+    x = jnp.asarray(GRAPH_X)
+    run = jax.jit(lambda vv, xx: {cfg: m.apply(vv[cfg], xx, train=False) for cfg, m in models.items()})
+    out = run.lower(vs, x).compile(compiler_options=QUICK)(vs, x)
+    return {cfg: (np.asarray(o), [np.asarray(f) for f in feats]) for cfg, (o, feats) in out.items()}
+
+
 def jax_graph_out(cfg):
-    """JAX's forward of a graph on GRAPH_X, one jax.jit: on its BN-folded
-    variables (fuse_variables) for FUSED_REF, else on the unfused ones.
-    Folding is exact in real arithmetic, so the port's unfused and folded
-    forwards are both held to it."""
-    jm, v, _, fwd = graph(cfg)
-    out, feats = fwd(fuse_variables(v) if cfg == FUSED_REF else v, jnp.asarray(GRAPH_X))
-    return np.asarray(out), [np.asarray(f) for f in feats]
+    """JAX's forward of one of GRAPHS on GRAPH_X (jax_graphs_out)."""
+    return jax_graphs_out()[cfg]
 
 
 def assert_graph_close(pm, ref, ref_feats):
@@ -411,7 +435,7 @@ INT8_FRAMES = np.random.default_rng(8).integers(0, 256, (2, 64, 64, 3), dtype=np
 @functools.cache
 def int8_run(cfg):
     """(port, JAX) int8 paths of a graph's seeded weights on INT8_FRAMES (one batch), JAX's forward on GRAPH_X."""
-    jm, v, pm, _ = graph(cfg)
+    jm, v, pm = graph(cfg)
     return port_int8(pm, INT8_FRAMES), jax_int8(jm, v, INT8_FRAMES, GRAPH_X)
 
 
@@ -445,7 +469,7 @@ def test_int8_gate_matches_jax(cfg):
     pass records (jax.eval_shape of it: no compile): yolov6n's transposed
     convs, GhostConv's cheap op and AAttn's pe as JAX has them; the int8
     forward runs, finite, with its grouped convs and transposed convs float."""
-    jm, v, pm, _ = graph(cfg)
+    jm, v, pm = graph(cfg)
     fv = fuse_variables(v)
     shapes = jax.eval_shape(lambda vv, x: jm.apply(vv, x, train=False, mutable=["calib"])[1]["calib"], fv,
                             jnp.zeros((1, 64, 64, 3), jnp.float32))

@@ -196,10 +196,10 @@ def test_settings_file_under_xdg_config_home(tmp_path, monkeypatch):
     s = PS.SettingsManager()
     assert s.file == tmp_path / "improving_yolov8_cbam_swinblock_tpu_torch" / "settings.json"
     assert s["datasets_dir"] == str(tmp_path / "datasets")
-    assert set(s) == {"settings_version", "datasets_dir", "tensorboard", "hosted_loggers"}
+    assert set(s) == {"settings_version", "datasets_dir", "tensorboard", "hosted_loggers", "clip_npz"}
     j = JS.SettingsManager()
-    assert {k: s[k] for k in ("settings_version", "datasets_dir", "tensorboard")} == {
-        k: j[k] for k in ("settings_version", "datasets_dir", "tensorboard")}
+    assert {k: s[k] for k in ("settings_version", "datasets_dir", "tensorboard", "clip_npz")} == {
+        k: j[k] for k in ("settings_version", "datasets_dir", "tensorboard", "clip_npz")}
     assert s["hosted_loggers"] is False
     s.update(datasets_dir="/data").save()
     assert PS.SettingsManager()["datasets_dir"] == "/data"

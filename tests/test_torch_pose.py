@@ -73,6 +73,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 GRAPH_TOL = 2e-3
+# the graphs' JAX forward compiled at XLA's backend optimization level 0: a shorter compile, its convs summed in
+# another order (far inside GRAPH_TOL, as tests/test_torch_obb.py measured)
+QUICK = {"xla_backend_optimization_level": 0}
 NC = 2
 GRAPHS = ("yolov8n-pose.yaml", "yolo11n-pose.yaml")
 FRAMES = np.random.default_rng(65).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)  # RGB
@@ -91,19 +94,33 @@ def cfg_nc(cfg, nc=NC):
 
 
 @functools.cache
+def head_runs():
+    """{nd: (seeded variables, inputs, (eval output, train output, moved
+    batch_stats))} of Pose with four keypoints of nd values (3 and 2) at
+    module level, both under one jax.jit."""
+    cases = {}
+    for nd in (3, 2):
+        rng = np.random.default_rng(20 + nd)
+        xs = [rng.normal(0, 1, (2, 8 // 2**i, 8 // 2**i, c)).astype(np.float32) for i, c in enumerate(HEAD_CH)]
+        jm = JH.Pose(nc=NC, kpt_shape=(4, nd), ch=HEAD_CH)
+        cases[nd] = (jm, seeded_module(jm, [jnp.asarray(x) for x in xs], rng), xs)
+
+    def run(vs, xss):
+        out = {}
+        for nd, (jm, _, _) in cases.items():
+            train, moved = jm.apply(vs[nd], xss[nd], train=True, mutable=["batch_stats"])
+            out[nd] = (jm.apply(vs[nd], xss[nd], train=False), train, moved["batch_stats"])
+        return out
+
+    out = jax.jit(run)({nd: c[1] for nd, c in cases.items()},
+                       {nd: [jnp.asarray(x) for x in c[2]] for nd, c in cases.items()})
+    return {nd: (v, xs, jax.tree.map(np.asarray, out[nd])) for nd, (_, v, xs) in cases.items()}
+
+
 def head_run(nd):
     """Pose with four keypoints of nd values at module level: seeded
-    variables, inputs, its eval output, train output and moved batch_stats, one jax.jit."""
-    rng = np.random.default_rng(20 + nd)
-    xs = [rng.normal(0, 1, (2, 8 // 2**i, 8 // 2**i, c)).astype(np.float32) for i, c in enumerate(HEAD_CH)]
-    jm = JH.Pose(nc=NC, kpt_shape=(4, nd), ch=HEAD_CH)
-    v = seeded_module(jm, [jnp.asarray(x) for x in xs], rng)
-
-    def run(vv, xx):
-        train, moved = jm.apply(vv, xx, train=True, mutable=["batch_stats"])
-        return jm.apply(vv, xx, train=False), train, moved["batch_stats"]
-
-    return v, xs, jax.tree.map(np.asarray, jax.jit(run)(v, [jnp.asarray(x) for x in xs]))
+    variables, inputs, its eval output, train output and moved batch_stats."""
+    return head_runs()[nd]
 
 
 @pytest.mark.parametrize("nd", [3, 2])
@@ -145,7 +162,8 @@ def graph(cfg):
     v = seeded_variables(jm, 64, np.random.default_rng(1))
     pm = DetectionModel(cfg_nc(cfg), device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
-    out = jax.jit(lambda vv, x: jm.apply(vv, x, train=False))(v, jnp.asarray(GRAPH_X))
+    fwd, x = jax.jit(lambda vv, xx: jm.apply(vv, xx, train=False)), jnp.asarray(GRAPH_X)
+    out = fwd.lower(v, x).compile(compiler_options=QUICK)(v, x)
     return jm, v, pm, jax.tree.map(np.asarray, out)
 
 

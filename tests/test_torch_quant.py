@@ -5,7 +5,14 @@ csrc/swin_block_int8.cu, is held to it on the card in test_torch_cuda.py)
 against the Pallas kernels `fused_swin_block_int8` and, for the bf16 softmax
 (sm16), `swin_int8_io` of tools/bench_swin_variants.py, in interpret mode;
 the int8 Conv, the calibration and the quant build against the JAX package's;
-and the quantized flagship graph end to end.
+and the quantized flagship graph end to end. The open-vocabulary and
+query graphs: the tiny RT-DETR and World graphs of their test files,
+calibrated and quantized by both packages (tests/int8_parity.py): the same
+modules calibrated (RT-DETR's backbone Convs and the decoder's input_proj;
+World's C2fAttn with its attention's ec and proj_conv, the head's Convs;
+not the Linears, ImagePoolingAttn's projections or the heads' last 1x1s),
+the quant state equal leaf for leaf, and the int8 forward with JAX's state
+carried in within int8_parity's OUT_TOL.
 
 The JAX side is compiled with XLA's `xla_allow_excess_precision` off: on
 the CPU, XLA otherwise drops the bf16 roundings between fused elementwise
@@ -47,7 +54,8 @@ from improving_yolov8_cbam_swinblock_tpu_torch.nn.tasks import yaml_model_load
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import quant as Q
 from improving_yolov8_cbam_swinblock_tpu_torch.ops import swin_int8 as S8
 from improving_yolov8_cbam_swinblock_tpu_torch.utils.jax_import import quant_state_from_jax, state_dict_from_jax
-from tests.int8_parity import jax_int8
+from tests.int8_parity import (EXACT_QUICK, assert_calibration_close, assert_out_close, assert_quant_state_close,
+                                int8_with_jax_state, jax_int8, port_int8)
 from tests.test_torch_model import seeded_variables
 from tests.test_torch_swin import jax_params, torch_params
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -365,8 +373,8 @@ def graph(request):
     rng = np.random.default_rng(10 + heads)
     frames = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
     x = frames[2:].astype(np.float32) / 255
-    with jax_on_tpu():
-        ref = jax_int8(jm, v, frames[:2], x)
+    with jax_on_tpu():  # one head: EXACT, the int8 SwinBlock's roundings bit for bit; two: at level 0 too
+        ref = jax_int8(jm, v, frames[:2], x, EXACT if heads == 1 else EXACT_QUICK)
     pm = DetectionModel(graph_yaml(yaml_model_load, heads), device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     pm.fuse()
@@ -490,3 +498,68 @@ def test_quantized_model_predicts_and_refuses_what_would_break_it(tmp_path):
     with pytest.raises(ValueError, match="fp32"):
         Q.build_quant_state(YOLO(d, device="cpu", dtype=torch.bfloat16).model,
                             {"model.0": {"x_amax": torch.tensor(1.0)}})
+
+
+# --------------------------------------------------------------------------------------------
+# the RT-DETR and World graphs
+# --------------------------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["rtdetr", "world"])
+def open_graph(request):
+    """The tiny RT-DETR or World graph (the World one at three prompts) on
+    seeded variables: JAX's int8 path under one jax.jit and the port's on a
+    BN-folded copy, calibrated on the same batch of two frames."""
+    from tests.test_torch_rtdetr import TINY_RTDETR
+    from tests.test_world import TINY_WORLD
+
+    cfg = copy.deepcopy(TINY_RTDETR if request.param == "rtdetr" else TINY_WORLD)
+    jm = JaxDetectionModel(copy.deepcopy(cfg))
+    pm = DetectionModel(cfg, device="cpu")
+    if request.param == "world":
+        jm.set_classes(["cat", "dog", "bus"])
+        pm.set_classes(["cat", "dog", "bus"])
+    v = seeded_variables(jm, 64, np.random.default_rng(30))
+    pm.load_state_dict(state_dict_from_jax(v), strict=True)
+    frames = np.random.default_rng(31).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    x = frames[2:].astype(np.float32) / 255
+    return request.param, port_int8(pm, frames[:2]), jax_int8(jm, v, frames[:2], x), x
+
+
+def test_open_graph_quant_state_matches_jax(open_graph):
+    """The same modules calibrated, each |max| and scale within int8_parity's
+    CALIB_RTOL, the int8 weights equal but for a level; the Linears and
+    ImagePoolingAttn's projections stay float and uncalibrated."""
+    kind, port, ref, _ = open_graph
+    assert_calibration_close(port, ref)
+    assert_quant_state_close(port, ref)
+    names = set(port["calib"])
+    if kind == "rtdetr":
+        assert {"model.0", "model.6.input_proj.0", "model.6.input_proj.2"} <= names
+        assert not any(".decoder." in n or n.startswith("model.5") for n in names)
+    else:
+        assert {"model.5.cv1", "model.5.attn.proj_conv", "model.8.attn.ec", "model.9.cv3.0.1"} <= names
+        assert not any(".projections." in n or ".gl" in n or "cv4" in n for n in names)
+    convs = [m for m in port["model"].modules() if isinstance(m, Conv)]
+    assert len(names) == len(convs)
+
+
+def test_open_graph_int8_matches_jax(open_graph):
+    """The port's int8 graph with JAX's quant state carried in against JAX's
+    int8 graph: the RT-DETR queries (boxes and scores) and the World
+    prediction (boxes and the prompts' scores), each within int8_parity's
+    OUT_TOL of its largest magnitude."""
+    kind, port, ref, x = open_graph
+    m = int8_with_jax_state(port, ref)
+    assert sum(c.runs_int8 for c in m.modules() if isinstance(c, Conv)) > 0
+    with torch.no_grad():
+        out = m(torch.from_numpy(x).permute(0, 3, 1, 2))[0]
+    rout = ref["out"][0]
+    if kind == "rtdetr":
+        assert out.shape == rout.shape == (1, 16, 7)
+        assert_out_close(out[..., :4].numpy(), rout[..., :4])
+        assert_out_close(out[..., 4:].numpy(), rout[..., 4:])
+    else:
+        assert out.shape == rout.shape == (1, 7, 84)
+        assert_out_close(out[:, :4].numpy(), rout[:, :4])
+        assert_out_close(out[:, 4:].numpy(), rout[:, 4:])

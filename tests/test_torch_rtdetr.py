@@ -19,7 +19,7 @@ within GRAPH_TOL. The bridge both ways bit for bit, a .ckpt round trip,
 the names and parameter counts of the five RT-DETR YAMLs on the meta
 device (rtdetr-l 32,970,476; rtdetr-l and yolov8-rtdetr name for name
 against jax.eval_shape, no init of rtdetr-l), RTDETR("yolov8n.yaml")
-raising, and int8, export and ensembles refused.
+raising, and an nms=True export and ensembles refused.
 """
 
 import copy
@@ -331,16 +331,39 @@ def test_validator_matches_jax(jax_side):
 
 def test_refusals():
     """RTDETR refuses a graph without RTDETRDecoder (as the JAX facade does);
-    int8, export and ensembles refuse an RT-DETR graph."""
+    an export with nms=True refuses an RT-DETR graph (its queries need no
+    NMS), and so do ensembles."""
     with pytest.raises(ValueError, match="RTDETRDecoder"):
         RTDETR("yolov8n.yaml", device="cpu")
     y = RTDETR(dict(TINY_RTDETR), device="cpu", param_dtype=torch.float32)
     assert y.task == "detect" and y.model.is_rtdetr
-    with pytest.raises(NotImplementedError, match="int8 and .pt2 programs"):
-        quantize_model(y.model, [FRAMES])
-    with pytest.raises(NotImplementedError, match="RT-DETR graph"):
-        y.export(imgsz=64)
+    with pytest.raises(ValueError, match="nothing to suppress"):
+        y.export(imgsz=64, nms=True)
     with pytest.raises(ValueError, match="RT-DETR"):
         EnsembleModel([y.model])
     with pytest.raises(ValueError, match="no feature map"):
         y.model.embed(torch.zeros(1, 3, 64, 64), [6])
+
+
+def test_cached_tables_serve_inference_then_training_and_int8():
+    """The tables AIFI and the decoder cache per map size (positions,
+    anchors) are plain tensors even when an inference-mode predict fills
+    them: the same model then runs a train forward and backward, and
+    quantize_model (whose calibration runs in inference mode) quantizes it,
+    its input projections and backbone convs calibrated."""
+    y = RTDETR(dict(TINY_RTDETR), device="cpu", param_dtype=torch.float32)
+    y.predict(FRAMES[0], imgsz=64, conf=0.5, verbose=False)  # BN-folds and fills the tables in inference mode
+    head = y.model.model[-1]
+    assert all(not t.is_inference() for pair in head._anchor_cache.values() for t in pair)
+    assert all(not t.is_inference() for t in y.model.model[5]._pos.values())
+    m = DetectionModel(dict(TINY_RTDETR), device="cpu")
+    m.model[5]._pos, m.model[-1]._anchor_cache = y.model.model[5]._pos, head._anchor_cache
+    m.train()
+    t = {"cls": torch.zeros(2, 2, dtype=torch.long), "bboxes": torch.full((2, 2, 4), 0.4),
+         "mask": torch.ones(2, 2)}
+    out = m(torch.from_numpy(FRAMES).permute(0, 3, 1, 2).float() / 255.0, targets=t)
+    out["dec_scores"].float().sum().backward()
+    assert m.model[0].conv.weight.grad is not None
+    quantize_model(y.model, [FRAMES])
+    assert y.model.model[-1].input_proj[0].runs_int8 and y.model.model[0].runs_int8
+    assert len(y.predict(FRAMES[0], imgsz=64, conf=0.0, verbose=False)[0]) == 16

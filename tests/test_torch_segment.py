@@ -71,6 +71,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 GRAPH_TOL = 2e-3
+# the graphs' JAX forward compiled at XLA's backend optimization level 0: a shorter compile, its convs summed in
+# another order (far inside GRAPH_TOL, as tests/test_torch_obb.py measured)
+QUICK = {"xla_backend_optimization_level": 0}
 NC = 2
 GRAPHS = ("yolov8n-seg.yaml", "yolo11n-seg.yaml")
 # JAX's parameter counts at nc=80 (its shape_init), held as numbers so that these tests trace no larger graph
@@ -145,7 +148,8 @@ def graph(cfg):
     v = seeded_variables(jm, 64, np.random.default_rng(0))
     pm = DetectionModel(cfg_nc(cfg), device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
-    out = jax.jit(lambda vv, x: jm.apply(vv, x, train=False))(v, jnp.asarray(GRAPH_X))
+    fwd, x = jax.jit(lambda vv, xx: jm.apply(vv, xx, train=False)), jnp.asarray(GRAPH_X)
+    out = fwd.lower(v, x).compile(compiler_options=QUICK)(v, x)
     return v, pm, jax.tree.map(np.asarray, out)
 
 

@@ -18,9 +18,9 @@ round trip and a CPU .pt2 program. int8 (tests/int8_parity.py): yolov10n
 calibrated and quantized by both packages on the same batch (SCDown's,
 CIB's and RepVGGDW's depth-wise convs and the light class branch float),
 the calibration, the quant state, and the int8 graph's maps and
-detections held to JAX's. Each JAX
-module and graph runs under one jax.jit, eval and train mode in the same
-one.
+detections held to JAX's. The JAX
+modules run under one jax.jit together and the graph under its own, eval
+and train mode in the same one.
 """
 
 import copy
@@ -58,6 +58,9 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 jax.config.update("jax_platforms", "cpu")
 MOD_TOL = 1e-5
 GRAPH_TOL = 2e-3
+# the graphs' JAX forward compiled at XLA's backend optimization level 0: a shorter compile, its convs summed in
+# another order (far inside GRAPH_TOL, as tests/test_torch_obb.py measured)
+QUICK = {"xla_backend_optimization_level": 0}
 CFG = "yolov10n.yaml"
 # JAX's parameter counts at nc=80 (its shape_init, without DFL's 16 fixed weights): n as counted here
 # (test_yolov10n_bridges_both_ways), the others from its shape_init once, held as numbers so that these
@@ -98,19 +101,31 @@ def assert_stats_moved(pm, moved, prefix=""):
 
 
 @functools.cache
+def jax_modules_run():
+    """{name: (variables, input, eval output, train output, moved batch_stats)}
+    of every MODULES case, all under one jax.jit (one compile, not one a case)."""
+    cases = {}
+    for name, make in MODULES.items():
+        jm, _, shape = make()
+        rng = np.random.default_rng(7)
+        x = rng.normal(0, 1, shape).astype(np.float32)
+        cases[name] = (jm, seeded_module(jm, jnp.asarray(x), rng), x)
+
+    def run(vs, xs):
+        out = {}
+        for name, (jm, _, _) in cases.items():
+            train, moved = jm.apply(vs[name], xs[name], train=True, mutable=["batch_stats"])
+            out[name] = (jm.apply(vs[name], xs[name], train=False), train, moved["batch_stats"])
+        return out
+
+    out = jax.jit(run)({k: c[1] for k, c in cases.items()}, {k: jnp.asarray(c[2]) for k, c in cases.items()})
+    out = jax.tree.map(np.asarray, out)
+    return {k: (v, x, *out[k]) for k, (_, v, x) in cases.items()}
+
+
 def jax_module_run(name):
-    """(variables, input, eval output, train output, moved batch_stats) of a MODULES case, one jax.jit."""
-    jm, _, shape = MODULES[name]()
-    rng = np.random.default_rng(7)
-    x = rng.normal(0, 1, shape).astype(np.float32)
-    v = seeded_module(jm, jnp.asarray(x), rng)
-
-    def both(vv, xx):
-        train, moved = jm.apply(vv, xx, train=True, mutable=["batch_stats"])
-        return jm.apply(vv, xx, train=False), train, moved["batch_stats"]
-
-    out = jax.jit(both)(v, jnp.asarray(x))
-    return v, x, *jax.tree.map(np.asarray, out)
+    """(variables, input, eval output, train output, moved batch_stats) of a MODULES case."""
+    return jax_modules_run()[name]
 
 
 @pytest.mark.parametrize("name", list(MODULES))
@@ -298,7 +313,7 @@ def graph():
     pm = DetectionModel(CFG, device="cpu")
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     traced = jax.jit(lambda vv, x: jm.apply(vv, x, train=False)).trace(v, jnp.asarray(GRAPH_X))
-    dets, maps = traced.lower().compile()(v, jnp.asarray(GRAPH_X))
+    dets, maps = traced.lower().compile(compiler_options=QUICK)(v, jnp.asarray(GRAPH_X))
     return jm, v, pm, np.asarray(dets), jax.tree.map(np.asarray, maps), traced.jaxpr
 
 

@@ -7,12 +7,13 @@ where the BatchNorms normalise by the batch and move their running
 statistics (flax's apply(..., mutable=["batch_stats"])). Graph level:
 yolo11n-cbam-swin (scale n, both C3k2 branches) at 64 px, unfused and
 BN-folded, within 2e-3 as the flagship's test holds it. The weight bridge
-loads every yolo11m-cbam-swin name strictly. Each JAX module runs under
-jax.jit (a fifth of its eager time on the CPU), the graph under one
-jax.jit for the module.
+loads every yolo11m-cbam-swin name strictly. The JAX modules run under
+one jax.jit together, eval and train mode in the same one (a fifth of
+their eager time on the CPU), the graph under one jax.jit for the module.
 """
 
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -83,17 +84,36 @@ def module_case(name):
     return jm, pm.to(memory_format=torch.channels_last), v, xs
 
 
-@pytest.mark.parametrize("name", ["c3k2", "c3k2_c3k", "c2psa", "detect"])
+MODULE_CASES = ("c3k2", "c3k2_c3k", "c2psa", "detect")
+
+
+@functools.cache
+def jax_module_refs():
+    """{(name, train): JAX's output (and in training its moved batch_stats)} of
+    every module case, eval and train mode, all under one jax.jit."""
+    cases = {name: module_case(name) for name in MODULE_CASES}
+
+    def run(vs, xs):
+        out = {}
+        for name, (jm, _, _, _) in cases.items():
+            out[f"{name}/eval"] = jm.apply(vs[name], xs[name], train=False)
+            out[f"{name}/train"] = jm.apply(vs[name], xs[name], train=True, mutable=["batch_stats"])
+        return out
+
+    jx = {n: [jnp.asarray(x) for x in c[3]] if isinstance(c[3], list) else jnp.asarray(c[3]) for n, c in cases.items()}
+    return jax.jit(run)({n: c[2] for n, c in cases.items()}, jx)
+
+
+@pytest.mark.parametrize("name", MODULE_CASES)
 @pytest.mark.parametrize("train", [False, True])
 def test_module_matches_jax(name, train):
     jm, pm, v, xs = module_case(name)
-    jx = [jnp.asarray(x) for x in xs] if isinstance(xs, list) else jnp.asarray(xs)
     tx = [to_torch(x) for x in xs] if isinstance(xs, list) else to_torch(xs)
     pm.train(train)
     if train:
-        ref, moved = jax.jit(lambda vv, x: jm.apply(vv, x, train=True, mutable=["batch_stats"]))(v, jx)
+        ref, moved = jax_module_refs()[f"{name}/train"]
     else:
-        ref = jax.jit(lambda vv, x: jm.apply(vv, x, train=False))(v, jx)
+        ref = jax_module_refs()[f"{name}/eval"]
     with torch.no_grad():
         out = pm(tx)
     if name == "detect":
